@@ -1,0 +1,106 @@
+"""Build the hand-written CUDA kernels and bind them with ``ctypes``.
+
+Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
+named by a hash of the source and the flags, so an edited source rebuilds
+and an unchanged one is loaded as it is.  Nothing is built when a module is
+imported: the first launch of a kernel builds its library, and
+``build_all`` builds every source at once with one ``nvcc`` process each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+#: source stem -> C functions it exports, with their ctypes signatures
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "sim_topk": {
+        "reuse_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "gather_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "lsh_hash": {
+        "lsh_hash_mix_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "lsh_hash_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under PyTorch's CUDA_HOME."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start one nvcc build (None when the library is already built)."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> None:
+    """Build every kernel source, one nvcc process each, all in parallel."""
+    started = {name: _start(name) for name in SIGNATURES}
+    for name, st in started.items():
+        _finish(name, st)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (built on first use)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib
+
+
+def check(err: int, fn: str) -> None:
+    """Raise if a launch function returned a non-zero ``cudaGetLastError``."""
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")

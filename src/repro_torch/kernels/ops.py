@@ -1,0 +1,114 @@
+"""Public wrappers around the kernels: padding, dispatch, launch counters.
+
+Port of ``repro/kernels/ops.py`` for the ported kernels.  Every op runs its
+hand-written CUDA kernel for CUDA tensors and the kernel's plain version
+(``ref.py``) for CPU tensors; the choice follows the device of the tensors
+the caller passes.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import fp32_matmul
+from . import lsh_hash as _lsh
+from . import sim_topk as _topk
+from .fused_query import fused_query as _fused_query
+
+# Calls of the fused query pipeline (one ``reuse_top1`` launch each).
+FUSED_DISPATCH_COUNT = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {**_topk.LAUNCHES, **_lsh.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for counts in (_topk.LAUNCHES, _lsh.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
+    n = x.shape[0]
+    target = -(-n // mult) * mult
+    if target == n:
+        return x
+    return torch.cat([x, x.new_zeros((target - n,) + tuple(x.shape[1:]))])
+
+
+# ------------------------------------------------------------------- sim_topk
+def similarity_scores(q: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
+    """Dense cosine scores q (Q, D) x store (N, D) -> (Q, N) f32: a plain
+    matmul at full fp32, as the reference leaves it outside any kernel."""
+    qn = q / q.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    sn = store / store.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+    with fp32_matmul():
+        return qn @ sn.T
+
+
+def gathered_top1(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor):
+    """Multi-probe gather + masked cosine top-1 (the staged batched query).
+
+    q: (Q, D) unit rows; store: (N, D) or the paged (P, S, D) buffer;
+    cand_ids: (Q, C) int32 sorted unique row ids, -1 padded.  Returns (best
+    (Q,) f32, idx (Q,) int32), (-inf, -1) for queries without candidates.
+    """
+    q = torch.atleast_2d(q)
+    nq = q.shape[0]
+    if store.numel() == 0 or cand_ids.shape[1] == 0:
+        return (torch.full((nq,), -torch.inf, device=q.device),
+                torch.full((nq,), -1, dtype=torch.int32, device=q.device))
+    return _topk.gather_top1(q.contiguous(), store, cand_ids.contiguous())
+
+
+# --------------------------------------------------------- fused reuse query
+def unique_counts(cand: np.ndarray) -> np.ndarray:
+    """Exact unique-candidate counts from a raw (B, W) candidate-id matrix,
+    on the host: the CPU twin of the fused pipeline's device count epilogue
+    (numpy sorts faster than torch on the CPU)."""
+    srt = np.sort(cand, axis=1)
+    first = np.concatenate(
+        [np.ones((srt.shape[0], 1), bool), srt[:, 1:] != srt[:, :-1]], axis=1)
+    return ((srt >= 0) & first).sum(axis=1).astype(np.int32)
+
+
+def reuse_query_top1(embs: torch.Tensor, lsh, slots_dev: torch.Tensor,
+                     pages_dev: torch.Tensor, *, gather_mode: str = "take",
+                     need_counts: bool = True):
+    """One-call batched reuse query over the device-resident store.
+
+    embs: (B, D) unit rows; lsh: the store's ``core.lsh.LSH`` (its params and
+    rotation/plane tensors are read); slots_dev: (T * num_buckets,
+    bucket_cap) int32 slot tables; pages_dev: paged (num_pages, page_size, D)
+    embedding mirror.
+
+    Returns (best (B,) f32, idx (B,) int32, counts) on the store's device:
+    idx is a row id (-1 = no candidate, lowest id wins similarity ties);
+    counts are the exact unique-candidate statistics, or None when the caller
+    passes ``need_counts=False`` (peek reads record no statistics).  On CUDA
+    the counts come from the in-call sort epilogue; on the CPU they are
+    counted on the host (``unique_counts``) from the raw candidate matrix.
+    B is padded to a multiple of 8.
+    """
+    global FUSED_DISPATCH_COUNT
+    p = lsh.params
+    proj = lsh.rotations if p.family == "cross_polytope" else lsh.planes
+    x = torch.atleast_2d(embs.to(pages_dev.device, torch.float32))
+    nq = x.shape[0]
+    on_cuda = pages_dev.device.type == "cuda"
+    val, idx, extra = _fused_query(
+        _pad_rows(x, 8).contiguous(), proj, slots_dev, pages_dev,
+        family=p.family, num_probes=p.num_probes, gather_mode=gather_mode,
+        with_counts=on_cuda and need_counts)
+    FUSED_DISPATCH_COUNT += 1
+    if not need_counts:
+        counts: Optional[torch.Tensor] = None
+    elif on_cuda:
+        counts = extra[:nq]
+    else:
+        counts = torch.from_numpy(unique_counts(extra[:nq].numpy()))
+    return val[:nq], idx[:nq], counts
