@@ -5,15 +5,29 @@
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
-the card, drives the port's serving path (two replicas behind a router,
-100k-entry stores) and the store's fused-query acceptance configuration, and
-checks the fused path against the staged one.  It prints one line per phase
-with its seconds, the card's name and power limit, one JSON line
-``{"kernels": [...]}`` with each kernel's launches on the serving path, error
-against its plain version, time, plain time and bound, and last
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before the
-last line.  Without a CUDA card it exits non-zero at once.  Imports nothing
-of JAX or of the JAX package.
+the card, and drives the port's paths, each with the launch counts set to 0
+just before it and read just after:
+
+* serve: two replicas behind a router with 100k-entry stores and a stub
+  executor (the reuse decision: K1, K3, K4a);
+* store: the store's fused-query acceptance configuration (250k entries),
+  fused against staged;
+* nearest: ``ops.nearest_neighbor`` over a 250k-row store (K5);
+* model: qwen3-1.7b at full width and depth (28 layers, bf16, random
+  weights from a seed) prefills 4 prompts of 2048 tokens and decodes 16
+  greedy tokens (K6 on every layer of the prefill, K7 on every layer of
+  each step), held against the plain attention and a longer prefill;
+* model-serve: two replicas whose misses run that model's prefill
+  (``launch/serve.py``'s executor), with mixed near-duplicate and fresh
+  traffic.
+
+It prints one line per phase with its seconds, the card's name and power
+limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
+its path, error against its plain version, time, plain time, bound and the
+time of one PyTorch library call computing the same function (where there
+is one), and last ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before the last line.  Without a CUDA card it exits non-zero at
+once.  Imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -29,34 +43,63 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.lsh import LSHParams, normalize, sample_params  # noqa: E402
 from repro_torch.core.reuse_store import ReuseStore  # noqa: E402
 from repro_torch.kernels import build, lsh_hash, ops, ref, sim_topk  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
+from repro_torch.launch.serve import make_executor, make_request  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving.engine import (  # noqa: E402
     ReplicaEngine,
     ReuseRouter,
     ServeRequest,
 )
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s and
-# fp32 FLOP/s on the CUDA cores (the kernels use no tensor cores).
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, fp32
+# FLOP/s on the CUDA cores, and dense bf16 FLOP/s on the tensor cores (the
+# bound of a bf16 function, whatever the kernel computes it with).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 SCORE_TOL = 1e-5    # kernel vs plain similarity (fp32, different sum order)
 TIE_MARGIN = 1e-5   # ids may differ only where the float64 margin is below
+ATTN_F32_TOL = 2e-5  # attention kernel vs plain, fp32 (the JAX tests' tolerance)
+# bf16 attention outputs: an absolute limit plus one bf16 ulp of the plain
+# value (kernel and plain both round an fp32 result summed in another order,
+# so they differ by at most one ulp and the fp32 order's ~1e-6).  The small
+# variants keep the JAX tests' 2e-2; at the main path's shapes (S = 2048, a
+# typical |output| of 0.03-0.05) the limit is 1e-3, so that a kernel reading
+# a few slots past kv_len or one tile too many is caught.
+ATTN_BF16_TOL = 2e-2
+ATTN_BF16_MAIN_TOL = 1e-3
+# qwen3 step-1 decode logits vs a prefill of prompt + token, both bf16
+# through 28 layers: max |difference| within this share of max |logit|
+DECODE_LOGIT_REL_TOL = 5e-2
 
 SOURCES = {
     "reuse_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
-                   "src/repro/kernels/sim_topk.py:268"),
+                   "src/repro/kernels/sim_topk.py:293"),
     "gather_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
-                    "src/repro/kernels/sim_topk.py:157"),
+                    "src/repro/kernels/sim_topk.py:172"),
     "lsh_hash_mix": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
-                     "src/repro/kernels/lsh_hash.py:70"),
+                     "src/repro/kernels/lsh_hash.py:83"),
     "lsh_hash": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
-                 "src/repro/kernels/lsh_hash.py:97"),
+                 "src/repro/kernels/lsh_hash.py:104"),
+    "sim_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
+                 "src/repro/kernels/sim_topk.py:91"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:101"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:86"),
 }
-MAIN_PATH = ("reuse_top1", "gather_top1", "lsh_hash_mix")
+# kernel -> the path that must launch it
+MAIN_PATH = {"reuse_top1": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
+             "sim_top1": "nearest", "flash_attention": "model",
+             "decode_attention": "model"}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -66,6 +109,13 @@ STORE_ROWS, PAGE_SIZE = 100_000, 4096
 SERVE_CAPACITY, SERVE_BATCH, SMALL_BATCH, SERVE_BATCHES = 100_000, 1024, 32, 4
 ACC_STORE, ACC_BATCH = 250_000, 4096
 REPS, PLAIN_REPS = 20, 5
+# phase kernels (attention, K5); phase nearest; phases model, model-serve
+ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D = 4, 2048, 16, 8, 128   # qwen3-1.7b
+DECODE_STEPS = 16
+DECODE_T = ATTN_S + DECODE_STEPS          # the model's cache window
+NN_Q, NN_N, NN_TAIL = 4096, 250_000, 1000
+MODEL_ARCH = "qwen3-1.7b"
+MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
 
 
 class SmokeFailure(RuntimeError):
@@ -101,9 +151,9 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound(n_bytes: float, n_flop: float):
+def bound(n_bytes: float, n_flop: float, flop_per_s: float = FP32_FLOP_PER_S):
     """(least ms on an H100, what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -293,10 +343,11 @@ def profile_call(name: str, fn, top: int = 8) -> None:
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, copies): an op's entry repeats them
-    on_dev = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key)
-              for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    dev_events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    on_dev = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key) for e in dev_events]
     dev_ms = sum(t for t, _ in on_dev)
-    busy = (f"device busy {dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}"
+    busy = (f"device busy {dev_ms:.3f} ms in {sum(e.count for e in dev_events)} device "
+            f"ops, idle share {1 - dev_ms / wall_ms:.3f}"
             if dev_ms > 0 else "device time not measured (the profiler saw none)")
     log(f"  profile {name}: wall {wall_ms:.3f} ms (under the profiler), {busy}; "
         "top device ops " + "; ".join(f"{k} {t:.3f} ms"
@@ -481,6 +532,332 @@ def phase_store(dev: torch.device, seed: int = 2) -> None:
         f"sync pages 0/0, differing ids at near-ties {ties}")
 
 
+# ------------------------------------------------------------------ phase 3b
+def attn_err(name: str, got: torch.Tensor, want: torch.Tensor,
+             bf16_tol: float = ATTN_BF16_MAIN_TOL) -> float:
+    """Kernel vs plain attention output: finite, within ATTN_F32_TOL (fp32)
+    or ``bf16_tol`` plus one bf16 ulp of the plain value (bf16); returns the
+    max |error|."""
+    g, w = got.float(), want.float()
+    expect(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    if got.dtype == torch.bfloat16:
+        lim = bf16_tol + w.abs() * 2.0 ** -7
+    else:
+        lim = torch.full_like(w, ATTN_F32_TOL)
+    bad = int((err > lim).sum())
+    expect(bad == 0, f"{name}: {bad} outputs off, max |error| {err.max().item():.3g}")
+    return float(err.max())
+
+
+def _randn(gen, *shape, dtype=torch.bfloat16, dev):
+    return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+
+def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
+    """K6 and K7 at qwen3-1.7b's serving shapes, K5 at the store's scale,
+    and the attention variants at a small size."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    # --- K6 variants: window, softcap, no causal mask, cross, odd S, G in {1, 2, 8}
+    for B, S, T, H, KV, D, dt, kw in (
+            (2, 333, 333, 16, 8, 128, torch.float32, {}),
+            (2, 300, 300, 8, 8, 128, torch.bfloat16, {"window": 64}),
+            (2, 256, 256, 16, 2, 128, torch.float32, {"softcap": 30.0}),
+            (1, 257, 257, 16, 8, 128, torch.float32, {"window": 100, "softcap": 50.0}),
+            (2, 200, 200, 16, 8, 64, torch.float32, {"causal": False}),
+            (2, 100, 180, 16, 8, 128, torch.bfloat16, {"causal": False}),
+            (1, 96, 96, 8, 8, 32, torch.float32, {"scale": 0.0625}),
+            (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8})):   # rows with no key
+        q = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
+        k, v = (_randn(gen, B, T, KV, D, dtype=dt, dev=dev) for _ in range(2))
+        got = flash_k.flash_attention(q, k, v, **kw)
+        err = attn_err(f"flash_attention {B, S, T, H, KV, D} {kw}", got,
+                       ref.flash_attention_ref(q, k, v, **kw), ATTN_BF16_TOL)
+        log(f"  flash_attention variant B={B} S={S} T={T} H={H} KV={KV} D={D} "
+            f"{str(dt)[6:]} {kw}: max err {err:.3g}")
+
+    # --- K6 at the prefill shape (bf16, causal)
+    B, S, H, KV, D = ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D
+    q = _randn(gen, B, S, H, D, dev=dev)
+    k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
+    scale = 1.0 / np.sqrt(D)
+    fn = lambda: flash_k.flash_attention(q, k, v, scale=scale)  # noqa: E731
+    plain = lambda: ref.flash_attention_ref(q, k, v, scale=scale)  # noqa: E731
+    err = attn_err("flash_attention", fn(), plain())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+    err_lib = attn_err("sdpa vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
+    ms, plain_ms, lib_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), median_ms(lib, REPS)
+    pairs = S * (S + 1) // 2
+    bms, by = bound(2 * (q.numel() * 2 + k.numel() * 2 + v.numel()), 4.0 * B * H * D * pairs,
+                    BF16_FLOP_PER_S)
+    log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {ms:.4f} ms "
+        f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms by {by}), "
+        f"max err {err:.3g} (sdpa {err_lib:.3g})")
+    out["flash_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    del q, k, v, qt, kt, vt
+
+    # --- K7 over a ring-sized cache, kv_len below T in some rows
+    T = DECODE_T
+    q = _randn(gen, B, H, D, dev=dev)
+    k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
+    lens = [T, S + 1, 1500, 7]                # one per row of ATTN_B = 4
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    fn = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale)  # noqa: E731
+    plain = lambda: ref.decode_attention_ref(q, k, v, kv_len, scale=scale)  # noqa: E731
+    err = attn_err("decode_attention", fn(), plain())
+    for d_lens in ([1] * B, [T] * B):      # kv_len = 1, and the whole cache
+        dl = torch.tensor(d_lens, dtype=torch.int32, device=dev)
+        attn_err(f"decode_attention kv_len={d_lens[0]}",
+                 decode_k.decode_attention(q, k, v, dl, scale=scale),
+                 ref.decode_attention_ref(q, k, v, dl, scale=scale))
+    mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
+    err_lib = attn_err("sdpa decode vs plain", lib()[:, :, 0], plain(), ATTN_BF16_TOL)
+    ms, plain_ms, lib_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), median_ms(lib, REPS)
+    n_slots = sum(lens)
+    bms, by = bound(2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B,
+                    4.0 * H * D * n_slots, BF16_FLOP_PER_S)
+    log(f"  decode_attention B={B} T={T} kv_len={lens} H={H} KV={KV} D={D} bf16: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms "
+        f"by {by}), max err {err:.3g} (sdpa {err_lib:.3g})")
+    out["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    del q, k, v, qt, kt, vt
+
+    # --- K5 over the store phase's scale, an n_valid tail and planted ties
+    rng = np.random.default_rng(seed)
+    rows = _unit(rng, NN_N, 64)
+    dup_src = rng.choice(NN_N // 2, 64, replace=False)
+    rows[NN_N // 2 + dup_src] = rows[dup_src]         # exact ties: the first wins
+    q_np = normalize(rows[rng.integers(0, NN_N, NN_Q)]
+                     + 0.05 * rng.standard_normal((NN_Q, 64)).astype(np.float32))
+    q_np[:64] = rows[dup_src]
+    n_valid = NN_N - NN_TAIL
+    qd, sd = torch.from_numpy(q_np).to(dev), torch.from_numpy(rows).to(dev)
+    fn = lambda: sim_topk.sim_top1(qd, sd, n_valid)  # noqa: E731
+    plain = lambda: ref.sim_top1_ref(qd, sd, n_valid)  # noqa: E731
+    got = fn()
+    err, ties = check_top1("sim_top1", q_np, rows, got, plain())
+    idx = got[1].cpu().numpy()
+    expect((idx < n_valid).all(), "sim_top1: picked a row past n_valid")
+    expect((idx[:64] == dup_src).all(), "sim_top1: a planted tie did not go to the first index")
+    ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
+    bms, by = bound(q_np.nbytes + n_valid * 64 * 4 + NN_Q * 8, 2.0 * NN_Q * n_valid * 64)
+    log(f"  sim_top1 Q={NN_Q} N={NN_N} n_valid={n_valid} D=64 f32: {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
+        f"differing ids at near-ties {ties}")
+    out["sim_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return out
+
+
+# ------------------------------------------------------------------ phase 5b
+def phase_nearest(dev: torch.device, seed: int = 6) -> dict:
+    """``ops.nearest_neighbor`` (K5) over a 250k-row store: near-duplicate
+    queries find their source row."""
+    rng = np.random.default_rng(seed)
+    rows = _unit(rng, NN_N, 64)
+    src = rng.integers(0, NN_N, NN_Q)
+    q = normalize(rows[src] + 0.05 * rng.standard_normal((NN_Q, 64)).astype(np.float32) / 8.0)
+    qd, sd = torch.from_numpy(q).to(dev), torch.from_numpy(rows).to(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    val, idx = ops.nearest_neighbor(qd, sd)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    found = float((idx.cpu().numpy() == src).mean())
+    log(f"  nearest_neighbor({NN_Q}) over {NN_N}x64: {dt * 1e3:.3f} ms, source row found "
+        f"for {found:.4f} of queries, min similarity {val.min().item():.4f}; "
+        f"launches {counts}")
+    expect(found >= 0.99, "nearest_neighbor missed the source row of a near-duplicate")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 6
+def phase_model(dev: torch.device, seed: int = 7):
+    """qwen3-1.7b at full width and depth: prefill B x S, then greedy decode;
+    returns (model, launches on the path)."""
+    cfg = get_arch(MODEL_ARCH)
+    B, S = ATTN_B, ATTN_S
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=seed)
+    sync()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} parameters, "
+        f"{n_bytes} bytes ({cfg.dtype}), built in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    max_len = S + DECODE_STEPS
+
+    # record the first and last layer's attention calls (inputs and outputs)
+    seen, captured = [0], {}
+    kernel_fn = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        o = kernel_fn(q, k, v, **kw)
+        if seen[0] in (0, cfg.n_layers - 1):
+            captured[seen[0]] = (q.clone(), k.clone(), v.clone(), kw, o.clone())
+        seen[0] += 1
+        return o
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.flash_attention = recording
+    try:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": tokens}, max_len)
+        sync()
+        t_prefill = time.perf_counter() - t0
+    finally:
+        ops.flash_attention = kernel_fn
+    after_prefill = ops.launch_counts()
+    expect(after_prefill["flash_attention"] == cfg.n_layers,
+           f"prefill launched flash_attention {after_prefill['flash_attention']} times")
+    expect(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    first_tok, step_ms = tok, []
+    for i in range(DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(tok, cache, S + i)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(bool(torch.isfinite(lg).all()), f"decode step {i} logits are not finite")
+        if i == 0:
+            first_logits = lg
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expect(counts["flash_attention"] == cfg.n_layers
+           and counts["decode_attention"] == cfg.n_layers * DECODE_STEPS,
+           f"model path launches {counts}")
+
+    for layer, (q, k, v, kw, o) in sorted(captured.items()):
+        err = attn_err(f"layer {layer} attention", o, ref.flash_attention_ref(q, k, v, **kw))
+        log(f"  layer {layer} attention (q {tuple(q.shape)}, k {tuple(k.shape)}) vs plain: "
+            f"max err {err:.3g}")
+    expect(sorted(captured) == [0, cfg.n_layers - 1], "attention calls were not captured")
+    captured.clear()
+    # step 1 of decode against a prefill of prompt + that token
+    longer, _ = model.prefill({"tokens": torch.cat([tokens, first_tok], dim=1)}, S + 1)
+    a, b = first_logits[:, -1].float(), longer[:, -1].float()
+    rel = ((a - b).abs().max() / b.abs().max()).item()
+    same = int((a.argmax(-1) == b.argmax(-1)).sum())
+    log(f"  decode step 1 vs prefill of prompt + token: max |diff| / max |logit| {rel:.4g}, "
+        f"argmax equal in {same}/{B} rows")
+    expect(rel <= DECODE_LOGIT_REL_TOL, f"decode logits differ from prefill by {rel:.3g}")
+
+    t0 = time.perf_counter()
+    model.prefill({"tokens": tokens}, max_len)
+    sync()
+    t_warm = time.perf_counter() - t0
+    log(f"  prefill B={B} S={S}: {t_prefill * 1e3:.3f} ms (first call), {t_warm * 1e3:.3f} ms "
+        f"(second); decode per token (B={B}): median {np.median(step_ms):.3f} ms, steps "
+        + ", ".join(f"{t:.3f}" for t in step_ms) + f" ms; peak memory {peak} bytes; "
+        f"launches {counts}")
+    profile_call(f"prefill B={B} S={S}", lambda: model.prefill({"tokens": tokens}, max_len))
+    last = S + DECODE_STEPS - 1   # rewrites the last slot with the same token's k/v
+    profile_call(f"decode step B={B}", lambda: model.decode_step(tok, cache, last))
+    del cache
+    return model, counts
+
+
+# ------------------------------------------------------------------ phase 7
+def phase_model_serve(dev: torch.device, model, seed: int = 8) -> dict:
+    """Two replicas behind a router whose misses run the model's prefill
+    (serve.py's executor and request payloads), mixed traffic."""
+    rng = np.random.default_rng(seed)
+    cfg = model.cfg
+    p = LSHParams(dim=64, num_tables=5, num_probes=8)
+    execute = make_executor(model, MS_SEQ)
+    exec_log = []                                  # (requests, seconds)
+
+    def timed_execute(reqs):
+        t0 = time.perf_counter()
+        res = execute(reqs)                        # ends in a host read of the tokens
+        exec_log.append((len(reqs), time.perf_counter() - t0))
+        return res
+
+    replicas = [ReplicaEngine(i, p, timed_execute, device=dev) for i in range(2)]
+    router = ReuseRouter(p, 2, device=dev)
+    # executed fresh requests (embedding, id); each is the source of at most
+    # one near-duplicate, so "the source's token" names one executed result
+    # (two near-duplicates of one source share a task name, and the second
+    # would inherit whatever the first got)
+    n_sent, token_of, fresh_pool, unused = 0, {}, [], []
+
+    def send(x: np.ndarray):
+        nonlocal n_sent
+        reqs = [make_request(n_sent + i, "svc", x[i], MS_SEQ, cfg.vocab_size)
+                for i in range(len(x))]
+        n_sent += len(x)
+        return reqs, _route_and_serve(router, replicas, reqs)
+
+    ops.reset_launch_counts()
+    x0 = _unit(rng, MS_BATCH, 64)
+    reqs, res = send(x0)
+    expect(all(r.reuse is None for r in res), "a first fresh request was reused")
+    for rq, r in zip(reqs, res):
+        token_of[rq.request_id] = r.result
+    fresh_pool += [(x0[i], reqs[i].request_id) for i in range(len(x0))]
+    unused += range(len(x0))
+    near_total = near_reused = right = fresh_total = fresh_exec = 0
+    kinds = {"cs": 0, "en": 0}
+    for b in range(MS_BATCHES):
+        sel = rng.choice(len(unused), MS_BATCH // 2, replace=False)
+        pick = np.array([unused[j] for j in sel])
+        unused = [u for j, u in enumerate(unused) if j not in set(sel.tolist())]
+        near = normalize(np.stack([fresh_pool[j][0] for j in pick])
+                         + 0.05 * rng.standard_normal((pick.size, 64)).astype(np.float32) / 8.0)
+        fresh = _unit(rng, MS_BATCH - pick.size, 64)
+        k6_0, calls_0 = ops.launch_counts()["flash_attention"], len(exec_log)
+        t0 = time.perf_counter()
+        reqs, res = send(np.concatenate([near, fresh]))
+        sync()
+        wall = time.perf_counter() - t0
+        calls = exec_log[calls_0:]
+        k6 = ops.launch_counts()["flash_attention"] - k6_0
+        expect(k6 == cfg.n_layers * len(calls),
+               f"batch {b}: {k6} flash_attention launches for {len(calls)} miss groups")
+        t_exec = sum(t for _, t in calls)
+        for j, (rq, r) in enumerate(zip(reqs, res)):
+            if j < pick.size:
+                near_total += 1
+                if r.reuse is not None:
+                    near_reused += 1
+                    kinds[r.reuse] += 1
+                    right += r.result == token_of[fresh_pool[pick[j]][1]]
+            else:
+                fresh_total += 1
+                fresh_exec += r.reuse is None
+                token_of[rq.request_id] = r.result
+                unused.append(len(fresh_pool))
+                fresh_pool.append((fresh[j - pick.size], rq.request_id))
+        log(f"  model-serve batch {b} of {MS_BATCH}: {wall * 1e3:.3f} ms, of it execution "
+            f"{t_exec * 1e3:.3f} ms ({len(calls)} miss groups, "
+            f"{sum(n for n, _ in calls)} requests) and reuse decision "
+            f"{(wall - t_exec) * 1e3:.3f} ms")
+    counts = ops.launch_counts()
+    log(f"  model-serve: near-duplicates reused {near_reused}/{near_total} (cs {kinds['cs']}, "
+        f"en {kinds['en']}; {right} with the source's token), fresh executed "
+        f"{fresh_exec}/{fresh_total}; launches {counts}")
+    expect(fresh_exec == fresh_total, "a fresh request was reused")
+    expect(near_reused >= 0.8 * near_total, "too few near-duplicates were reused")
+    expect(right >= 0.99 * near_reused, "reused near-duplicates got a wrong token")
+    expect(counts["flash_attention"] > 0, "no miss ran the model")
+    profile_call(f"model-serve batch of {MS_BATCH}", lambda: send(np.concatenate(
+        [_unit(rng, MS_BATCH // 2, 64), normalize(np.stack([fresh_pool[j][0] for j in
+         rng.integers(0, len(fresh_pool), MS_BATCH // 2)]))]))[1])
+    return counts
+
+
 # ------------------------------------------------------------------ main
 @contextlib.contextmanager
 def timed(name: str):
@@ -503,15 +880,25 @@ def main() -> int:
         build.build_all()
     with timed("kernels"):
         kern = phase_kernels(dev)
+        kern.update(phase_attention_kernels(dev))
+    paths = {}
     with timed("serve"):
-        launches = phase_serve(dev)
+        paths["serve"] = phase_serve(dev)
     with timed("store"):
         phase_store(dev)
-    for name in MAIN_PATH:
-        expect(launches[name] > 0, f"{name} was not launched on the serving path")
+    with timed("nearest"):
+        paths["nearest"] = phase_nearest(dev)
+    with timed("model"):
+        model, paths["model"] = phase_model(dev)
+    with timed("model-serve"):
+        paths["model-serve"] = phase_model_serve(dev, model)
+    for name, path in MAIN_PATH.items():
+        expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
+    # each kernel's launches on its own path (lsh_hash: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
-              "replaces": SOURCES[name][1], "launches": launches[name],
-              **kern[name], "library_ms": None} for name in SOURCES]
+              "replaces": SOURCES[name][1],
+              "launches": paths[MAIN_PATH.get(name, "serve")][name],
+              "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

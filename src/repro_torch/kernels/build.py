@@ -3,8 +3,8 @@
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
-named by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is loaded as it is.  Nothing is built when a module is
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source rebuilds and an unchanged one is loaded as it is.  Nothing is built when a module is
 imported: the first launch of a kernel builds its library, and
 ``build_all`` builds every source at once with one ``nvcc`` process each.
 """
@@ -24,15 +24,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 #: source stem -> C functions it exports, with their ctypes signatures
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "sim_topk": {
         "reuse_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "gather_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "sim_top1_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "lsh_hash": {
         "lsh_hash_mix_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "lsh_hash_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "flash_attention": {
+        "flash_attention_launch": [_P, _P, _P, _P, *[_I] * 6, *[_L] * 9, _I, _I, _F, _F,
+                                   _I, _P],
+    },
+    "decode_attention": {
+        "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, _I, _I, _F, _F, _I,
+                                    _I, _P],
     },
 }
 
@@ -52,7 +61,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """Named by a hash of the source, the shared headers and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

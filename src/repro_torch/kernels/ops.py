@@ -7,12 +7,14 @@ the caller passes.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..device import fp32_matmul
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import lsh_hash as _lsh
 from . import sim_topk as _topk
 from .fused_query import fused_query as _fused_query
@@ -21,13 +23,16 @@ from .fused_query import fused_query as _fused_query
 FUSED_DISPATCH_COUNT = 0
 
 
+_COUNTERS = (_topk.LAUNCHES, _lsh.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {**_topk.LAUNCHES, **_lsh.LAUNCHES}
+    return {name: n for counts in _COUNTERS for name, n in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (_topk.LAUNCHES, _lsh.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -48,6 +53,14 @@ def similarity_scores(q: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
     sn = store / store.norm(dim=-1, keepdim=True).clamp_min(1e-12)
     with fp32_matmul():
         return qn @ sn.T
+
+
+def nearest_neighbor(q: torch.Tensor, store: torch.Tensor,
+                     n_valid: Optional[Union[int, torch.Tensor]] = None):
+    """Streaming top-1 over a whole (unit-normalised) store: (best (Q,) f32,
+    idx (Q,) int32), the first index of the maximum; rows at or after
+    ``n_valid`` are masked."""
+    return _topk.sim_top1(q, store, n_valid)
 
 
 def gathered_top1(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor):
@@ -112,3 +125,20 @@ def reuse_query_top1(embs: torch.Tensor, lsh, slots_dev: torch.Tensor,
     else:
         counts = torch.from_numpy(unique_counts(extra[:nq].numpy()))
     return val[:nq], idx[:nq], counts
+
+
+# ------------------------------------------------------------------ attention
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """(B, S, H, D) x (B, T, KV, D)^2 -> (B, S, H, D): prefill attention."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, scale=scale)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: torch.Tensor, *, softcap: Optional[float] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """(B, H, D) x (B, T, KV, D)^2 + (B,) -> (B, H, D): one decode step."""
+    return _decode.decode_attention(q, k, v, kv_len, softcap=softcap, scale=scale)

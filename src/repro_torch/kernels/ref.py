@@ -1,17 +1,25 @@
 """Plain PyTorch versions of every ported kernel.
 
 Each function computes what its CUDA kernel computes, on any device, with
-ordinary tensor operations.  The wrappers (``sim_topk.py``, ``lsh_hash.py``)
-run these for CPU tensors, the CPU tests hold them against the JAX package,
-and ``chip_smoke.py`` holds each kernel against its plain version on the
-card.  Nothing on the main path on the card calls them.
+ordinary tensor operations.  The wrappers (``sim_topk.py``, ``lsh_hash.py``,
+``flash_attention.py``, ``decode_attention.py``) run these for CPU tensors,
+the CPU tests hold them against the JAX package, and ``chip_smoke.py`` holds
+each kernel against its plain version on the card.  Nothing on the main path
+on the card calls them.
 
-Like the kernels, the top-1 functions score a plain dot product: inputs are
-unit rows (the reuse store normalises on insert).
+Like the kernels, the gathered top-1 functions score a plain dot product:
+inputs are unit rows (the reuse store normalises on insert).  ``sim_top1_ref``
+normalises, as the reference's oracle does; its kernel does not.
+
+The attention functions follow the kernels' masking: a masked logit is
+-1e30 and weighs exactly 0, and the denominator is clamped at 1e-30, so a
+row with every logit masked gives 0.  (The reference's jnp oracles give such
+a row the mean of V instead; every other row agrees.)
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -97,3 +105,90 @@ def reuse_top1_ref(q: torch.Tensor, store: torch.Tensor,
     idx = torch.where(elig, ids, torch.full_like(ids, _IMAX)).min(dim=-1).values
     idx = torch.where(torch.isfinite(best), idx, torch.full_like(idx, -1))
     return best, idx
+
+
+def sim_top1_ref(q: torch.Tensor, store: torch.Tensor, n_valid: Optional[int] = None,
+                 *, chunk: int = 65536) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force cosine top-1: q (Q, D) x store (N, D), f32 or bf16.
+
+    Rows at or after ``n_valid`` are masked.  Returns (best (Q,) f32, idx
+    (Q,) int32): the first index of the maximum, (-inf, 0) when no row is
+    valid.  The store is scored ``chunk`` rows at a time (strict ``>``
+    across chunks keeps the first maximum), so (Q, N) is never
+    materialised."""
+    def unit(x):
+        x = x.float()
+        return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+    n = store.shape[0] if n_valid is None else max(0, min(int(n_valid), store.shape[0]))
+    qn = unit(q)
+    best = torch.full((q.shape[0],), -torch.inf, device=q.device)
+    idx = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    for lo in range(0, n, chunk):
+        with fp32_matmul():
+            s = qn @ unit(store[lo:min(lo + chunk, n)]).T
+        val, arg = s.max(dim=1)              # first maximal index in the chunk
+        better = val > best
+        best = torch.where(better, val, best)
+        idx = torch.where(better, arg + lo, idx)
+    return best, idx.to(torch.int32)
+
+
+# ------------------------------------------------------------------- attention
+def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Kernel softmax: masked logits -1e30 with weight 0, sum clamped at
+    1e-30."""
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True)) * mask
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """GQA prefill attention.  q (B, S, H, D), k/v (B, T, KV, D) -> (B, S,
+    H, D) in q's dtype; logits and softmax in fp32.  Position s sees t where
+    ``t <= s`` (causal) and ``t > s - window`` (window)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, KV, G, D).float()
+    with fp32_matmul():
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    sidx = torch.arange(S, device=q.device)[:, None]
+    tidx = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= tidx <= sidx
+    if window is not None:
+        mask &= tidx > sidx - window
+    probs = _softmax_masked(logits, mask)
+    with fp32_matmul():
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_len: torch.Tensor, *, scale: Optional[float] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """One-query attention over a cache.  q (B, H, D), k/v (B, T, KV, D),
+    kv_len (B,): slots ``t < kv_len[b]`` are valid.  -> (B, H, D) in q's
+    dtype."""
+    B, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D).float()
+    with fp32_matmul():
+        logits = torch.einsum("bkgd,btkd->bkgt", qg, k.float()) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = torch.arange(T, device=q.device)[None, :] < kv_len.to(q.device)[:, None]
+    probs = _softmax_masked(logits, mask[:, None, None, :])
+    with fp32_matmul():
+        out = torch.einsum("bkgt,btkd->bkgd", probs, v.float())
+    return out.reshape(B, H, D).to(q.dtype)

@@ -1,23 +1,22 @@
 """Wrappers of the masked cosine top-1 kernels (``csrc/sim_topk.cu``).
 
-Port of the Pallas kernels ``repro/kernels/sim_topk.py::reuse_top1`` and
-``::gather_top1``.  For a CUDA tensor each wrapper checks its inputs, allocates
-its outputs, launches the hand-written kernel on the current stream and counts
-the launch; for a CPU tensor it runs the plain version in ``ref.py``.  There
-is no fallback: a CUDA input either launches the kernel or raises.
-
-The brute-force ``sim_top1`` (Pallas ``sim_top1``) is not ported yet.
+Port of the Pallas kernels ``repro/kernels/sim_topk.py::reuse_top1``,
+``::gather_top1`` and ``::sim_top1``.  For a CUDA tensor each wrapper checks
+its inputs, allocates its outputs (and scratch), launches the hand-written
+kernel on the current stream and counts the launch; for a CPU tensor it runs
+the plain version in ``ref.py``.  There is no fallback: a CUDA input either
+launches the kernel or raises.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from . import build, ref
 
 #: launches of each kernel in this process (``ops.reset_launch_counts``)
-LAUNCHES = {"reuse_top1": 0, "gather_top1": 0}
+LAUNCHES = {"reuse_top1": 0, "gather_top1": 0, "sim_top1": 0}
 
 GATHER_MODES = ("take", "onehot")
 
@@ -94,3 +93,53 @@ def gather_top1(q: torch.Tensor, store: torch.Tensor,
     out = _launch("gather_top1_launch", q, store, cand_ids)
     LAUNCHES["gather_top1"] += 1
     return out
+
+
+SIM_ROWS = 64            # queries per block of the sim_top1 kernel
+SIM_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+
+
+def sim_top1(q: torch.Tensor, store: torch.Tensor,
+             n_valid: Optional[Union[int, torch.Tensor]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Brute-force top-1 over a whole store: q (Q, D) x store (N, D), both
+    float32 or both bfloat16.  Rows at or after ``n_valid`` (default N; a
+    tensor is read on the host) are masked.  Returns (best (Q,) f32, idx
+    (Q,) int32), the first index of the maximum and (-inf, 0) when no row
+    is valid.  The kernel scores plain dots (unit rows expected); the plain
+    version used for CPU tensors normalises."""
+    if q.dim() != 2 or store.dim() != 2 or q.shape[1] != store.shape[1]:
+        raise ValueError(f"expected q (Q, D), store (N, D); got {tuple(q.shape)}, "
+                         f"{tuple(store.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or store.dtype != q.dtype:
+        raise TypeError("q and store must both be float32 or both bfloat16")
+    if q.device != store.device:
+        raise ValueError("q and store must share one device")
+    n = store.shape[0] if n_valid is None else max(0, min(int(n_valid), store.shape[0]))
+    if q.device.type == "cpu":
+        return ref.sim_top1_ref(q, store, n)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    n_q, d = q.shape
+    if d % 4:
+        raise ValueError(f"row width {d} is not a multiple of 4")
+    if not (q.is_contiguous() and store.is_contiguous()):
+        raise ValueError("q and store must be contiguous")
+    q_tiles = -(-n_q // SIM_ROWS)
+    want = max(1, min(-(-n // 4096), -(-SIM_TARGET_BLOCKS // max(q_tiles, 1))))
+    per_split = -(-max(n, 1) // want)
+    chunk = -(-per_split // SIM_ROWS) * SIM_ROWS
+    n_split = -(-max(n, 1) // chunk)
+    val = torch.empty(n_q, dtype=torch.float32, device=q.device)
+    idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
+    part_val = torch.empty((n_split, n_q), dtype=torch.float32, device=q.device)
+    part_idx = torch.empty((n_split, n_q), dtype=torch.int32, device=q.device)
+    lib = build.load("sim_topk")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.check(lib.sim_top1_launch(
+            q.data_ptr(), store.data_ptr(), val.data_ptr(), idx.data_ptr(),
+            part_val.data_ptr(), part_idx.data_ptr(), n_q, d, n, n_split, chunk,
+            int(q.dtype == torch.bfloat16), stream), "sim_top1_launch")
+    LAUNCHES["sim_top1"] += 1
+    return val, idx

@@ -1,0 +1,174 @@
+"""Attention: GQA/MQA/MHA with RoPE, soft-capping, sliding windows, qk-norm.
+
+Port of ``repro/models/attention.py``.  Every attention call goes through
+the kernel layer: self- and cross-attention through ``ops.flash_attention``
+(K6) whatever ``cfg.attn_impl`` says (the reference's ``blocked_attention``
+is the same math as K6, so it has no module of its own here), and one
+decode step through ``ops.decode_attention`` (K7).  On the CUDA card these
+launch the hand-written kernels; on the CPU they run the kernels' plain
+versions, so the CPU tests drive the same arguments (scale, softcap,
+window, kv_len) that the card receives.  ``attn_core`` keeps the
+reference's plain math as a test reference.
+
+Numerics: the kernels take fp32 logits from the inputs' values; the
+reference's plain path rounds its logits einsum to the activation dtype
+first (bf16 in serving).  At fp32 the two agree within the tests' 2e-5.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..kernels import ops
+from .layers import apply_rope, dense_init, rms_norm, softcap, zeros_init
+
+
+class AttnDims(NamedTuple):
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+
+
+def attn_dims(cfg) -> AttnDims:
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    return AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, hd)
+
+
+# ----------------------------------------------------------------------- init
+def attention_init(gen: torch.Generator, cfg, *, device=None,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    d = attn_dims(cfg)
+    kw = {"device": device, "dtype": dtype}
+    params = {
+        "wq": dense_init(gen, d.d_model, d.n_heads * d.head_dim, **kw),
+        "wk": dense_init(gen, d.d_model, d.n_kv * d.head_dim, **kw),
+        "wv": dense_init(gen, d.d_model, d.n_kv * d.head_dim, **kw),
+        "wo": dense_init(gen, d.n_heads * d.head_dim, d.d_model, **kw),
+    }
+    if getattr(cfg, "qkv_bias", False):
+        params["bq"] = torch.zeros((d.n_heads * d.head_dim,), **kw)
+        params["bk"] = torch.zeros((d.n_kv * d.head_dim,), **kw)
+        params["bv"] = torch.zeros((d.n_kv * d.head_dim,), **kw)
+    if getattr(cfg, "qk_norm", False):
+        params["q_norm"] = zeros_init(d.head_dim, device=device)
+        params["k_norm"] = zeros_init(d.head_dim, device=device)
+    return params
+
+
+# ----------------------------------------------------------------- projection
+def project_q(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
+    d = attn_dims(cfg)
+    q = x @ params["wq"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+    q = q.reshape(*x.shape[:-1], d.n_heads, d.head_dim)
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], getattr(cfg, "norm_eps", 1e-6))
+    return apply_rope(q, positions, cfg.rope_theta)
+
+
+def project_kv(params, x: torch.Tensor, cfg,
+               positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    d = attn_dims(cfg)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bk" in params:
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    k = k.reshape(*x.shape[:-1], d.n_kv, d.head_dim)
+    v = v.reshape(*x.shape[:-1], d.n_kv, d.head_dim)
+    if "k_norm" in params:
+        k = rms_norm(k, params["k_norm"], getattr(cfg, "norm_eps", 1e-6))
+    if positions is not None:  # cross-attention keys carry no rope
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return k, v
+
+
+def _scale(cfg, head_dim: int) -> float:
+    qs = getattr(cfg, "query_pre_attn_scalar", None)
+    return 1.0 / math.sqrt(qs if qs is not None else head_dim)
+
+
+# ----------------------------------------------------------------- core math
+def attn_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, cfg,
+              causal: bool = True, window: Optional[int] = None,
+              q_positions: Optional[torch.Tensor] = None,
+              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The reference's plain grouped-query attention, kept to test the
+    kernel route against: logits einsum in the inputs' dtype, then f32
+    softmax, -1e30 masking."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, S, KV, G, D)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k).float()
+    logits = softcap(logits * _scale(cfg, D), getattr(cfg, "attn_logit_softcap", None))
+
+    qpos = q_positions if q_positions is not None else torch.arange(S, device=q.device)[None, :]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((B if qpos.shape[0] > 1 else 1, S, T), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask &= kpos[:, None, :] <= qpos[..., :, None]
+    if window is not None:
+        mask &= kpos[:, None, :] > (qpos[..., :, None] - window)
+    if kv_len is not None:
+        mask &= kpos[:, None, :] < kv_len.reshape(-1, 1, 1)
+    logits = logits.masked_fill(~mask[:, None, None, :, :], -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v)
+    return out.reshape(B, S, H, D)
+
+
+# ----------------------------------------------------------------- full apply
+def attention_apply(params, x: torch.Tensor, cfg, *,
+                    positions: Optional[torch.Tensor] = None, causal: bool = True,
+                    window: Optional[int] = None, memory: Optional[torch.Tensor] = None,
+                    return_kv: bool = False):
+    """Self-attention over x (B, S, d_model), or cross-attention over
+    ``memory`` (B, T, d_model) without a causal mask.  ``positions`` (default
+    0..S-1) rotate q and k; the causal and window masks compare sequence
+    indices, as the kernel does, so they equal positions only for 0..S-1."""
+    B, S, _ = x.shape
+    pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
+    q = project_q(params, x, cfg, pos)
+    if memory is None:
+        k, v = project_kv(params, x, cfg, pos)
+    else:
+        k, v = project_kv(params, memory, cfg, None)
+        causal = False
+    out = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=getattr(cfg, "attn_logit_softcap", None),
+                              scale=_scale(cfg, q.shape[-1]))
+    y = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attention_decode(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int):
+    """One decode step against a (ring-buffer) KV cache (B, W, KV, D).
+
+    The new k/v are written in place at slot ``pos % W`` (the reference
+    returns an updated copy); masking needs only the valid slot count
+    ``min(pos + 1, W)``, since keys carry their true RoPE positions and the
+    softmax does not care about slot order.  Returns (y, k_cache, v_cache).
+    """
+    B = x.shape[0]
+    W = k_cache.shape[1]
+    pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q = project_q(params, x, cfg, pos_b)
+    k_new, v_new = project_kv(params, x, cfg, pos_b)
+    slot = pos % W
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    kv_len = torch.full((B,), min(pos + 1, W), dtype=torch.int32, device=x.device)
+    out = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len,
+                               softcap=getattr(cfg, "attn_logit_softcap", None),
+                               scale=_scale(cfg, q.shape[-1]))
+    y = out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    return y, k_cache, v_cache

@@ -1,0 +1,111 @@
+"""Shared model layers: norms, rotary embeddings, MLPs, embeddings.
+
+Port of ``repro/models/layers.py``.  Layers are plain functions over
+tensors; parameters live in ``nn.ParameterDict``s (see ``transformer.py``)
+with the reference's names and (in, out) matrix layout, so ``x @ w`` reads
+the same in both packages and a JAX parameter tree converts leaf by leaf.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+# ---------------------------------------------------------------------- dtype
+def activation_dtype(cfg) -> torch.dtype:
+    return _DTYPES[getattr(cfg, "dtype", "bfloat16")]
+
+
+# ----------------------------------------------------------------------- init
+# The reference draws every leaf in fp32 (normal * scale) from a JAX key; the
+# port draws the same distributions from an explicit torch.Generator.  The
+# two give different numbers from one seed: tests convert the reference's
+# draw (``convert.decoder_lm_from_jax``) instead.
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
+               scale: Optional[float] = None, *, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn((in_dim, out_dim), generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, *, device=None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    w = torch.randn((vocab, dim), generator=gen, device=device, dtype=torch.float32)
+    return w.mul_(0.02).to(dtype)
+
+
+def zeros_init(dim: int, *, device=None) -> torch.Tensor:
+    """Norm scales: zero (the (1 + scale) parameterisation), kept in fp32."""
+    return torch.zeros((dim,), device=device, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in fp32, returned in x's dtype, with gemma's zero-centred
+    (1 + scale) parameterisation."""
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+# ----------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S).  Split halves
+    (not interleaved), angles in fp32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    angles = positions[..., None].float() * freqs               # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ soft caps
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ------------------------------------------------------------------------ mlp
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, device=None,
+             dtype: torch.dtype = torch.float32) -> dict:
+    return {
+        "wi": dense_init(gen, d_model, 2 * d_ff, device=device, dtype=dtype),  # gate|up
+        "wo": dense_init(gen, d_ff, d_model, device=device, dtype=dtype),
+    }
+
+
+def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """Gated MLP: SwiGLU (act='silu') or GeGLU (act='gelu', gemma)."""
+    gate, up = (x @ params["wi"].to(x.dtype)).chunk(2, dim=-1)
+    if act == "silu":
+        g = F.silu(gate)
+    elif act == "gelu":
+        g = F.gelu(gate, approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return (g * up) @ params["wo"].to(x.dtype)
+
+
+# ------------------------------------------------------------------ embedding
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor, scale: bool,
+                d_model: int) -> torch.Tensor:
+    x = table[tokens.to(table.device, torch.long)]
+    if scale:  # gemma scales embeddings by sqrt(d_model)
+        x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
+    return x

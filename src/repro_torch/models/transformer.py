@@ -1,0 +1,220 @@
+"""Decoder-only transformer LM for the dense family.
+
+Port of ``repro/models/transformer.py::DecoderLM`` for serving: init,
+``hidden_states``, ``logits``, ``prefill`` and ``decode_step`` with
+ring-buffer KV caches (sliding-window layers allocate only ``window``
+slots).  ``loss`` and ``input_specs`` come with the training slice; MoE
+blocks with the MoE slice.
+
+Layers are an ``nn.ModuleList`` in depth order instead of the reference's
+scanned groups: layer ``g * len(pattern) + i`` is group ``g``'s variant
+``i``.  The cache keeps the reference's layout, ``{"k{i}", "v{i}"}`` of
+shape (n_groups, B, W, KV, D), so a JAX cache converts directly
+(``convert.cache_from_jax``).
+
+The reference keeps fp32 master weights and casts them at each use
+(``x @ w.astype(x.dtype)``); the port stores each matrix once in
+``cfg.dtype``, which gives the same numbers for serving and half the
+memory.  Norm scales stay fp32, as the reference reads them.  Parameters do
+not require gradients.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from .attention import attention_apply, attention_decode, attention_init, attn_dims
+from .layers import (
+    activation_dtype,
+    embed_apply,
+    embed_init,
+    mlp_apply,
+    mlp_init,
+    rms_norm,
+    softcap,
+    zeros_init,
+)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+# -------------------------------------------------------------------- variants
+def variants_for(cfg) -> Tuple[Dict[str, Any], ...]:
+    return tuple({"window": cfg.sliding_window if kind == "local" else None,
+                  "moe": cfg.n_experts > 0} for kind in cfg.layer_pattern)
+
+
+# ---------------------------------------------------------------------- blocks
+class Block(nn.Module):
+    """One pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp`` (and gemma2's
+    ``pn1``/``pn2`` post-norms), named as the reference's parameter tree."""
+
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = _frozen(zeros_init(d, device=device))
+        self.attn = nn.ParameterDict(
+            {k: _frozen(v) for k, v in attention_init(gen, cfg, device=device,
+                                                      dtype=dtype).items()})
+        self.ln2 = _frozen(zeros_init(d, device=device))
+        self.mlp = nn.ParameterDict(
+            {k: _frozen(v) for k, v in mlp_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                                                dtype=dtype).items()})
+        if cfg.use_post_norms:
+            self.pn1 = _frozen(zeros_init(d, device=device))
+            self.pn2 = _frozen(zeros_init(d, device=device))
+
+
+def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tensor, *,
+                return_kv: bool = False):
+    """-> (x, (k, v) or None, aux); aux is 0 for the dense family."""
+    eps = cfg.norm_eps
+    a_in = rms_norm(x, blk.ln1, eps)
+    kv = None
+    if return_kv:
+        attn_out, kv = attention_apply(blk.attn, a_in, cfg, positions=positions,
+                                       window=variant["window"], return_kv=True)
+    else:
+        attn_out = attention_apply(blk.attn, a_in, cfg, positions=positions,
+                                   window=variant["window"])
+    if cfg.use_post_norms:
+        attn_out = rms_norm(attn_out, blk.pn1, eps)
+    x = x + attn_out
+    mlp_out = mlp_apply(blk.mlp, rms_norm(x, blk.ln2, eps), cfg.mlp_act)
+    if cfg.use_post_norms:
+        mlp_out = rms_norm(mlp_out, blk.pn2, eps)
+    return x + mlp_out, kv, 0.0
+
+
+def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, pos: int):
+    eps = cfg.norm_eps
+    attn_out, k_cache, v_cache = attention_decode(
+        blk.attn, rms_norm(x, blk.ln1, eps), cfg, k_cache, v_cache, pos)
+    if cfg.use_post_norms:
+        attn_out = rms_norm(attn_out, blk.pn1, eps)
+    x = x + attn_out
+    mlp_out = mlp_apply(blk.mlp, rms_norm(x, blk.ln2, eps), cfg.mlp_act)
+    if cfg.use_post_norms:
+        mlp_out = rms_norm(mlp_out, blk.pn2, eps)
+    return x + mlp_out, k_cache, v_cache
+
+
+# ----------------------------------------------------------------------- model
+class DecoderLM(nn.Module):
+    """Dense decoder language model, weights drawn from ``seed`` on
+    ``device`` at construction.  ``device=None`` is the CUDA card; without
+    one it raises unless ``device="cpu"``."""
+
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                f"{cfg.name} has MoE blocks; they come with the MoE slice of the port")
+        self.cfg = cfg
+        self.variants = variants_for(cfg)
+        self.group = len(self.variants)
+        if cfg.n_layers % self.group:
+            raise ValueError(f"{cfg.n_layers} layers do not fill groups of {self.group}")
+        self.n_groups = cfg.n_layers // self.group
+        self.dtype = activation_dtype(cfg)
+        self.init(torch.Generator(device=self.device).manual_seed(seed))
+
+    # ------------------------------------------------------------------ init
+    def init(self, gen: torch.Generator) -> None:
+        """Draw every weight from ``gen``: matrices normal / sqrt(in),
+        embeddings normal * 0.02, norm scales zero (the reference's
+        distributions)."""
+        cfg, dev, dt = self.cfg, self.device, self.dtype
+        self.embed = _frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev, dtype=dt))
+        self.final_norm = _frozen(zeros_init(cfg.d_model, device=dev))
+        if not cfg.tie_embeddings:
+            self.head = _frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
+                                           dtype=dt))
+        self.layers = nn.ModuleList(Block(gen, cfg, device=dev, dtype=dt)
+                                    for _ in range(cfg.n_layers))
+
+    def variant_of(self, layer: int) -> Dict[str, Any]:
+        return self.variants[layer % self.group]
+
+    # ------------------------------------------------------------- embedding
+    def _embed_inputs(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.cfg
+        x = embed_apply(self.embed, batch["tokens"], cfg.scale_embeddings, cfg.d_model)
+        if cfg.frontend is not None and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(x), x], dim=1)   # early fusion
+        return x, torch.arange(x.shape[1], device=x.device)[None, :]
+
+    # --------------------------------------------------------------- forward
+    def hidden_states(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence forward -> (final-normed hidden, aux loss = 0)."""
+        x, positions = self._embed_inputs(batch)
+        for layer, blk in enumerate(self.layers):
+            x, _, _ = block_apply(blk, x, self.cfg, self.variant_of(layer), positions)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return x, torch.zeros((), device=x.device)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """(..., d_model) -> (..., vocab) f32.  The product runs on 2-D
+        rows: a strided (B, 1, d) slice would make ``matmul`` a batched
+        product that reads the whole (vocab, d) table once per row."""
+        w = self.embed if self.cfg.tie_embeddings else self.head
+        out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
+        out = out.reshape(*hidden.shape[:-1], out.shape[-1])
+        return softcap(out.float(), self.cfg.final_logit_softcap)
+
+    # --------------------------------------------------------------- serving
+    def cache_window(self, variant, max_len: int) -> int:
+        w = variant["window"]
+        return min(w, max_len) if w else max_len
+
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        d = attn_dims(self.cfg)
+        cache = {}
+        for i, variant in enumerate(self.variants):
+            shp = (self.n_groups, batch, self.cache_window(variant, max_len), d.n_kv,
+                   d.head_dim)
+            cache[f"k{i}"] = torch.zeros(shp, dtype=dtype, device=self.device)
+            cache[f"v{i}"] = torch.zeros(shp, dtype=dtype, device=self.device)
+        return cache
+
+    def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
+        """Run the prompt, build the KV cache, return (last-position logits
+        (B, 1, V) f32, cache).  Position p lives at slot p when the window
+        W >= S; with W < S the cache keeps the last W positions at slots
+        p % W (the ring)."""
+        x, positions = self._embed_inputs(batch)
+        B, S, _ = x.shape
+        cache = self.init_cache(B, max_len, cache_dtype)
+        for layer, blk in enumerate(self.layers):
+            x, (k, v), _ = block_apply(blk, x, self.cfg, self.variant_of(layer), positions,
+                                       return_kv=True)
+            i, g = layer % self.group, layer // self.group
+            for name, t in ((f"k{i}", k), (f"v{i}", v)):
+                W = cache[name].shape[2]
+                if W >= S:
+                    cache[name][g, :, :S] = t
+                else:
+                    cache[name][g] = torch.roll(t[:, S - W:], S % W, dims=1)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.logits(x[:, -1:, :]), cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
+        """tokens (B, 1); ``pos`` the position being written (an int).
+        Updates ``cache`` in place and returns (logits (B, 1, V) f32,
+        cache)."""
+        pos = int(pos)
+        x = embed_apply(self.embed, tokens, self.cfg.scale_embeddings, self.cfg.d_model)
+        for layer, blk in enumerate(self.layers):
+            i, g = layer % self.group, layer // self.group
+            x, _, _ = block_decode(blk, x, self.cfg, self.variant_of(layer),
+                                   cache[f"k{i}"][g], cache[f"v{i}"][g], pos)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.logits(x), cache

@@ -136,3 +136,141 @@ def test_small_staged_batches_score_on_the_card(dev):
     assert sim_topk.LAUNCHES["gather_top1"] == n0 + 2
     assert [r[2] for r in gpu] == [r[2] for r in cpu] and one[2] == gpu[0][2]
     assert max(abs(a[1] - b[1]) for a, b in zip(gpu, cpu)) <= TOL
+
+
+# ------------------------------------------------- sim_top1 and attention
+def _close(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,D", [(8, 64, 32), (128, 1000, 64), (5, 4096, 128),
+                                   (64, 200, 256), (300, 20000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sim_top1(dev, Q, N, D, dtype):
+    q, s = _unit(Q, D).to(dtype), _unit(N, D).to(dtype)
+    q[0] = s[N // 2]                                  # an exact hit
+    if N > 100:
+        s[N - 1] = s[N // 3]                          # a tie: the first index wins
+        q[1] = s[N // 3]
+    n0 = sim_topk.LAUNCHES["sim_top1"]
+    gv, gi = sim_topk.sim_top1(q.to(dev), s.to(dev))
+    assert sim_topk.LAUNCHES["sim_top1"] == n0 + 1
+    wv, wi = ref.sim_top1_ref(q.to(dev), s.to(dev))
+    tol = TOL if dtype == torch.float32 else 2e-2
+    _close(gv, wv, tol)
+    if dtype == torch.float32:
+        assert torch.equal(gi.cpu(), wi.cpu())
+    assert gi[0].item() == N // 2
+    if N > 100:
+        assert gi[1].item() == N // 3
+
+
+@pytest.mark.cuda
+def test_sim_top1_n_valid(dev):
+    q, s = _unit(16, 64).to(dev), _unit(512, 64).to(dev)
+    gv, gi = sim_topk.sim_top1(q, s, 100)
+    wv, wi = ref.sim_top1_ref(q, s, 100)
+    assert (gi < 100).all() and torch.equal(gi.cpu(), wi.cpu())
+    _close(gv, wv, TOL)
+    ev, ei = sim_topk.sim_top1(q, s, 0)             # nothing valid: (-inf, 0)
+    assert torch.isinf(ev).all() and (ei == 0).all()
+
+
+def _qkv(B, S, T, H, KV, D, dtype):
+    mk = lambda *shape: torch.from_numpy(RNG.standard_normal(shape).astype(np.float32)).to(dtype)
+    return mk(B, S, H, D), mk(B, T, KV, D), mk(B, T, KV, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,D", [(1, 32, 4, 4, 32), (2, 64, 8, 2, 64),
+                                        (1, 128, 8, 1, 128), (2, 48, 4, 4, 16),
+                                        (1, 200, 16, 8, 128), (1, 70, 4, 2, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(dev, B, S, H, KV, D, dtype):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(B, S, S, H, KV, D, dtype))
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1 and got.dtype == dtype
+    _close(got, ref.flash_attention_ref(q, k, v), 2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kwargs", [{"causal": False}, {"causal": True, "window": 16},
+                                    {"causal": True, "softcap": 50.0},
+                                    {"causal": True, "window": 24, "softcap": 30.0},
+                                    {"causal": True, "scale": 0.0625}])
+def test_flash_attention_variants(dev, kwargs):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, 100, 100, 8, 4, 32, torch.float32))
+    _close(fa.flash_attention(q, k, v, **kwargs), ref.flash_attention_ref(q, k, v, **kwargs),
+           2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_cross_and_masked_rows(dev):
+    """T != S without a causal mask; and rows whose every key is masked
+    (window past the end of a short key axis) give 0, not NaN."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, 40, 72, 4, 2, 64, torch.float32))
+    _close(fa.flash_attention(q, k, v, causal=False),
+           ref.flash_attention_ref(q, k, v, causal=False), 2e-5)
+    q, k, v = (x.to(dev) for x in _qkv(1, 48, 16, 4, 4, 32, torch.bfloat16))
+    got = fa.flash_attention(q, k, v, window=8)
+    assert torch.isfinite(got.float()).all() and (got[:, 24:] == 0).all()
+    _close(got, ref.flash_attention_ref(q, k, v, window=8), 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,KV,D", [(1, 64, 4, 4, 32), (2, 96, 8, 2, 64),
+                                        (4, 128, 8, 1, 128), (4, 2064, 16, 8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention(dev, B, T, H, KV, D, dtype):
+    from repro_torch.kernels import decode_attention as da
+
+    q, k, v = (x.to(dev) for x in _qkv(B, 1, T, H, KV, D, dtype))
+    q = q[:, 0]
+    kv_len = torch.from_numpy(RNG.integers(1, T + 1, B).astype(np.int32)).to(dev)
+    kv_len[0] = 1
+    n0 = da.LAUNCHES["decode_attention"]
+    got = da.decode_attention(q, k, v, kv_len)
+    assert da.LAUNCHES["decode_attention"] == n0 + 1 and got.dtype == dtype
+    _close(got, ref.decode_attention_ref(q, k, v, kv_len),
+           2e-5 if dtype == torch.float32 else 2e-2)
+    # f32 query over a bf16 cache, with a softcap
+    got = da.decode_attention(q.float(), k.to(torch.bfloat16), v.to(torch.bfloat16), kv_len,
+                              softcap=30.0)
+    want = ref.decode_attention_ref(q.float(), k.to(torch.bfloat16), v.to(torch.bfloat16),
+                                    kv_len, softcap=30.0)
+    _close(got, want, 2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_equals_flash_last_row_and_empty_rows(dev):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, 48, 48, 4, 2, 32, torch.float32))
+    full = fa.flash_attention(q, k, v)
+    got = da.decode_attention(q[:, -1], k, v, torch.tensor([48, 48], dtype=torch.int32,
+                                                           device=dev))
+    _close(got, full[:, -1], 2e-5)
+    zero = da.decode_attention(q[:, -1], k, v, torch.zeros(2, dtype=torch.int32, device=dev))
+    assert (zero == 0).all()
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_raise_on_mixed_devices(dev):
+    from repro_torch.kernels import ops
+
+    q, k, v = _qkv(1, 16, 16, 4, 2, 32, torch.float32)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.to(dev), k, v)
+    with pytest.raises(ValueError):
+        ops.decode_attention(q[:, 0].to(dev), k.to(dev), v.to(dev),
+                             torch.ones(1, dtype=torch.int32))

@@ -65,18 +65,23 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_entry_points_default_to_cuda():
+    from repro_torch.configs import get_arch
     from repro_torch.core.lsh import LSH, LSHParams, get_lsh
     from repro_torch.core.reuse_store import ReuseStore
     from repro_torch.device import resolve_device
+    from repro_torch.models import DecoderLM, build_model
     from repro_torch.serving.engine import ReplicaEngine, ReuseRouter
 
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
         return
     p = LSHParams(dim=8, num_tables=2)
+    cfg = get_arch("qwen3-1.7b").reduced()
     for make in (lambda: ReuseStore(p), lambda: LSH(p), lambda: get_lsh(p),
                  lambda: ReplicaEngine(0, p, list), lambda: ReuseRouter(p, 2),
-                 lambda: resolve_device("cuda")):
+                 lambda: resolve_device("cuda"), lambda: build_model(cfg),
+                 lambda: DecoderLM(cfg)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ReuseStore(p, device="cpu").device.type == "cpu"
+    assert build_model(cfg, device="cpu").embed.device.type == "cpu"
