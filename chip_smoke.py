@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --model [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -25,9 +26,23 @@ It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
 its path, error against its plain version, time, plain time, bound and the
 time of one PyTorch library call computing the same function (where there
-is one), and last ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero before the last line.  Without a CUDA card it exits non-zero at
-once.  Imports nothing of JAX or of the JAX package.
+is one), and last ``{"ok": true, "device": {...}}``.  Kernel times are
+CUDA-event medians of single calls, each with its launch.  The two attention
+kernels and their library calls also give ``device_ms`` and
+``library_device_ms``: device time per call over a CUDA graph of 20 calls,
+which leaves out the host's time to enqueue a call (longer than the kernel
+itself at these shapes) and re-reads inputs that may sit in L2.  The build
+line gives the attention kernels' wgmma and TMA instruction counts and their
+registers and spills.  Any failure exits non-zero before the last line.
+Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
+the JAX package.
+
+``--model`` runs only the env, build and model phases (the model's prefill
+and decode times, each step's device busy time and their checks) and prints
+no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
+of another checkout or ``git archive`` of this repository) instead of this
+checkout.  Running it for the parent and the change in turns (parent,
+change, change, parent) on one card, one after another, compares two commits.
 """
 from __future__ import annotations
 
@@ -39,7 +54,10 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# the port under test: this checkout's, or --src DIR's
+SRC = Path(sys.argv[sys.argv.index("--src") + 1]).resolve() if "--src" in sys.argv[:-1] \
+    else ROOT / "src"
+sys.path.insert(0, str(SRC))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -112,6 +130,7 @@ REPS, PLAIN_REPS = 20, 5
 # phase kernels (attention, K5); phase nearest; phases model, model-serve
 ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D = 4, 2048, 16, 8, 128   # qwen3-1.7b
 DECODE_STEPS = 16
+PREFILL_REPS = 5                          # warm prefills timed after the first
 DECODE_T = ATTN_S + DECODE_STEPS          # the model's cache window
 NN_Q, NN_N, NN_TAIL = 4096, 250_000, 1000
 MODEL_ARCH = "qwen3-1.7b"
@@ -149,6 +168,55 @@ def median_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Device time per call in ms: ``reps`` calls captured in one CUDA graph,
+    the median over ``rounds`` replays timed with CUDA events, divided by
+    ``reps``.  Unlike ``median_ms`` it leaves out the host's time to enqueue
+    a call, which is longer than a short kernel itself."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    sync()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del graph
+    return float(np.median(times))
+
+
+def attention_times(fn, plain, lib) -> dict:
+    """An attention kernel's times beside its plain version's and its
+    library call's: ``ms``/``library_ms`` are single calls with their
+    launches (``median_ms``, as every kernel is timed), ``device_ms``/
+    ``library_device_ms`` device time per call (``graph_ms``)."""
+    return {"ms": median_ms(fn, REPS), "plain_ms": median_ms(plain, PLAIN_REPS),
+            "library_ms": median_ms(lib, REPS), "device_ms": graph_ms(fn, REPS),
+            "library_device_ms": graph_ms(lib, REPS)}
+
+
+def _rates(t: dict, work: float, unit: str) -> str:
+    """``attention_times`` as a log fragment; ``work`` per call in units of
+    ``unit`` * 1e3 (GFLOP for TFLOP/s, MB for GB/s)."""
+    return (f"{t['ms']:.4f} ms a call with its launch (sdpa {t['library_ms']:.4f}), "
+            f"{t['device_ms']:.4f} ms device per call, {work / t['device_ms']:.1f} {unit} "
+            f"(sdpa {t['library_device_ms']:.4f} ms, {work / t['library_device_ms']:.1f} "
+            f"{unit}); plain {t['plain_ms']:.4f} ms")
 
 
 def bound(n_bytes: float, n_flop: float, flop_per_s: float = FP32_FLOP_PER_S):
@@ -559,16 +627,20 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     and the attention variants at a small size."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     out = {}
-    # --- K6 variants: window, softcap, no causal mask, cross, odd S, G in {1, 2, 8}
-    for B, S, T, H, KV, D, dt, kw in (
-            (2, 333, 333, 16, 8, 128, torch.float32, {}),
-            (2, 300, 300, 8, 8, 128, torch.bfloat16, {"window": 64}),
-            (2, 256, 256, 16, 2, 128, torch.float32, {"softcap": 30.0}),
-            (1, 257, 257, 16, 8, 128, torch.float32, {"window": 100, "softcap": 50.0}),
-            (2, 200, 200, 16, 8, 64, torch.float32, {"causal": False}),
-            (2, 100, 180, 16, 8, 128, torch.bfloat16, {"causal": False}),
-            (1, 96, 96, 8, 8, 32, torch.float32, {"scale": 0.0625}),
-            (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8})):   # rows with no key
+    # --- K6 variants: window, softcap, no causal mask, cross, odd S, G in {1, 2, 8};
+    # then each f32 one (the CUDA-core route) again in bf16 (the tensor-core route)
+    variants = (
+        (2, 333, 333, 16, 8, 128, torch.float32, {}),
+        (2, 300, 300, 8, 8, 128, torch.bfloat16, {"window": 64}),
+        (2, 256, 256, 16, 2, 128, torch.float32, {"softcap": 30.0}),
+        (1, 257, 257, 16, 8, 128, torch.float32, {"window": 100, "softcap": 50.0}),
+        (2, 200, 200, 16, 8, 64, torch.float32, {"causal": False}),
+        (2, 100, 180, 16, 8, 128, torch.bfloat16, {"causal": False}),
+        (1, 96, 96, 8, 8, 32, torch.float32, {"scale": 0.0625}),
+        (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8}))   # rows with no key
+    variants += tuple((*v[:6], torch.bfloat16, v[7]) for v in variants
+                      if v[6] == torch.float32)
+    for B, S, T, H, KV, D, dt, kw in variants:
         q = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
         k, v = (_randn(gen, B, T, KV, D, dtype=dt, dev=dev) for _ in range(2))
         got = flash_k.flash_attention(q, k, v, **kw)
@@ -589,15 +661,15 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
     err_lib = attn_err("sdpa vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
-    ms, plain_ms, lib_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), median_ms(lib, REPS)
+    t = attention_times(fn, plain, lib)
     pairs = S * (S + 1) // 2
-    bms, by = bound(2 * (q.numel() * 2 + k.numel() * 2 + v.numel()), 4.0 * B * H * D * pairs,
-                    BF16_FLOP_PER_S)
-    log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {ms:.4f} ms "
-        f"(plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms by {by}), "
+    flop = 4.0 * B * H * D * pairs
+    # q, out (B, S, H, D) and k, v (B, S, KV, D), bf16, each moved once
+    bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop, BF16_FLOP_PER_S)
+    log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
+        + _rates(t, flop / 1e9, "TFLOP/s") + f"; bound {bms:.5f} ms by {by}; "
         f"max err {err:.3g} (sdpa {err_lib:.3g})")
-    out["flash_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    out["flash_attention"] = {"max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
     del q, k, v, qt, kt, vt
 
     # --- K7 over a ring-sized cache, kv_len below T in some rows
@@ -619,15 +691,15 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
     err_lib = attn_err("sdpa decode vs plain", lib()[:, :, 0], plain(), ATTN_BF16_TOL)
-    ms, plain_ms, lib_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), median_ms(lib, REPS)
+    t = attention_times(fn, plain, lib)
     n_slots = sum(lens)
-    bms, by = bound(2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B,
-                    4.0 * H * D * n_slots, BF16_FLOP_PER_S)
+    n_bytes = 2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B
+    bms, by = bound(n_bytes, 4.0 * H * D * n_slots, BF16_FLOP_PER_S)
     log(f"  decode_attention B={B} T={T} kv_len={lens} H={H} KV={KV} D={D} bf16: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.5f} ms "
-        f"by {by}), max err {err:.3g} (sdpa {err_lib:.3g})")
-    out["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                               "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+        + _rates(t, n_bytes / 1e6, "GB/s") + f"; bound {bms:.5f} ms by {by} (the "
+        f"device time re-reads a cache that fits in L2); max err {err:.3g} "
+        f"(sdpa {err_lib:.3g})")
+    out["decode_attention"] = {"max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
     del q, k, v, qt, kt, vt
 
     # --- K5 over the store phase's scale, an n_valid tail and planted ties
@@ -754,12 +826,15 @@ def phase_model(dev: torch.device, seed: int = 7):
         f"argmax equal in {same}/{B} rows")
     expect(rel <= DECODE_LOGIT_REL_TOL, f"decode logits differ from prefill by {rel:.3g}")
 
-    t0 = time.perf_counter()
-    model.prefill({"tokens": tokens}, max_len)
-    sync()
-    t_warm = time.perf_counter() - t0
-    log(f"  prefill B={B} S={S}: {t_prefill * 1e3:.3f} ms (first call), {t_warm * 1e3:.3f} ms "
-        f"(second); decode per token (B={B}): median {np.median(step_ms):.3f} ms, steps "
+    warm = []
+    for _ in range(PREFILL_REPS):
+        t0 = time.perf_counter()
+        model.prefill({"tokens": tokens}, max_len)
+        sync()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    log(f"  prefill B={B} S={S}: {t_prefill * 1e3:.3f} ms (first call), warm median "
+        f"{np.median(warm):.3f} ms (" + ", ".join(f"{t:.3f}" for t in warm) + " ms); "
+        f"decode per token (B={B}): median {np.median(step_ms):.3f} ms, steps "
         + ", ".join(f"{t:.3f}" for t in step_ms) + f" ms; peak memory {peak} bytes; "
         f"launches {counts}")
     profile_call(f"prefill B={B} S={S}", lambda: model.prefill({"tokens": tokens}, max_len))
@@ -876,8 +951,23 @@ def main() -> int:
     dev = torch.device("cuda")
     with timed("env"):
         phase_env()
+    log(f"port: {SRC}")
+    if "--model" in sys.argv[1:]:
+        with timed("build"):
+            build.build_all()
+        with timed("model"):
+            phase_model(dev)
+        return 0
     with timed("build"):
         build.build_all()
+        for name in ("flash_attention", "decode_attention"):
+            log(f"  {name} SASS: {build.sass_count(name, 'HGMMA')} HGMMA (wgmma), "
+                f"{build.sass_count(name, 'UTMALDG')} UTMALDG (TMA loads)")
+            for r in build.ptxas_report(name):
+                if "flash_tc_kernel" in r["entry"] or "decode_split_kernel" in r["entry"]:
+                    log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} "
+                        f"bytes static smem, spill stores {r['spill_stores']} bytes, "
+                        f"spill loads {r['spill_loads']} bytes")
     with timed("kernels"):
         kern = phase_kernels(dev)
         kern.update(phase_attention_kernels(dev))

@@ -4,7 +4,9 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds).  Libraries land in ``build/kernels/`` at the repository root,
 named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
-flags, so an edited source rebuilds and an unchanged one is loaded as it is.  Nothing is built when a module is
+flags, so an edited source rebuilds and an unchanged one is loaded as it is.
+The compiler's log (``-Xptxas=-v``: registers, spills per kernel) is kept
+beside each library and read by ``ptxas_report``.  Nothing is built when a module is
 imported: the first launch of a kernel builds its library, and
 ``build_all`` builds every source at once with one ``nvcc`` process each.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +24,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 #: source stem -> C functions it exports, with their ctypes signatures
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -37,11 +40,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, *[_I] * 6, *[_L] * 9, _I, _I, _F, _F,
-                                   _I, _P],
+                                   *[_I] * 10, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, _I, _I, _F, _F, _I,
-                                    _I, _P],
+        "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,
+                                    _I, _I, _P],
     },
 }
 
@@ -88,7 +91,42 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
+
+
+def ptxas_report(name: str) -> List[Dict]:
+    """Per kernel of a built library, from its ``-Xptxas=-v`` log: the
+    mangled entry name, registers, static shared memory and spill bytes."""
+    log = library_path(name).with_suffix(".log")
+    rows: List[Dict] = []
+    entry = None
+    for line in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = {"entry": m.group(1), "registers": None, "smem": 0, "spill_stores": None,
+                     "spill_loads": None}
+            rows.append(entry)
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                entry["smem"] = int(m.group(1)) if m else 0
+    return rows
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """Instructions of a built library's SASS whose opcode starts with
+    ``opcode`` (e.g. HGMMA for wgmma, UTMALDG for a TMA load), by cuobjdump
+    from nvcc's directory."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library_path(name))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return len(re.findall(rf"\b{opcode}\b", sass))
 
 
 def build_all() -> None:

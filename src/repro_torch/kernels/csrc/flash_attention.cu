@@ -5,35 +5,63 @@
 // f32 or bf16, out (B, S, H, D) in q's dtype.  Causal mask, sliding window,
 // logit softcap c*tanh(s/c), scale; masked logits are -1e30 and contribute 0,
 // the running max starts at -1e30 and the denominator is clamped at 1e-30, so
-// a row with every logit masked gives 0 (as the TPU kernel does).
+// a row with every logit masked gives 0 (as the TPU kernel does).  Like the
+// TPU kernel, both products take the inputs' values at fp32 precision and
+// m, l and acc are fp32.
 //
 // What bounds it: at qwen3-1.7b's prefill (B=4, S=2048, H=16, KV=8, D=128,
-// causal) the work is 4*B*H*D*S(S+1)/2 = 69 GFLOP over 50 MB of q/k/v/out,
-// so the bound is the tensor cores' bf16 rate (0.07 ms at 989 TFLOP/s).
-// This first version computes in fp32 on the CUDA cores, as the TPU kernel
-// does (inputs converted to fp32 before both products), so it runs far from
-// that bound; wgmma and a TMA pipeline are the later step.
+// causal) the work is 4*B*H*D*S(S+1)/2 = 69 GFLOP over 100.7 MB of q, k, v
+// and out (bf16), so the bound is the tensor cores' bf16 rate (0.07 ms at
+// 989 TFLOP/s).
 //
-// Design:
-//   * One block per (b, kv head, tile of 64 rows), where a row is one
-//     (position, group head) pair of the G = H / KV query heads sharing the
-//     kv head: every K/V tile staged in shared memory serves all G heads (the
-//     TPU grid re-read it for each group).  The TPU kernel carried m, l and
-//     acc across a sequential grid axis; here a loop inside the block walks
-//     the key tiles and keeps m, l and acc in registers.
-//   * q, k, v are read in place through their (b, s, h) strides, 16 bytes
-//     at a time: the last axis must be contiguous and every row 16-byte
-//     aligned (the wrapper checks).  No transposed copies.
-//   * Key tiles wholly outside the causal / window range of the block's rows
-//     are not visited (they would add exactly 0); tiles that are partly
-//     masked, and the ragged ends of S and T, are masked per element.
-//   * Each thread owns 4 rows x 4 keys of the 64 x 64 score tile and
-//     4 rows x D/16 columns of the output; row max and sum are reduced over
-//     the 16 threads of a half-warp with shuffles.  K is staged transposed
-//     with a padded stride and V reuses the same buffer after the scores are
-//     taken, so two blocks fit on an SM at D = 128.
+// Two routes, chosen by the wrapper from the dtype (kernels/flash_attention.py
+// ::launch_plan) and dispatched explicitly here:
+//
+//   * bf16 -> flash_tc_kernel, on the tensor cores.  One block per (tile of
+//     positions, kv head, b); each of its consumer warpgroups owns 64 rows,
+//     a row being one (position, group head) pair of the G = H / KV query
+//     heads sharing the kv head (row = position * G + head), so each K/V
+//     tile serves all G heads.  One producer warp loads Q once and K and V
+//     tiles through a two-stage ring with TMA (cp.async.bulk.tensor, 4-D
+//     tensor maps over (D, heads, positions, batch) that read q, k, v in
+//     place through their strides; out-of-range boxes read 0 and are masked),
+//     signalled by mbarriers.  S = Q K^T is wgmma m64nNk16 (bf16 in, fp32
+//     accumulate: a bf16 x bf16 product is exact in fp32, so this is the TPU
+//     kernel's fp32 dot up to the order of the sum).  The online softmax runs
+//     in fp32 registers, reduced over the 4 threads of an accumulator row.
+//     acc += P V keeps p at fp32 precision: p is split into p_hi = bf16(p)
+//     and p_lo = bf16(p - p_hi), two register-A wgmmas into one accumulator
+//     with V read MN-major (transposed B) from the same smem tile, so p
+//     keeps about 16 bits (a single bf16 P would round every weight to 8).
+//     The TMA swizzle follows the row bytes of one box (32 B at D=16, 64 B
+//     at D=32, 128 B from D=64; wider rows are loaded as 64-column chunks).
+//     D=256 takes one consumer warpgroup and 32-key tiles (its accumulator
+//     alone is 128 registers a thread).  The producer is a whole warpgroup
+//     that gives its registers to the consumers (setmaxnreg 40 / 232).
+//     A consumer warpgroup runs S, the softmax (base 2, ex2.approx: 2 ulp)
+//     and P V of one tile in turn; the two warpgroups of a block overlap
+//     one's softmax with the other's products.  (Issuing S(n+1) beside
+//     P(n) V(n) in one warpgroup needs more than the 168 registers a thread
+//     the compiler allows here, spills, and was slower on the H100.)  What
+//     holds it back (PERF.md): the fp32 softmax and the hi/lo split.
+//   * f32 -> flash_kernel, the CUDA-core kernel below: a tensor-core product
+//     would run in TF32 and break the 2e-5 limit fp32 is held to.  q, k, v
+//     are staged in fp32 shared memory and every product is an fp32 FMA.
+//
+// Both routes skip key tiles wholly outside the causal / window range of a
+// block's rows (they would add exactly 0) and mask per element only the
+// tiles that are partly masked and the ragged ends of S and T.
+//
+// f32 route design: one block per (b, kv head, tile of 64 rows); each thread
+// owns 4 rows x 4 keys of the 64 x 64 score tile and 4 rows x D/16 columns
+// of the output; row max and sum are reduced over the 16 threads of a
+// half-warp with shuffles.  K is staged transposed with a padded stride and
+// V reuses the same buffer after the scores are taken, so two blocks fit on
+// an SM at D = 128.  q, k, v are read in place, 16 bytes at a time (the
+// wrapper checks the strides).
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -253,22 +281,588 @@ int launch_t(const void* q, const void* k, const void* v, void* o, int B, int S,
   }
 }
 
+// ----------------------------------------------------------- bf16 route
+namespace tc {
+
+// PTX wrappers: shared-memory addresses, mbarriers, TMA, wgmma.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.  A wait of more
+// than ~2^34 cycles (about 10 s) traps: a broken ring fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long start = -1;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (start < 0) start = now;
+    else if (now - start > (1LL << 34)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+        "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accumulator reads/writes across a wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, and the swizzle (layout type 1 = 128 B, 2 = 64 B, 3 = 32 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t swizzle_bytes) {
+  const uint64_t layout = swizzle_bytes == 128 ? 1 : swizzle_bytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc) {
+  static_assert(N == 32 || N == 64, "S tile width");
+  if constexpr (N == 32) wgmma_ss_n32(d, a, b, acc);
+  else wgmma_ss_n64(d, a, b, acc);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
+  else wgmma_rs_n256(d, a, b);
+}
+
+// p as a bf16 pair hi + lo (two products keep p to about 2^-16 relative)
+__device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Shapes of the bf16 route for head width D and key tile BN.  The launch
+// shape comes from kernels/flash_attention.py::launch_plan (the CPU tests
+// check it there); `launch` refuses a plan that differs from these.
+template <int D, int BN>
+struct Cfg {
+  static constexpr int kWG = D == 256 ? 1 : 2;        // consumer warpgroups
+  static constexpr int kBN = BN;                      // keys per tile
+  static constexpr int kStages = 2;                   // K/V ring depth
+  static constexpr int kRows = 64;                    // rows per warpgroup
+  static constexpr int kChunk = D < 64 ? D : 64;      // columns per TMA box
+  static constexpr int kNChunk = D / kChunk;
+  static constexpr int kRowBytes = kChunk * 2;        // = the swizzle width
+  static constexpr int kQBytes = kRows * D * 2;       // one warpgroup's Q
+  static constexpr int kKVBytes = kBN * D * 2;        // one K or V tile
+  // consumer warpgroups, then one producer warpgroup (one thread issues the
+  // loads); setmaxnreg moves the producer's registers to the consumers
+  static constexpr int kThreads = (kWG + 1) * 128;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = kWG == 2 ? 232 : 240;
+  static constexpr int kBars = 1 + 4 * kStages;
+  static constexpr size_t kSmem =
+      1024 + static_cast<size_t>(kWG) * kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
+
+// Keys [t_lo, t_hi) that some position in [pos_lo, pos_end) may see.
+__device__ __forceinline__ void key_range(int pos_lo, int pos_end, int T_len, int causal,
+                                          int window, int& t_lo, int& t_hi) {
+  t_lo = 0;
+  t_hi = T_len;
+  if (causal) t_hi = min(T_len, pos_end);
+  if (window > 0) t_lo = max(0, pos_lo - window + 1);
+}
+
+// Which scores of a tile a warpgroup's rows may see, and how to scale them.
+struct TileMask {
+  int T_len, causal, window;
+  float softcap, scale;
+  float scale_log2;            // scale * log2(e): the softmax runs in base 2
+  int wpos_lo, wpos_hi;        // the warpgroup's valid positions
+  int pos[2];                  // this thread's two rows
+  int col;                     // this thread's first column of each 8-column block
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// S = Q K^T for one key tile: both K-major, k16 steps advance 32 bytes
+// inside a swizzle row, 64-column chunks are separate boxes.  The descriptors
+// are rebuilt from a base on every call (the mov keeps the compiler from
+// hoisting D/8 loop-invariant 64-bit descriptors into registers).
+template <int D, int kBN, int kRB>
+__device__ __forceinline__ void issue_s(float* sc, uint32_t sQw, uint32_t sKs) {
+  constexpr int kKPerChunk = kRB / 32, kQChunk = 64 * kRB, kKChunk = kBN * kRB;
+  uint32_t q_addr;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(q_addr) : "r"(sQw));
+  const uint64_t qd = smem_desc(q_addr, 16, 8 * kRB, kRB);
+  const uint64_t kd = smem_desc(sKs, 16, 8 * kRB, kRB);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = kk / kKPerChunk, off = (kk % kKPerChunk) * 32;
+    wgmma_ss<kBN>(sc, qd + ((c * kQChunk + off) >> 4), kd + ((c * kKChunk + off) >> 4),
+                  kk > 0);
+  }
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {   // 2 ulp; tiny results flush to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one tile, fp32, in base 2 (x * scale * log2 e, so
+// exp2 of the difference is exp of the logits' difference).  sc[j*4 + i*2 + e]
+// is (row i, key t0 + j*8 + col + e) and becomes p; m, l are updated and
+// alpha is the factor acc must be scaled by.  Masked logits are -1e30 and
+// weigh exactly 0; the row max and sum reduce over the 4 threads of a row.
+// kCap: softcap; kMasked: the tile is partly masked or ragged (a tile every
+// row sees whole skips the per-element test).  Max and sum run as four
+// chains, so the row's kBN/4 values do not form one dependent chain.
+template <int kBN, bool kCap, bool kMasked>
+__device__ __forceinline__ void softmax_tile(float* sc, int t0, const TileMask& mk, float* m_r,
+                                             float* l_r, float* alpha) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx[4] = {kNegInf, kNegInf, kNegInf, kNegInf};   // 4 chains of max and sum
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& y = sc[j * 4 + i * 2 + e];
+        if constexpr (kCap) y = mk.softcap * tanhf(y * mk.scale / mk.softcap) * kLog2e;
+        else y *= mk.scale_log2;
+        if constexpr (kMasked) {
+          const int t = t0 + j * 8 + mk.col + e;
+          const bool ok = t < mk.T_len && (!mk.causal || t <= mk.pos[i]) &&
+                          (mk.window <= 0 || t > mk.pos[i] - mk.window);
+          y = ok ? y : kNegInf;
+        }
+        mx[(j * 2 + e) & 3] = fmaxf(mx[(j * 2 + e) & 3], y);
+      }
+    float mt = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m_r[i], mt);
+    alpha[i] = exp2_approx(m_r[i] - m_new);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& y = sc[j * 4 + i * 2 + e];
+        float p = exp2_approx(y - m_new);
+        if constexpr (kMasked) p = y == kNegInf ? 0.f : p;   // weight exactly 0
+        y = p;
+        sum[(j * 2 + e) & 3] += p;
+      }
+    float rs = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+    rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+    l_r[i] = l_r[i] * alpha[i] + rs;
+    m_r[i] = m_new;
+  }
+}
+
+template <int kBN>
+__device__ __forceinline__ void softmax_any(float* sc, int t0, const TileMask& mk, float* m_r,
+                                            float* l_r, float* alpha) {
+  const bool whole = t0 + kBN <= mk.T_len && (!mk.causal || t0 + kBN - 1 <= mk.wpos_lo) &&
+                     (mk.window <= 0 || t0 > mk.wpos_hi - mk.window);
+  if (mk.softcap > 0.f) {
+    if (whole) softmax_tile<kBN, true, false>(sc, t0, mk, m_r, l_r, alpha);
+    else softmax_tile<kBN, true, true>(sc, t0, mk, m_r, l_r, alpha);
+  } else {
+    if (whole) softmax_tile<kBN, false, false>(sc, t0, mk, m_r, l_r, alpha);
+    else softmax_tile<kBN, false, true>(sc, t0, mk, m_r, l_r, alpha);
+  }
+}
+
+// P as register A fragments of the k16 steps (keys 16kk .. 16kk+15: n8
+// blocks 2kk and 2kk+1 of the score accumulator), each as a bf16 hi/lo pair.
+template <int kBN>
+__device__ __forceinline__ void split_p(const float* sc, uint32_t (*p_hi)[4],
+                                        uint32_t (*p_lo)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const float* a = sc + kk * 8;
+    split_bf16x2(a[0], a[1], p_hi[kk][0], p_lo[kk][0]);   // row, keys 2c, 2c+1
+    split_bf16x2(a[2], a[3], p_hi[kk][1], p_lo[kk][1]);   // row + 8
+    split_bf16x2(a[4], a[5], p_hi[kk][2], p_lo[kk][2]);   // row, keys 8 + 2c, ..
+    split_bf16x2(a[6], a[7], p_hi[kk][3], p_lo[kk][3]);   // row + 8
+  }
+}
+
+template <int D, int BN>
+__global__ void __launch_bounds__(Cfg<D, BN>::kThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
+                int S, int T_len, int H, int KV, int P, int causal, int window,
+                float softcap, float scale) {
+  using C = Cfg<D, BN>;
+  constexpr int kBN = C::kBN, kNS = C::kStages, kRB = C::kRowBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + C::kWG * C::kQBytes;
+  const uint32_t sV = sK + kNS * C::kKVBytes;
+  const uint32_t bars = sV + kNS * C::kKVBytes;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + kNS + s); };
+  auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kNS + s); };
+  auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kNS + s); };
+
+  const int G = H / KV;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
+  const int pos0 = tile * C::kWG * P;
+  const int pos_end = min(S, pos0 + C::kWG * P);
+  int t_lo, t_hi;
+  key_range(pos0, pos_end, T_len, causal, window, t_lo, t_hi);
+  const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + kBN - 1) / kBN : 0;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kNS; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), C::kWG * 128);
+      mbar_init(v_empty(s), C::kWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= C::kWG * 4) {
+    // ---- producer: Q once, then K and V tiles through the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
+    if (warp == C::kWG * 4 && lane == 0) {
+      mbar_expect_tx(q_full, C::kWG * C::kNChunk * G * P * kRB);
+      for (int w = 0; w < C::kWG; ++w)
+        for (int c = 0; c < C::kNChunk; ++c)
+          tma_load_4d(sQ + w * C::kQBytes + c * C::kRows * kRB, &qmap, q_full, c * C::kChunk,
+                      kvh * G, pos0 + w * P, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kNS;
+        const uint32_t ph = (n / kNS) & 1;
+        const int t0 = t_lo + n * kBN;
+        mbar_wait(k_empty(s), ph ^ 1);
+        mbar_expect_tx(k_full(s), C::kKVBytes);
+        for (int c = 0; c < C::kNChunk; ++c)
+          tma_load_4d(sK + s * C::kKVBytes + c * kBN * kRB, &kmap, k_full(s), c * C::kChunk,
+                      kvh, t0, b);
+        mbar_wait(v_empty(s), ph ^ 1);
+        mbar_expect_tx(v_full(s), C::kKVBytes);
+        for (int c = 0; c < C::kNChunk; ++c)
+          tma_load_4d(sV + s * C::kKVBytes + c * kBN * kRB, &vmap, v_full(s), c * C::kChunk,
+                      kvh, t0, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows [0, G*P) of its Q tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  const int wg = warp >> 2, w4 = warp & 3;
+  const uint32_t sQw = sQ + wg * C::kQBytes;
+  const int wpos0 = pos0 + wg * P;
+  const int wpos_hi = min(S, wpos0 + P) - 1;       // last valid position
+  // this thread's two accumulator rows: w4*16 + lane/4 and that + 8
+  int pos_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) pos_r[i] = wpos0 + (w4 * 16 + (lane >> 2) + 8 * i) / G;
+  const int col = (lane & 3) * 2;                  // first of this thread's column pair
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  // Per key tile: S = Q K^T, the online softmax, acc = alpha * acc + P V;
+  // each smem stage is released as soon as its product has landed.
+  const TileMask mask{T_len, causal, window, softcap, scale, scale * kLog2e, wpos0, wpos_hi,
+                      {pos_r[0], pos_r[1]}, col};
+  float alpha[2];
+  mbar_wait(q_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % kNS;
+    const uint32_t ph = (n / kNS) & 1;
+    float sc[kBN / 2];
+    mbar_wait(k_full(s), ph);
+    wgmma_fence();
+    issue_s<D, kBN, kRB>(sc, sQw, sK + s * C::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<kBN / 2>(sc);
+    mbar_arrive(k_empty(s));
+    softmax_any<kBN>(sc, t_lo + n * kBN, mask, m_r, l_r, alpha);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        acc[j * 4 + i * 2] *= alpha[i];
+        acc[j * 4 + i * 2 + 1] *= alpha[i];
+      }
+    uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
+    split_p<kBN>(sc, p_hi, p_lo);
+    // acc += P V: V is MN-major (D contiguous); 64-column chunks LBO apart,
+    // 8-key groups SBO apart, a k16 step is 16 key rows
+    mbar_wait(v_full(s), ph);
+    fence_regs<D / 2>(acc);
+    wgmma_fence();
+    const uint64_t vd = smem_desc(sV + s * C::kKVBytes, kBN * kRB, 8 * kRB, kRB);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      wgmma_rs<D>(acc, p_hi[kk], vd + ((kk * 16 * kRB) >> 4));
+      wgmma_rs<D>(acc, p_lo[kk], vd + ((kk * 16 * kRB) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    mbar_arrive(v_empty(s));
+  }
+
+  // out (B, S, H, D) contiguous: acc[j*4 + i*2 + e] is (row i, column j*8 + col + e)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = w4 * 16 + (lane >> 2) + 8 * i;
+    if (r >= G * P || pos_r[i] >= S) continue;
+    const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
+    __nv_bfloat16* orow =
+        o + ((static_cast<long long>(b) * S + pos_r[i]) * H + kvh * G + r % G) * D + col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(acc[j * 4 + i * 2] * inv, acc[j * 4 + i * 2 + 1] * inv);
+  }
+}
+
+// cuTensorMapEncodeTiled lives in libcuda, which the library does not link:
+// its address comes from the runtime's entry-point query
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over (D, heads, positions, batch) with byte strides
+// (head, position, batch), a box of (chunk, box_heads, box_pos, 1) and a
+// swizzle of swizzle_bytes (the box's row bytes: 32, 64 or 128).
+bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int len, int batch,
+              long long s_head, long long s_pos, long long s_batch, int chunk, int box_heads,
+              int box_pos, int swizzle_bytes) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_head) * 2,
+                                 static_cast<cuuint64_t>(s_pos) * 2,
+                                 static_cast<cuuint64_t>(s_batch) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(chunk), static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_pos), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 route's launch shape as launch_plan gives it.
+struct Plan {
+  int warpgroups, threads, stages, key_tile, chunk, swizzle_bytes, box_heads, box_pos,
+      n_pos_tiles;
+};
+
+template <int D, int BN>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
+           int KV, const long long* st, int causal, int window, float softcap, float scale,
+           const Plan& p, cudaStream_t stream) {
+  using C = Cfg<D, BN>;
+  const int G = H / KV;
+  // the plan must be the one this instance was compiled for, its q box one
+  // kv head's G heads over at most 64 rows, and its blocks must reach S
+  if (p.warpgroups != C::kWG || p.threads != C::kThreads || p.stages != C::kStages ||
+      p.key_tile != C::kBN || p.chunk != C::kChunk || p.swizzle_bytes != C::kRowBytes ||
+      p.box_heads != G || p.box_pos < 1 || p.box_pos * G > C::kRows ||
+      static_cast<long long>(p.n_pos_tiles) * C::kWG * p.box_pos < S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap;
+  if (!make_map(&qmap, q, D, H, S, B, st[2], st[1], st[0], p.chunk, p.box_heads, p.box_pos,
+                p.swizzle_bytes) ||
+      !make_map(&kmap, k, D, KV, T_len, B, st[5], st[4], st[3], p.chunk, 1, p.key_tile,
+                p.swizzle_bytes) ||
+      !make_map(&vmap, v, D, KV, T_len, B, st[8], st[7], st[6], p.chunk, 1, p.key_tile,
+                p.swizzle_bytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<D, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(p.n_pos_tiles, KV, B);
+  flash_tc_kernel<D, BN><<<grid, p.threads, C::kSmem, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, p.box_pos, causal,
+      window, softcap, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // window <= 0: no window; softcap <= 0: no softcap.  Strides in elements:
 // q (b, s, h), k (b, t, kv), v (b, t, kv); out is (B, S, H, D) contiguous.
+// is_bf16 picks the route: bf16 -> tensor cores, launched as the plan from
+// launch_plan says (warpgroups ... n_pos_tiles, see tc::Plan; the TMA boxes
+// are (chunk, box_heads, box_pos) for q and (chunk, 1, key_tile) for k, v),
+// f32 -> CUDA cores (the plan values are not used).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int S, int T_len, int H, int KV, int D,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kst, long long ksh,
                                       long long vsb, long long vst, long long vsh,
                                       int causal, int window, float softcap, float scale,
-                                      int is_bf16, void* stream) {
+                                      int is_bf16, int warpgroups, int threads, int stages,
+                                      int key_tile, int chunk, int swizzle_bytes,
+                                      int box_heads, int box_pos, int n_pos_tiles,
+                                      void* stream) {
   if (B == 0 || S == 0) return 0;
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_t<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, KV, D, st, causal,
-                                           window, softcap, scale, s)
-                 : launch_t<float>(q, k, v, o, B, S, T_len, H, KV, D, st, causal, window,
-                                   softcap, scale, s);
+  if (!is_bf16)
+    return launch_t<float>(q, k, v, o, B, S, T_len, H, KV, D, st, causal, window, softcap,
+                           scale, s);
+  if (T_len == 0)   // no key: every row is 0
+    return static_cast<int>(cudaMemsetAsync(o, 0, sizeof(__nv_bfloat16) * B * S * H * D, s));
+  const tc::Plan plan{warpgroups, threads,   stages,  key_tile,   chunk,
+                      swizzle_bytes, box_heads, box_pos, n_pos_tiles};
+#define TC_ARGS q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, plan, s
+  switch (D * 1000 + key_tile) {
+    case 16064: return tc::launch<16, 64>(TC_ARGS);
+    case 32064: return tc::launch<32, 64>(TC_ARGS);
+    case 64064: return tc::launch<64, 64>(TC_ARGS);
+    case 128064: return tc::launch<128, 64>(TC_ARGS);
+    case 256032: return tc::launch<256, 32>(TC_ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TC_ARGS
 }

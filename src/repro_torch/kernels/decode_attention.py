@@ -4,7 +4,8 @@ Port of the Pallas kernel ``repro/kernels/decode_attention.py::
 decode_attention``.  For a CUDA tensor the wrapper checks its inputs,
 allocates the output and the split scratch, launches the hand-written kernel
 (a split pass and a combine pass) on the current stream and counts one
-launch; for a CPU tensor it runs the plain version
+launch (the split plan is computed here, ``split_plan``, where the CPU
+tests reach it); for a CPU tensor it runs the plain version
 ``ref.decode_attention_ref``.  There is no fallback: a CUDA input either
 launches the kernel or raises.
 """
@@ -21,17 +22,45 @@ from .flash_attention import check_attention, check_vector_rows
 #: launches of the kernel in this process (``ops.reset_launch_counts``)
 LAUNCHES = {"decode_attention": 0}
 
-SPLIT_ALIGN = 64        # slots per shared-memory tile of the kernel
-TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
+TARGET_BLOCKS = 528     # four 4-warp blocks for each of the H100's 132 SMs
+CHUNK_ALIGN = 16        # a row's split is a multiple of this many slots (kChunkAlign)
+MAX_HEADS_PER_BLOCK = 8
+MAX_D = 256             # 32 lanes x 2 pieces of 16 bytes a row in f32 (kMaxD)
 
 
-def split_plan(batch: int, n_kv: int, slots: int):
-    """(n_split, chunk): enough splits of the slot axis that batch * n_kv *
-    n_split blocks fill the card, each a whole number of tiles."""
-    want = max(1, -(-TARGET_BLOCKS // max(batch * n_kv, 1)))
-    chunk = -(-max(slots, 1) // want)
-    chunk = -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN
-    return -(-max(slots, 1) // chunk), chunk
+def heads_per_block(G: int) -> int:
+    """Query heads one block serves (1, 2, 4 or 8): the least power of two
+    that holds G, at most 8; more heads take more blocks."""
+    return next(n for n in (1, 2, 4, 8) if n >= min(G, MAX_HEADS_PER_BLOCK))
+
+
+def split_plan(batch: int, n_kv: int, slots: int, G: int = 1, D: int = 128,
+               cache_bytes: int = 2) -> dict:
+    """The split kernel's launch shape.  ``n_split`` blocks per (row, kv
+    head, head group): enough that the grid holds TARGET_BLOCKS, but no more
+    than CHUNK_ALIGN-slot pieces of the cache.  Each row then cuts its own
+    valid slots, min(kv_len, T), into ``row_chunk`` pieces on the card.  A
+    cache row of D elements is read 16 bytes a lane by ``lanes`` lanes,
+    ``pieces_per_lane`` pieces each."""
+    hpb = heads_per_block(G)
+    groups = batch * n_kv * -(-G // hpb)
+    n_split = max(1, min(-(-TARGET_BLOCKS // max(groups, 1)),
+                         -(-max(slots, 1) // CHUNK_ALIGN)))
+    pieces = D * cache_bytes // 16
+    lanes = min(32, 1 << max(0, (pieces - 1).bit_length()))
+    return {"n_split": n_split, "heads_per_block": hpb, "head_groups": -(-G // hpb),
+            "lanes": lanes, "lanes_log2": lanes.bit_length() - 1,
+            "pieces_per_lane": -(-pieces // lanes),
+            "grid": (n_split, n_kv * -(-G // hpb), batch)}
+
+
+def row_chunk(length: int, n_split: int) -> int:
+    """Slots per split of a row with ``length`` valid slots, as the kernel
+    plans it: ceil(length / n_split) rounded up to CHUNK_ALIGN.  Split s
+    covers [s * chunk, min((s + 1) * chunk, length)); the splits past the
+    row's end read nothing."""
+    c = -(-length // n_split)
+    return max(CHUNK_ALIGN, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,19 +79,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, kv_len, scale=scale, softcap=softcap)
-    if D % 8:
-        raise ValueError(f"head width {D} is not a multiple of 8")
+    if D % 8 or D > MAX_D:
+        raise ValueError(f"head width {D}: the kernel takes multiples of 8 up to {MAX_D}")
     if q.stride(-1) != 1:
         raise ValueError("q's last axis must be contiguous")
     check_vector_rows("k", k)
     check_vector_rows("v", v)
     kv_len = kv_len.to(torch.int32).contiguous()
-    n_split, chunk = split_plan(B, KV, T)
     G = H // KV
+    plan = split_plan(B, KV, T, G, D, k.element_size())
+    n_split = plan["n_split"]
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    m_scr = torch.empty((B, KV, n_split, G), dtype=torch.float32, device=q.device)
-    l_scr = torch.empty_like(m_scr)
-    acc_scr = torch.empty((B, KV, n_split, G, D), dtype=torch.float32, device=q.device)
+    n_part = B * KV * n_split * G          # one scratch buffer: m, l, then acc
+    scr = torch.empty(n_part * (2 + D), dtype=torch.float32, device=q.device)
+    m_scr, l_scr, acc_scr = scr[:n_part], scr[n_part:2 * n_part], scr[2 * n_part:]
     lib = build.load("decode_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -70,7 +100,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(), B, T, H, KV, D,
             q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), n_split, chunk,
+            v.stride(0), v.stride(1), v.stride(2), n_split, plan["heads_per_block"],
+            plan["lanes_log2"], plan["pieces_per_lane"],
             -1.0 if softcap is None else float(softcap), scale,
             int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), stream),
             "decode_attention_launch")

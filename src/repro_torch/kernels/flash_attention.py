@@ -5,11 +5,18 @@ For a CUDA tensor the wrapper checks its inputs, allocates the output,
 launches the hand-written kernel on the current stream and counts the
 launch; for a CPU tensor it runs the plain version ``ref.flash_attention_ref``.
 There is no fallback: a CUDA input either launches the kernel or raises.
+
+The kernel source has two routes, picked by ``launch_plan`` from the dtype:
+bf16 runs on the tensor cores (``wgmma`` fed by TMA), f32 on the CUDA cores
+(a tensor-core product would be TF32).  The bf16 route's launch shape, TMA
+boxes, swizzle and strides are computed here, where the CPU tests reach
+them, and handed to the kernel, which checks them against what it was
+compiled for.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -20,6 +27,78 @@ LAUNCHES = {"flash_attention": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's compiled head widths
 DTYPES = (torch.float32, torch.bfloat16)
+
+# bf16 route: 64 rows per consumer warpgroup; D=256 takes one warpgroup and
+# 32-key tiles (register budget).  The kernel is compiled for these
+# (``csrc/flash_attention.cu::tc::Cfg``) and refuses a plan that differs.
+TC_ROWS = 64
+TC_WARPGROUPS = {16: 2, 32: 2, 64: 2, 128: 2, 256: 1}
+TC_KEY_TILE = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
+TC_STAGES = 2
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
+                D: int) -> dict:
+    """The kernel's route and, on the bf16 route, its launch shape.
+
+    ``route`` is "wgmma" (bf16, tensor cores) or "fma" (f32, CUDA cores).
+    A row is one (position, group head) pair, ``row = position * G + head``.
+    On the wgmma route every value below is handed to the kernel, which
+    builds its TMA tensor maps from them and checks them against what it was
+    compiled for: a block of ``threads`` runs ``warpgroups`` consumer
+    warpgroups of ``q_box[2]`` whole positions each (q_box[2] * G of their 64
+    accumulator rows) and a ring of ``stages`` K/V tiles of ``key_tile``
+    keys; ``q_box`` and ``kv_box`` are the TMA boxes over (D, heads,
+    positions, batch), one ``chunk`` of D columns at a time, swizzled over
+    ``swizzle_bytes``; ``grid`` is (blocks along S, KV, B)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"no kernel route for {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head width {D} not compiled; the kernel takes {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return {"route": "fma"}
+    G = H // KV
+    if G > TC_ROWS:
+        raise ValueError(f"{G} query heads per kv head: the bf16 kernel takes at most "
+                         f"{TC_ROWS}")
+    wg, bn, chunk = TC_WARPGROUPS[D], TC_KEY_TILE[D], min(D, 64)
+    pos = TC_ROWS // G
+    return {"route": "wgmma", "warpgroups": wg, "threads": 128 * (wg + 1),
+            "stages": TC_STAGES, "key_tile": bn, "chunk": chunk,
+            "swizzle_bytes": 2 * chunk, "q_box": (chunk, G, pos, 1),
+            "kv_box": (chunk, 1, bn, 1), "grid": (_cdiv(S, wg * pos), KV, B)}
+
+
+def tc_launch_args(plan: dict) -> Tuple[int, ...]:
+    """The plan as ``flash_attention_launch`` takes it: warpgroups, threads,
+    stages, key_tile, chunk, swizzle bytes, the q box's heads and positions,
+    the blocks along S (zeros on the f32 route, which takes none)."""
+    if plan["route"] != "wgmma":
+        return (0,) * 9
+    return (plan["warpgroups"], plan["threads"], plan["stages"], plan["key_tile"],
+            plan["chunk"], plan["swizzle_bytes"], plan["q_box"][1], plan["q_box"][2],
+            plan["grid"][0])
+
+
+def tma_strides(x: torch.Tensor) -> Tuple[int, ...]:
+    """Element strides of (b, position, head) for a tensor map over x (a
+    (B, L, heads, D) tensor): a stride of an axis of length 1 is never
+    stepped, so it is set to the contiguous one; every byte stride must be a
+    positive multiple of 16 below 2**40 (TMA's rule), or this raises."""
+    B, L, NH, D = x.shape
+    natural = (L * NH * D, NH * D, D)
+    out = []
+    for n, s, nat in zip((B, L, NH), (x.stride(0), x.stride(1), x.stride(2)), natural):
+        s = nat if n == 1 else s
+        if s <= 0 or (s * x.element_size()) % 16 or s * x.element_size() >= 2 ** 40:
+            raise ValueError(f"strides {x.stride()} cannot feed a TMA tensor map "
+                             "(positive multiples of 16 bytes)")
+        out.append(s)
+    return tuple(out)
 
 
 def check_vector_rows(name: str, x: torch.Tensor) -> None:
@@ -71,21 +150,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale)
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head width {D} not compiled; the kernel takes {HEAD_DIMS}")
+    T, KV = k.shape[1], k.shape[2]
+    plan = launch_plan(q.dtype, B, S, T, H, KV, D)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_vector_rows(name, x)
-    T, KV = k.shape[1], k.shape[2]
+    tc = plan["route"] == "wgmma"
+    st = [s for x in (q, k, v) for s in (tma_strides(x) if tc else x.stride()[:3])]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.check(lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, KV, D, q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1), v.stride(2),
-            int(causal), -1 if window is None else int(window),
-            -1.0 if softcap is None else float(softcap), scale,
-            int(q.dtype == torch.bfloat16), stream), "flash_attention_launch")
+            B, S, T, H, KV, D, *st, int(causal), -1 if window is None else int(window),
+            -1.0 if softcap is None else float(softcap), scale, int(tc),
+            *tc_launch_args(plan), stream),
+            "flash_attention_launch")
     LAUNCHES["flash_attention"] += 1
     return out

@@ -274,3 +274,123 @@ def test_attention_wrappers_raise_on_mixed_devices(dev):
     with pytest.raises(ValueError):
         ops.decode_attention(q[:, 0].to(dev), k.to(dev), v.to(dev),
                              torch.ones(1, dtype=torch.int32))
+
+
+# ------------------------------------ K6 bf16 on the tensor cores, K7 split
+def _bf16_close(got, want, tol=1e-3):
+    """bf16 outputs: within ``tol`` plus one bf16 ulp of the plain value
+    (both round an fp32 result summed in another order)."""
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    bad = (g - w).abs() > tol + w.abs() * 2.0 ** -7
+    assert not bad.any(), f"{int(bad.sum())} off, max {(g - w).abs().max().item():.3g}"
+
+
+def _flash_bf16(dev, B, S, T, H, KV, D, **kw):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(B, S, T, H, KV, D, torch.bfloat16))
+    assert fa.launch_plan(q.dtype, B, S, T, H, KV, D)["route"] == "wgmma"
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1 and got.dtype == torch.bfloat16
+    _bf16_close(got, ref.flash_attention_ref(q, k, v, **kw))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_flash_attention_bf16_widths_and_groups(dev, D, G):
+    _flash_bf16(dev, 2, 150, 150, 2 * G, 2, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,G,D", [(333, 2, 128), (1000, 2, 128), (1000, 5, 64),
+                                   (333, 8, 256)])
+def test_flash_attention_bf16_ragged(dev, S, G, D):
+    """S = T a multiple of no tile, and G = 5 (60 of a warpgroup's 64 rows)."""
+    _flash_bf16(dev, 1, S, S, G, 1, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{"window": 64}, {"softcap": 30.0},
+                                {"window": 100, "softcap": 50.0}, {"scale": 0.0625}])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_attention_bf16_window_softcap(dev, kw, D):
+    _flash_bf16(dev, 2, 300, 300, 8, 4, D, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(100, 180), (180, 100), (64, 1)])
+def test_flash_attention_bf16_cross(dev, S, T):
+    _flash_bf16(dev, 2, S, T, 16, 8, 128, causal=False)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_rows_without_a_key(dev):
+    got = _flash_bf16(dev, 1, 48, 16, 4, 4, 32, window=8)
+    assert (got[:, 24:] == 0).all()
+    got = _flash_bf16(dev, 1, 300, 70, 8, 2, 128, window=16)
+    assert (got[:, 86:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_long(dev):
+    """S = T = 4096: 64 laps of each warpgroup's key ring at the last rows, so
+    a slip in the barriers' phase bits shows."""
+    _flash_bf16(dev, 1, 4096, 4096, 16, 8, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 128, 256])
+def test_flash_attention_f32_keeps_the_cuda_core_kernel(dev, D):
+    """f32 takes the CUDA-core route and holds 2e-5 (TF32 products would not)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, 200, 200, 8, 2, D, torch.float32))
+    assert fa.launch_plan(q.dtype, 2, 200, 200, 8, 2, D)["route"] == "fma"
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, window=50)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1
+    _close(got, ref.flash_attention_ref(q, k, v, window=50), 2e-5)
+
+
+def _decode_lens(B, T, KV, G, D):
+    """kv_len at the split boundaries of the plan (chunk - 1, chunk,
+    chunk + 1 of a full row's chunk) and at 0, 1 and T."""
+    from repro_torch.kernels import decode_attention as da
+
+    n = da.split_plan(B, KV, T, G, D, 2)["n_split"]
+    c = da.row_chunk(T, n)
+    return [min(T, x) for x in (c - 1, c, c + 1, 0, 1, T)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("T,D", [(2064, 128), (300, 256), (500, 64)])
+def test_decode_attention_split_boundaries(dev, G, T, D):
+    from repro_torch.kernels import decode_attention as da
+
+    lens = _decode_lens(6, T, 2, G, D)
+    q, k, v = (x.to(dev) for x in _qkv(6, 1, T, 2 * G, 2, D, torch.bfloat16))
+    q = q[:, 0]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n0 = da.LAUNCHES["decode_attention"]
+    got = da.decode_attention(q, k, v, kv_len)
+    assert da.LAUNCHES["decode_attention"] == n0 + 1
+    _bf16_close(got, ref.decode_attention_ref(q, k, v, kv_len))
+    assert (got[3] == 0).all()                     # kv_len = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 2, 8])
+def test_decode_attention_f32_query_bf16_cache_softcap(dev, G):
+    from repro_torch.kernels import decode_attention as da
+
+    T, D = 700, 128
+    q, k, v = _qkv(6, 1, T, 2 * G, 2, D, torch.float32)
+    q, k, v = q[:, 0].to(dev), k.to(torch.bfloat16).to(dev), v.to(torch.bfloat16).to(dev)
+    kv_len = torch.tensor(_decode_lens(6, T, 2, G, D), dtype=torch.int32, device=dev)
+    got = da.decode_attention(q, k, v, kv_len, softcap=30.0)
+    _close(got, ref.decode_attention_ref(q, k, v, kv_len, softcap=30.0), 2e-5)
