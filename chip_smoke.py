@@ -101,6 +101,8 @@ DECODE_LOGIT_REL_TOL = 5e-2
 SOURCES = {
     "reuse_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
                    "src/repro/kernels/sim_topk.py:293"),
+    "reuse_top1_probed": ("src/repro_torch/kernels/csrc/reuse_probed.cu",
+                          "src/repro/kernels/sim_topk.py:293"),
     "gather_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
                     "src/repro/kernels/sim_topk.py:172"),
     "lsh_hash_mix": ("src/repro_torch/kernels/csrc/lsh_hash.cu",
@@ -114,13 +116,16 @@ SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:86"),
 }
-# kernel -> the path that must launch it
-MAIN_PATH = {"reuse_top1": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
+# kernel -> the path that must launch it (the id-matrix route of K1 and K4b
+# are on none: the serve path's count of them, 0, is reported)
+MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
              "sim_top1": "nearest", "flash_attention": "model",
              "decode_attention": "model"}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
+ROUTED_B = 1024                            # a routed batch: the router hashes it
+CROSSOVER_B = (64, 128, 256, 512, 1024)    # B·P/NB 2 .. 32 on the serve store
 K3_Q, K3_C = 32, 16384
 K1_Q, K1_C = 1024, 20480
 STORE_ROWS, PAGE_SIZE = 100_000, 4096
@@ -316,15 +321,41 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
                  lambda x=x, rot=rot: ref.lsh_hash_ref(x, rot))):
             err, ties = check_hash(f"{name} D={d} K={k}", fn(), plain(), margins)
             ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
+            dev_ms = graph_ms(fn, REPS)
             n_out = x_np.shape[0] * p.num_tables * (1 if name == "lsh_hash_mix" else k)
             bms, by = bound((x_np.size + rot_np.size + n_out) * 4,
                             2.0 * x_np.shape[0] * p.num_tables * k * d * d)
-            log(f"  {name} B={x_np.shape[0]} D={d} T=5 K={k}: {ms:.4f} ms "
-                f"(plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), "
+            plan = lsh_hash.launch_plan(x_np.shape[0], d, p.num_tables)
+            log(f"  {name} B={x_np.shape[0]} D={d} T=5 K={k}: {ms:.4f} ms a call with its "
+                f"launch, {dev_ms:.5f} ms device per call (plain {plain_ms:.4f} ms, bound "
+                f"{bms:.5f} ms by {by}; {plan['grid']} blocks of {plan['tile_rows']} rows), "
                 f"differing ids at near-ties {ties}")
-            if d == 64:   # the serving path's shape is the one reported
+            if d == 64:   # the serving path's shape is the row's own
                 out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": bms, "bound_by": by}
+                             "bound_ms": bms, "bound_by": by, "device_ms": dev_ms}
+            else:         # D=128, K=2 beside it
+                out[name].update({"d128_k2_ms": ms, "d128_k2_plain_ms": plain_ms,
+                                  "d128_k2_device_ms": dev_ms, "d128_k2_bound_ms": bms})
+        # the routed batch: device time of each tile against the plan's choice
+        xb = x[:ROUTED_B]
+        got = lsh_hash.lsh_hash_mix(xb, rot, nb)
+        check_hash(f"lsh_hash_mix B={ROUTED_B} D={d} K={k}", got,
+                   ref.lsh_hash_mix_ref(xb, rot, nb), margins[:ROUTED_B])
+        chosen = lsh_hash.launch_plan(ROUTED_B, d, p.num_tables)
+        tiles = {}
+        for ri in (1, 2, 4):
+            plan = lsh_hash.launch_plan(ROUTED_B, d, p.num_tables, row_slots=ri)
+            buf = torch.empty_like(got)
+            fn = lambda xb=xb, rot=rot, buf=buf, plan=plan: lsh_hash.launch(  # noqa: E731
+                "lsh_hash_mix_launch", xb, rot, buf, nb, plan=plan)
+            expect(torch.equal(fn(), got),
+                   f"lsh_hash_mix: tiles of {plan['tile_rows']} rows give other ids")
+            tiles[plan["tile_rows"]] = graph_ms(fn, REPS)
+        log(f"  lsh_hash_mix B={ROUTED_B} D={d} K={k} device ms by tile rows: "
+            + ", ".join(f"{r} rows ({-(-ROUTED_B // r) * p.num_tables} blocks) {t:.5f}"
+                        for r, t in tiles.items())
+            + f"; the plan takes {chosen['tile_rows']}")
+        out["lsh_hash_mix"][f"b{ROUTED_B}_d{d}_k{k}_tile_device_ms"] = tiles
 
     # --- a paged (P, S, 64) store of store_rows rows, planted duplicates
     n, s_ = STORE_ROWS, PAGE_SIZE
@@ -354,13 +385,13 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
     fn = lambda: sim_topk.gather_top1(q3, store, i3)  # noqa: E731
     plain = lambda: ref.gather_top1_ref(q3, store, i3)  # noqa: E731
     err, ties = check_top1("gather_top1", q3_np, rows, fn(), plain())
-    ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
+    ms, plain_ms, dev_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), graph_ms(fn, REPS)
     bms, by = top1_bound(q3_np, ids3)
-    log(f"  gather_top1 Q={q3n} C={c3} store {n}x64: {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
+    log(f"  gather_top1 Q={q3n} C={c3} store {n}x64: {ms:.4f} ms, {dev_ms:.4f} ms device "
+        f"(plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
         f"differing ids at near-ties {ties}")
     out["gather_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by}
+                          "bound_ms": bms, "bound_by": by, "device_ms": dev_ms}
 
     # --- K1: raw table candidates with duplicates, -1 slots and planted ties
     q1n, c1 = K1_Q, K1_C
@@ -385,14 +416,162 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
     exact = np.arange(q1n // 16)
     expect((got[1].cpu().numpy()[exact] == np.minimum(src, partner)[exact]).all(),
            "reuse_top1: a planted exact tie did not go to the lowest id")
-    ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
+    ms, plain_ms, dev_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), graph_ms(fn, REPS)
     bms, by = top1_bound(q1_np, ids1)
-    log(f"  reuse_top1 Q={q1n} C={c1} store {n}x64: {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
+    log(f"  reuse_top1 Q={q1n} C={c1} store {n}x64: {ms:.4f} ms, {dev_ms:.4f} ms device "
+        f"(plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
         f"differing ids at near-ties {ties}")
     out["reuse_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                         "bound_ms": bms, "bound_by": by}
+                         "bound_ms": bms, "bound_by": by, "device_ms": dev_ms}
     return out
+
+
+# ------------------------------------------------------------------ phase 3c
+def probed_bound(q: np.ndarray, buckets: np.ndarray, ids: np.ndarray, cap: int,
+                 num_buckets: int):
+    """Bound of the bucket route on this run's data: q, the buckets, each
+    distinct probed slot row (cap ids) and each distinct store row those
+    rows reference read once, (score, id) written; 2·D FLOP for each
+    distinct valid (query, id) pair."""
+    d, t = q.shape[1], buckets.shape[1]
+    n_slot_rows = np.unique(buckets + np.arange(t)[None, :, None] * num_buckets).size
+    n_rows = np.unique(ids[ids >= 0]).size
+    n_pairs = int(ops.unique_counts(ids).sum())
+    return bound(q.nbytes + buckets.nbytes + n_slot_rows * cap * 4 + n_rows * d * 4
+                 + q.shape[0] * 8, 2.0 * d * n_pairs)
+
+
+def check_routes(name: str, store: ReuseStore, q_np: np.ndarray, planted=None,
+                 plain_reps: int = PLAIN_REPS) -> dict:
+    """K1's bucket route against its id-matrix route on a store's own device
+    mirrors and the probe buckets of ``q_np``: val and idx bit-equal, ids
+    equal to the plain version's but at float64 near-ties, ``planted`` (query
+    rows, lower id, higher id of two equal store rows) won by the lower id
+    wherever both are candidates.  Returns both routes' times and the bound."""
+    store.sync_device(ensure=True)
+    store._sync_tables(ensure=True)
+    pages, slots = store._emb_dev, store._slots_dev
+    qd = torch.from_numpy(q_np).to(pages.device)
+    buckets = store.lsh.probe_batch(qd).contiguous()
+    ids = ref.probed_candidate_ids(slots, buckets).contiguous()
+    fn = lambda: sim_topk.reuse_top1_probed(qd, pages, slots, buckets)  # noqa: E731
+    id_route = lambda: sim_topk.reuse_top1(qd, pages, ids)  # noqa: E731
+    plain = lambda: ref.reuse_top1_probed_ref(qd, pages, slots, buckets)  # noqa: E731
+    got, other = fn(), id_route()
+    expect(torch.equal(got[0], other[0]) and torch.equal(got[1], other[1]),
+           f"{name}: the bucket route and the id-matrix route differ in "
+           f"{int((got[1] != other[1]).sum())} ids, "
+           f"{int((got[0] != other[0]).sum())} scores")
+    rows = pages.reshape(-1, pages.shape[-1]).cpu().numpy()
+    err, ties = check_top1(name, q_np, rows, got, plain())
+    ids_np, idx = ids.cpu().numpy(), got[1].cpu().numpy()
+    n_planted = 0
+    if planted is not None:
+        for r, lo, hi in zip(*planted):
+            if lo in ids_np[r] and hi in ids_np[r]:
+                expect(idx[r] == lo, f"{name}: planted tie of rows {lo}, {hi} went to {idx[r]}")
+                n_planted += 1
+        expect(n_planted > 0, f"{name}: no planted tie had both rows among its candidates")
+    bms, by = probed_bound(q_np, buckets.cpu().numpy(), ids_np, slots.shape[1],
+                           store.params.num_buckets)
+    t = {"ms": median_ms(fn, REPS), "device_ms": graph_ms(fn, REPS),
+         "id_route_ms": median_ms(id_route, REPS), "id_route_device_ms": graph_ms(id_route, REPS),
+         "plain_ms": median_ms(plain, plain_reps), "bound_ms": bms, "bound_by": by,
+         "max_abs_err": err}
+    inv = graph_ms(lambda: sim_topk.probe_inversion(buckets, store.params.num_buckets), REPS)
+    offsets, _ = sim_topk.probe_inversion(buckets, store.params.num_buckets)
+    n_prob = np.diff(offsets.cpu().numpy())
+    log(f"  {name}: B={q_np.shape[0]} T={buckets.shape[1]} P={buckets.shape[2]} "
+        f"cap {slots.shape[1]}, {int((n_prob > 0).sum())} probed slot rows of "
+        f"{n_prob.size} (probers a row: mean {n_prob[n_prob > 0].mean():.1f}, max "
+        f"{n_prob.max()}): bucket route {t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms "
+        f"device (the inversion {inv:.4f} ms of it); id-matrix route {t['id_route_ms']:.4f} "
+        f"ms, {t['id_route_device_ms']:.4f} ms device; plain {t['plain_ms']:.4f} ms; bound "
+        f"{bms:.5f} ms by {by}; routes bit-equal, max err {err:.3g}, differing ids vs "
+        f"plain at near-ties {ties}, planted ties won by the lower id {n_planted}")
+    return t
+
+
+def phase_probed(dev: torch.device, seed: int = 3) -> dict:
+    """K1's bucket route on the serve configuration's store at capacity (100k
+    rows, planted equal rows), 1024 near-duplicate queries; then one fused
+    call that must read nothing back from the card."""
+    rng = np.random.default_rng(seed)
+    p = LSHParams(dim=64, num_tables=5, num_probes=8)
+    n = SERVE_CAPACITY
+    store = ReuseStore(p, capacity=n, device=dev)
+    x = _unit(rng, n, 64)
+    dup_src = rng.choice(n // 2, 64, replace=False)
+    x[n // 2 + dup_src] = x[dup_src]
+    ids = []
+    for lo in range(0, n, 8192):
+        ids += store.insert_batch(x[lo:lo + 8192], list(range(lo, min(lo + 8192, n))))
+    ids = np.asarray(ids)
+    src = rng.integers(0, n, K1_Q)
+    q = normalize(x[src] + 0.05 * rng.standard_normal((K1_Q, 64)).astype(np.float32) / 8.0)
+    q[:dup_src.size] = x[dup_src]                         # exact ties of two rows
+    a, b = ids[dup_src], ids[n // 2 + dup_src]
+    planted = (np.arange(dup_src.size), np.minimum(a, b), np.maximum(a, b))
+    out = check_routes(f"reuse_top1_probed serve store ({len(store)} rows, bucket_cap "
+                       f"{store.bucket_cap})", store, q, planted)
+    # the fused call reads no device value on the host: a synchronising call
+    # raises under this debug mode
+    qd = torch.from_numpy(q).to(dev)
+    for need in (True, False):
+        ops.reuse_query_top1(qd, store.lsh, store._slots_dev, store._emb_dev, need_counts=need)
+    sync()
+    n0, f0 = ops.launch_counts()["reuse_top1_probed"], ops.FUSED_DISPATCH_COUNT
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for need in (True, False):
+            ops.reuse_query_top1(qd, store.lsh, store._slots_dev, store._emb_dev,
+                                 need_counts=need)
+    except RuntimeError as e:
+        raise SmokeFailure(f"the fused query synchronised with the card: {e}") from e
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    expect(ops.launch_counts()["reuse_top1_probed"] - n0 == ops.FUSED_DISPATCH_COUNT - f0 == 2,
+           "the fused query did not launch the bucket route once a call")
+    # the count epilogue on the card against the host count of the id matrix
+    _, _, counts = ops.reuse_query_top1(qd, store.lsh, store._slots_dev, store._emb_dev)
+    buckets = store.lsh.probe_batch(qd).contiguous()
+    want = ops.unique_counts(ref.probed_candidate_ids(store._slots_dev, buckets).cpu().numpy())
+    expect(np.array_equal(counts.cpu().numpy(), want),
+           "the fused query's candidate counts differ from the host count")
+    log(f"  fused reuse_query_top1 under torch.cuda.set_sync_debug_mode('error'): no host "
+        f"read, one bucket-route launch a call; candidate counts equal to the host count "
+        f"(mean {want.mean():.1f})")
+    out["crossover_device_ms"] = probed_crossover(store, qd)
+    return out
+
+
+def probed_crossover(store: ReuseStore, qd: torch.Tensor) -> dict:
+    """Device time of the dense and the sparse blocks on one store at the
+    batches of CROSSOVER_B, both bit-equal; the plan's threshold
+    (``sim_topk.PROBED_DENSE_MIN``) sits where they cross."""
+    pages, slots = store._emb_dev, store._slots_dev
+    nb, p = store.params.num_buckets, store.params.num_probes
+    res = {}
+    for b in CROSSOVER_B:
+        q = qd[:b].contiguous()
+        buckets = store.lsh.probe_batch(q).contiguous()
+        dense = lambda q=q, bk=buckets: sim_topk.launch_probed(  # noqa: E731
+            q, pages, slots, bk, sim_topk.dense_plan(q.shape[1]))
+        sparse = lambda q=q, bk=buckets: sim_topk.launch_probed(  # noqa: E731
+            q, pages, slots, bk, sim_topk.SPARSE_PLAN)
+        a, c = dense(), sparse()
+        expect(torch.equal(a[0], c[0]) and torch.equal(a[1], c[1]),
+               f"dense and sparse blocks differ at B={b}")
+        offsets, _ = sim_topk.probe_inversion(buckets, nb)
+        n_prob = np.diff(offsets.cpu().numpy())
+        plan = sim_topk.probed_plan(b, p, nb, q.shape[1])
+        res[b * p // nb] = {"dense": graph_ms(dense, REPS), "sparse": graph_ms(sparse, REPS)}
+        log(f"  bucket route B={b} (B·P/NB {b * p / nb:g}, probers a probed slot row: mean "
+            f"{n_prob[n_prob > 0].mean():.1f}): dense {res[b * p // nb]['dense']:.5f} ms, "
+            f"sparse {res[b * p // nb]['sparse']:.5f} ms device; the plan takes "
+            f"{'sparse' if plan['sparse'] else 'dense'}")
+    return res
 
 
 # ------------------------------------------------------------------ phase 4
@@ -486,6 +665,7 @@ def phase_serve(dev: torch.device, seed: int = 1) -> dict:
         return min(len(r.stores["svc"]) if "svc" in r.stores else 0 for r in replicas)
 
     ops.reset_launch_counts()
+    fused_calls0 = ops.FUSED_DISPATCH_COUNT
     t0, fill_batches = time.perf_counter(), 0
     while filled() < cap:
         expect(fill_batches < 4 * cap // bsz + 8, "stores never reached capacity")
@@ -531,6 +711,9 @@ def phase_serve(dev: torch.device, seed: int = 1) -> dict:
                     fresh_exec += r.reuse is None
         log(f"  serve batches of {size}: {', '.join(f'{t * 1e3:.3f}' for t in times)} ms")
     counts = ops.launch_counts()   # the serving path's launches
+    expect(counts["reuse_top1_probed"] == ops.FUSED_DISPATCH_COUNT - fused_calls0 > 0,
+           f"serve: {counts['reuse_top1_probed']} bucket-route launches for "
+           f"{ops.FUSED_DISPATCH_COUNT - fused_calls0} fused calls")
     for size in (bsz, SMALL_BATCH):   # fresh traffic for every profiled call
         profile_call(f"serve batch of {size}", lambda size=size: _route_and_serve(
             router, replicas, requests(mixed(size)[0])))
@@ -560,28 +743,35 @@ def phase_serve(dev: torch.device, seed: int = 1) -> dict:
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_store(dev: torch.device, seed: int = 2) -> None:
+def phase_store(dev: torch.device, seed: int = 2) -> dict:
     """The fused-query acceptance configuration (benchmarks/fused_query.py):
-    hyperplane LSH, 16384 buckets, a 250k-entry store, query batch 4096."""
+    hyperplane LSH, 16384 buckets, a 250k-entry store, query batch 4096;
+    returns K1's two routes on its inputs (``check_routes``)."""
     rng = np.random.default_rng(seed)
     n, bsz = ACC_STORE, ACC_BATCH
     p = LSHParams(dim=64, num_tables=5, num_probes=8, num_buckets=16384,
                   family="hyperplane", seed=11)
     store = ReuseStore(p, capacity=n + 1, device=dev)
     x = _unit(rng, n, 64)
+    dup = np.random.default_rng(seed + 1).choice(n // 2, 64, replace=False)
+    x[n // 2 + dup] = x[dup]                  # equal rows: exact ties for K1's routes
     t0 = time.perf_counter()
+    ids = []
     for lo in range(0, n, 8192):
-        store.insert_batch(x[lo:lo + 8192], list(range(lo, min(lo + 8192, n))))
+        ids += store.insert_batch(x[lo:lo + 8192], list(range(lo, min(lo + 8192, n))))
     t_fill = time.perf_counter() - t0
     q = normalize(x[:bsz] + 0.05 * rng.standard_normal((bsz, 64)).astype(np.float32) / 8.0)
     store.query_batch(q, 0.9)           # first call: both mirrors go resident
     store.sync_device()
     ops.reset_launch_counts()
+    fused_calls0 = ops.FUSED_DISPATCH_COUNT
     t0 = time.perf_counter()
     fused = store.query_batch(q, 0.9)
     sync()
     t_fused = time.perf_counter() - t0
     expect(store.last_query_fused, "store: fused path not taken")
+    expect(ops.launch_counts()["reuse_top1_probed"] == ops.FUSED_DISPATCH_COUNT - fused_calls0
+           == 1, "store: the fused call did not launch the bucket route once")
     expect(store.last_sync_pages == 0 and store.last_table_sync_pages == 0,
            f"store: timed call uploaded {store.last_sync_pages} pages, "
            f"{store.last_table_sync_pages} table slabs")
@@ -598,6 +788,12 @@ def phase_store(dev: torch.device, seed: int = 2) -> None:
         f"{store.bucket_cap}: fused query_batch({bsz}) {t_fused * 1e3:.3f} ms, "
         f"staged {t_staged * 1e3:.3f} ms, hits {hits}/{bsz}, launches {counts}, "
         f"sync pages 0/0, differing ids at near-ties {ties}")
+    q_tie = q.copy()
+    q_tie[:dup.size] = x[dup]
+    a, b = np.asarray(ids)[dup], np.asarray(ids)[n // 2 + dup]
+    t = check_routes("reuse_top1_probed store configuration", store, q_tie,
+                     (np.arange(dup.size), np.minimum(a, b), np.maximum(a, b)), plain_reps=2)
+    return {f"store_{k}": v for k, v in t.items() if k != "bound_by"}
 
 
 # ------------------------------------------------------------------ phase 3b
@@ -876,6 +1072,7 @@ def phase_model_serve(dev: torch.device, model, seed: int = 8) -> dict:
         return reqs, _route_and_serve(router, replicas, reqs)
 
     ops.reset_launch_counts()
+    fused_calls0 = ops.FUSED_DISPATCH_COUNT
     x0 = _unit(rng, MS_BATCH, 64)
     reqs, res = send(x0)
     expect(all(r.reuse is None for r in res), "a first fresh request was reused")
@@ -920,6 +1117,9 @@ def phase_model_serve(dev: torch.device, model, seed: int = 8) -> dict:
             f"{sum(n for n, _ in calls)} requests) and reuse decision "
             f"{(wall - t_exec) * 1e3:.3f} ms")
     counts = ops.launch_counts()
+    expect(counts["reuse_top1_probed"] == ops.FUSED_DISPATCH_COUNT - fused_calls0 > 0,
+           f"model-serve: {counts['reuse_top1_probed']} bucket-route launches for "
+           f"{ops.FUSED_DISPATCH_COUNT - fused_calls0} fused calls")
     log(f"  model-serve: near-duplicates reused {near_reused}/{near_total} (cs {kinds['cs']}, "
         f"en {kinds['en']}; {right} with the source's token), fresh executed "
         f"{fresh_exec}/{fresh_total}; launches {counts}")
@@ -968,14 +1168,19 @@ def main() -> int:
                     log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} "
                         f"bytes static smem, spill stores {r['spill_stores']} bytes, "
                         f"spill loads {r['spill_loads']} bytes")
+        for name in ("reuse_probed", "lsh_hash"):
+            log(f"  ptxas {name}: " + "; ".join(
+                f"{r['entry'].split('_cu_')[-1][8:]} {r['registers']} registers, spills "
+                f"{r['spill_stores']}/{r['spill_loads']} bytes" for r in build.ptxas_report(name)))
     with timed("kernels"):
         kern = phase_kernels(dev)
+        kern["reuse_top1_probed"] = phase_probed(dev)
         kern.update(phase_attention_kernels(dev))
     paths = {}
     with timed("serve"):
         paths["serve"] = phase_serve(dev)
     with timed("store"):
-        phase_store(dev)
+        kern["reuse_top1_probed"].update(phase_store(dev))
     with timed("nearest"):
         paths["nearest"] = phase_nearest(dev)
     with timed("model"):

@@ -127,6 +127,13 @@ def cp_vertex_scores(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
     return torch.cat([proj, -proj], dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def _int32_const(values: Tuple[int, ...], device: str) -> torch.Tensor:
+    """Small int32 constants on a device, copied there once: a host-to-device
+    copy waits for the device, and the fused query reads nothing back."""
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
 def multiprobe_buckets(
     x: torch.Tensor,
     proj: torch.Tensor,
@@ -153,8 +160,8 @@ def multiprobe_buckets(
         base_ids = top_i[..., 0]  # (B,T,K)
         radix = 2 * dim
         base_bucket = mix_vertex_ids(base_ids, radix, num_buckets)  # (B,T)
-        w = torch.tensor([pow(radix, k - 1 - i, num_buckets) for i in range(k)],
-                         dtype=torch.int32, device=dev)
+        w = _int32_const(tuple(pow(radix, k - 1 - i, num_buckets) for i in range(k)),
+                         str(dev))
         alt_loss = top_v[..., :1] - top_v  # (B,T,K,m)
         delta = (top_i - base_ids[..., None]) % num_buckets
         cand = (base_bucket[..., None, None] + delta * w[:, None]) % num_buckets
@@ -174,8 +181,7 @@ def multiprobe_buckets(
     bits = (margins > 0).to(torch.int32)
     base_bucket = mix_vertex_ids(bits, 2, num_buckets)
     nbits = margins.shape[-1]
-    w = torch.tensor([1 << (nbits - 1 - i) for i in range(nbits)],
-                     dtype=torch.int32, device=dev)
+    w = _int32_const(tuple(1 << (nbits - 1 - i) for i in range(nbits)), str(dev))
     flipped = torch.bitwise_xor(base_bucket[..., None], w) % num_buckets
     loss = margins.abs()
     nprob = min(num_probes - 1, nbits)

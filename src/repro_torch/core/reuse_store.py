@@ -34,9 +34,9 @@ One-call query path: ``_slots`` is mirrored on the device as a flat
 ``(T * num_buckets, bucket_cap)`` int32 tensor, dirtied in fixed-size row
 slabs by every table mutation and synced O(dirty slabs) by ``sync_device``.
 With both mirrors resident, ``query_batch`` routes large cosine batches
-through ``kernels.ops.reuse_query_top1``: probe math, slot-table gather,
-masked cosine top-1 (one ``reuse_top1`` launch) and candidate counting on
-the device, with no host-side candidate matrix.  ``_fill`` is not mirrored:
+through ``kernels.ops.reuse_query_top1``: probe math, masked cosine top-1
+over the probed slot rows (one ``reuse_top1_probed`` launch) and candidate
+counting on the device, with no host-side candidate matrix.  ``_fill`` is not mirrored:
 every slot at position >= fill holds -1, so validity is readable from the
 slot values alone.
 

@@ -21,7 +21,10 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
+SMEM_LIMIT = 232448     # dynamic shared memory a block may use on an H100
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
@@ -34,9 +37,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "gather_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "sim_top1_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "reuse_probed": {
+        "reuse_probed_launch": [*[_P] * 8, *[_I] * 8, _P],
+    },
     "lsh_hash": {
-        "lsh_hash_mix_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "lsh_hash_launch": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "lsh_hash_mix_launch": [_P, _P, _P, *[_I] * 8, _P],
+        "lsh_hash_launch": [_P, _P, _P, *[_I] * 7, _P],
     },
     "flash_attention": {
         "flash_attention_launch": [_P, _P, _P, _P, *[_I] * 6, *[_L] * 9, _I, _I, _F, _F,
@@ -153,3 +159,17 @@ def check(err: int, fn: str) -> None:
     """Raise if a launch function returned a non-zero ``cudaGetLastError``."""
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
+
+
+def launch(name: str, fn: str, device, *args) -> None:
+    """Call launch function ``fn`` of library ``name`` with ``args`` and the
+    current stream of ``device`` (a CUDA ``torch.device``), on that device;
+    raise on a non-zero error.  The device is switched only when it is not
+    the current one."""
+    lib_fn = getattr(load(name), fn)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index == torch.cuda.current_device():
+        check(lib_fn(*args, torch.cuda.current_stream(index).cuda_stream), fn)
+        return
+    with torch.cuda.device(index):
+        check(lib_fn(*args, torch.cuda.current_stream(index).cuda_stream), fn)

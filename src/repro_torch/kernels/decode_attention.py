@@ -93,17 +93,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_part = B * KV * n_split * G          # one scratch buffer: m, l, then acc
     scr = torch.empty(n_part * (2 + D), dtype=torch.float32, device=q.device)
     m_scr, l_scr, acc_scr = scr[:n_part], scr[n_part:2 * n_part], scr[2 * n_part:]
-    lib = build.load("decode_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(lib.decode_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(), B, T, H, KV, D,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2), n_split, plan["heads_per_block"],
-            plan["lanes_log2"], plan["pieces_per_lane"],
-            -1.0 if softcap is None else float(softcap), scale,
-            int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16), stream),
-            "decode_attention_launch")
+    build.launch(
+        "decode_attention", "decode_attention_launch", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(), B, T, H, KV, D,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2), n_split, plan["heads_per_block"],
+        plan["lanes_log2"], plan["pieces_per_lane"],
+        -1.0 if softcap is None else float(softcap), scale,
+        int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
     LAUNCHES["decode_attention"] += 1
     return out

@@ -157,14 +157,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tc = plan["route"] == "wgmma"
     st = [s for x in (q, k, v) for s in (tma_strides(x) if tc else x.stride()[:3])]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lib = build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, KV, D, *st, int(causal), -1 if window is None else int(window),
-            -1.0 if softcap is None else float(softcap), scale, int(tc),
-            *tc_launch_args(plan), stream),
-            "flash_attention_launch")
+    build.launch(
+        "flash_attention", "flash_attention_launch", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, S, T, H, KV, D, *st, int(causal), -1 if window is None else int(window),
+        -1.0 if softcap is None else float(softcap), scale, int(tc), *tc_launch_args(plan))
     LAUNCHES["flash_attention"] += 1
     return out

@@ -1,21 +1,21 @@
 """One-call fused reuse query (port of ``repro/kernels/fused_query.py``).
 
 The batched reuse lookup over the device-resident store, with exactly one
-kernel launch (``reuse_top1``) per call:
+kernel launch (``reuse_top1_probed``) per call:
 
     embs (B, D) ──┐
     proj          ├─> multiprobe_buckets ─> (B, T, P) probe buckets
-    slots (T*NB,cap) ─> table gather ─────> (B, T*P*cap) raw candidate ids
-    pages (P, S, D) ──> reuse_top1 kernel ─> (best (B,), idx (B,))
-                        sort + run-length ─> exact unique-candidate counts
+    slots (T*NB,cap) ─┐
+    pages (P, S, D) ──┴─> reuse_top1_probed ─> (best (B,), idx (B,))
+                  table gather + sort + run-length ─> exact unique-candidate counts
 
-The probe math and the table gather are plain torch around the kernel, as
-the JAX package leaves them to XLA around its Pallas kernel.  Candidate ids
-go to the kernel raw (unsorted, duplicated, -1 for empty slots); its
-lexicographic (max similarity, min id) best reproduces the staged path's
-argmax over sorted unique candidates, and the count epilogue its
-``candidate_counts`` statistics.  The candidate width T*P*cap is padded to a
-multiple of 64.
+The probe math is plain torch around the kernel, as the JAX package leaves it
+to XLA around its Pallas kernel.  The JAX pipeline gathers a (B, T*P*cap)
+raw candidate-id matrix ``slots[t, buckets]`` and hands it to its top-1
+kernel; here the kernel scores the probed slot rows bucket by bucket and
+never needs that matrix, whose lexicographic (max similarity, min id) best
+it reproduces.  The matrix is built only for the count epilogue, which
+reproduces the staged path's ``candidate_counts`` statistics.
 
 The JAX module's ``FUSED_TRACE_COUNT`` (jit retraces) has no counterpart:
 PyTorch runs eagerly and nothing is traced.  Capturing the call in a CUDA
@@ -26,13 +26,25 @@ from __future__ import annotations
 import torch
 
 from ..core.lsh import multiprobe_buckets
-from .sim_topk import reuse_top1
+from .ref import probed_candidate_ids
+from .sim_topk import reuse_top1_probed
+
+
+def candidate_counts(ids: torch.Tensor) -> torch.Tensor:
+    """(B,) int32 distinct valid ids of each row of a raw (B, W) id matrix,
+    on the matrix's device: -1 slots sort to the front, and a run-length
+    count of the ascending tail matches the staged path's sorted-unique
+    statistics."""
+    srt = torch.sort(ids, dim=1).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
+    return ((srt >= 0) & first).sum(dim=1).to(torch.int32)
 
 
 def fused_query(embs: torch.Tensor, proj: torch.Tensor, slots_flat: torch.Tensor,
                 pages: torch.Tensor, *, family: str, num_probes: int,
                 gather_mode: str = "take", with_counts: bool = True):
-    """hash -> probe -> gather -> top-1 with one kernel launch.
+    """hash -> probe -> bucket-major top-1 with one kernel launch.
 
     embs: (B, D) unit rows; proj: (T, K, D, D) rotations (cross-polytope) or
     (T, bits, D) planes (hyperplane); slots_flat: (T * num_buckets,
@@ -40,32 +52,18 @@ def fused_query(embs: torch.Tensor, proj: torch.Tensor, slots_flat: torch.Tensor
     D) embedding mirror, all on one device.
 
     Returns (best (B,) f32, idx (B,) int32 row ids with -1 = no candidate,
-    extra): extra is the (B,) int32 exact unique-candidate counts when
-    ``with_counts``, else the raw padded (B, Wp) candidate-id matrix.
+    counts): the (B,) int32 exact unique-candidate counts when
+    ``with_counts``, else None.
     """
-    b, d = embs.shape
+    d = embs.shape[1]
     t = proj.shape[0]
-    cap = slots_flat.shape[1]
     nb = slots_flat.shape[0] // t
     k = proj.shape[1] if family == "cross_polytope" else 1
     buckets, _ = multiprobe_buckets(
         embs, proj, family=family, dim=d, rotations_per_table=k,
         num_probes=num_probes, num_buckets=nb)          # (B, T, P)
-    slots = slots_flat.view(t, nb, cap)
-    t_idx = torch.arange(t, device=embs.device)[None, :, None]
-    ids = slots[t_idx, buckets.long()].reshape(b, -1)   # (B, T*P*cap)
-    w = ids.shape[1]
-    wp = max(-(-w // 64) * 64, 64)
-    if wp != w:
-        ids = torch.cat([ids, ids.new_full((b, wp - w), -1)], dim=1)
-    ids = ids.contiguous()
-    val, idx = reuse_top1(embs, pages, ids, gather_mode=gather_mode)
+    val, idx = reuse_top1_probed(embs, pages, slots_flat, buckets.contiguous(),
+                                 gather_mode=gather_mode)
     if not with_counts:
-        return val, idx, ids
-    # exact unique-candidate counts: -1 pads sort to the front, a run-length
-    # count of the ascending tail matches the staged path's sorted-unique stats
-    srt = torch.sort(ids, dim=1).values
-    first = torch.ones_like(srt, dtype=torch.bool)
-    first[:, 1:] = srt[:, 1:] != srt[:, :-1]
-    counts = ((srt >= 0) & first).sum(dim=1).to(torch.int32)
-    return val, idx, counts
+        return val, idx, None
+    return val, idx, candidate_counts(probed_candidate_ids(slots_flat, buckets))

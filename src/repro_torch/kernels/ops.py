@@ -19,7 +19,7 @@ from . import lsh_hash as _lsh
 from . import sim_topk as _topk
 from .fused_query import fused_query as _fused_query
 
-# Calls of the fused query pipeline (one ``reuse_top1`` launch each).
+# Calls of the fused query pipeline (one ``reuse_top1_probed`` launch each).
 FUSED_DISPATCH_COUNT = 0
 
 
@@ -81,8 +81,7 @@ def gathered_top1(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor):
 # --------------------------------------------------------- fused reuse query
 def unique_counts(cand: np.ndarray) -> np.ndarray:
     """Exact unique-candidate counts from a raw (B, W) candidate-id matrix,
-    on the host: the CPU twin of the fused pipeline's device count epilogue
-    (numpy sorts faster than torch on the CPU)."""
+    on the host: the numpy twin of the fused pipeline's count epilogue."""
     srt = np.sort(cand, axis=1)
     first = np.concatenate(
         [np.ones((srt.shape[0], 1), bool), srt[:, 1:] != srt[:, :-1]], axis=1)
@@ -102,29 +101,21 @@ def reuse_query_top1(embs: torch.Tensor, lsh, slots_dev: torch.Tensor,
     Returns (best (B,) f32, idx (B,) int32, counts) on the store's device:
     idx is a row id (-1 = no candidate, lowest id wins similarity ties);
     counts are the exact unique-candidate statistics, or None when the caller
-    passes ``need_counts=False`` (peek reads record no statistics).  On CUDA
-    the counts come from the in-call sort epilogue; on the CPU they are
-    counted on the host (``unique_counts``) from the raw candidate matrix.
-    B is padded to a multiple of 8.
+    passes ``need_counts=False`` (peek reads record no statistics); they come
+    from the in-call sort epilogue on every device.  B is padded to a
+    multiple of 8.
     """
     global FUSED_DISPATCH_COUNT
     p = lsh.params
     proj = lsh.rotations if p.family == "cross_polytope" else lsh.planes
     x = torch.atleast_2d(embs.to(pages_dev.device, torch.float32))
     nq = x.shape[0]
-    on_cuda = pages_dev.device.type == "cuda"
-    val, idx, extra = _fused_query(
+    val, idx, counts = _fused_query(
         _pad_rows(x, 8).contiguous(), proj, slots_dev, pages_dev,
         family=p.family, num_probes=p.num_probes, gather_mode=gather_mode,
-        with_counts=on_cuda and need_counts)
+        with_counts=need_counts)
     FUSED_DISPATCH_COUNT += 1
-    if not need_counts:
-        counts: Optional[torch.Tensor] = None
-    elif on_cuda:
-        counts = extra[:nq]
-    else:
-        counts = torch.from_numpy(unique_counts(extra[:nq].numpy()))
-    return val[:nq], idx[:nq], counts
+    return val[:nq], idx[:nq], None if counts is None else counts[:nq]
 
 
 # ------------------------------------------------------------------ attention

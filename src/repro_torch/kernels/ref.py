@@ -107,6 +107,25 @@ def reuse_top1_ref(q: torch.Tensor, store: torch.Tensor,
     return best, idx
 
 
+def probed_candidate_ids(slots_flat: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
+    """The fused query's table gather: (B, T*P*cap) int32 raw candidate ids
+    ``slots[t, buckets[b, t, p]]``, flattened in (t, p, slot) order.
+
+    slots_flat: (T * num_buckets, cap) int32 slot tables; buckets: (B, T, P)
+    int32 probe buckets from ``multiprobe_buckets``."""
+    b, t, _ = buckets.shape
+    slots = slots_flat.view(t, slots_flat.shape[0] // t, slots_flat.shape[1])
+    t_idx = torch.arange(t, device=buckets.device)[None, :, None]
+    return slots[t_idx, buckets.long()].reshape(b, -1)
+
+
+def reuse_top1_probed_ref(q: torch.Tensor, pages: torch.Tensor, slots_flat: torch.Tensor,
+                          buckets: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``reuse_top1_ref`` over the probed slot rows: the table gather, then
+    the lexicographic (max cosine, min row id) top-1."""
+    return reuse_top1_ref(q, pages, probed_candidate_ids(slots_flat, buckets))
+
+
 def sim_top1_ref(q: torch.Tensor, store: torch.Tensor, n_valid: Optional[int] = None,
                  *, chunk: int = 65536) -> Tuple[torch.Tensor, torch.Tensor]:
     """Brute-force cosine top-1: q (Q, D) x store (N, D), f32 or bf16.

@@ -1,7 +1,10 @@
 """Wrappers of the masked cosine top-1 kernels (``csrc/sim_topk.cu``).
 
 Port of the Pallas kernels ``repro/kernels/sim_topk.py::reuse_top1``,
-``::gather_top1`` and ``::sim_top1``.  For a CUDA tensor each wrapper checks
+``::gather_top1`` and ``::sim_top1``.  ``reuse_top1`` has two routes: an
+arbitrary (Q, C) id matrix (``csrc/sim_topk.cu``), and the bucket-major
+``reuse_top1_probed`` over the probed slot tables (``csrc/reuse_probed.cu``)
+that the fused query calls.  For a CUDA tensor each wrapper checks
 its inputs, allocates its outputs (and scratch), launches the hand-written
 kernel on the current stream and counts the launch; for a CPU tensor it runs
 the plain version in ``ref.py``.  There is no fallback: a CUDA input either
@@ -16,7 +19,7 @@ import torch
 from . import build, ref
 
 #: launches of each kernel in this process (``ops.reset_launch_counts``)
-LAUNCHES = {"reuse_top1": 0, "gather_top1": 0, "sim_top1": 0}
+LAUNCHES = {"reuse_top1": 0, "reuse_top1_probed": 0, "gather_top1": 0, "sim_top1": 0}
 
 GATHER_MODES = ("take", "onehot")
 
@@ -47,12 +50,8 @@ def _launch(fn: str, q: torch.Tensor, store: torch.Tensor,
         else (store.shape[0], 1)
     val = torch.empty(n_q, dtype=torch.float32, device=q.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
-    lib = build.load("sim_topk")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(getattr(lib, fn)(
-            q.data_ptr(), cand_ids.data_ptr(), store.data_ptr(), val.data_ptr(),
-            idx.data_ptr(), n_q, n_c, q.shape[1], pages, page_size, stream), fn)
+    build.launch("sim_topk", fn, q.device, q.data_ptr(), cand_ids.data_ptr(), store.data_ptr(),
+                 val.data_ptr(), idx.data_ptr(), n_q, n_c, q.shape[1], pages, page_size)
     return val, idx
 
 
@@ -78,6 +77,120 @@ def reuse_top1(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor,
     out = _launch("reuse_top1_launch", q, store, cand_ids)
     LAUNCHES["reuse_top1"] += 1
     return out
+
+
+# the bucket-major kernel: 64 slots a block; dense blocks (64 x 64 tiles of
+# queries x store rows) from PROBED_DENSE_MIN expected probers a slot row up,
+# sparse ones (a thread a slot, its row in registers) below: the two cross
+# between 4 and 8 on the serve store (chip_smoke.py's bucket-route sweep)
+PROBED_ROWS = 64
+PROBED_DENSE_MIN = 8
+#: the sparse blocks' plan: 64 threads, no dynamic shared memory
+SPARSE_PLAN = {"sparse": True, "threads": PROBED_ROWS, "smem_bytes": 0}
+
+
+def dense_plan(d: int) -> dict:
+    """The dense blocks' plan for rows of width D: 256 threads, 64 store rows
+    and two stages of 64 query rows in shared memory (rows of round4(D) + 4
+    floats).  Raises where they do not fit."""
+    smem = 3 * PROBED_ROWS * (-(-d // 4) * 4 + 4) * 4
+    if smem + 4 * PROBED_ROWS > build.SMEM_LIMIT:     # + the block's static slot ids
+        raise ValueError(f"D={d} is too wide for the bucket-major kernel's shared memory")
+    return {"sparse": False, "threads": 256, "smem_bytes": smem}
+
+
+def probed_plan(b: int, p: int, num_buckets: int, d: int, aligned: bool = True) -> dict:
+    """Blocks of the bucket-major kernel for B queries of P probes a table
+    over NB buckets, rows of width D.  A slot row expects B * P / NB probers:
+    below PROBED_DENSE_MIN the sparse blocks, which hold a row in 16-byte
+    registers and so need D % 4 == 0, D <= 128 and 16-byte ``aligned``
+    queries and store; else, and from PROBED_DENSE_MIN up, the dense ones
+    (``dense_plan``)."""
+    if b * p < PROBED_DENSE_MIN * num_buckets and d % 4 == 0 and d <= 128 and aligned:
+        return dict(SPARSE_PLAN)
+    return dense_plan(d)
+
+
+def probe_inversion(buckets: torch.Tensor, num_buckets: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Invert (B, T, P) probe buckets into the queries that probe each slot
+    row ``t * num_buckets + bucket``: (offsets (T * num_buckets + 1,) int32,
+    probers (B * T * P,) int32), slot row r's probers in query order at
+    ``probers[offsets[r]:offsets[r + 1]]``.  Plain torch on the buckets'
+    device (a stable sort and a search), with no host read."""
+    b, t, p = buckets.shape
+    dev = buckets.device
+    keys = buckets + torch.arange(0, t * num_buckets, num_buckets, dtype=torch.int32,
+                                  device=dev)[None, :, None]
+    skeys, order = torch.sort(keys.reshape(-1), stable=True)
+    probers = torch.div(order, t * p, rounding_mode="floor").to(torch.int32)
+    offsets = torch.searchsorted(
+        skeys, torch.arange(t * num_buckets + 1, dtype=torch.int32, device=dev), out_int32=True)
+    return offsets, probers
+
+
+def reuse_top1_probed(q: torch.Tensor, pages: torch.Tensor, slots_flat: torch.Tensor,
+                      buckets: torch.Tensor, *, gather_mode: str = "take"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``reuse_top1(q, pages, slots[t, buckets].reshape(B, -1))`` without the
+    id matrix: scored bucket by bucket.
+
+    q: (B, D) unit rows; pages: paged (P, S, D) or flat (N, D) store;
+    slots_flat: (T * NB, cap) int32 slot tables (-1 = empty); buckets: (B,
+    T, P) int32 probe buckets (``multiprobe_buckets``).  Returns (best (B,)
+    f32, idx (B,) int32): the lowest row id among the maxima, (-inf, -1) for
+    a query without a valid candidate.  ``gather_mode`` as in ``reuse_top1``.
+    """
+    if gather_mode not in GATHER_MODES:
+        raise ValueError(f"gather_mode must be one of {GATHER_MODES}")
+    if q.dim() != 2 or pages.dim() not in (2, 3) or slots_flat.dim() != 2 \
+            or buckets.dim() != 3:
+        raise ValueError("expected q (B, D), pages (N, D) | (P, S, D), slots (T*NB, cap), "
+                         "buckets (B, T, P)")
+    b, d = q.shape
+    t = buckets.shape[1]
+    if buckets.shape[0] != b or pages.shape[-1] != d or slots_flat.shape[0] % t:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages {tuple(pages.shape)}, "
+                         f"slots {tuple(slots_flat.shape)}, buckets {tuple(buckets.shape)}")
+    if q.dtype != torch.float32 or pages.dtype != torch.float32:
+        raise TypeError("q and pages must be float32")
+    if slots_flat.dtype != torch.int32 or buckets.dtype != torch.int32:
+        raise TypeError("slots_flat and buckets must be int32")
+    if not (q.device == pages.device == slots_flat.device == buckets.device):
+        raise ValueError("q, pages, slots_flat and buckets must share one device")
+    if not all(x.is_contiguous() for x in (q, pages, slots_flat, buckets)):
+        raise ValueError("q, pages, slots_flat and buckets must be contiguous")
+    if pages.numel() == 0:
+        raise ValueError("empty store")
+    if q.device.type == "cpu":
+        return ref.reuse_top1_probed_ref(q, pages, slots_flat, buckets)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    rows = slots_flat.shape[0]
+    aligned = q.data_ptr() % 16 == 0 and pages.data_ptr() % 16 == 0
+    return launch_probed(q, pages, slots_flat, buckets,
+                         probed_plan(b, buckets.shape[2], rows // t, d, aligned))
+
+
+def launch_probed(q: torch.Tensor, pages: torch.Tensor, slots_flat: torch.Tensor,
+                  buckets: torch.Tensor, plan: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bucket-major kernel with ``plan`` (``probed_plan``,
+    ``dense_plan`` or ``SPARSE_PLAN``) on CUDA tensors that
+    ``reuse_top1_probed`` accepts, and count the launch."""
+    b, d = q.shape
+    rows, cap = slots_flat.shape
+    offsets, probers = probe_inversion(buckets, rows // buckets.shape[1])
+    n_pages, page_size = (pages.shape[0], pages.shape[1]) if pages.dim() == 3 \
+        else (pages.shape[0], 1)
+    keys = torch.zeros(b, dtype=torch.int64, device=q.device)
+    val = torch.empty(b, dtype=torch.float32, device=q.device)
+    idx = torch.empty(b, dtype=torch.int32, device=q.device)
+    build.launch("reuse_probed", "reuse_probed_launch", q.device, q.data_ptr(),
+                 pages.data_ptr(), slots_flat.data_ptr(), offsets.data_ptr(),
+                 probers.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(), b, d,
+                 rows, cap, n_pages, page_size, int(plan["sparse"]), plan["smem_bytes"])
+    LAUNCHES["reuse_top1_probed"] += 1
+    return val, idx
 
 
 def gather_top1(q: torch.Tensor, store: torch.Tensor,
@@ -134,12 +247,8 @@ def sim_top1(q: torch.Tensor, store: torch.Tensor,
     idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
     part_val = torch.empty((n_split, n_q), dtype=torch.float32, device=q.device)
     part_idx = torch.empty((n_split, n_q), dtype=torch.int32, device=q.device)
-    lib = build.load("sim_topk")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.check(lib.sim_top1_launch(
-            q.data_ptr(), store.data_ptr(), val.data_ptr(), idx.data_ptr(),
-            part_val.data_ptr(), part_idx.data_ptr(), n_q, d, n, n_split, chunk,
-            int(q.dtype == torch.bfloat16), stream), "sim_top1_launch")
+    build.launch("sim_topk", "sim_top1_launch", q.device, q.data_ptr(), store.data_ptr(),
+                 val.data_ptr(), idx.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+                 n_q, d, n, n_split, chunk, int(q.dtype == torch.bfloat16))
     LAUNCHES["sim_top1"] += 1
     return val, idx

@@ -394,3 +394,170 @@ def test_decode_attention_f32_query_bf16_cache_softcap(dev, G):
     kv_len = torch.tensor(_decode_lens(6, T, 2, G, D), dtype=torch.int32, device=dev)
     got = da.decode_attention(q, k, v, kv_len, softcap=30.0)
     _close(got, ref.decode_attention_ref(q, k, v, kv_len, softcap=30.0), 2e-5)
+
+
+# ------------------------------------- K1 bucket-major route, K4 register tiles
+def _probed_inputs(B, T, P, NB, cap, N, D, seed):
+    """Slot tables with duplicates, -1 slots, equal rows and a query whose
+    probed buckets hold no id; buckets with some left unprobed."""
+    rng = np.random.default_rng(seed)
+    s = normalize(rng.standard_normal((N, D)).astype(np.float32))
+    s[N - 1] = s[3]                                  # equal rows: 3 must win
+    slots = rng.integers(0, N, (T * NB, cap)).astype(np.int32)
+    slots[rng.random(slots.shape) < 0.2] = -1
+    slots[:, 1] = slots[:, 0]                        # a duplicate in every bucket
+    slots[NB - 1] = -1                               # table 0's last bucket is empty
+    buckets = rng.integers(0, NB // 2, (B, T, P)).astype(np.int32)   # upper half unprobed
+    buckets[1] = NB - 1                              # query 1 probes only empty rows ...
+    buckets[1, 1:] = NB // 2 + 1                     # ... and unprobed-by-others ones
+    slots[NB + NB // 2 + 1 :: NB] = -1               # that also hold nothing
+    slots[NB // 2 + 1] = -1
+    slots[0, :2] = [N - 1, 3]                        # query 0: the tie across rows
+    buckets[0, :, 0] = 0
+    buckets[0, 1:, 0] = NB // 2 - 1
+    q = normalize(rng.standard_normal((B, D)).astype(np.float32))
+    q[0] = s[3]
+    return (torch.from_numpy(q), torch.from_numpy(s), torch.from_numpy(slots),
+            torch.from_numpy(buckets))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,P,NB,cap,N,D", [
+    (300, 2, 3, 16, 100, 5000, 64),       # dense blocks, ~110 probers a row: two chunks
+    (1024, 5, 8, 256, 130, 20000, 64),    # the serving shape, cap past two row tiles
+    (64, 5, 8, 512, 62, 3000, 64),        # sparse blocks, ~2 probers a row
+    (40, 3, 4, 32, 70, 900, 30),          # few probers but D % 4 != 0: dense, 4-byte copies
+    (400, 2, 4, 16, 100, 5000, 30),       # dense, D % 4 != 0, two chunks
+    (40, 3, 4, 32, 70, 900, 96),          # sparse, D = 96: a row of 24 vectors
+    (8, 2, 2, 8, 64, 200, 128)])          # sparse, D = 128
+@pytest.mark.parametrize("paged", [True, False])
+def test_reuse_top1_probed_matches_id_route(dev, B, T, P, NB, cap, N, D, paged):
+    q, s, slots, buckets = _probed_inputs(B, T, P, NB, cap, N, D, seed=B + D)
+    store = s.reshape(N // 100, 100, D) if paged and N % 100 == 0 else s
+    args = [q.to(dev), store.to(dev), slots.to(dev), buckets.to(dev)]
+    n0 = sim_topk.LAUNCHES["reuse_top1_probed"]
+    gv, gi = sim_topk.reuse_top1_probed(*args)
+    assert sim_topk.LAUNCHES["reuse_top1_probed"] == n0 + 1
+    ids = ref.probed_candidate_ids(args[2], args[3]).contiguous()
+    wv, wi = sim_topk.reuse_top1(args[0], args[1], ids)
+    assert torch.equal(gi.cpu(), wi.cpu()) and torch.equal(gv.cpu(), wv.cpu())
+    _same((gv, gi), ref.reuse_top1_probed_ref(*args))
+    assert gi[0].item() == 3 and gi[1].item() == -1 and torch.isneginf(gv[1]).item()
+
+
+@pytest.mark.cuda
+def test_reuse_top1_probed_raises_on_mixed_devices(dev):
+    q, s, slots, buckets = _probed_inputs(8, 2, 2, 8, 64, 200, 64, seed=1)
+    with pytest.raises(ValueError):
+        sim_topk.reuse_top1_probed(q.to(dev), s.to(dev), slots, buckets.to(dev))
+    with pytest.raises(TypeError):
+        sim_topk.reuse_top1_probed(q.to(dev), s.to(dev), slots.long().to(dev),
+                                   buckets.to(dev))
+
+
+def _near_ties(x, rot):
+    """(B, T, K) float64 vertex margins below 1e-5 (where fp32 sums in another
+    order may pick another vertex)."""
+    proj = np.einsum("tkde,be->btkd", rot.double().numpy(), x.double().numpy())
+    srt = np.sort(np.concatenate([proj, -proj], axis=-1), axis=-1)
+    return (srt[..., -1] - srt[..., -2]) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,K", [(64, 1), (128, 2), (32, 3)])
+@pytest.mark.parametrize("B", [1, 1000, 4096])
+def test_lsh_hash_register_tiled(dev, D, K, B):
+    rng = np.random.default_rng(D * K + B)
+    t = LSH(LSHParams(dim=D, num_tables=5, rotations_per_table=K, seed=B), dev)
+    x = torch.from_numpy(normalize(rng.standard_normal((B, D)).astype(np.float32)))
+    near = _near_ties(x, t.rotations.cpu())
+    xd = x.to(dev)
+    vids = lsh_hash.lsh_hash(xd, t.rotations).cpu()
+    assert not ((vids != ref.lsh_hash_ref(xd, t.rotations).cpu()) & torch.from_numpy(~near)).any()
+    mixed = lsh_hash.lsh_hash_mix(xd, t.rotations, 256).cpu()
+    want = ref.lsh_hash_mix_ref(xd, t.rotations, 256).cpu()
+    assert not ((mixed != want) & torch.from_numpy(~near.any(-1))).any()
+    # planted exact +/- ties: signed permutations make every projection exact
+    perm = np.stack([np.stack([np.eye(D, dtype=np.float32)[rng.permutation(D)]
+                               * rng.choice([-1.0, 1.0], (D, 1)).astype(np.float32)
+                               for _ in range(K)]) for _ in range(5)])
+    rot = torch.from_numpy(np.ascontiguousarray(perm))
+    xt = rng.standard_normal((B, D)).astype(np.float32) * 0.1
+    a, b = rng.integers(0, D, B), rng.integers(0, D, B)
+    xt[np.arange(B), a] = 1.0
+    xt[np.arange(B), b] = np.where(rng.random(B) < 0.5, 1.0, -1.0)   # +/- ties with a
+    xt = torch.from_numpy(xt)
+    got = lsh_hash.lsh_hash(xt.to(dev), rot.to(dev)).cpu()
+    assert torch.equal(got, ref.lsh_hash_ref(xt, rot))
+    got = lsh_hash.lsh_hash_mix(xt.to(dev), rot.to(dev), 1 << 20).cpu()
+    assert torch.equal(got, ref.lsh_hash_mix_ref(xt, rot, 1 << 20))
+
+
+def _offset_view(x, shift=1):
+    """A contiguous copy of ``x`` whose storage starts ``shift`` floats past a
+    16-byte boundary (a view into a larger buffer)."""
+    buf = torch.empty(x.numel() + shift, dtype=x.dtype, device=x.device)
+    view = buf[shift:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,NB", [(1024, 256), (64, 512)])      # dense, sparse plans
+def test_reuse_top1_probed_unaligned_views(dev, B, NB):
+    q, s, slots, buckets = _probed_inputs(B, 5, 8, NB, 70, 5000, 64, seed=B)
+    args = [q.to(dev), s.reshape(50, 100, 64).to(dev), slots.to(dev), buckets.to(dev)]
+    want = sim_topk.reuse_top1_probed(*args)
+    for i in (0, 1):          # q, then the store, off a 16-byte boundary
+        moved = list(args)
+        moved[i] = _offset_view(args[i])
+        got = sim_topk.reuse_top1_probed(*moved)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_lsh_hash_unaligned_views(dev):
+    rng = np.random.default_rng(3)
+    t = LSH(LSHParams(dim=64, num_tables=5, rotations_per_table=2, seed=3), dev)
+    x = torch.from_numpy(normalize(rng.standard_normal((1000, 64)).astype(np.float32))).to(dev)
+    want = lsh_hash.lsh_hash_mix(x, t.rotations, 256)
+    assert torch.equal(lsh_hash.lsh_hash_mix(_offset_view(x), t.rotations, 256), want)
+    assert torch.equal(lsh_hash.lsh_hash_mix(x, _offset_view(t.rotations), 256), want)
+    assert torch.equal(lsh_hash.lsh_hash(_offset_view(x), t.rotations),
+                       lsh_hash.lsh_hash(x, t.rotations))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_slots", [1, 2, 4])
+def test_lsh_hash_every_tile_gives_the_same_ids(dev, row_slots):
+    rng = np.random.default_rng(row_slots)
+    t = LSH(LSHParams(dim=128, num_tables=5, rotations_per_table=2, seed=4), dev)
+    x = torch.from_numpy(normalize(rng.standard_normal((1000, 128)).astype(np.float32))).to(dev)
+    out = torch.empty(1000, 5, dtype=torch.int32, device=dev)
+    plan = lsh_hash.launch_plan(1000, 128, 5, row_slots=row_slots)
+    lsh_hash.launch("lsh_hash_mix_launch", x, t.rotations, out, 256, plan=plan)
+    assert torch.equal(out, lsh_hash.lsh_hash_mix(x, t.rotations, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["cross_polytope", "hyperplane"])
+def test_fused_counts_on_the_card(dev, family):
+    """The count epilogue's sort on the card against the host count of the
+    same id matrix, with duplicates and -1 slots."""
+    from repro_torch.kernels import ops
+
+    kw = dict(dim=32, num_tables=3, num_probes=4, num_buckets=64, seed=6, family=family)
+    lsh = LSH(LSHParams(**kw), dev)
+    rng = np.random.default_rng(6)
+    slots = rng.integers(-1, 400, (3 * 64, 40)).astype(np.int32)
+    slots[:, 1] = slots[:, 0]
+    slots[rng.random(slots.shape) < 0.3] = -1
+    slots = torch.from_numpy(slots).to(dev)
+    pages = torch.from_numpy(normalize(rng.standard_normal((400, 32)).astype(np.float32)))
+    pages = pages.reshape(40, 10, 32).to(dev)
+    q = torch.from_numpy(normalize(rng.standard_normal((100, 32)).astype(np.float32))).to(dev)
+    _, _, counts = ops.reuse_query_top1(q, lsh, slots, pages)
+    cand = ref.probed_candidate_ids(slots, lsh.probe_batch(q)).cpu().numpy()
+    assert counts.device.type == "cuda"
+    assert np.array_equal(counts.cpu().numpy(), ops.unique_counts(cand))

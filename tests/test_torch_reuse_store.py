@@ -128,8 +128,8 @@ class TestOneDispatch:
         b._query_staged = boom
         b._candidate_matrix = boom
         calls = []
-        real = tfused.reuse_top1
-        monkeypatch.setattr(tfused, "reuse_top1",
+        real = tfused.reuse_top1_probed
+        monkeypatch.setattr(tfused, "reuse_top1_probed",
                             lambda *a, **k: calls.append(1) or real(*a, **k))
         d0 = ops.FUSED_DISPATCH_COUNT
         for _ in range(3):
