@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --model [--src DIR]
+    python3 chip_smoke.py [--model] [--top1] [--nearest] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -33,13 +33,18 @@ kernels and their library calls also give ``device_ms`` and
 which leaves out the host's time to enqueue a call (longer than the kernel
 itself at these shapes) and re-reads inputs that may sit in L2.  The build
 line gives the attention kernels' wgmma and TMA instruction counts and their
-registers and spills.  Any failure exits non-zero before the last line.
+registers and spills, and the sim_topk kernels' (which must not spill).
+K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
+``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
+``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
+Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
-``--model`` runs only the env, build and model phases (the model's prefill
-and decode times, each step's device busy time and their checks) and prints
-no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
+``--model``, ``--top1`` and ``--nearest`` run only the env and build
+phases and the named ones (the model's prefill and decode; K3 at B in {1, 8,
+32} and K1's id route on the wrappers; ``nearest_neighbor`` first and warm)
+and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
 change, change, parent) on one card, one after another, compares two commits.
@@ -126,7 +131,8 @@ MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix
 HASH_B = 4096
 ROUTED_B = 1024                            # a routed batch: the router hashes it
 CROSSOVER_B = (64, 128, 256, 512, 1024)    # B·P/NB 2 .. 32 on the serve store
-K3_Q, K3_C = 32, 16384
+K3_BATCHES, K3_C = (1, 8, 32), 16384      # the staged path's batches (below fused_min_batch)
+K3_CHUNKS = (512, 1024, 2048)              # candidates a block, timed at B=32
 K1_Q, K1_C = 1024, 20480
 STORE_ROWS, PAGE_SIZE = 100_000, 4096
 SERVE_CAPACITY, SERVE_BATCH, SMALL_BATCH, SERVE_BATCHES = 100_000, 1024, 32, 4
@@ -138,6 +144,8 @@ DECODE_STEPS = 16
 PREFILL_REPS = 5                          # warm prefills timed after the first
 DECODE_T = ATTN_S + DECODE_STEPS          # the model's cache window
 NN_Q, NN_N, NN_TAIL = 4096, 250_000, 1000
+SIM_GRAPH_REPS = 5                        # K5 calls a graph (a call takes milliseconds)
+NEAREST_WARM = 5                          # warm nearest_neighbor calls timed after the first
 MODEL_ARCH = "qwen3-1.7b"
 MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
 
@@ -356,7 +364,17 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
                         for r, t in tiles.items())
             + f"; the plan takes {chosen['tile_rows']}")
         out["lsh_hash_mix"][f"b{ROUTED_B}_d{d}_k{k}_tile_device_ms"] = tiles
+    return out
 
+
+# ------------------------------------------------------------------ phase 3a
+def phase_top1(dev: torch.device, seed: int = 4) -> dict:
+    """K3 at the staged path's batches and K1's id-matrix route on a paged
+    100k x 64 store with planted equal rows, each against its plain version.
+    Calls only the wrappers, so ``--top1 --src DIR`` times another tree's
+    port on the same inputs."""
+    rng = np.random.default_rng(seed)
+    out = {}
     # --- a paged (P, S, 64) store of store_rows rows, planted duplicates
     n, s_ = STORE_ROWS, PAGE_SIZE
     pages = -(-n // s_)
@@ -371,27 +389,55 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
         noise = 0.05 * rng.standard_normal((m, 64)).astype(np.float32) / 8.0
         return normalize(rows[src] + noise)
 
-    # --- K3: sorted, unique, front-packed candidates (the staged batch)
-    q3n, c3 = K3_Q, K3_C
-    src = rng.integers(0, n, q3n)
-    q3_np = near_queries(q3n, src)
-    ids3 = np.full((q3n, c3), -1, np.int32)
-    for r in range(q3n):
+    # --- K3: sorted, unique, front-packed candidates, at the staged path's
+    # batches (scalar queries, windows below fused_min_batch); the largest is
+    # the row's own shape, the others give b1_* and b8_*
+    c3 = K3_C
+    src = rng.integers(0, n, max(K3_BATCHES))
+    q3_np = near_queries(src.size, src)
+    ids3 = np.full((src.size, c3), -1, np.int32)
+    for r in range(src.size):
         cnt = int(rng.integers(c3 // 2, c3 + 1))
         pick = rng.choice(n, cnt, replace=False)
         pick[0] = src[r]
         ids3[r, :cnt] = np.sort(pick)
-    q3, i3 = torch.from_numpy(q3_np).to(dev), torch.from_numpy(ids3).to(dev)
-    fn = lambda: sim_topk.gather_top1(q3, store, i3)  # noqa: E731
-    plain = lambda: ref.gather_top1_ref(q3, store, i3)  # noqa: E731
-    err, ties = check_top1("gather_top1", q3_np, rows, fn(), plain())
-    ms, plain_ms, dev_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), graph_ms(fn, REPS)
-    bms, by = top1_bound(q3_np, ids3)
-    log(f"  gather_top1 Q={q3n} C={c3} store {n}x64: {ms:.4f} ms, {dev_ms:.4f} ms device "
-        f"(plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
-        f"differing ids at near-ties {ties}")
-    out["gather_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bms, "bound_by": by, "device_ms": dev_ms}
+    planned = hasattr(sim_topk, "gather_plan")   # False for a port from before the split kernel
+    res = {}
+    for b in K3_BATCHES:
+        q3, i3 = torch.from_numpy(q3_np[:b]).to(dev), torch.from_numpy(ids3[:b]).to(dev)
+        fn = lambda q3=q3, i3=i3: sim_topk.gather_top1(q3, store, i3)  # noqa: E731
+        plain = lambda q3=q3, i3=i3: ref.gather_top1_ref(q3, store, i3)  # noqa: E731
+        err, ties = check_top1(f"gather_top1 B={b}", q3_np[:b], rows, fn(), plain())
+        ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
+        dev_ms = graph_ms(fn, REPS)
+        bms, by = top1_bound(q3_np[:b], ids3[:b])
+        plan = sim_topk.gather_plan(b, c3, 64) if planned else None
+        log(f"  gather_top1 B={b} C={c3} store {n}x64: {ms:.4f} ms a call, {dev_ms:.5f} ms "
+            f"device (plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}, device time "
+            f"{bms / dev_ms:.3f} of it"
+            + (f"; {plan['blocks']} blocks of {plan['chunk']} candidates" if plan else "")
+            + f"), max err {err:.3g}, differing ids at near-ties {ties}")
+        res[b] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                  "bound_by": by, "device_ms": dev_ms}
+    big = max(K3_BATCHES)
+    out["gather_top1"] = dict(res[big])
+    for b in K3_BATCHES[:-1]:
+        out["gather_top1"].update({f"b{b}_{k}": v for k, v in res[b].items() if k != "bound_by"})
+    if planned:   # device time by candidates a block at the largest batch
+        chunks = {}
+        want = sim_topk.gather_top1(q3, store, i3)
+        for chunk in K3_CHUNKS:
+            plan = sim_topk.gather_plan(big, c3, 64, chunk=chunk)
+            fn = lambda plan=plan: sim_topk.launch_gather(  # noqa: E731
+                "gather_top1_launch", q3, store, i3, plan)
+            got = fn()
+            expect(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                   f"gather_top1: {chunk} candidates a block give another result")
+            chunks[chunk] = graph_ms(fn, REPS)
+        log(f"  gather_top1 B={big} device ms by candidates a block: " + ", ".join(
+            f"{c} ({-(-c3 // c) * big} blocks) {t:.5f}" for c, t in chunks.items())
+            + f"; the plan takes {sim_topk.gather_plan(big, c3, 64)['chunk']}")
+        out["gather_top1"][f"b{big}_chunk_device_ms"] = chunks
 
     # --- K1: raw table candidates with duplicates, -1 slots and planted ties
     q1n, c1 = K1_Q, K1_C
@@ -418,7 +464,8 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
            "reuse_top1: a planted exact tie did not go to the lowest id")
     ms, plain_ms, dev_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS), graph_ms(fn, REPS)
     bms, by = top1_bound(q1_np, ids1)
-    log(f"  reuse_top1 Q={q1n} C={c1} store {n}x64: {ms:.4f} ms, {dev_ms:.4f} ms device "
+    log(f"  reuse_top1 (id route) B={q1n} C={c1} store {n}x64: {ms:.4f} ms a call, "
+        f"{dev_ms:.4f} ms device "
         f"(plain {plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
         f"differing ids at near-ties {ties}")
     out["reuse_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -916,12 +963,19 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     expect((idx < n_valid).all(), "sim_top1: picked a row past n_valid")
     expect((idx[:64] == dup_src).all(), "sim_top1: a planted tie did not go to the first index")
     ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
-    bms, by = bound(q_np.nbytes + n_valid * 64 * 4 + NN_Q * 8, 2.0 * NN_Q * n_valid * 64)
-    log(f"  sim_top1 Q={NN_Q} N={NN_N} n_valid={n_valid} D=64 f32: {ms:.4f} ms (plain "
-        f"{plain_ms:.4f} ms, bound {bms:.5f} ms by {by}), max err {err:.3g}, "
-        f"differing ids at near-ties {ties}")
-    out["sim_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+    dev_ms = graph_ms(fn, SIM_GRAPH_REPS)
+    flop = 2.0 * NN_Q * n_valid * 64
+    bms, by = bound(q_np.nbytes + n_valid * 64 * 4 + NN_Q * 8, flop)
+    plan = sim_topk.sim_plan(NN_Q, n_valid, 64)
+    log(f"  sim_top1 Q={NN_Q} N={NN_N} n_valid={n_valid} D=64 f32: {ms:.4f} ms a call, "
+        f"{dev_ms:.4f} ms device, {flop / dev_ms / 1e9:.1f} TFLOP/s, {bms / dev_ms:.3f} of "
+        f"its bound {bms:.5f} ms by {by} ({bms / ms:.3f} a call); plain {plain_ms:.4f} ms; "
+        f"{plan['blocks']} blocks ({plan['q_tiles']} query tiles of {plan['q_rows']} x "
+        f"{plan['splits']} splits of {plan['chunk']} rows, {plan['slots']} block slots); "
+        f"max err {err:.3g}, differing ids at near-ties {ties}")
+    out["sim_top1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None, "device_ms": dev_ms,
+                       "tflops": flop / dev_ms / 1e9, "bound_share": bms / dev_ms}
     return out
 
 
@@ -940,10 +994,17 @@ def phase_nearest(dev: torch.device, seed: int = 6) -> dict:
     sync()
     dt = time.perf_counter() - t0
     counts = ops.launch_counts()
+    warm = []
+    for _ in range(NEAREST_WARM):
+        t0 = time.perf_counter()
+        ops.nearest_neighbor(qd, sd)
+        sync()
+        warm.append((time.perf_counter() - t0) * 1e3)
     found = float((idx.cpu().numpy() == src).mean())
-    log(f"  nearest_neighbor({NN_Q}) over {NN_N}x64: {dt * 1e3:.3f} ms, source row found "
-        f"for {found:.4f} of queries, min similarity {val.min().item():.4f}; "
-        f"launches {counts}")
+    log(f"  nearest_neighbor({NN_Q}) over {NN_N}x64: {dt * 1e3:.3f} ms (first call), warm "
+        f"median {np.median(warm):.3f} ms (" + ", ".join(f"{t:.3f}" for t in warm) + " ms); "
+        f"source row found for {found:.4f} of queries, min similarity "
+        f"{val.min().item():.4f}; launches {counts}")
     expect(found >= 0.99, "nearest_neighbor missed the source row of a near-duplicate")
     return counts
 
@@ -1152,11 +1213,14 @@ def main() -> int:
     with timed("env"):
         phase_env()
     log(f"port: {SRC}")
-    if "--model" in sys.argv[1:]:
+    only = [m for m in ("--model", "--top1", "--nearest") if m in sys.argv[1:]]
+    if only:
         with timed("build"):
             build.build_all()
-        with timed("model"):
-            phase_model(dev)
+        for mode in only:
+            with timed(mode[2:]):
+                {"--model": phase_model, "--top1": phase_top1,
+                 "--nearest": phase_nearest}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -1168,12 +1232,16 @@ def main() -> int:
                     log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} "
                         f"bytes static smem, spill stores {r['spill_stores']} bytes, "
                         f"spill loads {r['spill_loads']} bytes")
-        for name in ("reuse_probed", "lsh_hash"):
+        for name in ("sim_topk", "reuse_probed", "lsh_hash"):
             log(f"  ptxas {name}: " + "; ".join(
                 f"{r['entry'].split('_cu_')[-1][8:]} {r['registers']} registers, spills "
                 f"{r['spill_stores']}/{r['spill_loads']} bytes" for r in build.ptxas_report(name)))
+        spilled = [r["entry"] for r in build.ptxas_report("sim_topk")
+                   if r["spill_stores"] or r["spill_loads"]]
+        expect(not spilled, f"sim_topk kernels spill registers: {spilled}")
     with timed("kernels"):
         kern = phase_kernels(dev)
+        kern.update(phase_top1(dev))
         kern["reuse_top1_probed"] = phase_probed(dev)
         kern.update(phase_attention_kernels(dev))
     paths = {}

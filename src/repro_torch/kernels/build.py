@@ -33,9 +33,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "sim_topk": {
-        "reuse_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "gather_top1_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "sim_top1_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "reuse_top1_launch": [*[_P] * 6, *[_I] * 10, _P],
+        "gather_top1_launch": [*[_P] * 6, *[_I] * 10, _P],
+        "sim_top1_launch": [*[_P] * 5, *[_I] * 8, _P],
     },
     "reuse_probed": {
         "reuse_probed_launch": [*[_P] * 8, *[_I] * 8, _P],

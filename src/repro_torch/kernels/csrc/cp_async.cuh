@@ -2,9 +2,14 @@
 // issue many, commit them as a group, wait for all but the newest N groups.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
+
+// a copy of kBytes = 16 needs both addresses on a 16-byte boundary
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // kBytes-wide copy: 16 (both addresses 16-byte aligned) or 4
 template <int kBytes>

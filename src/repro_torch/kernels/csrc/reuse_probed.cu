@@ -33,9 +33,9 @@
 //     them; D is never split across threads for one dot.
 //   * Combine: a thread keeps a lexicographic best per query, 16 lanes
 //     reduce it with shuffles, and one lane issues a 64-bit atomicMax of the
-//     packed key (orderable score bits, 0xFFFFFFFF - id) per (query, block).
-//     The max is order-free, so the result does not depend on block order.
-//     -0.0 is packed as +0.0: the two compare equal, so they must tie.
+//     packed key (orderable score bits, 0xFFFFFFFF - id) per (query, block):
+//     top1_pack.cuh, shared with sim_topk.cu.  The max is order-free, so the
+//     result does not depend on block order.
 //   * Where a slot row expects few probers (B * P / NB below 8, known on the
 //     host: the store shape has ~2, a row ~15 valid slots), the FMAs are few
 //     and the kernel waits on memory, and a 64 x 64 tile is mostly idle.
@@ -59,24 +59,13 @@
 #include <math_constants.h>
 
 #include "cp_async.cuh"
+#include "top1_pack.cuh"
 
 namespace {
 
 constexpr int kQT = 64;        // query rows of a chunk
 constexpr int kRT = 64;        // slots (store rows) of a block
 constexpr int kThreads = 256;  // 16 x 16 threads, each a 4 x 4 micro-tile
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ bool better(float v, int k, float bv, int bk) {
-  return v > bv || (v == bv && k < bk);
-}
-
-__device__ __forceinline__ unsigned long long pack(float v, int id) {
-  unsigned u = __float_as_uint(v == 0.f ? 0.f : v);   // -0.0 -> +0.0
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);      // orderable as unsigned
-  return (static_cast<unsigned long long>(u) << 32) |
-         (0xFFFFFFFFu - static_cast<unsigned>(id));
-}
 
 // Stage query rows probers[first .. first + nq) of q into dst (kQT rows,
 // stride ld); rows at or past nq are zero.
@@ -196,17 +185,8 @@ probed_kernel(const float* __restrict__ q, const float* __restrict__ store,
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {   // the 16 threads of a half-warp
-        const float ov = __shfl_xor_sync(0xffffffffu, bv[i], off);
-        const int ok = __shfl_xor_sync(0xffffffffu, bk[i], off);
-        if (better(ov, ok, bv[i], bk[i])) {
-          bv[i] = ov;
-          bk[i] = ok;
-        }
-      }
-      if (tx == 0 && ty * 4 + i < nq && bk[i] != INT_MAX)
-        atomicMax(keys + probers[first + ty * 4 + i], pack(bv[i], bk[i]));
+      group_best<16>(bv[i], bk[i]);   // the 16 threads of a half-warp
+      if (tx == 0 && ty * 4 + i < nq) merge_best(keys, probers[first + ty * 4 + i], bv[i], bk[i]);
     }
     __syncthreads();   // stage ch & 1 is refilled for chunk ch + 2
   }
@@ -271,39 +251,11 @@ sparse_kernel(const float* __restrict__ q, const float* __restrict__ store,
         v = acc;
         k = id;
       }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {   // the warp's best (value, id)
-        const float ov = __shfl_xor_sync(kAll, v, off);
-        const int ok = __shfl_xor_sync(kAll, k, off);
-        if (better(ov, ok, v, k)) {
-          v = ov;
-          k = ok;
-        }
-      }
-      if (lane == 0 && k != INT_MAX) atomicMax(keys + cur, pack(v, k));
+      group_best<32>(v, k);                       // the warp's best (value, id)
+      if (lane == 0) merge_best(keys, cur, v, k);
       stage ^= 1;
     }
   }
-}
-
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
-// One thread per query: packed key -> (score, row id); 0 (no key) -> (-inf, -1).
-__global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
-                              float* __restrict__ val, int* __restrict__ idx, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const unsigned long long k = keys[b];
-  if (k == 0ull) {
-    val[b] = -CUDART_INF_F;
-    idx[b] = -1;
-    return;
-  }
-  const unsigned hi = static_cast<unsigned>(k >> 32), lo = static_cast<unsigned>(k);
-  val[b] = __uint_as_float((hi & 0x80000000u) ? (hi & 0x7FFFFFFFu) : ~hi);
-  idx[b] = static_cast<int>(0xFFFFFFFFu - lo);
 }
 
 template <int kBytes>
@@ -325,16 +277,8 @@ int launch(const float* q, const float* store, const int* slots, const int* offs
   }
   if (smem_bytes != (kRT + 2 * kQT) * (((D + 3) & ~3) + 4) * static_cast<int>(sizeof(float)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // raise the kernel's shared-memory limit once a device: the call costs more
-  // host time than the launch itself
-  static int smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess && smem_bytes > smem_set[dev % kMaxDevices]) {
-    err = cudaFuncSetAttribute(probed_kernel<kBytes>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err == cudaSuccess) smem_set[dev % kMaxDevices] = smem_bytes;
-  }
+  static int done[kMaxDevices] = {};
+  const cudaError_t err = smem_limit(probed_kernel<kBytes>, smem_bytes, done);
   if (err != cudaSuccess) return static_cast<int>(err);
   probed_kernel<kBytes><<<grid, kThreads, smem_bytes, s>>>(q, store, slots, offsets, probers,
                                                            keys, D, cap, num_pages, page_size);
@@ -367,6 +311,5 @@ extern "C" int reuse_probed_launch(const float* q, const float* store, const int
                                     num_pages, page_size, sparse, smem_bytes, s);
     if (err != 0) return err;
   }
-  unpack_kernel<<<(B + 255) / 256, 256, 0, s>>>(keys, val, idx, B);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(unpack(keys, nullptr, 0, val, idx, B, -1, s));
 }

@@ -4,7 +4,9 @@ Port of the Pallas kernels ``repro/kernels/sim_topk.py::reuse_top1``,
 ``::gather_top1`` and ``::sim_top1``.  ``reuse_top1`` has two routes: an
 arbitrary (Q, C) id matrix (``csrc/sim_topk.cu``), and the bucket-major
 ``reuse_top1_probed`` over the probed slot tables (``csrc/reuse_probed.cu``)
-that the fused query calls.  For a CUDA tensor each wrapper checks
+that the fused query calls.  The id route and ``gather_top1`` share one
+kernel, split over candidates by ``gather_plan``; ``sim_top1`` runs
+register tiles planned by ``sim_plan``.  For a CUDA tensor each wrapper checks
 its inputs, allocates its outputs (and scratch), launches the hand-written
 kernel on the current stream and counts the launch; for a CPU tensor it runs
 the plain version in ``ref.py``.  There is no fallback: a CUDA input either
@@ -42,16 +44,72 @@ def _check(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor) -> None
         raise ValueError("empty store")
 
 
-def _launch(fn: str, q: torch.Tensor, store: torch.Tensor,
-            cand_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+# gather_top1 and the id route of reuse_top1: a block of up to 4 warps takes
+# one query and a split of its candidates; a warp stages 32 candidates' rows
+# at once, in two stages (``csrc/sim_topk.cu``)
+GATHER_GROUP = 32                          # candidates a warp stages at once
+GATHER_WARPS = 4                           # warps a block where shared memory allows
+GATHER_MIN_CHUNK, GATHER_MAX_CHUNK = 512, 2048   # candidates a block
+SMS, SM_SMEM = 132, 233472                 # an H100's SMs and the shared memory of one
+
+
+def gather_plan(b: int, c: int, d: int, aligned: bool = True,
+                chunk: Optional[int] = None) -> dict:
+    """Blocks of the gather kernel for B queries of C candidates, rows of
+    width D.  Splits of 512-2048 candidates (``chunk`` forces one): as many
+    as fit in one wave of the card's block slots (shared memory decides how
+    many blocks an SM holds: 3 at D=64), at least C / 2048 and at most
+    C / 512.  16-byte copies (row stride D + 4) where D % 4 == 0 and q and
+    the store are ``aligned`` on 16 bytes, else 4-byte ones (stride D | 1).
+    A warp stages GATHER_GROUP rows at once in each of two stages, fewer
+    where D is too wide for that (then one warp a block).  Raises where one
+    row a stage does not fit."""
+    ld = d + 4 if d % 4 == 0 and aligned else d | 1
+    q_bytes = 4 * (-(-d // 4) * 4)
+    group = GATHER_GROUP
+    while group > 1 and q_bytes + 2 * group * ld * 4 > build.SMEM_LIMIT:
+        group //= 2
+    per_warp = 2 * group * ld * 4
+    warps = min(GATHER_WARPS, (build.SMEM_LIMIT - q_bytes) // per_warp)
+    if warps < 1:
+        raise ValueError(f"D={d} is too wide for the gather kernel's shared memory")
+    smem = q_bytes + warps * per_warp
+    slots = SMS * max(1, min(2048 // (32 * warps), SM_SMEM // (smem + 1024)))
+    step = group * warps                   # candidates a block stages at once
+    if chunk is None:
+        lo = -(-c // GATHER_MAX_CHUNK)
+        hi = max(1, -(-c // GATHER_MIN_CHUNK))
+        chunk = -(-c // min(max(slots // max(b, 1), lo), hi))
+    chunk = max(step, -(-chunk // step) * step)
+    splits = max(1, -(-c // chunk))
+    return {"splits": splits, "chunk": chunk, "group": group, "threads": 32 * warps,
+            "smem_bytes": smem, "blocks": b * splits, "slots": slots}
+
+
+def _aligned(*xs: torch.Tensor, to: int = 16) -> bool:
+    return all(x.data_ptr() % to == 0 for x in xs)
+
+
+def launch_gather(fn: str, q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor,
+                  plan: Optional[dict] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``gather_top1_launch`` or ``reuse_top1_launch`` with ``plan``
+    (default ``gather_plan``) on CUDA tensors that the wrapper accepts, and
+    count the launch."""
     n_q, n_c = cand_ids.shape
+    d = q.shape[1]
+    if plan is None:
+        plan = gather_plan(n_q, n_c, d, _aligned(q, store))
     # a flat (N, D) store is a paged one with one row per page
     pages, page_size = (store.shape[0], store.shape[1]) if store.dim() == 3 \
         else (store.shape[0], 1)
+    keys = torch.empty(n_q, dtype=torch.int64, device=q.device)
     val = torch.empty(n_q, dtype=torch.float32, device=q.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
     build.launch("sim_topk", fn, q.device, q.data_ptr(), cand_ids.data_ptr(), store.data_ptr(),
-                 val.data_ptr(), idx.data_ptr(), n_q, n_c, q.shape[1], pages, page_size)
+                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(), n_q, n_c, d, pages,
+                 page_size, plan["splits"], plan["chunk"], plan["group"], plan["threads"],
+                 plan["smem_bytes"])
+    LAUNCHES[fn.removesuffix("_launch")] += 1
     return val, idx
 
 
@@ -74,9 +132,7 @@ def reuse_top1(q: torch.Tensor, store: torch.Tensor, cand_ids: torch.Tensor,
         return ref.reuse_top1_ref(q, store, cand_ids)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch("reuse_top1_launch", q, store, cand_ids)
-    LAUNCHES["reuse_top1"] += 1
-    return out
+    return launch_gather("reuse_top1_launch", q, store, cand_ids)
 
 
 # the bucket-major kernel: 64 slots a block; dense blocks (64 x 64 tiles of
@@ -203,13 +259,55 @@ def gather_top1(q: torch.Tensor, store: torch.Tensor,
         return ref.gather_top1_ref(q, store, cand_ids)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch("gather_top1_launch", q, store, cand_ids)
-    LAUNCHES["gather_top1"] += 1
-    return out
+    return launch_gather("gather_top1_launch", q, store, cand_ids)
 
 
-SIM_ROWS = 64            # queries per block of the sim_top1 kernel
-SIM_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+# sim_top1: 256 threads score a tile of q_rows queries x 128 store rows,
+# walked in chunks of 32 along D (``csrc/sim_topk.cu``)
+SIM_Q_ROWS = (16, 32, 64, 128)     # query tiles the kernel is compiled for
+SIM_TILE_ROWS, SIM_CHUNK_D = 128, 32
+SIM_MIN_SPLIT_ROWS = 1024          # store rows a split, at least
+SIM_WAVE_FILL = 0.95               # share of the last wave's block slots filled
+
+
+def sim_smem(q_rows: int, d: int) -> int:
+    """Dynamic shared memory of a sim_top1 block: the query tile d-major and
+    two stages of a 32 x 128 store chunk, rows padded by 4 floats.  (The
+    block adds q_rows floats of static shared memory: each query's running
+    best score.)"""
+    return 4 * (d * (q_rows + 4) + 2 * SIM_CHUNK_D * (SIM_TILE_ROWS + 4))
+
+
+def sim_plan(q: int, n: int, d: int) -> dict:
+    """Blocks of the sim_top1 kernel for Q queries over N valid rows of width
+    D.  The query tile is the smallest compiled one that holds Q (128 from
+    Q > 64), halved while it does not fit in shared memory.  Splits of the
+    rows (of at least SIM_MIN_SPLIT_ROWS, whole 128-row tiles) are chosen so
+    that query tiles x splits fill the card's block slots (two blocks an SM
+    where shared memory allows) in whole waves: the fewest splits that give
+    at least one wave with the last one SIM_WAVE_FILL full.  Raises where
+    even a 16-query tile does not fit."""
+    q_rows = next((r for r in SIM_Q_ROWS if r >= q), SIM_Q_ROWS[-1])
+    while sim_smem(q_rows, d) + 4 * q_rows > build.SMEM_LIMIT and q_rows > SIM_Q_ROWS[0]:
+        q_rows //= 2
+    smem = sim_smem(q_rows, d)
+    if smem + 4 * q_rows > build.SMEM_LIMIT:
+        raise ValueError(f"D={d} is too wide for the sim_top1 kernel's shared memory")
+    q_tiles = max(1, -(-q // q_rows))
+    # block slots an SM: static and dynamic shared memory, 1 KB reserved a block
+    slots = SMS * max(1, min(2, SM_SMEM // (smem + 4 * q_rows + 1024)))
+    n = max(n, 1)
+    max_splits = max(1, -(-n // SIM_MIN_SPLIT_ROWS))
+    splits = min(max(1, -(-slots // q_tiles)), max_splits)
+    while splits < max_splits:
+        blocks = q_tiles * splits
+        if blocks >= slots and blocks / (-(-blocks // slots) * slots) >= SIM_WAVE_FILL:
+            break
+        splits += 1
+    chunk = -(-(-(-n // splits)) // SIM_TILE_ROWS) * SIM_TILE_ROWS
+    splits = -(-n // chunk)
+    return {"q_rows": q_rows, "q_tiles": q_tiles, "splits": splits, "chunk": chunk,
+            "smem_bytes": smem, "blocks": q_tiles * splits, "slots": slots}
 
 
 def sim_top1(q: torch.Tensor, store: torch.Tensor,
@@ -238,17 +336,15 @@ def sim_top1(q: torch.Tensor, store: torch.Tensor,
         raise ValueError(f"row width {d} is not a multiple of 4")
     if not (q.is_contiguous() and store.is_contiguous()):
         raise ValueError("q and store must be contiguous")
-    q_tiles = -(-n_q // SIM_ROWS)
-    want = max(1, min(-(-n // 4096), -(-SIM_TARGET_BLOCKS // max(q_tiles, 1))))
-    per_split = -(-max(n, 1) // want)
-    chunk = -(-per_split // SIM_ROWS) * SIM_ROWS
-    n_split = -(-max(n, 1) // chunk)
+    # the kernel reads q and the store in 4-element vectors
+    q, store = (x if _aligned(x, to=4 * x.element_size()) else x.clone() for x in (q, store))
+    plan = sim_plan(n_q, n, d)
+    keys = torch.empty(n_q, dtype=torch.int64, device=q.device)
     val = torch.empty(n_q, dtype=torch.float32, device=q.device)
     idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
-    part_val = torch.empty((n_split, n_q), dtype=torch.float32, device=q.device)
-    part_idx = torch.empty((n_split, n_q), dtype=torch.int32, device=q.device)
     build.launch("sim_topk", "sim_top1_launch", q.device, q.data_ptr(), store.data_ptr(),
-                 val.data_ptr(), idx.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-                 n_q, d, n, n_split, chunk, int(q.dtype == torch.bfloat16))
+                 keys.data_ptr(), val.data_ptr(), idx.data_ptr(), n_q, d, n, plan["q_rows"],
+                 plan["splits"], plan["chunk"], plan["smem_bytes"],
+                 int(q.dtype == torch.bfloat16))
     LAUNCHES["sim_top1"] += 1
     return val, idx

@@ -561,3 +561,101 @@ def test_fused_counts_on_the_card(dev, family):
     cand = ref.probed_candidate_ids(slots, lsh.probe_batch(q)).cpu().numpy()
     assert counts.device.type == "cuda"
     assert np.array_equal(counts.cpu().numpy(), ops.unique_counts(cand))
+
+
+# ------------------------------------- K3 split over candidates, K5 tiles
+def _sorted_candidates(rng, B, N, C):
+    """(B, C) sorted unique front-packed ids, -1 padded: row 0 full, with an
+    exact tie between its first and last position (different splits); the
+    last row all -1 (B > 1)."""
+    ids = np.full((B, C), -1, np.int32)
+    for r in range(B):
+        k = C if r == 0 else int(rng.integers(C // 2, C + 1))
+        ids[r, :k] = np.sort(rng.choice(N, k, replace=False))
+    if B > 1:
+        ids[-1] = -1
+    return ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("C", [511, 512, 513, 2047, 2048, 2049, 16384])
+@pytest.mark.parametrize("D,paged", [(64, True), (64, False), (30, True)])
+def test_gather_top1_matches_id_route(dev, B, C, D, paged):
+    """On sorted unique candidates the first position is the lowest id, so
+    gather_top1 and reuse_top1's id route give bit-equal (val, idx)."""
+    rng = np.random.default_rng(B * C + D)
+    N = 20000
+    s = normalize(rng.standard_normal((N, D)).astype(np.float32))
+    ids = _sorted_candidates(rng, B, N, C)
+    s[ids[0, -1]] = s[ids[0, 0]]
+    q = normalize(rng.standard_normal((B, D)).astype(np.float32))
+    q[0] = s[ids[0, 0]]
+    store = torch.from_numpy(s.reshape(200, 100, D) if paged else s).to(dev)
+    args = [torch.from_numpy(q).to(dev), store, torch.from_numpy(ids).to(dev)]
+    n0 = sim_topk.LAUNCHES["gather_top1"]
+    gv, gi = sim_topk.gather_top1(*args)
+    assert sim_topk.LAUNCHES["gather_top1"] == n0 + 1
+    wv, wi = sim_topk.reuse_top1(*args)
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+    _same((gv, gi), ref.gather_top1_ref(*args))
+    assert gi[0].item() == ids[0, 0]
+    if B > 1:
+        assert gi[-1].item() == -1 and torch.isneginf(gv[-1]).item()
+    if C > 2048 or B == 1 and C > 512:
+        assert sim_topk.gather_plan(B, C, D)["splits"] > 1
+
+
+@pytest.mark.cuda
+def test_gather_top1_no_candidate(dev):
+    q, s = _unit(1, 64).to(dev), _unit(100, 64).to(dev)
+    ids = torch.full((1, 5000), -1, dtype=torch.int32, device=dev)
+    for fn in (sim_topk.gather_top1, sim_topk.reuse_top1):
+        v, i = fn(q, s, ids)
+        assert i.item() == -1 and torch.isneginf(v).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 32])
+def test_gather_top1_unaligned_views(dev, B):
+    rng = np.random.default_rng(B)
+    s = normalize(rng.standard_normal((5000, 64)).astype(np.float32))
+    ids = _sorted_candidates(rng, B, 5000, 3000)
+    q = normalize(rng.standard_normal((B, 64)).astype(np.float32))
+    args = [torch.from_numpy(q).to(dev), torch.from_numpy(s.reshape(50, 100, 64)).to(dev),
+            torch.from_numpy(ids).to(dev)]
+    want = sim_topk.gather_top1(*args)
+    for i in (0, 1):          # q, then the store, off a 16-byte boundary: 4-byte copies
+        moved = list(args)
+        moved[i] = _offset_view(args[i])
+        for fn in (sim_topk.gather_top1, sim_topk.reuse_top1):
+            got = fn(*moved)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 8, 130, 300])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+@pytest.mark.parametrize("n_valid", [127, 128, 129, 2047, 2048, 2049])
+def test_sim_top1_matches_id_route(dev, Q, D, n_valid):
+    """sim_top1 over the first n_valid rows is reuse_top1 over the ids
+    arange(n_valid) (-1 padded): bit-equal (val, idx), since both score a
+    pair with one fmaf chain over D and break ties to the lowest index; a
+    tie planted across the splits goes to the first index."""
+    rng = np.random.default_rng(Q * D + n_valid)
+    N = 2100
+    s = normalize(rng.standard_normal((N, D)).astype(np.float32))
+    s[n_valid - 1] = s[3]
+    q = normalize(rng.standard_normal((Q, D)).astype(np.float32))
+    q[0] = s[3]
+    qd, sd = torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev)
+    n0 = sim_topk.LAUNCHES["sim_top1"]
+    gv, gi = sim_topk.sim_top1(qd, sd, n_valid)
+    assert sim_topk.LAUNCHES["sim_top1"] == n0 + 1
+    ids = torch.full((Q, N), -1, dtype=torch.int32)
+    ids[:, :n_valid] = torch.arange(n_valid, dtype=torch.int32)
+    wv, wi = sim_topk.reuse_top1(qd, sd, ids.to(dev))
+    assert torch.equal(gi, wi) and torch.equal(gv, wv)
+    assert gi[0].item() == 3 and (gi < n_valid).all()
+    if n_valid > 2048:
+        assert sim_topk.sim_plan(Q, n_valid, D)["splits"] > 1
