@@ -20,13 +20,24 @@ just before it and read just after:
   each step), held against the plain attention and a longer prefill;
 * model-serve: two replicas whose misses run that model's prefill
   (``launch/serve.py``'s executor), with mixed near-duplicate and fresh
-  traffic.
+  traffic;
+* async-serve: the serve launcher's traffic (200 requests of the ``cctv1``
+  stream, 32-token prompts, threshold 0.9, Poisson arrivals at 200 req/s on
+  the virtual clock, batches of up to 8 within 5 ms, wall-time execution) on
+  two fresh replicas of that model, through ``AsyncServingEngine`` and
+  through ``ServingFleet.submit`` (K4a once a request, K3, K6 28 times a
+  miss group); then the async benchmark's two straggler configurations
+  (``load200/batch8``, ``load1000/batch32``) on the card with a stub
+  executor, held equal to ``BENCH_async_serving.json``; then
+  ``launch/serve.py``'s ``main`` with ``--engine async`` and ``sync``.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-its path, error against its plain version, time, plain time, bound and the
-time of one PyTorch library call computing the same function (where there
-is one), and last ``{"ok": true, "device": {...}}``.  Kernel times are
+its path, its launches on the async-serve path, error against its plain
+version, time, plain time, bound and the time of one PyTorch library call
+computing the same function (where there is one), and last
+``{"ok": true, "device": {...}}``.  K4b's path is its caller
+``ops.lsh_hash_ids`` at the serving hash shape.  Kernel times are
 CUDA-event medians of single calls, each with its launch.  The two attention
 kernels and their library calls also give ``device_ms`` and
 ``library_device_ms``: device time per call over a CUDA graph of 20 calls,
@@ -71,16 +82,22 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.lsh import LSHParams, normalize, sample_params  # noqa: E402
 from repro_torch.core.reuse_store import ReuseStore  # noqa: E402
+from repro_torch.core.sim_clock import EventLoop  # noqa: E402
+from repro_torch.data import DATASETS, make_stream  # noqa: E402
 from repro_torch.kernels import build, lsh_hash, ops, ref, sim_topk  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.serve import make_executor, make_request  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving.engine import (  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    AsyncServingEngine,
     ReplicaEngine,
     ReuseRouter,
     ServeRequest,
+    ServingFleet,
 )
+from repro_torch.training.elastic import BackupPolicy  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, fp32
 # FLOP/s on the CUDA cores, and dense bf16 FLOP/s on the tensor cores (the
@@ -121,11 +138,13 @@ SOURCES = {
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:86"),
 }
-# kernel -> the path that must launch it (the id-matrix route of K1 and K4b
-# are on none: the serve path's count of them, 0, is reported)
+# kernel -> the path that must launch it (the id-matrix route of K1 is on
+# none: the serve path's count of it, 0, is reported); the async-serve path
+# must launch K3, K4a and K6 too (each row reports its async_serve_launches)
 MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
-             "sim_top1": "nearest", "flash_attention": "model",
+             "lsh_hash": "hash-ids", "sim_top1": "nearest", "flash_attention": "model",
              "decode_attention": "model"}
+ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -148,6 +167,10 @@ SIM_GRAPH_REPS = 5                        # K5 calls a graph (a call takes milli
 NEAREST_WARM = 5                          # warm nearest_neighbor calls timed after the first
 MODEL_ARCH = "qwen3-1.7b"
 MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
+# phase async-serve: the serve launcher's defaults (launch/serve.py), its CLI at
+# the size the launcher's documented example runs
+AS_DATASET, AS_REQUESTS, AS_RATE, AS_MAX_BATCH, AS_MAX_WAIT_S = "cctv1", 200, 200.0, 8, 0.005
+AS_CLI_REQUESTS, AS_CLI_RATE = 40, 500.0
 
 
 class SmokeFailure(RuntimeError):
@@ -344,6 +367,9 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
             else:         # D=128, K=2 beside it
                 out[name].update({"d128_k2_ms": ms, "d128_k2_plain_ms": plain_ms,
                                   "d128_k2_device_ms": dev_ms, "d128_k2_bound_ms": bms})
+        # one request's hash, as the async engine's admission gives it
+        check_hash(f"lsh_hash_mix B=1 D={d} K={k}", lsh_hash.lsh_hash_mix(x[:1], rot, nb),
+                   ref.lsh_hash_mix_ref(x[:1], rot, nb), margins[:1])
         # the routed batch: device time of each tile against the plan's choice
         xb = x[:ROUTED_B]
         got = lsh_hash.lsh_hash_mix(xb, rot, nb)
@@ -365,6 +391,24 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
             + f"; the plan takes {chosen['tile_rows']}")
         out["lsh_hash_mix"][f"b{ROUTED_B}_d{d}_k{k}_tile_device_ms"] = tiles
     return out
+
+
+def phase_hash_ids(dev: torch.device, seed: int = 9) -> dict:
+    """K4b through its caller, ``ops.lsh_hash_ids``, at the serving hash
+    shape, against its plain version; returns the call's launches."""
+    rng = np.random.default_rng(seed)
+    p = LSHParams(dim=64, num_tables=5, seed=seed)
+    rot_np, _ = sample_params(p)
+    x_np = _unit(rng, HASH_B, 64)
+    x, rot = torch.from_numpy(x_np).to(dev), torch.from_numpy(rot_np).to(dev)
+    ops.reset_launch_counts()
+    got = ops.lsh_hash_ids(x, rot)
+    counts = ops.launch_counts()
+    _, ties = check_hash("ops.lsh_hash_ids", got, ref.lsh_hash_ref(x, rot),
+                         _cp_margins(x_np, rot_np))
+    log(f"  ops.lsh_hash_ids B={HASH_B} D=64 T=5: vertex ids equal to the plain version's "
+        f"(differing at near-ties {ties}); launches {counts}")
+    return counts
 
 
 # ------------------------------------------------------------------ phase 3a
@@ -880,7 +924,8 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
         (2, 200, 200, 16, 8, 64, torch.float32, {"causal": False}),
         (2, 100, 180, 16, 8, 128, torch.bfloat16, {"causal": False}),
         (1, 96, 96, 8, 8, 32, torch.float32, {"scale": 0.0625}),
-        (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8}))   # rows with no key
+        (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8}),   # rows with no key
+        (8, 32, 32, 16, 8, 128, torch.bfloat16, {}))   # a miss group of 8 (async-serve)
     variants += tuple((*v[:6], torch.bfloat16, v[7]) for v in variants
                       if v[6] == torch.float32)
     for B, S, T, H, KV, D, dt, kw in variants:
@@ -1194,6 +1239,173 @@ def phase_model_serve(dev: torch.device, model, seed: int = 8) -> dict:
     return counts
 
 
+# ------------------------------------------------------------------ phase 8
+# virtual-clock parity: the sweep of benchmarks/async_serving.py (its
+# _trace, _exec_time_fn, _max_wait_s and warm _replicas), rebuilt here since
+# the smoke imports nothing outside the port
+PARITY_DIM, PARITY_N, PARITY_REPLICAS = 32, 600, 3
+PARITY_DEADLINE_S, PARITY_BASE_EXEC_S, PARITY_STRAGGLER = 0.25, 0.08, 8.0
+# BENCH_async_serving.json, rows async_serving/load{load}/batch{batch}/strag0.1,
+# at the precision the file records
+PARITY_WANT = {
+    (200.0, 8): {"makespan_s": 3.12, "p99_ms": 244.4, "deadline_miss_pct": 1.0,
+                 "backups": 19, "backup_wins": 7, "executed": 37, "en": 12, "cs": 519,
+                 "aggregated": 32},
+    (1000.0, 32): {"makespan_s": 2.39, "p99_ms": 593.2, "deadline_miss_pct": 2.8,
+                   "backups": 35, "backup_wins": 24, "executed": 42, "en": 7, "cs": 364,
+                   "aggregated": 187},
+}
+
+
+def _parity_run(dev: torch.device, load: float, max_batch: int):
+    """One configuration of the async benchmark's sweep (straggler rate 0.1)
+    on ``dev``: stub executor, virtual execution times, 3 replicas with a
+    warm TTC.  Returns (its virtual-clock fields, rounded as the benchmark
+    prints them, and each request's (reuse, replica, backup, result,
+    latency))."""
+    rng = np.random.default_rng(0)
+    base = normalize(rng.standard_normal((24, PARITY_DIM)).astype(np.float32))
+    embs = normalize(base[rng.integers(0, 24, PARITY_N)]
+                     + 0.04 * rng.standard_normal((PARITY_N, PARITY_DIM)).astype(np.float32)
+                     / np.sqrt(PARITY_DIM))
+    reqs = [ServeRequest(i, "svc", embs[i], threshold=0.9, deadline_s=PARITY_DEADLINE_S)
+            for i in range(PARITY_N)]
+    exec_rng = np.random.default_rng(2)
+
+    def exec_time(rid, service, batch):
+        per_req = PARITY_BASE_EXEC_S * (1 + 0.2 * exec_rng.random())
+        if exec_rng.random() < 0.1:
+            per_req *= PARITY_STRAGGLER
+        return per_req * max(1.0, len(batch)) ** 0.5
+
+    execute = lambda batch: [  # noqa: E731
+        round(float(np.sum(np.asarray(r.embedding))), 5) for r in batch]
+    p = LSHParams(dim=PARITY_DIM, num_tables=5, num_probes=8, seed=7)
+    replicas = [ReplicaEngine(i, p, execute, device=dev) for i in range(PARITY_REPLICAS)]
+    for r in replicas:
+        r.ttc.observe("svc", PARITY_BASE_EXEC_S)
+    engine = AsyncServingEngine(
+        p, replicas, backup=BackupPolicy(factor=1.5, max_backups=1), max_batch=max_batch,
+        max_wait_s=min(PARITY_DEADLINE_S / 4, max_batch / load), exec_time_fn=exec_time,
+        device=dev)
+    arrivals = np.cumsum(np.random.default_rng(3).exponential(1.0 / load, PARITY_N))
+    futs = [engine.submit_at(t, r) for t, r in zip(arrivals, reqs)]
+    makespan = engine.drain()
+    lats = np.asarray([f.result.latency_s for f in futs])
+    s = engine.stats()
+    raw = {"makespan_s": float(makespan), "p99_ms": float(np.percentile(lats, 99)) * 1e3,
+           "deadline_miss_pct": float(np.mean(lats > PARITY_DEADLINE_S)) * 100}
+    log(f"  virtual-clock parity load{load:.0f}/batch{max_batch}/strag0.1 on {dev.type}, "
+        f"unrounded: {raw}; stats {dict(sorted(s.items()))}")
+    got = {"makespan_s": round(raw["makespan_s"], 2), "p99_ms": round(raw["p99_ms"], 1),
+           "deadline_miss_pct": round(raw["deadline_miss_pct"], 1)}
+    got.update({k: s[k] for k in ("backups", "backup_wins", "executed", "en", "cs",
+                                  "aggregated")})
+    res = [(f.result.reuse, f.result.replica, f.result.backup, f.result.result,
+            f.result.latency_s) for f in futs]
+    return got, res
+
+
+def _serve_run(engine_kind: str, dev: torch.device, model, reqs, arrivals, groups):
+    """Serve ``reqs`` on two fresh replicas of ``model`` at full width, through
+    ``AsyncServingEngine`` (Poisson ``arrivals`` on the virtual clock, an
+    event-loop profile) or through ``ServingFleet.submit`` one at a time;
+    each miss group's size is appended to ``groups``.  Returns (engine, futures
+    or results, makespan)."""
+    execute = make_executor(model, MS_SEQ)
+
+    def counted(batch):
+        groups.append(len(batch))
+        return execute(batch)
+
+    p = LSHParams(dim=64, num_tables=5, num_probes=8)
+    replicas = [ReplicaEngine(i, p, counted, device=dev) for i in range(2)]
+    if engine_kind == "async":
+        engine = AsyncServingEngine(p, replicas, loop=EventLoop(profile=True),
+                                    max_batch=AS_MAX_BATCH, max_wait_s=AS_MAX_WAIT_S,
+                                    device=dev)
+        futs = [engine.submit_at(t, r) for t, r in zip(arrivals, reqs)]
+        return engine, futs, engine.drain()
+    fleet = ServingFleet(p, replicas, max_batch=AS_MAX_BATCH, max_wait_s=AS_MAX_WAIT_S,
+                         device=dev)
+    results = [fleet.submit(r) for r in reqs]
+    return fleet.engine, results, fleet.engine.loop.now
+
+
+def phase_async_serve(dev: torch.device, model) -> dict:
+    """The serve launcher's traffic at full width: qwen3-1.7b behind two
+    replicas (100k-entry stores) through ``AsyncServingEngine`` and through
+    ``ServingFleet``; the async benchmark's virtual-clock results on the card;
+    the launcher's ``main`` for both engines.  Returns the async run's
+    launches."""
+    cfg = model.cfg
+    X, _ = make_stream(DATASETS[AS_DATASET], AS_REQUESTS, seed=0)
+    reqs = [make_request(i, AS_DATASET, X[i], MS_SEQ, cfg.vocab_size, 0.9)
+            for i in range(AS_REQUESTS)]
+    arrivals = np.cumsum(np.random.default_rng(0).exponential(1.0 / AS_RATE, AS_REQUESTS))
+    # warm the executor at every miss-group size: with wall-time execution a
+    # first call's set-up would be its virtual duration and seed the TTC
+    execute = make_executor(model, MS_SEQ)
+    for n in range(1, AS_MAX_BATCH + 1):
+        execute(reqs[:n])
+    sync()
+    out = {}
+    for kind in ("async", "sync"):
+        groups = []
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        engine, res, makespan = _serve_run(kind, dev, model, reqs, arrivals, groups)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        if kind == "async":
+            expect(all(f.done for f in res), "async-serve: a future was not resolved")
+        results = [f.result for f in res] if kind == "async" else res
+        stats = engine.stats()
+        p99 = float(np.percentile([r.latency_s for r in results], 99))
+        log(f"  {kind} ({'AsyncServingEngine' if kind == 'async' else 'ServingFleet.submit'})"
+            f": {AS_REQUESTS} requests of {AS_DATASET} in {wall:.3f} s wall, virtual "
+            f"makespan {makespan:.6f} s, virtual p99 latency {p99 * 1e3:.3f} ms; stats "
+            f"{dict(sorted(stats.items()))}; {len(groups)} miss groups of "
+            f"{sum(groups)} requests; launches {counts}")
+        expect(engine.pending() == 0, f"async-serve {kind}: {engine.pending()} in flight")
+        expect(stats["cs"] + stats["en"] + stats["executed"] + stats["aggregated"]
+               == AS_REQUESTS, f"async-serve {kind}: stats {stats} do not add up")
+        expect(counts["lsh_hash_mix"] == AS_REQUESTS,
+               f"async-serve {kind}: {counts['lsh_hash_mix']} hash launches for "
+               f"{AS_REQUESTS} admitted requests")
+        expect(counts["flash_attention"] == cfg.n_layers * len(groups),
+               f"async-serve {kind}: {counts['flash_attention']} flash_attention launches "
+               f"for {len(groups)} miss groups")
+        expect(counts["gather_top1"] > 0, f"async-serve {kind}: gather_top1 never launched")
+        expect(counts["reuse_top1_probed"] == 0, f"async-serve {kind}: a batch took the "
+               "fused path")
+        if kind == "async":
+            out = counts
+            log("  " + engine.loop.profiler.report(top=6).replace("\n", "\n  "))
+        profile_call(f"{kind} serve of {AS_REQUESTS} requests", lambda kind=kind: _serve_run(
+            kind, dev, model, reqs, arrivals, []))
+    for (load, batch), want in PARITY_WANT.items():
+        got, res = _parity_run(dev, load, batch)
+        # the port on the CPU scores as the reference does (numpy cosine;
+        # held equal to the JAX package in tests/test_torch_async_serving.py):
+        # requests whose outcome differs on the card are winners K3 flipped
+        _, res_cpu = _parity_run(torch.device("cpu"), load, batch)
+        flipped = [i for i, (a, b) in enumerate(zip(res, res_cpu)) if a != b]
+        log(f"  virtual-clock parity load{load:.0f}/batch{batch}/strag0.1: {got}; requests "
+            f"whose (reuse, replica, backup, result, latency) differ from the CPU run: "
+            f"{len(flipped)} {flipped[:20]}")
+        expect(got == want, f"async-serve parity load{load:.0f}/batch{batch}: got {got}, "
+               f"BENCH_async_serving.json has {want}; requests that differ from the CPU "
+               f"run: {flipped}")
+    for engine_kind in ("async", "sync"):
+        log(f"  launcher: main --engine {engine_kind} --requests {AS_CLI_REQUESTS} --rate "
+            f"{AS_CLI_RATE:g}")
+        serve_main(["--engine", engine_kind, "--requests", str(AS_CLI_REQUESTS),
+                    "--rate", str(AS_CLI_RATE)])
+    return out
+
+
 # ------------------------------------------------------------------ main
 @contextlib.contextmanager
 def timed(name: str):
@@ -1239,12 +1451,13 @@ def main() -> int:
         spilled = [r["entry"] for r in build.ptxas_report("sim_topk")
                    if r["spill_stores"] or r["spill_loads"]]
         expect(not spilled, f"sim_topk kernels spill registers: {spilled}")
+    paths = {}
     with timed("kernels"):
         kern = phase_kernels(dev)
+        paths["hash-ids"] = phase_hash_ids(dev)
         kern.update(phase_top1(dev))
         kern["reuse_top1_probed"] = phase_probed(dev)
         kern.update(phase_attention_kernels(dev))
-    paths = {}
     with timed("serve"):
         paths["serve"] = phase_serve(dev)
     with timed("store"):
@@ -1255,12 +1468,17 @@ def main() -> int:
         model, paths["model"] = phase_model(dev)
     with timed("model-serve"):
         paths["model-serve"] = phase_model_serve(dev, model)
+    with timed("async-serve"):
+        paths["async-serve"] = phase_async_serve(dev, model)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
-    # each kernel's launches on its own path (lsh_hash: the serve path's, 0)
+    for name in ASYNC_PATH:
+        expect(paths["async-serve"][name] > 0, f"{name} was not launched on the async-serve path")
+    # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
               "launches": paths[MAIN_PATH.get(name, "serve")][name],
+              "async_serve_launches": paths["async-serve"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

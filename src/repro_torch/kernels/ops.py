@@ -45,6 +45,17 @@ def _pad_rows(x: torch.Tensor, mult: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((target - n,) + tuple(x.shape[1:]))])
 
 
+# ------------------------------------------------------------------- lsh_hash
+def lsh_hash_ids(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """(B, D) x (T, K, D, D) -> (B, T, K) int32 cross-polytope vertex ids."""
+    return _lsh.lsh_hash(x, rotations)
+
+
+def lsh_buckets(x: torch.Tensor, rotations: torch.Tensor, num_buckets: int) -> torch.Tensor:
+    """Hash + per-table bucket mixing in one launch -> (B, T) int32."""
+    return _lsh.lsh_hash_mix(x, rotations, num_buckets)
+
+
 # ------------------------------------------------------------------- sim_topk
 def similarity_scores(q: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
     """Dense cosine scores q (Q, D) x store (N, D) -> (Q, N) f32: a plain

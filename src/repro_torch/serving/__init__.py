@@ -1,2 +1,5 @@
-"""Reuse-aware serving: replica engine and bucket-range router."""
-from .engine import ReplicaEngine, ReuseRouter, ServeRequest, ServeResult  # noqa: F401
+"""Reuse-aware serving: replica engine, bucket-range router, the async
+engine with its batcher, and the sync fleet facade over it."""
+from .async_engine import AsyncServingEngine  # noqa: F401
+from .batcher import Batcher  # noqa: F401
+from .engine import ReplicaEngine, ReuseRouter, ServeRequest, ServeResult, ServingFleet  # noqa: F401

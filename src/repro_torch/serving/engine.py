@@ -1,9 +1,10 @@
 """Reuse-aware serving engine: Reservoir semantics in front of real models.
 
 Port of ``repro/serving/engine.py`` (``ServeRequest``, ``ServeResult``,
-``ReplicaEngine``, ``ReuseRouter``; ``ServingFleet`` comes with the async
-engine).  A request's input embedding is LSH-hashed (the ``lsh_hash_mix``
-CUDA kernel on the card); the resulting *task name* drives, in order:
+``ReplicaEngine``, ``ReuseRouter``, and ``ServingFleet``, the sync facade
+over ``async_engine.AsyncServingEngine``).  A request's input embedding is
+LSH-hashed (the ``lsh_hash_mix`` CUDA kernel on the card); the resulting
+*task name* drives, in order:
 
   1. exact-name result cache   == NDN Content Store (CS) hit,
   2. in-flight coalescing      == PIT aggregation,
@@ -32,6 +33,7 @@ from ..core.packets import Data
 from ..core.reuse_store import ReuseStore
 from ..device import DeviceLike, resolve_device
 from ..obs.registry import CounterGroup
+from ..training.elastic import BackupPolicy
 
 
 @dataclasses.dataclass
@@ -345,3 +347,75 @@ class ReuseRouter:
         votes = (owners[:, :, None] == np.arange(self.n_replicas)[None, None, :]
                  ).sum(axis=1)                                     # (B, R)
         return votes.argmax(axis=1), buckets
+
+
+class ServingFleet:
+    """Router + replicas + straggler mitigation, sync facade.
+
+    ``submit``/``submit_batch`` are thin wrappers over the event-driven
+    ``AsyncServingEngine`` (serving/async_engine.py): requests are admitted
+    as futures and the virtual-clock loop is drained to completion, so the
+    sync API exercises exactly the async pipeline (batcher flush, PIT
+    follower futures, backup timers) — which is what makes scalar parity
+    against ``handle_batch`` testable.  ``submit_batch_sync`` keeps the
+    direct one-``handle_batch``-per-replica path as the parity reference.
+    """
+
+    def __init__(self, lsh_params: LSHParams, replicas: List[ReplicaEngine],
+                 backup: Optional[BackupPolicy] = None,
+                 max_batch: int = 8, max_wait_s: float = 0.005,
+                 device: DeviceLike = None):
+        from .async_engine import AsyncServingEngine  # avoid import cycle
+
+        self.engine = AsyncServingEngine(
+            lsh_params, replicas, backup=backup,
+            max_batch=max_batch, max_wait_s=max_wait_s, device=device)
+        self.router = self.engine.router
+        self.replicas = replicas
+        self.backup = self.engine.backup
+
+    def submit(self, req: ServeRequest) -> ServeResult:
+        fut = self.engine.submit(req)
+        self.engine.drain()
+        return fut.result
+
+    def submit_batch(self, reqs: List[ServeRequest]) -> List[ServeResult]:
+        """Admit a whole batch at one virtual instant, drain, and return
+        results in submission order."""
+        futs = [self.engine.submit(r) for r in reqs]
+        self.engine.drain()
+        return [f.result for f in futs]
+
+    def submit_batch_sync(self, reqs: List[ServeRequest]) -> List[ServeResult]:
+        """Direct sync path: route a whole batch (one hash dispatch), then
+        one ``handle_batch`` per replica; results in submission order.
+
+        Passes the engine's virtual time as the Content-Store clock so the
+        replicas' CS state stays on ONE clock even when both facade paths
+        are mixed on the same fleet (wall timestamps would instantly expire
+        entries inserted at virtual time, and vice versa)."""
+        if not reqs:
+            return []
+        owners, _ = self.router.route_batch(
+            np.stack([np.asarray(r.embedding, np.float32).reshape(-1)
+                      for r in reqs]))
+        results: List[Optional[ServeResult]] = [None] * len(reqs)
+        for rid in sorted(set(int(o) for o in owners)):
+            idxs = [i for i, o in enumerate(owners) if int(o) == rid]
+            for i, res in zip(idxs, self.replicas[rid].handle_batch(
+                    [reqs[i] for i in idxs], now=self.engine.loop.now)):
+                results[i] = res
+        return results
+
+    def maybe_backup(self, elapsed_s: float, service: str, primary: int,
+                     backups_sent: int = 0) -> Optional[int]:
+        """Straggler mitigation: pick a backup replica when TTC is exceeded."""
+        ttc = self.replicas[primary].ttc.estimate(service)
+        if self.backup.should_backup(elapsed_s, ttc, backups_sent):
+            return (primary + 1) % len(self.replicas)
+        return None
+
+    def stats(self) -> Dict[str, int]:
+        """Fleet-wide counters: replica stats + the engine's backup/dispatch
+        counters (backups can fire during a drained ``submit``)."""
+        return self.engine.stats()

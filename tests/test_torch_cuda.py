@@ -659,3 +659,41 @@ def test_sim_top1_matches_id_route(dev, Q, D, n_valid):
     assert gi[0].item() == 3 and (gi < n_valid).all()
     if n_valid > 2048:
         assert sim_topk.sim_plan(Q, n_valid, D)["splits"] > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_batch", [1, 8])
+def test_async_engine_same_outcome_on_the_card(dev, max_batch):
+    """A clustered trace with stragglers through ``AsyncServingEngine`` on the
+    card (K4a per admission, K3 per flush) and on the CPU (the reference's
+    numpy scoring): every request's reuse kind, replica, backup flag, result
+    and virtual latency are equal, and so are the counters."""
+    from repro_torch.serving import AsyncServingEngine, ReplicaEngine, ServeRequest
+    from repro_torch.training.elastic import BackupPolicy
+
+    rng = np.random.default_rng(11)
+    base = normalize(rng.standard_normal((12, 32)).astype(np.float32))
+    embs = normalize(base[rng.integers(0, 12, 200)]
+                     + 0.04 * rng.standard_normal((200, 32)).astype(np.float32) / np.sqrt(32))
+    arrivals = np.cumsum(rng.exponential(1 / 300.0, 200))
+
+    def run(device):
+        times = np.random.default_rng(5)
+        execute = lambda batch: [round(float(np.sum(r.embedding)), 5) for r in batch]  # noqa: E731
+        p = LSHParams(dim=32, num_tables=5, num_probes=8, seed=7)
+        reps = [ReplicaEngine(i, p, execute, device=device) for i in range(3)]
+        for r in reps:
+            r.ttc.observe("svc", 0.05)
+        eng = AsyncServingEngine(p, reps, backup=BackupPolicy(factor=1.5, max_backups=1),
+                                 max_batch=max_batch, max_wait_s=0.01, device=device,
+                                 exec_time_fn=lambda *a: 0.05 * (8.0 if times.random() < 0.1
+                                                                 else 1.0))
+        futs = [eng.submit_at(t, ServeRequest(i, "svc", embs[i], threshold=0.9))
+                for i, t in enumerate(arrivals)]
+        span = eng.drain()
+        return span, eng.stats(), [(f.result.reuse, f.result.replica, f.result.backup,
+                                    f.result.result, f.result.latency_s) for f in futs]
+
+    card, cpu = run(dev), run("cpu")
+    assert card == cpu
+    assert card[1]["en"] > 0 and card[1]["backups"] > 0

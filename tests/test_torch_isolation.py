@@ -70,6 +70,8 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core.reuse_store import ReuseStore
     from repro_torch.device import resolve_device
     from repro_torch.models import DecoderLM, build_model
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serving import AsyncServingEngine, ServingFleet
     from repro_torch.serving.engine import ReplicaEngine, ReuseRouter
 
     if torch.cuda.is_available():
@@ -77,11 +79,14 @@ def test_entry_points_default_to_cuda():
         return
     p = LSHParams(dim=8, num_tables=2)
     cfg = get_arch("qwen3-1.7b").reduced()
+    cpu_replicas = [ReplicaEngine(0, p, list, device="cpu")]
     for make in (lambda: ReuseStore(p), lambda: LSH(p), lambda: get_lsh(p),
                  lambda: ReplicaEngine(0, p, list), lambda: ReuseRouter(p, 2),
                  lambda: resolve_device("cuda"), lambda: build_model(cfg),
-                 lambda: DecoderLM(cfg)):
+                 lambda: DecoderLM(cfg), lambda: AsyncServingEngine(p, cpu_replicas),
+                 lambda: ServingFleet(p, cpu_replicas), lambda: serve_main(["--requests", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ReuseStore(p, device="cpu").device.type == "cpu"
     assert build_model(cfg, device="cpu").embed.device.type == "cpu"
+    assert AsyncServingEngine(p, cpu_replicas, device="cpu").router.lsh.device.type == "cpu"

@@ -12,6 +12,7 @@ import torch
 
 from repro.core import lsh as jlsh
 from repro.kernels import lsh_hash as jkern
+from repro.kernels import ops as jops
 from repro_torch.core import lsh as tlsh
 from repro_torch.device import fp32_matmul
 from repro_torch.kernels import lsh_hash as tkern
@@ -119,6 +120,34 @@ class TestHashing:
     def test_get_lsh_caches_per_device(self):
         p = tlsh.LSHParams(dim=16, num_tables=2, seed=1)
         assert tlsh.get_lsh(p, CPU) is tlsh.get_lsh(p, torch.device("cpu"))
+
+
+class TestHashOps:
+    """``ops.lsh_hash_ids`` and ``ops.lsh_buckets`` (K4b's and K4a's callers)
+    against the reference's, which run the Pallas kernels in interpret mode."""
+
+    @pytest.mark.parametrize("B,D,T,K", [(8, 64, 1, 1), (33, 128, 5, 2), (7, 32, 2, 3),
+                                         (1, 64, 5, 1)])
+    def test_lsh_hash_ids(self, B, D, T, K):
+        rng = np.random.default_rng(B + D)
+        x = rng.standard_normal((B, D)).astype(np.float32)
+        rot = rng.standard_normal((T, K, D, D)).astype(np.float32)
+        got = tops.lsh_hash_ids(torch.from_numpy(x), torch.from_numpy(rot))
+        assert got.dtype == torch.int32 and tuple(got.shape) == (B, T, K)
+        assert np.array_equal(got.numpy(), np.asarray(jops.lsh_hash_ids(jnp.asarray(x),
+                                                                       jnp.asarray(rot))))
+
+    @pytest.mark.parametrize("kw", [dict(dim=64, num_tables=4, rotations_per_table=2,
+                                         num_buckets=256, seed=3),
+                                    dict(dim=32, num_tables=3, num_probes=6, seed=7)])
+    def test_lsh_buckets(self, kw):
+        j, t = _pair(**kw)
+        x = _rand(19, kw["dim"], seed=4)
+        nb = t.params.num_buckets
+        got = tops.lsh_buckets(torch.from_numpy(x), t.rotations, nb)
+        want = np.asarray(jops.lsh_buckets(jnp.asarray(x), j.rotations, nb))
+        assert np.array_equal(got.numpy(), want)
+        assert np.array_equal(got.numpy(), t.hash_batch(x).numpy())
 
 
 class TestMultiProbe:
