@@ -29,11 +29,19 @@ just before it and read just after:
   miss group); then the async benchmark's two straggler configurations
   (``load200/batch8``, ``load1000/batch32``) on the card with a stub
   executor, held equal to ``BENCH_async_serving.json``; then
-  ``launch/serve.py``'s ``main`` with ``--engine async`` and ``sync``.
+  ``launch/serve.py``'s ``main`` with ``--engine async`` and ``sync``;
+* cosim: the network simulator with its reuse stores on the card — the
+  seeded traces of tests/test_cosim.py (stub services) held to their pinned
+  summaries and task by task to a CPU run, ``BENCH_cosim.json``'s rows at
+  200 req/s, then ``launch/serve.py``'s co-simulation (``build_cosim``: the
+  testbed's two ENs, each with two replicas of that model behind an
+  ``EngineBackend``, 200 ``cctv1`` tasks at 200 req/s, an 8 ms EN window;
+  K4a per client hash, admission and insert, K3 per staged store query, K6
+  28 times a model execution), and its ``main --engine cosim --trace-out``.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-its path, its launches on the async-serve path, error against its plain
+its path, its launches on the async-serve and cosim paths, error against its plain
 version, time, plain time, bound and the time of one PyTorch library call
 computing the same function (where there is one), and last
 ``{"ok": true, "device": {...}}``.  K4b's path is its caller
@@ -64,8 +72,10 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -81,17 +91,21 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.lsh import LSHParams, normalize, sample_params  # noqa: E402
+from repro_torch.core.network import PaperDelayModel, ReservoirNetwork  # noqa: E402
 from repro_torch.core.reuse_store import ReuseStore  # noqa: E402
 from repro_torch.core.sim_clock import EventLoop  # noqa: E402
-from repro_torch.data import DATASETS, make_stream  # noqa: E402
+from repro_torch.core.topology import testbed_topology  # noqa: E402
+from repro_torch.data import DATASETS, dataset_service, make_stream  # noqa: E402
 from repro_torch.kernels import build, lsh_hash, ops, ref, sim_topk  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
+from repro_torch.launch.serve import LSH_PARAMS, build_cosim, make_executor  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
-from repro_torch.launch.serve import make_executor, make_request  # noqa: E402
+from repro_torch.launch.serve import make_request, make_service  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AsyncServingEngine,
+    EngineBackend,
     ReplicaEngine,
     ReuseRouter,
     ServeRequest,
@@ -145,6 +159,7 @@ MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix
              "lsh_hash": "hash-ids", "sim_top1": "nearest", "flash_attention": "model",
              "decode_attention": "model"}
 ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
+COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -171,6 +186,9 @@ MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
 # the size the launcher's documented example runs
 AS_DATASET, AS_REQUESTS, AS_RATE, AS_MAX_BATCH, AS_MAX_WAIT_S = "cctv1", 200, 200.0, 8, 0.005
 AS_CLI_REQUESTS, AS_CLI_RATE = 40, 500.0
+# phase cosim: the launcher's --engine cosim defaults (EN window 8 ms), and
+# the store size at which an EN search is timed (PaperDelayModel's 100k point)
+COSIM_WINDOW_S, COSIM_SEARCH_N = 0.008, 100_000
 
 
 class SmokeFailure(RuntimeError):
@@ -666,10 +684,10 @@ def probed_crossover(store: ReuseStore, qd: torch.Tensor) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
-def profile_call(name: str, fn, top: int = 8) -> None:
+def profile_call(name: str, fn, top: int = 8, host: bool = True) -> None:
     """Where one call's time goes: device busy share (torch.profiler, one
-    call) and the host functions with the most time (cProfile, another
-    call; ``fn`` draws fresh inputs on each call)."""
+    call) and, with ``host``, the host functions with the most time
+    (cProfile, another call; ``fn`` draws fresh inputs on each call)."""
     import cProfile
     import pstats
 
@@ -690,6 +708,8 @@ def profile_call(name: str, fn, top: int = 8) -> None:
     log(f"  profile {name}: wall {wall_ms:.3f} ms (under the profiler), {busy}; "
         "top device ops " + "; ".join(f"{k} {t:.3f} ms"
                                       for t, k in sorted(on_dev, reverse=True)[:4]))
+    if not host:
+        return
     prof_host = cProfile.Profile()
     t0 = time.perf_counter()
     prof_host.enable()
@@ -1406,6 +1426,314 @@ def phase_async_serve(dev: torch.device, model) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+# phase cosim: the network simulator with the reuse stores on the card.
+# tests/test_cosim.py's pinned summaries of its seeded trace (500 tasks, no
+# window), and the reference's summaries of the same trace's first 250 tasks
+# under a 24 ms EN window (held equal to the JAX package on the CPU in
+# tests/test_torch_network.py)
+COSIM_GOLDEN = {
+    ("direct", 0.0): {"tasks": 500, "mean_ct_scratch": 0.11743256895503866,
+                      "mean_ct_cs": 0.006210639836999299, "mean_ct_en": 0.015915092919248766,
+                      "reuse_pct": 84.0, "reuse_pct_cs": 28.4,
+                      "reuse_pct_en": 55.60000000000001, "accuracy_pct": 100.0,
+                      "fwd_error_pct": 6.800000000000001},
+    ("ttc", 0.0): {"tasks": 500, "mean_ct_scratch": 0.13539679846951094,
+                   "mean_ct_cs": 0.006334329121343468, "mean_ct_en": 0.015930518390692365,
+                   "reuse_pct": 86.6, "reuse_pct_cs": 28.000000000000004,
+                   "reuse_pct_en": 58.599999999999994, "accuracy_pct": 100.0,
+                   "fwd_error_pct": 6.0},
+    ("direct", 0.024): {"tasks": 250, "mean_ct_scratch": 0.1335935723290045,
+                        "mean_ct_cs": 0.005994359895367318,
+                        "mean_ct_en": 0.04515897744796637, "reuse_pct": 78.4,
+                        "reuse_pct_cs": 20.4, "reuse_pct_en": 57.99999999999999,
+                        "accuracy_pct": 100.0, "fwd_error_pct": 6.4},
+    ("ttc", 0.024): {"tasks": 250, "mean_ct_scratch": 0.15320703891446097,
+                     "mean_ct_cs": 0.006357606927723893, "mean_ct_en": 0.045297379177299035,
+                     "reuse_pct": 83.2, "reuse_pct_cs": 22.400000000000002,
+                     "reuse_pct_en": 60.8, "accuracy_pct": 100.0, "fwd_error_pct": 6.4},
+}
+COSIM_SIM_TOL = 1e-6    # a record's similarity, card (K3's fp32 chain) vs CPU (numpy)
+# BENCH_cosim.json: benchmarks/cosim.py's sweep at load 200 req/s
+BENCH_COSIM = ROOT / "BENCH_cosim.json"
+BENCH_LOAD, BENCH_WINDOWS, BENCH_REPLICAS, BENCH_TASKS = 200.0, (0.0, 0.008, 0.024), (1, 2, 4), 400
+COSIM_HOST_REPS = 50    # host-clock reps of one client hash / one EN search
+
+
+def _record_key(r):
+    return (r.t_complete, r.reuse, r.correct, r.forwarding_error, r.reuse_node)
+
+
+def _golden_net(dev: torch.device, protocol: str, window: float, n_tasks: int):
+    """tests/test_cosim.py::_trace on the port: the testbed, ``stanford_ar``,
+    3 users, a task every 12 ms, threshold 0.9, forwarding errors measured
+    (one peek a miss at the other EN's store), seed 0."""
+    g, ens = testbed_topology()
+    net = ReservoirNetwork(g, ens, LSHParams(dim=64, num_tables=5, num_probes=8), seed=0,
+                           protocol=protocol, en_batch_window_s=window,
+                           measure_fwd_errors=True, device=dev)
+    spec = DATASETS["stanford_ar"]
+    net.register_service(dataset_service(spec))
+    for u in range(3):
+        net.add_user(f"u{u}", "fwd1" if u % 2 else "fwd2")
+    X, _ = make_stream(spec, n_tasks, seed=7)
+    for i, x in enumerate(X):
+        net.submit_task(f"u{i % 3}", spec.name, x, 0.9, at_time=0.012 * i)
+    net.run()
+    return net
+
+
+def _bench_cosim_row(dev: torch.device, kind: str, window: float, replicas: int):
+    """benchmarks/cosim.py::_run_one on the port at load 200 req/s (400 tasks,
+    4 users, engine flush window from ``_engine_wait_s``, backups at 3x TTC,
+    seed 0): (the row's name, us_per_call, derived fields, instant gap),
+    formatted as the benchmark writes them."""
+    g, ens = testbed_topology()
+    be = None
+    if kind == "engine":
+        be = EngineBackend(n_replicas=replicas, max_batch=16,
+                           max_wait_s=max(0.004, min(0.02, 8.0 / BENCH_LOAD)),
+                           backup=BackupPolicy(factor=3.0, max_backups=1), seed=5)
+    net = ReservoirNetwork(g, ens, LSHParams(dim=64, num_tables=5, num_probes=8, seed=11),
+                           seed=0, en_batch_window_s=window, backend=be, device=dev)
+    spec = DATASETS["stanford_ar"]
+    net.register_service(dataset_service(spec))
+    for u in range(4):
+        net.add_user(f"u{u}", "fwd1" if u % 2 else "fwd2")
+    X, _ = make_stream(spec, BENCH_TASKS, seed=1)
+    arrivals = np.cumsum(np.random.default_rng(2).exponential(1.0 / BENCH_LOAD, BENCH_TASKS))
+    for i, (t, x) in enumerate(zip(arrivals, X)):
+        net.submit_task(f"u{i % 4}", spec.name, x, 0.9, at_time=float(t))
+    net.run()
+    m = net.metrics
+    done = m.completed()
+    expect(len(done) == BENCH_TASKS, f"cosim bench: {BENCH_TASKS - len(done)} tasks incomplete")
+    scratch = m.mean_completion(kind=(None,))
+    reuse = m.mean_completion(kind=("cs", "user", "en"))
+    gap = scratch / float(np.mean([r.completion_time for r in done
+                                   if r.reuse is not None and not r.aggregated]))
+    p99 = float(np.percentile([r.completion_time for r in done], 99)) * 1e3
+    if be is not None:
+        es = be.stats()
+        stats = {k: es.get(k, 0) for k in ("executed", "aggregated", "backups", "backup_wins")}
+    else:
+        stats = {"executed": sum(en.stats["executed"] for en in net.edge_nodes.values())}
+    name = f"cosim/{kind}/load{BENCH_LOAD:.0f}/win{window * 1e3:.0f}ms"
+    name += f"/rep{replicas}" if kind == "engine" else ""
+    derived = (f"gap_instant={gap:.2f}x;gap_all={scratch / reuse:.2f}x;"
+               f"reuse_pct={m.reuse_fraction() * 100:.1f};ct_reuse_ms={reuse * 1e3:.2f};"
+               f"p99_ms={p99:.1f};" + ";".join(f"{k}={v}" for k, v in stats.items()))
+    return name, round(scratch * 1e6, 2), derived, gap
+
+
+@contextlib.contextmanager
+def store_query_log():
+    """Record what each ``ReuseStore`` query made inside launched: the fused
+    path (K1's bucket route), the staged path's ``gather_top1`` (K3, on a
+    CUDA store whenever a query of the call has a candidate), or nothing (an
+    empty store, no candidate).  Observes only: the wrapped methods run
+    unchanged.  Yields a list of (kind, queries) per call."""
+    calls = []
+    query, query_batch = ReuseStore.query, ReuseStore.query_batch
+
+    def logged_query(self, embedding, threshold=0.0):
+        n0 = len(self.candidate_counts)
+        out = query(self, embedding, threshold)
+        calls.append(("k3" if self.candidate_counts[n0] > 0 else "none", 1))
+        return out
+
+    def logged_batch(self, embeddings, thresholds=0.0, peek=False):
+        expect(not peek, "store_query_log: a peek records no candidate counts")
+        n0, empty = len(self.candidate_counts), not len(self)
+        out = query_batch(self, embeddings, thresholds, peek)
+        counts = self.candidate_counts[n0:]
+        kind = ("none" if empty else "k1" if self.last_query_fused
+                else "k3" if max(counts) > 0 else "none")
+        calls.append((kind, len(counts)))
+        return out
+
+    ReuseStore.query, ReuseStore.query_batch = logged_query, logged_batch
+    try:
+        yield calls
+    finally:
+        ReuseStore.query, ReuseStore.query_batch = query, query_batch
+
+
+def _host_ms(fn, reps: int = COSIM_HOST_REPS) -> float:
+    """Median host-clock ms of ``fn`` (which ends in a host read), after one
+    warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_cosim(dev: torch.device, model) -> dict:
+    """The network simulator on the card: (a) the pinned seeded traces with
+    stub services, held to their summaries and record by record to a CPU run;
+    (b) BENCH_cosim.json's load-200 rows; (c) the launcher's co-simulation
+    with ``model`` (qwen3-1.7b at full width) executing every EN miss behind
+    two engine-backed ENs; (d) the launcher's ``main --engine cosim
+    --trace-out`` on the reduced model.  Returns (c)'s launches."""
+    cpu = torch.device("cpu")
+    # (a) pinned traces: K4a per client hash and store insert, K3 per EN
+    # query and per forwarding-error peek with a candidate
+    for (protocol, window), want in COSIM_GOLDEN.items():
+        n_tasks = want["tasks"]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = _golden_net(dev, protocol, window, n_tasks)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        host = _golden_net(cpu, protocol, window, n_tasks)
+        s = card.metrics.summary()
+        bad = [k for k, v in want.items() if not math.isclose(s[k], v, rel_tol=1e-9)]
+        pairs = list(zip(card.metrics.records, host.metrics.records))
+        differ = [a.task_id for a, b in pairs if _record_key(a) != _record_key(b)]
+        gap = max(abs(a.similarity - b.similarity) for a, b in pairs)
+        log(f"  golden {protocol} window {window * 1e3:g} ms, {n_tasks} tasks on the card: "
+            f"{wall:.3f} s wall; summary {s}; launches K4a {counts['lsh_hash_mix']} K3 "
+            f"{counts['gather_top1']} K1 {counts['reuse_top1_probed']}; largest similarity "
+            f"gap to the CPU run {gap:.3g}; tasks whose outcome differs: {len(differ)} "
+            f"{differ[:20]}")
+        expect(not bad, f"cosim golden {protocol}/{window}: {bad} differ from {want}: {s}")
+        expect(not differ and gap <= COSIM_SIM_TOL,
+               f"cosim golden {protocol}/{window}: tasks {differ} differ from the CPU run "
+               f"(largest similarity gap {gap})")
+        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] > 0,
+               f"cosim golden {protocol}/{window}: launches {counts}")
+    # (b) BENCH_cosim.json's rows at load 200 on the card
+    rows = {r["name"]: r for r in json.loads(BENCH_COSIM.read_text())["rows"]}
+    gaps = []
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for window in BENCH_WINDOWS:
+        for kind, replicas in [("inline", 0)] + [("engine", r) for r in BENCH_REPLICAS]:
+            name, us, derived, gap = _bench_cosim_row(dev, kind, window, replicas)
+            want = rows[name]
+            log(f"  {name}: us_per_call {us} derived {derived}")
+            expect((us, derived) == (want["us_per_call"], want["derived"]),
+                   f"{name}: got {us} {derived}, BENCH_cosim.json has "
+                   f"{want['us_per_call']} {want['derived']}")
+            if kind == "engine":
+                gaps.append(gap)
+    accept = f"min_engine_gap_at_load>=100Hz={float(np.min(gaps)):.2f}x"
+    log(f"  BENCH_cosim.json load200 rows on the card in {time.perf_counter() - t0:.3f} s, "
+        f"launches {ops.launch_counts()}; {accept}")
+    expect(rows["cosim/acceptance"]["derived"].startswith(accept + ";"),
+           f"cosim acceptance: {accept}, BENCH_cosim.json has "
+           f"{rows['cosim/acceptance']['derived']}")
+    # (c) the launcher's co-simulation at full width
+    cfg = model.cfg
+    X, _ = make_stream(DATASETS[AS_DATASET], AS_REQUESTS, seed=0)
+    warm = make_service(model, AS_DATASET, MS_SEQ)
+    for x in X[:4]:
+        warm.execute(x)
+    sync()
+
+    def build(profile=None):
+        return build_cosim(model, X, dataset=AS_DATASET, rate=AS_RATE,
+                           max_batch=AS_MAX_BATCH, max_wait_s=AS_MAX_WAIT_S,
+                           window_s=COSIM_WINDOW_S, seq_len=MS_SEQ, profile=profile,
+                           device=dev)
+
+    net, backend = build(profile=True)      # runs the 200 untimed oracle prefills
+    svc = net.services[AS_DATASET]
+    executions = []
+    prefill = svc.execute
+
+    def counted(emb):
+        executions.append(1)
+        return prefill(emb)
+
+    svc.execute = counted
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with store_query_log() as queries:
+        makespan = net.run()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    recs = net.metrics.records
+    s = net.metrics.summary()
+    stats = backend.stats()
+    kinds = {str(k): sum(r.reuse == k for r in recs) for k in ("user", "cs", "en", None)}
+    en_executed = sum(en.stats["executed"] for en in net.edge_nodes.values())
+    admitted = sum(stats[k] for k in ("cs", "en", "executed", "aggregated"))
+    by_kind = {k: sum(n for kk, n in queries if kk == k) for k in ("k1", "k3", "none")}
+    calls = {k: sum(1 for kk, _ in queries if kk == k) for k in ("k1", "k3", "none")}
+    log(f"  cosim {cfg.name} (full width, {cfg.n_layers} layers) behind 2 ENs x 2 replicas: "
+        f"{AS_REQUESTS} tasks in {wall:.3f} s wall, virtual makespan {makespan:.6f} s (the "
+        f"loop's last event), last completion {max(r.t_complete for r in recs):.6f} s; "
+        f"reuse_pct {s['reuse_pct']:.1f} (cs {s['reuse_pct_cs']:.1f}, en "
+        f"{s['reuse_pct_en']:.1f}), accuracy_pct {s['accuracy_pct']:.1f} (reported: a "
+        f"near-duplicate's prompt differs); records by reuse kind {kinds}; engines "
+        f"{dict(sorted(stats.items()))}; model executions {len(executions)}, EN inserts "
+        f"{en_executed}; store queries by what they launched (calls/queries) "
+        f"{ {k: (calls[k], by_kind[k]) for k in calls} }; launches {counts}")
+    log(f"  cosim phases {net.registry.phase_summary()}")
+    log("  " + net.loop.profiler.report(top=8).replace("\n", "\n  "))
+    expect(all(r.t_complete >= 0 for r in recs), "cosim: a task did not complete")
+    expect(sum(kinds.values()) == AS_REQUESTS, f"cosim: records by kind {kinds}")
+    # K6: 28 launches a model execution (each engine request prefills alone)
+    expect(counts["flash_attention"] == cfg.n_layers * len(executions),
+           f"cosim: {counts['flash_attention']} flash_attention launches for "
+           f"{len(executions)} executions")
+    expect(stats["executed"] <= len(executions) <= stats["executed"] + stats["backups"],
+           f"cosim: {len(executions)} executions, engines {stats}")
+    # K4a (B=1, one launch each): the client hash of every task, the engine
+    # router's hash of every admitted miss, and the EN store's insert of
+    # every executed result (the replicas insert with the admission hash)
+    want_k4 = AS_REQUESTS + admitted + en_executed
+    expect(counts["lsh_hash_mix"] == want_k4,
+           f"cosim: {counts['lsh_hash_mix']} lsh_hash_mix launches, want {AS_REQUESTS} "
+           f"tasks + {admitted} admissions + {en_executed} inserts")
+    # K3: one per staged store query (EN window flush, engine dispatch) with a
+    # candidate; K1 one per fused query (a window or dispatch of 64 or more)
+    expect(counts["gather_top1"] == calls["k3"],
+           f"cosim: {counts['gather_top1']} gather_top1 launches, {calls['k3']} staged "
+           "queries with a candidate")
+    expect(counts["reuse_top1_probed"] == calls["k1"],
+           f"cosim: {counts['reuse_top1_probed']} fused launches, {calls['k1']} fused queries")
+    for name in ("lsh_hash", "sim_top1", "decode_attention", "reuse_top1"):
+        expect(counts[name] == 0, f"cosim: {name} launched {counts[name]} times")
+    # the card's time for the delays PaperDelayModel charges
+    en_store = net.edge_nodes[net.en_nodes[0]].stores[AS_DATASET]
+    q = normalize(X[0].astype(np.float32))
+    hash_ms = _host_ms(lambda: net.lsh.hash_one(q))
+    search_ms = _host_ms(lambda: en_store.query_batch(q[None], 0.9))
+    big = ReuseStore(LSH_PARAMS, capacity=COSIM_SEARCH_N, device=dev)
+    big.insert_batch(_unit(np.random.default_rng(12), COSIM_SEARCH_N, 64),
+                     list(range(COSIM_SEARCH_N)))
+    big_ms = _host_ms(lambda: big.query_batch(q[None], 0.9))
+    dm = PaperDelayModel()
+    log(f"  card vs PaperDelayModel (host clock, median of {COSIM_HOST_REPS}, each ending "
+        f"in a host read): client hash (K4a, B=1) {hash_ms:.4f} ms vs hash_time_s(5) "
+        f"{dm.hash_time_s(5) * 1e3:.4f} ms; EN search of one task (probe, candidates, K3) "
+        f"at {len(en_store)} entries {search_ms:.4f} ms vs search_time_s(5, "
+        f"{len(en_store)}) {dm.search_time_s(5, len(en_store)) * 1e3:.4f} ms; at "
+        f"{COSIM_SEARCH_N} entries {big_ms:.4f} ms vs "
+        f"{dm.search_time_s(5, COSIM_SEARCH_N) * 1e3:.4f} ms")
+    del big
+    profile_call(f"cosim of {AS_REQUESTS} tasks (network run only)",
+                 lambda nets=iter([build()[0]]): next(nets).run(), host=False)
+    # (d) the launcher itself, as the reference runs it
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "cosim_trace.json"
+        argv = ["--engine", "cosim", "--requests", str(AS_CLI_REQUESTS), "--rate",
+                str(AS_CLI_RATE), "--trace-out", str(path)]
+        log(f"  launcher: main {' '.join(argv)}")
+        serve_main(argv)
+        spans = [e for e in json.loads(path.read_text())["traceEvents"]
+                 if e["name"] == "task" and e["ph"] == "X"]
+        expect(sorted(e["tid"] for e in spans) == list(range(AS_CLI_REQUESTS)),
+               f"cosim launcher: {len(spans)} task spans for {AS_CLI_REQUESTS} tasks")
+    return counts
+
+
 # ------------------------------------------------------------------ main
 @contextlib.contextmanager
 def timed(name: str):
@@ -1470,15 +1798,20 @@ def main() -> int:
         paths["model-serve"] = phase_model_serve(dev, model)
     with timed("async-serve"):
         paths["async-serve"] = phase_async_serve(dev, model)
+    with timed("cosim"):
+        paths["cosim"] = phase_cosim(dev, model)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
         expect(paths["async-serve"][name] > 0, f"{name} was not launched on the async-serve path")
+    for name in COSIM_PATH:
+        expect(paths["cosim"][name] > 0, f"{name} was not launched on the cosim path")
     # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
               "launches": paths[MAIN_PATH.get(name, "serve")][name],
               "async_serve_launches": paths["async-serve"][name],
+              "cosim_launches": paths["cosim"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Virtual-clock event loop (port of ``repro/core/sim_clock.py``).
 
 A deterministic discrete-event loop ordered by (time, insertion sequence),
-the scheduling substrate of the async serving engine
-(``serving/async_engine.py``) and, later, of the network simulator.  Pure
+the scheduling substrate of the network simulator (``core/network.py``)
+and the async serving engine (``serving/async_engine.py``).  Pure
 Python: no torch, so times and their arithmetic are exactly the reference's.
 
 Three primitives:

@@ -1,4 +1,4 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve [--engine sync|async]``.
+"""Serving launcher: ``python -m repro_torch.launch.serve [--engine sync|async|cosim]``.
 
 Port of ``repro/launch/serve.py``.  Runs a reuse-aware serving fleet over a
 real model (the reduced config, as the reference runs it): requests with
@@ -12,25 +12,44 @@ reuse/latency summary, the serving analogue of the paper's Figure 8.
 ``--engine async`` replays Poisson arrivals on the virtual clock through
 ``AsyncServingEngine`` with deadline batching.  With no execution-time
 model the measured wall time of each miss group is its virtual duration,
-as in the reference.  ``--engine cosim`` (with ``--offload-policy`` and
-``--trace-out``) runs the network co-simulation, which comes with the
-simulator slice: the parser accepts the flags and exits with an error.
+as in the reference.
+
+``--engine cosim`` runs the co-simulation instead (``build_cosim``): the NDN
+testbed topology (``ReservoirNetwork``) forwards the same request stream to
+two ENs whose execute path is an ``EngineBackend`` replica set running
+*this model's* prefill (``make_service``) — forwarding, reuse-store search,
+engine batching, and wall-measured model execution share one virtual
+timeline.  ``--trace-out PATH`` writes its per-task trace (Chrome
+trace-event JSON).  ``--offload-policy`` (federation between the ENs) exits
+with an error: the port has no federation layer yet.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import get_arch
+from ..core.edge_node import Service
 from ..core.lsh import LSHParams
+from ..core.network import ReservoirNetwork
+from ..core.topology import testbed_topology
 from ..data import DATASETS, make_stream
 from ..device import DeviceLike, resolve_device
 from ..models import build_model
-from ..serving import AsyncServingEngine, ReplicaEngine, ServeRequest, ServingFleet
+from ..serving import (
+    AsyncServingEngine,
+    EngineBackend,
+    ReplicaEngine,
+    ServeRequest,
+    ServingFleet,
+)
+
+# the launcher's LSH: cross-polytope, 5 tables, 8 probes (as the reference's)
+LSH_PARAMS = LSHParams(dim=64, num_tables=5, num_probes=8)
 
 
 def make_request(i: int, service: str, emb: np.ndarray, seq_len: int, vocab: int,
@@ -64,8 +83,59 @@ def make_executor(model, seq_len: int) -> Callable[[List[ServeRequest]], List[in
     return execute
 
 
+def make_service(model, dataset: str, seq_len: int) -> Service:
+    """The edge service ``/<dataset>`` whose from-scratch path is ``model``'s
+    prefill: ``execute(emb)`` is the argmax token of the last position of the
+    prompt ``make_request`` derives from ``emb`` (the reference's
+    ``svc_execute``).  It ends in a host read, so a wall-time measurement of
+    it includes the device's work."""
+    execute = make_executor(model, seq_len)
+    vocab = model.cfg.vocab_size
+
+    def run(emb: np.ndarray) -> int:
+        emb = np.asarray(emb, np.float32)
+        return execute([make_request(0, dataset, emb, seq_len, vocab)])[0]
+
+    return Service(f"/{dataset}", execute=run, input_dim=64)
+
+
+def build_cosim(model, X: np.ndarray, *, dataset: str = "cctv1",
+                threshold: float = 0.9, rate: float = 200.0, replicas: int = 2,
+                max_batch: int = 8, max_wait_s: float = 0.005,
+                window_s: float = 0.008, seq_len: int = 32,
+                trace: bool = False, profile: Optional[bool] = None,
+                device: DeviceLike = None,
+                ) -> Tuple[ReservoirNetwork, EngineBackend]:
+    """The co-simulation of ``--engine cosim``, ready to ``run()``.
+
+    The testbed topology (two ENs, users ``u0`` at ``fwd1`` and ``u1`` at
+    ``fwd2``), ``EngineBackend(wall_time=True)`` with ``replicas`` replicas
+    an EN, an EN batch window of ``window_s``, and ``X`` submitted by the two
+    users in turn at Poisson arrivals of ``rate`` on the virtual clock (seed
+    0).  ``submit_task`` runs one untimed oracle prefill a task (the answer
+    reuse accuracy is measured against), so every one of them has run when
+    this returns.  ``trace`` arms the per-task tracer, ``profile`` the event
+    loop's profiler (None: as ``RESERVOIR_PROFILE`` says).  ``device``
+    (None: the card) carries the clients' hash, the EN stores and the
+    replicas; ``model`` must live there too."""
+    g, ens = testbed_topology()
+    backend = EngineBackend(n_replicas=replicas, max_batch=max_batch,
+                            max_wait_s=max_wait_s, wall_time=True)
+    net = ReservoirNetwork(g, ens, LSH_PARAMS, seed=0, en_batch_window_s=window_s,
+                           backend=backend, trace=True if trace else None,
+                           profile=profile, device=device)
+    net.register_service(make_service(model, dataset, seq_len))
+    net.add_user("u0", "fwd1")
+    net.add_user("u1", "fwd2")
+    rng = np.random.default_rng(0)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, len(X)))
+    for i, (t, emb) in enumerate(zip(arrivals, X)):
+        net.submit_task(f"u{i % 2}", dataset, emb, threshold, at_time=float(t))
+    return net, backend
+
+
 def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
-    """``python -m repro_torch.launch.serve [--engine sync|async] [...]``.
+    """``python -m repro_torch.launch.serve [--engine sync|async|cosim] [...]``.
 
     The reference's flags and defaults.  ``device`` (None: the CUDA card)
     carries the model, the replicas' stores and the router's hash."""
@@ -80,8 +150,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
                     choices=("sync", "async", "cosim"),
                     help="sync: one submit per request; async: event-driven "
                          "engine with Poisson arrivals + deadline batching; "
-                         "cosim: NDN network in front of engine-backed ENs "
-                         "(comes with the simulator slice of the port)")
+                         "cosim: NDN network in front of engine-backed ENs")
     ap.add_argument("--rate", type=float, default=200.0,
                     help="async/cosim offered load (requests/s, virtual clock)")
     ap.add_argument("--max-batch", type=int, default=8)
@@ -90,25 +159,27 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
                     help="cosim EN-side batch window (milliseconds)")
     ap.add_argument("--offload-policy", default=None,
                     choices=("local-only", "least-loaded", "reuse-affinity"),
-                    help="cosim federation policy (comes with the simulator "
-                         "slice of the port)")
+                    help="cosim federation policy (not ported yet: the "
+                         "federation slice of the port)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
-                    help="cosim only: Chrome trace-event / Perfetto JSON "
-                         "(comes with the simulator slice of the port)")
+                    help="cosim only: arm per-task tracing and write the "
+                         "Chrome trace-event / Perfetto JSON here")
     args = ap.parse_args(argv)
-    for flag, given in (("--engine cosim", args.engine == "cosim"),
-                        ("--offload-policy", args.offload_policy is not None),
-                        ("--trace-out", args.trace_out is not None)):
-        if given:
-            ap.error(f"{flag} runs the network co-simulation, which comes with "
-                     "the simulator slice of the port")
+    if args.offload_policy is not None and args.engine != "cosim":
+        ap.error("--offload-policy requires --engine cosim (federation "
+                 "runs between the co-simulated ENs)")
+    if args.trace_out is not None and args.engine != "cosim":
+        ap.error("--trace-out requires --engine cosim (spans live on the "
+                 "network's virtual timeline)")
+    if args.offload_policy is not None:
+        ap.error("--offload-policy needs the federation layer, which comes "
+                 "with the federation slice of the port (ROADMAP.md §1 item 4)")
 
     dev = resolve_device(device)
     cfg = get_arch(args.arch).reduced()
     model = build_model(cfg, dev, seed=0)
     execute = make_executor(model, args.seq_len)
-    lshp = LSHParams(dim=64, num_tables=5, num_probes=8)
-    replicas = [ReplicaEngine(i, lshp, execute, device=dev)
+    replicas = [ReplicaEngine(i, LSH_PARAMS, execute, device=dev)
                 for i in range(args.replicas)]
     X, _ = make_stream(DATASETS[args.dataset], args.requests, seed=0)
 
@@ -118,9 +189,41 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
 
     print(f"serving {cfg.name} (reduced: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}) on {dev}")
-    if args.engine == "async":
+    if args.engine == "cosim":
+        net, backend = build_cosim(
+            model, X, dataset=args.dataset, threshold=args.threshold,
+            rate=args.rate, replicas=args.replicas, max_batch=args.max_batch,
+            max_wait_s=args.max_wait_ms * 1e-3, window_s=args.window_ms * 1e-3,
+            seq_len=args.seq_len, trace=args.trace_out is not None, device=dev)
+        # the oracle prefills ran in build_cosim; the timed region covers
+        # only the co-simulation itself
+        t_all = time.time()
+        makespan = net.run()
+        wall = time.time() - t_all
+        # consumed by the engine-agnostic reuse/latency report further down
+        lat = [(r.completion_time, r.reuse) for r in net.metrics.records
+               if r.t_complete >= 0]
+        stats = backend.stats()
+        s = net.metrics.summary()
+        if args.trace_out:
+            net.loop.tracer.export(args.trace_out)
+            print(f"trace: {len(net.loop.tracer.events)} events -> "
+                  f"{args.trace_out}")
+        if net.loop.profiler is not None:
+            print(net.loop.profiler.report())
+        print(f"\n{len(lat)} tasks through the co-sim in {wall:.1f}s wall "
+              f"({makespan:.2f}s virtual, offered {args.rate:.0f} req/s, "
+              f"EN window {args.window_ms:.0f} ms, {args.replicas} replicas/EN)")
+        print(f"  network reuse: {s['reuse_pct']:.1f}% "
+              f"(cs {s['reuse_pct_cs']:.1f}%, en {s['reuse_pct_en']:.1f}%), "
+              f"accuracy {s['accuracy_pct']:.1f}%")
+        ph = net.registry.phase_summary()
+        print("  phases: " + "  ".join(
+            f"{p}={ph[p + '_ms']:.2f}ms/n={ph[p + '_n']}"
+            for p in ("forward", "search", "execute", "aggregate")))
+    elif args.engine == "async":
         engine = AsyncServingEngine(
-            lshp, replicas, max_batch=args.max_batch,
+            LSH_PARAMS, replicas, max_batch=args.max_batch,
             max_wait_s=args.max_wait_ms * 1e-3, device=dev)
         rng = np.random.default_rng(0)
         arrivals = np.cumsum(rng.exponential(1.0 / args.rate, args.requests))
@@ -135,7 +238,7 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
               f"({makespan:.2f}s virtual, offered {args.rate:.0f} req/s, "
               f"window {args.max_wait_ms:.0f} ms x {args.max_batch})")
     else:
-        fleet = ServingFleet(lshp, replicas, device=dev)
+        fleet = ServingFleet(LSH_PARAMS, replicas, device=dev)
         lat = []
         t_all = time.time()
         for i, emb in enumerate(X):

@@ -38,18 +38,26 @@ the (T,) buckets per request, as the reference's one hash dispatch each),
 and ``device`` must be the replicas' device.  Everything on the clock is
 Python floats and the reference's draws: no torch scalar touches a time.
 
-``EngineBackend``, the ``ComputeBackend`` that puts these engines behind a
-``ReservoirNetwork``'s edge nodes, comes with the simulator slice: every
-caller and test of it goes through the network.
+``EngineBackend`` puts these engines behind a ``ReservoirNetwork``'s edge
+nodes (the co-simulation): every replica and engine on the network's device.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import random
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.edge_node import ExecAborted, _ewma_service_s
+from ..core.edge_node import (
+    ComputeBackend,
+    ExecAborted,
+    ExecCompletion,
+    LoadSnapshot,
+    _ewma_service_s,
+)
 from ..core.lsh import LSHParams, normalize
 from ..core.packets import Data
 from ..core.sim_clock import EventLoop, Future, Timer
@@ -374,5 +382,296 @@ class AsyncServingEngine:
         out: Dict[str, int] = dict(self.engine_stats)
         for r in self.replicas:
             for k, v in r.stats.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+
+# ------------------------------------------------------------------- co-sim
+class EngineBackend(ComputeBackend):
+    """``ComputeBackend`` (core/edge_node.py seam) backed by per-EN
+    ``AsyncServingEngine`` replica sets on the *network's* event loop.
+
+    This is the co-simulation seam: a ``ReservoirNetwork`` EN whose reuse
+    store missed
+    submits the task into its attached serving engine instead of sampling an
+    inline delay.  Forwarding and execution then share one timeline —
+
+    * the EN's batch window flushes admit one ``ServeRequest`` per miss at
+      ``now + lead_delay_s`` (the LSH search / input pull precede the
+      accelerator queue); the engine's own deadline-aware ``Batcher``
+      re-batches them per (replica, service),
+    * queueing, batching, replica-store reuse, PIT coalescing, and
+      TTC-driven straggler backups all run as engine events on the shared
+      clock, and every resolution — including a backup's win — propagates
+      back as a network-visible NDN completion,
+    * Fig. 3b TTC answers come from the engines' ``TTCEstimator``s
+      (EWMA-informed once real executions exist) plus the batcher window,
+      not from an omniscient ``done - now``.
+
+    Executed results are also inserted into the EN's own reuse store at
+    completion time, so network-edge reuse (and cross-EN forwarding-error
+    accounting) keeps working exactly as with the inline model.  Virtual
+    execution time defaults to the service's calibrated ``exec_time_s``
+    sample with sub-linear batch amortisation (``len(batch) **
+    batch_alpha``), overridable via ``exec_time_fn`` for straggler
+    injection.
+
+    Every replica and engine lives on the network's device (``attach``):
+    their stores, the routers' hash and the EN stores share one card."""
+
+    def __init__(
+        self,
+        n_replicas: int = 2,
+        max_batch: int = 8,
+        max_wait_s: float = 0.002,
+        backup: Optional[BackupPolicy] = None,
+        batch_alpha: float = 0.5,
+        exec_time_fn: Optional[
+            Callable[[int, str, List[ServeRequest]], float]] = None,
+        replica_store_capacity: int = 100_000,
+        replica_cs_capacity: int = 4096,
+        wall_time: bool = False,
+        replicas_per_en: Optional[Dict[Any, int]] = None,
+        seed: int = 0,
+    ):
+        # heterogeneous fleets: per-EN replica counts (node -> count)
+        # override the global ``n_replicas`` default — a beefy metro EN can
+        # run 4 replicas while a closet EN runs 1, and the federation
+        # layer's least-loaded/affinity policies see the difference through
+        # ``load_snapshot``'s ``workers`` field.
+        self.replicas_per_en = dict(replicas_per_en or {})
+        self.n_replicas = n_replicas
+        self.max_batch = max_batch
+        self.max_wait_s = max_wait_s
+        self.backup = backup
+        self.batch_alpha = batch_alpha
+        self.exec_time_fn = exec_time_fn
+        self.replica_store_capacity = replica_store_capacity
+        self.replica_cs_capacity = replica_cs_capacity
+        # wall_time: charge the *measured* wall duration of execute_fn as
+        # the virtual batch duration (real-model-behind-simulated-network
+        # mode) instead of sampling the service's calibrated exec_time_s
+        self.wall_time = wall_time
+        self.seed = seed
+        self.net = None
+        self.engines: Dict[Any, AsyncServingEngine] = {}
+        self._ids = itertools.count()
+
+    # ------------------------------------------------------------ wiring
+    def attach(self, network) -> None:
+        self.net = network
+        self.engines = {}
+        n_ens = len(network.en_nodes)
+        nb = network.lsh_params.effective_buckets
+        unknown = set(self.replicas_per_en) - set(network.en_nodes)
+        if unknown:
+            raise ValueError(f"replicas_per_en names unknown ENs: {unknown}")
+        for idx, node in enumerate(network.en_nodes):
+            node_seed = self.seed + zlib.crc32(str(node).encode()) % 9973
+            n_rep = self.replicas_per_en.get(node, self.n_replicas)
+            if n_rep < 1:
+                raise ValueError(f"EN {node!r} needs >= 1 replica")
+            replicas = [
+                ReplicaEngine(
+                    i, network.lsh_params, self._execute,
+                    cs_capacity=self.replica_cs_capacity,
+                    store_capacity=self.replica_store_capacity,
+                    device=network.device)
+                for i in range(n_rep)
+            ]
+            # Each EN's replica router partitions the EN's *own* rFIB bucket
+            # subrange (the same consecutive split core.rfib.partition
+            # installs, in en_nodes order).  Re-partitioning the full space
+            # would be the nested-partition pathology: the network already
+            # localized this EN's tasks to one slice, so every task would
+            # land on a single replica regardless of the replica count.
+            bucket_range = (round(idx * nb / n_ens),
+                            round((idx + 1) * nb / n_ens))
+            self.engines[node] = AsyncServingEngine(
+                network.lsh_params, replicas,
+                backup=self.backup or BackupPolicy(),
+                loop=network.loop, max_batch=self.max_batch,
+                max_wait_s=self.max_wait_s,
+                exec_time_fn=None if self.wall_time else (
+                    self.exec_time_fn or self._virtual_exec_time(
+                        random.Random(node_seed))),
+                bucket_range=bucket_range, device=network.device,
+            )
+            self._adopt_stats(node, self.engines[node])
+
+    def _adopt_stats(self, node, engine: AsyncServingEngine) -> None:
+        """Re-home this EN's engine + replica counters onto the network's
+        metrics registry (gossip-cadence snapshots pick them up)."""
+        reg = getattr(self.net, "registry", None)
+        if reg is None:
+            return
+        reg.adopt(f"engine/{node}", engine.engine_stats)
+        for rep in engine.replicas:
+            reg.adopt(f"engine/{node}/r{rep.replica_id}", rep.stats)
+
+    def _execute(self, reqs: List[ServeRequest]) -> List[Any]:
+        """Replica execute_fn: run the registered edge service on each
+        payload (the task's input embedding, exactly as the inline model)."""
+        return [self.net.services[r.service].execute(
+            np.asarray(r.payload, np.float32)) for r in reqs]
+
+    def _virtual_exec_time(self, rng: random.Random):
+        """Virtual batch duration: one calibrated per-request sample with
+        sub-linear amortisation — the model batch shares prefill work."""
+
+        def fn(rid: int, service: str, reqs: List[ServeRequest]) -> float:
+            per_req = self.net.services[service].sample_exec_time(rng)
+            return per_req * max(1.0, len(reqs)) ** self.batch_alpha
+
+        return fn
+
+    # ------------------------------------------------------------ seam API
+    def submit(self, node, svc_name, interest, emb, lead_delay_s,
+               defer_inserts=None) -> Future:
+        net = self.net
+        engine = self.engines[node]
+        tmeta = net._task_meta.get(interest.name)
+        req = ServeRequest(
+            next(self._ids), svc_name, emb, payload=emb,
+            threshold=float(interest.app_params.get("threshold", 0.0)),
+            deadline_s=interest.app_params.get("deadline"),
+            trace_tid=None if tmeta is None else tmeta[0])
+        out = Future()
+
+        def adapt(sr: ServeResult) -> ExecCompletion:
+            # ServeResult -> ExecCompletion vocabulary mapping, running at
+            # the engine's completion instant (Future.then inherits it).
+            # _en_of: a departed EN's in-flight executions drain gracefully.
+            t = net.loop.now
+            en = net._en_of(node)
+            net.registry.observe_phase("execute", sr.latency_s)
+            tr = net._tracer
+            if tr is not None and req.trace_tid is not None:
+                tr.complete("execute", "execute", req.trace_tid,
+                            t0=t - sr.latency_s, dur=sr.latency_s,
+                            task=req.trace_tid, node=str(node),
+                            backend="engine", replica=sr.replica,
+                            reuse=sr.reuse or "scratch", backup=sr.backup)
+            if sr.reuse is None:
+                # a real scratch execution: the network-edge reuse store
+                # learns the result at the moment it exists on the engine
+                en.stats.inc("executed")
+                en.stores[svc_name].insert(emb, sr.result)
+            return ExecCompletion(sr.result, t, reuse=sr.reuse,
+                                  similarity=sr.similarity,
+                                  replica=sr.replica, backup=sr.backup)
+
+        def admit() -> None:
+            if self.engines.get(node) is not engine:
+                # EN crashed during the lead delay: its engine is gone, the
+                # task dies with it (the consumer's retransmission or the
+                # federator's offload timeout recovers it elsewhere)
+                out.try_set_exception(
+                    ExecAborted(f"EN {node!r} crashed before admit"))
+                return
+            engine.submit(req).then(adapt).add_done_callback(
+                lambda f: f.propagate(out))
+
+        if lead_delay_s > 0:
+            net.loop.call_later(lead_delay_s, admit)
+        else:
+            admit()
+        return out
+
+    def ttc_estimate(self, node, svc_name) -> float:
+        """Fig. 3b TTC answer while the engine still runs: the replicas'
+        EWMA service-time estimate plus one batcher flush window."""
+        engine = self.engines[node]
+        est = float(np.mean([r.ttc.estimate(svc_name)
+                             for r in engine.replicas]))
+        return est + engine.batcher.max_wait_s
+
+    def load_snapshot(self, node, now) -> LoadSnapshot:
+        """Engine queue telemetry for the federation gossip: in-flight
+        leaders across this EN's replica set, with the replica count as the
+        parallelism the expected-wait estimate divides by."""
+        engine = self.engines[node]
+        depth, service_s = engine.load()
+        return LoadSnapshot(node, now, depth=depth, service_s=service_s,
+                            workers=len(engine.replicas))
+
+    def on_partition_change(self) -> None:
+        """Follow an rFIB re-partition (federation rebalance / EN leave):
+        each EN's replica router re-splits the EN's *new* bucket slice.
+        Without this, a shifted partition leaves the router's stale span
+        behind and every task clamps onto one edge replica — the
+        nested-partition pathology coming back through the side door.
+        Slices come from the first service's entries; ``partition``/
+        ``rebalance`` install identical per-EN ranges for every service."""
+        net = self.net
+        if net is None or not net.services or not net.en_nodes:
+            return
+        entries = net.forwarders[net.en_nodes[0]].rfib.entries(
+            next(iter(net.services)))
+        for node, engine in self.engines.items():
+            en = net.edge_nodes.get(node)
+            if en is None:
+                continue  # departed: engine only drains, no new arrivals
+            mine = [e for e in entries if e.en_prefix == en.prefix]
+            if mine:
+                lo = min(e.ranges[0][0] for e in mine)
+                hi = max(e.ranges[0][1] for e in mine) + 1
+            else:
+                # starved out of the partition entirely (extreme weights
+                # round its range empty): no affinity structure remains, so
+                # split the FULL space — keeping the stale span would clamp
+                # offloaded tasks onto one edge replica
+                lo, hi = 0, net.lsh_params.effective_buckets
+            engine.router.bucket_range = (lo, hi)
+            engine.router.rescale(len(engine.replicas))
+
+    def on_en_join(self, node) -> None:
+        """EN join (``ReservoirNetwork.add_en``): spin up an engine for the
+        newcomer, seeded/configured exactly as ``attach`` would have.  The
+        replica router starts on the full bucket space; the
+        ``on_partition_change`` that follows the join's re-partition narrows
+        it to the EN's real rFIB slice."""
+        if self.net is None or node in self.engines:
+            return
+        node_seed = self.seed + zlib.crc32(str(node).encode()) % 9973
+        n_rep = self.replicas_per_en.get(node, self.n_replicas)
+        if n_rep < 1:
+            raise ValueError(f"EN {node!r} needs >= 1 replica")
+        replicas = [
+            ReplicaEngine(
+                i, self.net.lsh_params, self._execute,
+                cs_capacity=self.replica_cs_capacity,
+                store_capacity=self.replica_store_capacity,
+                device=self.net.device)
+            for i in range(n_rep)
+        ]
+        self.engines[node] = AsyncServingEngine(
+            self.net.lsh_params, replicas,
+            backup=self.backup or BackupPolicy(),
+            loop=self.net.loop, max_batch=self.max_batch,
+            max_wait_s=self.max_wait_s,
+            exec_time_fn=None if self.wall_time else (
+                self.exec_time_fn or self._virtual_exec_time(
+                    random.Random(node_seed))),
+            bucket_range=(0, self.net.lsh_params.effective_buckets),
+            device=self.net.device,
+        )
+        self._adopt_stats(node, self.engines[node])
+
+    def on_en_crash(self, node) -> None:
+        """Crash-stop (``ReservoirNetwork.crash_en``): the EN's engine dies
+        with it — queued batches are lost, in-flight futures fail with
+        ``ExecAborted`` (no graceful drain, unlike an announced leave where
+        the departed engine keeps running until its work completes)."""
+        engine = self.engines.pop(node, None)
+        if engine is not None:
+            engine.abort_all(ExecAborted(f"EN {node!r} crashed"))
+
+    # ------------------------------------------------------------- metrics
+    def stats(self) -> Dict[str, int]:
+        """Engine counters aggregated across all ENs' replica sets."""
+        out: Dict[str, int] = {}
+        for engine in self.engines.values():
+            for k, v in engine.stats().items():
                 out[k] = out.get(k, 0) + v
         return out

@@ -697,3 +697,83 @@ def test_async_engine_same_outcome_on_the_card(dev, max_batch):
     card, cpu = run(dev), run("cpu")
     assert card == cpu
     assert card[1]["en"] > 0 and card[1]["backups"] > 0
+
+
+def _golden_network(device, protocol, n_tasks=500):
+    """tests/test_cosim.py's seeded trace (the testbed, ``stanford_ar``, 3
+    users, a task every 12 ms, forwarding errors measured) on ``device``."""
+    from repro_torch.core.network import ReservoirNetwork
+    from repro_torch.core.topology import testbed_topology
+    from repro_torch.data import DATASETS, dataset_service, make_stream
+
+    g, ens = testbed_topology()
+    net = ReservoirNetwork(g, ens, LSHParams(dim=64, num_tables=5, num_probes=8), seed=0,
+                           protocol=protocol, measure_fwd_errors=True, device=device)
+    spec = DATASETS["stanford_ar"]
+    net.register_service(dataset_service(spec))
+    for u in range(3):
+        net.add_user(f"u{u}", "fwd1" if u % 2 else "fwd2")
+    X, _ = make_stream(spec, n_tasks, seed=7)
+    for i, x in enumerate(X):
+        net.submit_task(f"u{i % 3}", spec.name, x, 0.9, at_time=0.012 * i)
+    net.run()
+    return net
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("protocol", ["direct", "ttc"])
+def test_golden_trace_on_the_card(dev, protocol):
+    """The 500-task trace with the client hash and the EN stores on the card
+    (K4a, K3 for every query and forwarding-error peek): every record's
+    outcome equals the CPU run's (which tests/test_torch_network.py holds to
+    the reference and its pinned summary), similarities within 1e-6."""
+    card, cpu = _golden_network(dev, protocol), _golden_network("cpu", protocol)
+    assert all(s.device.type == "cuda" for en in card.edge_nodes.values()
+               for s in en.stores.values())
+    for a, b in zip(card.metrics.records, cpu.metrics.records):
+        assert (a.t_complete, a.reuse, a.correct, a.forwarding_error, a.reuse_node) == (
+            b.t_complete, b.reuse, b.correct, b.forwarding_error, b.reuse_node)
+        assert abs(a.similarity - b.similarity) <= 1e-6
+    assert card.metrics.summary() == cpu.metrics.summary()
+
+
+@pytest.mark.cuda
+def test_engine_backend_on_the_card(dev):
+    """``EngineBackend`` behind the network with every store on the card (EN
+    stores, replica stores, the routers' hash): records and counters equal a
+    CPU run's (virtual execution times)."""
+    from repro_torch.core.edge_node import Service
+    from repro_torch.core.network import ReservoirNetwork
+    from repro_torch.core.topology import line_topology
+    from repro_torch.serving import EngineBackend
+    from repro_torch.training.elastic import BackupPolicy
+
+    rng = np.random.default_rng(11)
+    base = normalize(rng.standard_normal((6, 16)).astype(np.float32))
+    X = normalize(base[rng.integers(0, 6, 150)]
+                  + 0.03 * rng.standard_normal((150, 16)).astype(np.float32))
+
+    def run(device):
+        g, ens = line_topology(2, link_delay_s=1e-3)
+        be = EngineBackend(n_replicas=2, max_batch=8, max_wait_s=0.004, seed=3,
+                           backup=BackupPolicy(factor=1.5, max_backups=1))
+        net = ReservoirNetwork(g, ens, LSHParams(dim=16, num_tables=5, num_probes=8),
+                               seed=0, user_link_delay_s=1e-3, en_batch_window_s=0.008,
+                               backend=be, device=device)
+        net.register_service(Service("/svc", execute=lambda x: round(float(np.sum(x)), 5),
+                                     input_dim=16))
+        net.add_user("u1", 0)
+        net.add_user("u2", 0)
+        for i, x in enumerate(X):
+            net.submit_task("u1" if i % 2 else "u2", "svc", x, 0.9, at_time=0.004 * i)
+        net.run()
+        return net, be
+
+    (card, cbe), (cpu, pbe) = run(dev), run("cpu")
+    for engine in cbe.engines.values():
+        assert all(r.device.type == "cuda" for r in engine.replicas)
+    assert cbe.stats() == pbe.stats() and cbe.stats()["executed"] > 0
+    for a, b in zip(card.metrics.records, cpu.metrics.records):
+        assert (a.t_complete, a.reuse, a.result, a.aggregated) == (
+            b.t_complete, b.reuse, b.result, b.aggregated)
+        assert abs(a.similarity - b.similarity) <= 1e-6

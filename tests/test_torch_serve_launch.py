@@ -5,8 +5,10 @@
 * ``main(argv, device="cpu")`` with ``--engine sync`` and ``--engine async``
   at 8 requests prints the reference CLI's summary lines (numbers aside; the
   sync run's reuse counts are equal, since they do not depend on wall time).
-* ``--engine cosim``, ``--offload-policy`` and ``--trace-out`` are accepted
-  by the parser and exit with an error that names the simulator slice.
+* ``--offload-policy`` and ``--trace-out`` need ``--engine cosim`` (the
+  reference's errors), and ``--engine cosim --offload-policy`` exits with an
+  error that names the federation slice (``--engine cosim`` itself runs:
+  tests/test_torch_cosim.py).
 """
 import re
 import sys
@@ -75,15 +77,20 @@ class TestServeMain:
         if engine == "sync":
             assert out[1] == ref[1]    # one execution: no backup can fire
 
-    @pytest.mark.parametrize("flags", [["--engine", "cosim"],
+    @pytest.mark.parametrize("flags", [["--engine", "cosim", "--offload-policy", "local-only"],
                                        ["--offload-policy", "least-loaded"],
                                        ["--trace-out", "trace.json"]])
     def test_cosim_flags_name_the_simulator_slice(self, flags, capsys):
+        """The co-simulation's flags outside it exit as in the reference;
+        federation in it exits naming the slice that ports it."""
         with pytest.raises(SystemExit) as ei:
             main(flags + ["--requests", "2"], device="cpu")
         assert ei.value.code == 2
         err = capsys.readouterr().err
-        assert flags[0] in err and "simulator slice" in err
+        if "cosim" in flags:
+            assert "--offload-policy" in err and "federation slice" in err
+        else:
+            assert f"{flags[0]} requires --engine cosim" in err
 
     def test_rejects_unknown_dataset(self, capsys):
         with pytest.raises(SystemExit):
