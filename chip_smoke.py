@@ -37,11 +37,21 @@ just before it and read just after:
   testbed's two ENs, each with two replicas of that model behind an
   ``EngineBackend``, 200 ``cctv1`` tasks at 200 req/s, an 8 ms EN window;
   K4a per client hash, admission and insert, K3 per staged store query, K6
-  28 times a model execution), and its ``main --engine cosim --trace-out``.
+  28 times a model execution), and its ``main --engine cosim --trace-out``;
+* federation: federation and faults with the stores on the card — the arms
+  of the federation, migration and fault-recovery benchmarks (stub services:
+  6 ENs under the three offload policies and load-driven rebalance, store
+  migration on re-partition and under the autoscaler, link loss, an EN
+  crash, an empty fault plan), each held task by task to its CPU run and to
+  the reference's row; then ``build_cosim`` with a federator
+  (``--offload-policy least-loaded`` and ``reuse-affinity``: an EN's miss
+  may run on, or be answered by, the other EN; K3 also per peek, K6 28 times
+  a model execution on either EN), and ``main --engine cosim
+  --offload-policy reuse-affinity``.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-its path, its launches on the async-serve and cosim paths, error against its plain
+its path, its launches on the async-serve, cosim and federation paths, error against its plain
 version, time, plain time, bound and the time of one PyTorch library call
 computing the same function (where there is one), and last
 ``{"ok": true, "device": {...}}``.  K4b's path is its caller
@@ -71,12 +81,16 @@ change, change, parent) on one card, one after another, compares two commits.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import io
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -85,17 +99,21 @@ SRC = Path(sys.argv[sys.argv.index("--src") + 1]).resolve() if "--src" in sys.ar
     else ROOT / "src"
 sys.path.insert(0, str(SRC))
 
+import networkx as nx  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core.edge_node import Service  # noqa: E402
 from repro_torch.core.lsh import LSHParams, normalize, sample_params  # noqa: E402
 from repro_torch.core.network import PaperDelayModel, ReservoirNetwork  # noqa: E402
 from repro_torch.core.reuse_store import ReuseStore  # noqa: E402
 from repro_torch.core.sim_clock import EventLoop  # noqa: E402
 from repro_torch.core.topology import testbed_topology  # noqa: E402
 from repro_torch.data import DATASETS, dataset_service, make_stream  # noqa: E402
+from repro_torch.faults import ChaosController, FaultPlan  # noqa: E402
+from repro_torch.federation.policy import AutoscalePolicy  # noqa: E402
 from repro_torch.kernels import build, lsh_hash, ops, ref, sim_topk  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_k  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
@@ -160,6 +178,7 @@ MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix
              "decode_attention": "model"}
 ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
+FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -1528,13 +1547,13 @@ def _bench_cosim_row(dev: torch.device, kind: str, window: float, replicas: int)
 
 @contextlib.contextmanager
 def store_query_log():
-    """Record what each ``ReuseStore`` query made inside launched: the fused
-    path (K1's bucket route), the staged path's ``gather_top1`` (K3, on a
-    CUDA store whenever a query of the call has a candidate), or nothing (an
-    empty store, no candidate).  Observes only: the wrapped methods run
-    unchanged.  Yields a list of (kind, queries) per call."""
+    """Record what each ``ReuseStore`` query made inside launched: a scalar
+    ``query`` with a candidate, or a staged batch (``query_batch``, peeks
+    included) with a candidate, ``gather_top1`` (K3, on a CUDA store); a fused
+    batch, K1's bucket route; otherwise nothing.  Observes only: the wrapped
+    methods run unchanged.  Yields a list of (kind, queries) per call."""
     calls = []
-    query, query_batch = ReuseStore.query, ReuseStore.query_batch
+    query, staged, fused = ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused
 
     def logged_query(self, embedding, threshold=0.0):
         n0 = len(self.candidate_counts)
@@ -1542,21 +1561,23 @@ def store_query_log():
         calls.append(("k3" if self.candidate_counts[n0] > 0 else "none", 1))
         return out
 
-    def logged_batch(self, embeddings, thresholds=0.0, peek=False):
-        expect(not peek, "store_query_log: a peek records no candidate counts")
-        n0, empty = len(self.candidate_counts), not len(self)
-        out = query_batch(self, embeddings, thresholds, peek)
-        counts = self.candidate_counts[n0:]
-        kind = ("none" if empty else "k1" if self.last_query_fused
-                else "k3" if max(counts) > 0 else "none")
-        calls.append((kind, len(counts)))
+    def logged_staged(self, embs):
+        out = staged(self, embs)
+        calls.append(("k3" if out[2].max(initial=0) > 0 else "none", len(out[2])))
         return out
 
-    ReuseStore.query, ReuseStore.query_batch = logged_query, logged_batch
+    def logged_fused(self, embs, need_counts=True):
+        out = fused(self, embs, need_counts)
+        calls.append(("k1", len(embs)))
+        return out
+
+    ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused = (
+        logged_query, logged_staged, logged_fused)
     try:
         yield calls
     finally:
-        ReuseStore.query, ReuseStore.query_batch = query, query_batch
+        ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused = (
+            query, staged, fused)
 
 
 def _host_ms(fn, reps: int = COSIM_HOST_REPS) -> float:
@@ -1734,6 +1755,497 @@ def phase_cosim(dev: torch.device, model) -> dict:
     return counts
 
 
+# phase federation: federation and faults with the reuse stores on the card.
+# The rows of benchmarks/federation.py, migration.py and fault_recovery.py as
+# the reference's current code gives them (us_per_call, derived); the CPU
+# tests hold the port's runs equal to the reference's
+# (tests/test_torch_{federation,migration,faults}.py).  BENCH_federation.json
+# predates store migration; its least-loaded, reuse-affinity/load160 and
+# rebalance rows differ from these.
+FED_WANT = {
+    "federation/local-only/load80": (432092.68, "p99_ms=432.1;mean_ms=33.3;reuse_pct=86.3;gap=19.84x;hot_share=0.60;offloads=0;remote_hits=0;rebalances=0;forward_ms=8.93;search_ms=0.37;execute_ms=84.97;aggregate_ms=nan"),
+    "federation/least-loaded/load80": (219458.88, "p99_ms=219.5;mean_ms=28.7;reuse_pct=83.3;gap=13.26x;hot_share=0.52;offloads=42;remote_hits=9;rebalances=0;forward_ms=8.93;search_ms=0.37;execute_ms=85.05;aggregate_ms=nan"),
+    "federation/reuse-affinity/load80": (131081.68, "p99_ms=131.1;mean_ms=22.3;reuse_pct=92.2;gap=8.17x;hot_share=0.33;offloads=133;remote_hits=121;rebalances=0;forward_ms=8.93;search_ms=0.37;execute_ms=85.98;aggregate_ms=nan"),
+    "federation/local-only/load160": (899878.34, "p99_ms=899.9;mean_ms=54.4;reuse_pct=85.3;gap=33.88x;hot_share=0.60;offloads=0;remote_hits=0;rebalances=0;forward_ms=8.95;search_ms=0.37;execute_ms=84.97;aggregate_ms=nan"),
+    "federation/least-loaded/load160": (305846.53, "p99_ms=305.8;mean_ms=40.8;reuse_pct=79.5;gap=16.33x;hot_share=0.46;offloads=91;remote_hits=24;rebalances=0;forward_ms=8.95;search_ms=0.37;execute_ms=84.60;aggregate_ms=nan"),
+    "federation/reuse-affinity/load160": (197130.87, "p99_ms=197.1;mean_ms=24.2;reuse_pct=91.3;gap=8.71x;hot_share=0.32;offloads=147;remote_hits=124;rebalances=0;forward_ms=8.95;search_ms=0.37;execute_ms=85.71;aggregate_ms=nan"),
+    "federation/rebalance/load160": (197130.87, "p99_ms=197.1;mean_ms=24.0;reuse_pct=91.3;gap=8.75x;hot_share=0.25;offloads=143;remote_hits=121;rebalances=1;forward_ms=8.94;search_ms=0.37;execute_ms=85.71;aggregate_ms=nan;en0_share=0.25;en0_share_initial=0.41"),
+    "migration/baseline": (57074.70, "local_hit_pct=96.3;en_hit_pct=27.3;reuse_pct=96.3;p99_ms=57.1;mean_ms=9.4;moved_bucket_pct=0.0;migrated=0"),
+    "migration/stranded": (59151.91, "local_hit_pct=89.3;en_hit_pct=20.3;reuse_pct=89.3;p99_ms=59.2;mean_ms=11.9;moved_bucket_pct=76.6;migrated=0"),
+    "migration/migrate": (59033.67, "local_hit_pct=92.8;en_hit_pct=23.8;reuse_pct=92.8;p99_ms=59.0;mean_ms=10.7;moved_bucket_pct=76.6;migrated=63"),
+    "migration/autoscale": (184478.37, "scale_ups=1;scale_downs=2;final_ens=2;migrated=66;events=[(0.114, 'add', 4), (0.964, 'remove', 3), (1.564, 'remove', 2)];traj=t0.01:reuse=71.7%,p99=214.2ms|t2.34:reuse=91.4%,p99=53.9ms|t4.68:reuse=100.0%,p99=16.6ms|t7.01:reuse=96.6%,p99=47.2ms|t9.34:reuse=96.8%,p99=44.8ms|t11.67:reuse=93.5%,p99=57.7ms|t14.0:reuse=88.5%,p99=65.2ms|t16.33:reuse=100.0%,p99=16.6ms"),
+    "fault_recovery/loss0pct": (243281.68, "completion=100.0%;p99_ms=243.3;mean_ms=30.4;reuse_pct=86.2;retx=0;drops=0;give_ups=0"),
+    "fault_recovery/loss1pct": (261865.91, "completion=100.0%;p99_ms=261.9;mean_ms=32.8;reuse_pct=86.6;retx=28;drops=28;give_ups=0"),
+    "fault_recovery/loss5pct": (354512.72, "completion=100.0%;p99_ms=354.5;mean_ms=43.8;reuse_pct=88.2;retx=113;drops=113;give_ups=0"),
+    "fault_recovery/crash_en0": (250000.00, "completion=100.0%;t_crash=6.25s;time_to_detect_s=0.607;reuse_pre=84.6%;reuse_dip=66.7%;time_to_recover_s=0.25;retx=36;crash_drops=36;routing_repartitioned=True"),
+    "fault_recovery/zero_fault_parity": (0.00, "summaries_identical=True;chaos_events=0;reuse_pct=76.0"),
+}
+FED_DIM, FED_SKEW, FED_NOISE = 64, 1.1, 0.02          # the benchmarks' content stream
+FED_REBALANCE_KW = {"rebalance": True, "rebalance_every_rounds": 10, "rebalance_min_tasks": 10,
+                    "rebalance_skew": 1.8, "rebalance_persistence": 2}
+FAULT_PLAN_SEED = zlib.crc32(b"reservoir-fault-recovery")
+FAULT_RETX = {"retx_timeout_s": 0.05, "retx_backoff": 2.0, "retx_max": 6}
+# phase federation (b): the launcher's co-simulation with a federator, and
+# the rate it falls back to when neither policy runs a miss on the other EN
+FED_POLICIES, FED_FALLBACK_RATE = ("least-loaded", "reuse-affinity"), 400.0
+
+
+def _fed_stream(n: int, seed: int, centers: int, center_seed=None) -> np.ndarray:
+    """The benchmarks' Zipf-popular cluster stream (centers from
+    ``center_seed``'s generator, else from the picks' generator)."""
+    rng = np.random.default_rng(seed)
+    crng = rng if center_seed is None else np.random.default_rng(center_seed)
+    base = normalize(crng.standard_normal((centers, FED_DIM)).astype(np.float32))
+    p = 1.0 / np.arange(1, centers + 1) ** FED_SKEW
+    picks = rng.choice(centers, n, p=p / p.sum())
+    return normalize(base[picks] + FED_NOISE * rng.standard_normal(
+        (n, FED_DIM)).astype(np.float32))
+
+
+def _zipf_weights(n: int) -> list:
+    w = 1.0 / np.arange(1, n + 1)
+    return list(w / w.sum())
+
+
+def _hub_net(dev, n_ens: int, exec_s, plan=None, **kw) -> ReservoirNetwork:
+    """``n_ens`` ENs one 5 ms link from a hub (LSH seed 11, network seed 0),
+    a chaos controller on ``plan``, then the stub service (result = the
+    rounded sum of the input, ``exec_s`` of virtual time), in the
+    benchmarks' order."""
+    g = nx.Graph()
+    ens = [f"en{i}" for i in range(n_ens)]
+    for en in ens:
+        g.add_edge("core", en, delay=0.005)
+    net = ReservoirNetwork(g, ens, LSHParams(dim=FED_DIM, num_tables=5, num_probes=8, seed=11),
+                           seed=0, device=dev, **kw)
+    if plan is not None:
+        ChaosController(net, plan)
+    net.register_service(Service("/svc", execute=lambda x: round(float(np.sum(x)), 5),
+                                 exec_time_s=exec_s, input_dim=FED_DIM))
+    return net
+
+
+def _add_users(net, n: int) -> None:
+    for u in range(n):
+        net.add_user(f"u{u}", "core")
+
+
+def _submit_stream(net, X, arrivals, n_users: int) -> None:
+    for i, (t, x) in enumerate(zip(arrivals, X)):
+        net.submit_task(f"u{i % n_users}", "svc", x, 0.9, at_time=float(t))
+
+
+def _poisson(rate: float, n: int, seed: int, t0: float = 0.0) -> np.ndarray:
+    return t0 + np.cumsum(np.random.default_rng(seed).exponential(1.0 / rate, n))
+
+
+def _en0_share(net) -> float:
+    """en0's share of table 0's buckets in the hub's rFIB."""
+    e0 = [e for e in net.forwarders["core"].rfib.entries("svc") if e.en_prefix == "/en/en0"]
+    lo, hi = e0[0].ranges[0] if e0 else (0, -1)
+    return (hi - lo + 1) / net.lsh_params.effective_buckets
+
+
+def _fed_row(dev, policy: str, load: float):
+    """benchmarks/federation.py::_run_one at full size (6 ENs, 4 users, a
+    Zipf-weighted initial partition, 600 tasks at ``load`` Hz): ([net],
+    the row's name, us_per_call, derived)."""
+    fkw = FED_REBALANCE_KW if policy == "rebalance" else {"rebalance": False}
+    net = _hub_net(dev, 6, (0.070, 0.100),
+                   offload_policy="reuse-affinity" if policy == "rebalance" else policy,
+                   federation_kw=fkw)
+    net.rebalance_service("svc", weights=_zipf_weights(6))
+    share0 = _en0_share(net)
+    _add_users(net, 4)
+    _submit_stream(net, _fed_stream(600, 7, 48), _poisson(load, 600, 2), 4)
+    net.run()
+    m = net.metrics
+    done = m.completed()
+    expect(len(done) == 600, f"federation/{policy}/load{load:.0f}: tasks incomplete")
+    cts = np.asarray([r.completion_time for r in done])
+    instant = [r.completion_time for r in done if r.reuse is not None and not r.aggregated]
+    per_en = [net.edge_nodes[n].stats["executed"] + net.edge_nodes[n].stats["reused"]
+              for n in net.en_nodes]
+    fs = net.federator.stats
+    ph = net.registry.phase_summary()
+    p99 = float(np.percentile(cts, 99)) * 1e3
+    derived = (f"p99_ms={p99:.1f};mean_ms={cts.mean() * 1e3:.1f};"
+               f"reuse_pct={m.reuse_fraction() * 100:.1f};"
+               f"gap={m.mean_completion(kind=(None,)) / float(np.mean(instant)):.2f}x;"
+               f"hot_share={max(per_en) / max(sum(per_en), 1):.2f};offloads={fs['offloads']};"
+               f"remote_hits={fs['remote_hits']};rebalances={fs['rebalances']};"
+               + ";".join(f"{p}_ms={ph[p + '_ms']:.2f}"
+                          for p in ("forward", "search", "execute", "aggregate")))
+    if policy == "rebalance":   # en0's share after rebalancing, and before
+        derived += f";en0_share={_en0_share(net):.2f};en0_share_initial={share0:.2f}"
+    return [net], f"federation/{policy}/load{load:.0f}", round(p99 * 1e3, 2), derived
+
+
+def _local_hits(records) -> dict:
+    cts = np.asarray([r.completion_time for r in records])
+    n = max(len(records), 1)
+    return {"local_hit_pct": 100.0 * sum(r.reuse is not None and r.remote_en is None
+                                         for r in records) / n,
+            "en_hit_pct": 100.0 * sum(r.reuse == "en" and r.remote_en is None
+                                      for r in records) / n,
+            "reuse_pct": 100.0 * sum(r.reuse is not None for r in records) / n,
+            "p99_ms": float(np.percentile(cts, 99)) * 1e3, "mean_ms": float(cts.mean()) * 1e3}
+
+
+def _owner_cells(net) -> np.ndarray:
+    entries, p = net.forwarders["core"].rfib.entries("svc"), net.lsh_params
+    idx = {q: i for i, q in enumerate(sorted({e.en_prefix for e in entries}))}
+    cells = np.full((p.num_tables, p.effective_buckets), -1, np.int64)
+    for e in reversed(entries):
+        for t, (lo, hi) in e.ranges.items():
+            cells[t, lo:hi + 1] = idx[e.en_prefix]
+    return cells
+
+
+def _mig_row(dev, mode: str):
+    """benchmarks/migration.py::_run_churn at full size (6 ENs, 400 warm
+    tasks at 50 Hz on a Zipf partition, for ``stranded``/``migrate`` a
+    re-partition to uniform weights with migration off/on, 600 measured)."""
+    net = _hub_net(dev, 6, (0.030, 0.045), store_migration=mode == "migrate")
+    _add_users(net, 2)
+    net.rebalance_service("svc", weights=_zipf_weights(6))
+    _submit_stream(net, _fed_stream(400, 7, 48, 42), _poisson(50.0, 400, 2), 2)
+    net.run()
+    moved = 0.0
+    if mode != "baseline":
+        before = _owner_cells(net)
+        net.rebalance_service("svc")
+        net.run()
+        moved = float(np.mean(before != _owner_cells(net)))
+    _submit_stream(net, _fed_stream(600, 9, 48, 42), _poisson(50.0, 600, 4, net.loop.now + 0.5), 2)
+    net.run()
+    done = [r for r in net.metrics.records if r.t_complete >= 0]
+    expect(len(done) == 1000, f"migration/{mode}: tasks incomplete")
+    r = _local_hits(done[400:])
+    migrated = net.federator.stats["migrated_entries"] if net.federator is not None else 0
+    derived = (f"local_hit_pct={r['local_hit_pct']:.1f};en_hit_pct={r['en_hit_pct']:.1f};"
+               f"reuse_pct={r['reuse_pct']:.1f};p99_ms={r['p99_ms']:.1f};"
+               f"mean_ms={r['mean_ms']:.1f};moved_bucket_pct={moved * 100:.1f};"
+               f"migrated={migrated}")
+    return [net], f"migration/{mode}", round(r["p99_ms"] * 1e3, 2), derived
+
+
+def _autoscale_row(dev):
+    """benchmarks/migration.py::_run_autoscale (3 ENs, least-loaded, store
+    migration, ``AutoscalePolicy``; 500 tasks, a burst at 140 Hz then a
+    trickle at 12 Hz)."""
+    net = _hub_net(dev, 3, (0.030, 0.045), offload_policy="least-loaded",
+                   federation_kw={"gossip_interval_s": 0.05, "rebalance": False})
+    _add_users(net, 2)
+    net.rebalance_service("svc")
+    events, added = [], [0]
+
+    def up():
+        added[0] += 1
+        net.add_en(f"auto{added[0]}", attach_to="core")
+        events.append((round(net.loop.now, 3), "add", len(net.en_nodes)))
+
+    def down():
+        net.remove_en(net.en_nodes[-1])
+        events.append((round(net.loop.now, 3), "remove", len(net.en_nodes)))
+
+    net.federator.attach_autoscaler(
+        AutoscalePolicy(high_wait_s=0.02, low_wait_s=0.004, persistence=2, cooldown_rounds=8,
+                        min_ens=2, max_ens=6), up, down)
+    X = _fed_stream(500, 13, 48, 42)
+    burst = _poisson(140.0, 300, 5)
+    _submit_stream(net, X[:300], burst, 2)
+    _submit_stream(net, X[300:], _poisson(12.0, 200, 6, float(burst[-1]) + 0.2), 2)
+    net.run()
+    done = [r for r in net.metrics.records if r.t_complete >= 0]
+    expect(len(done) == 500, "migration/autoscale: tasks incomplete")
+    lo, hi = min(r.t_submit for r in done), max(r.t_submit for r in done)
+    edges = np.linspace(lo, hi + 1e-9, 9)
+    traj = []
+    for a, b in zip(edges[:-1], edges[1:]):
+        win = [r for r in done if a <= r.t_submit < b]
+        if win:
+            m = _local_hits(win)
+            traj.append(f"t{round(float(a), 2)}:reuse={round(m['reuse_pct'], 1)}%,"
+                        f"p99={round(m['p99_ms'], 1)}ms")
+    fs = net.federator.stats
+    derived = (f"scale_ups={fs['scale_ups']};scale_downs={fs['scale_downs']};"
+               f"final_ens={len(net.en_nodes)};migrated={fs['migrated_entries']};"
+               f"events={events};traj={'|'.join(traj)}")
+    return [net], "migration/autoscale", round(_local_hits(done)["p99_ms"] * 1e3, 2), derived
+
+
+def _fault_net(dev, plan, policy=None, fkw=None, retx=True):
+    """benchmarks/fault_recovery.py::_build: 3 ENs, 3 users, the ttc
+    protocol, retransmission on, a chaos controller on ``plan``."""
+    net = _hub_net(dev, 3, (0.070, 0.100), plan, protocol="ttc", offload_policy=policy,
+                   federation_kw=fkw, **(FAULT_RETX if retx else {}))
+    _add_users(net, 3)
+    return net
+
+
+def _fault_drive(net, n: int = 500) -> None:
+    _submit_stream(net, _fed_stream(n, 7, 40), _poisson(40.0, n, 2), 3)
+    net.run()
+
+
+def _loss_row(dev, rate: float):
+    """benchmarks/fault_recovery.py::_run_loss: uniform Interest/Data loss
+    at ``rate`` on every link, 500 tasks at 40 Hz."""
+    net = _fault_net(dev, FaultPlan.uniform_loss(rate, seed=FAULT_PLAN_SEED) if rate
+                     else FaultPlan(seed=FAULT_PLAN_SEED))
+    _fault_drive(net)
+    m, fs = net.metrics, net.fault_stats
+    cts = np.asarray([r.completion_time for r in m.completed()])
+    p99 = float(np.percentile(cts, 99)) * 1e3
+    derived = (f"completion={m.completion_rate() * 100:.1f}%;p99_ms={p99:.1f};"
+               f"mean_ms={cts.mean() * 1e3:.1f};reuse_pct={m.reuse_fraction() * 100:.1f};"
+               f"retx={fs['retx_sent']};"
+               f"drops={net.chaos.stats['interest_drops'] + net.chaos.stats['data_drops']};"
+               f"give_ups={fs['retx_give_ups']}")
+    return [net], f"fault_recovery/loss{rate * 100:.0f}pct", round(p99 * 1e3, 2), derived
+
+
+def _crash_row(dev, window: float = 0.25):
+    """benchmarks/fault_recovery.py::_run_crash: en0, the Zipf-hot owner,
+    crashes at 6.25 s under local-only with 50 ms gossip."""
+    t_crash = round(500 / 40.0 * 0.5, 3)
+    net = _fault_net(dev, FaultPlan(seed=FAULT_PLAN_SEED).with_crash("en0", t_crash),
+                     policy="local-only", fkw={"gossip_interval_s": 0.05})
+    net.rebalance_service("svc", weights=_zipf_weights(3))
+    _fault_drive(net)
+    m, fs = net.metrics, net.fault_stats
+    edges = np.arange(0.0, 12.5 + window, window)
+    wins = []
+    for lo, hi in zip(edges, edges[1:]):
+        win = [r for r in m.records if lo <= r.t_submit < hi]
+        done = [r for r in win if r.t_complete >= 0]
+        wins.append((lo, float("nan") if len(win) < 3
+                     else sum(r.reuse is not None for r in done) / len(win)))
+    pre = float(np.mean([f for t, f in wins if t + window <= t_crash and t >= 2.0
+                         and np.isfinite(f)]))
+    post = [(t, f) for t, f in wins if t >= t_crash and np.isfinite(f)]
+    recover = next(t for t, f in post if f >= pre - 0.05) - t_crash
+    derived = (f"completion={m.completion_rate() * 100:.1f}%;t_crash={t_crash:.2f}s;"
+               f"time_to_detect_s={net.federator.health.dead['en0'] - t_crash:.3f};"
+               f"reuse_pre={pre * 100:.1f}%;reuse_dip={min(f for _, f in post) * 100:.1f}%;"
+               f"time_to_recover_s={recover:.2f};retx={fs['retx_sent']};"
+               f"crash_drops={fs['crash_drops']};"
+               f"routing_repartitioned={fs['crash_recoveries'] == 1}")
+    return [net], "fault_recovery/crash_en0", round(recover * 1e6, 2), derived
+
+
+def _parity_row(dev):
+    """benchmarks/fault_recovery.py::_run_parity: 200 tasks without
+    retransmission, plain and with a chaos controller on an empty plan."""
+    plain, chaotic = _fault_net(dev, None, retx=False), _fault_net(
+        dev, FaultPlan(seed=FAULT_PLAN_SEED), retx=False)
+    for net in (plain, chaotic):
+        _fault_drive(net, 200)
+    derived = (f"summaries_identical={plain.metrics.summary() == chaotic.metrics.summary()};"
+               f"chaos_events={sum(chaotic.chaos.stats.values())};"
+               f"reuse_pct={chaotic.metrics.reuse_fraction() * 100:.1f}")
+    return [plain, chaotic], "fault_recovery/zero_fault_parity", 0.0, derived
+
+
+def _net_state(net) -> dict:
+    """What a federated run left behind, besides its records: every
+    counter, the rFIB, and each EN store's live entries in LRU order."""
+    ens = {**net._departed, **net._crashed, **net.edge_nodes}
+    stores = {}
+    for node, en in ens.items():
+        for name, store in en.stores.items():
+            exp = store.export(store.live_ids())
+            stores[(node, name)] = (exp.ids, exp.embeddings.tobytes(), exp.results,
+                                    exp.buckets.tolist())
+    return {"ens": {n: dict(en.stats) for n, en in ens.items()}, "stores": stores,
+            "fault": dict(net.fault_stats),
+            "federator": None if net.federator is None else dict(net.federator.stats),
+            "chaos": None if net.chaos is None else dict(net.chaos.stats),
+            "rfib": [(e.en_prefix, e.ranges) for e in net.forwarders["core"].rfib.entries("svc")]}
+
+
+def _same_run(name: str, card: ReservoirNetwork, host: ReservoirNetwork) -> float:
+    """Hold a run with its stores on the card to the same run on the CPU:
+    every record field but the similarity equal (a flipped winner, a near
+    tie between K3's fp32 chain and numpy, fails here and is printed), the
+    similarities within ``COSIM_SIM_TOL``, every counter and store equal.
+    Returns the largest similarity gap."""
+    pairs = list(zip(card.metrics.records, host.metrics.records))
+    expect(len(pairs) == len(host.metrics.records) == len(card.metrics.records),
+           f"{name}: {len(card.metrics.records)} records on the card, "
+           f"{len(host.metrics.records)} on the CPU")
+    key = lambda r: dataclasses.astuple(dataclasses.replace(r, similarity=0.0))  # noqa: E731
+    differ = [(a.task_id, a.reuse, b.reuse, a.reuse_node, b.reuse_node, a.similarity,
+               b.similarity) for a, b in pairs if key(a) != key(b)]
+    gap = max((abs(a.similarity - b.similarity) for a, b in pairs), default=0.0)
+    if differ:
+        log(f"  {name}: {len(differ)} tasks differ from the CPU run (task, reuse card/cpu, "
+            f"node card/cpu, similarity card/cpu): {differ[:10]}")
+    expect(not differ and gap <= COSIM_SIM_TOL,
+           f"{name}: {len(differ)} tasks differ from the CPU run, largest similarity gap {gap}")
+    card_state, host_state = _net_state(card), _net_state(host)
+    bad = [k for k in host_state if card_state[k] != host_state[k]]
+    expect(not bad, f"{name}: {bad} differ from the CPU run")
+    return gap
+
+
+def _remote_executions(net, backend):
+    """Count the model executions of a co-simulation, and which of them
+    ran a federated task (a miss another EN offloaded here), with the K6
+    launches each made: a list of (federated, K6 launches), one an
+    execution.  Observes only."""
+    federated, executions = [], []
+    submit, svc = backend.submit, net.services[AS_DATASET]
+    prefill = svc.execute
+
+    def noting(node, svc_name, interest, emb, lead_delay_s, defer_inserts=None):
+        if interest.app_params.get("federated"):
+            federated.append(emb)       # kept alive: its id names it below
+        return submit(node, svc_name, interest, emb, lead_delay_s, defer_inserts)
+
+    def counted(emb):
+        k6 = ops.launch_counts()["flash_attention"]
+        out = prefill(emb)
+        executions.append((any(emb is f for f in federated),
+                           ops.launch_counts()["flash_attention"] - k6))
+        return out
+
+    backend.submit, svc.execute = noting, counted
+    return executions
+
+
+def phase_federation(dev: torch.device, model) -> dict:
+    """Federation and faults with the reuse stores on the card: (a) the
+    stub-service arms of the federation, migration and fault-recovery
+    benchmarks, each held record by record to its CPU run and to the
+    reference's row; (b) the launcher's co-simulation with ``model``
+    (qwen3-1.7b at full width) behind two federated engine-backed ENs, under
+    least-loaded and reuse-affinity, and ``main --engine cosim
+    --offload-policy reuse-affinity``.  Returns (b)'s reuse-affinity run's
+    launches."""
+    cpu = torch.device("cpu")
+    # (a) K4a per client hash, engine-free EN insert; K3 per EN query, peek
+    # and remote query with a candidate; migration inserts carry buckets
+    arms = ([functools.partial(_fed_row, policy=p, load=load) for load in (80.0, 160.0)
+             for p in ("local-only", "least-loaded", "reuse-affinity")]
+            + [functools.partial(_fed_row, policy="rebalance", load=160.0)]
+            + [functools.partial(_mig_row, mode=m) for m in ("baseline", "stranded", "migrate")]
+            + [_autoscale_row] + [functools.partial(_loss_row, rate=r) for r in (0.0, 0.01, 0.05)]
+            + [_crash_row, _parity_row])
+    t_all = time.perf_counter()
+    for arm in arms:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        nets, name, us, derived = arm(dev)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        host_nets, _, host_us, host_derived = arm(cpu)
+        gap = max(_same_run(name, a, b) for a, b in zip(nets, host_nets))
+        want = FED_WANT[name]
+        log(f"  {name} on the card in {wall:.3f} s: {us} {derived}; reference {want[0]} "
+            f"{want[1]}; K4a {counts['lsh_hash_mix']} K3 {counts['gather_top1']} K1 "
+            f"{counts['reuse_top1_probed']}; largest similarity gap to the CPU run {gap:.3g}")
+        expect((us, derived) == (host_us, host_derived),
+               f"{name}: card {us} {derived}, CPU {host_us} {host_derived}")
+        expect((us, derived) == want, f"{name}: {us} {derived}, the reference gives {want}")
+        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] > 0,
+               f"{name}: launches {counts}")
+    log(f"  stub arms on the card and the CPU in {time.perf_counter() - t_all:.3f} s")
+
+    # (b) the launcher's co-simulation at full width, federated
+    cfg = model.cfg
+    X, _ = make_stream(DATASETS[AS_DATASET], AS_REQUESTS, seed=0)
+    warm = make_service(model, AS_DATASET, MS_SEQ)
+    for x in X[:4]:
+        warm.execute(x)
+    sync()
+
+    def build(policy, rate=AS_RATE, profile=None):
+        return build_cosim(model, X, dataset=AS_DATASET, rate=rate, max_batch=AS_MAX_BATCH,
+                           max_wait_s=AS_MAX_WAIT_S, window_s=COSIM_WINDOW_S, seq_len=MS_SEQ,
+                           profile=profile, offload_policy=policy, device=dev)
+
+    def run(policy, rate=AS_RATE):
+        net, backend = build(policy, rate, profile=True)   # runs the oracle prefills
+        executions = _remote_executions(net, backend)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with store_query_log() as queries:
+            makespan = net.run()
+        sync()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        recs, s, stats, fs = (net.metrics.records, net.metrics.summary(), backend.stats(),
+                              net.federator.stats)
+        kinds = {str(k): sum(r.reuse == k for r in recs) for k in ("user", "cs", "en", None)}
+        en_executed = sum(en.stats["executed"] for en in net.edge_nodes.values())
+        admitted = sum(stats[k] for k in ("cs", "en", "executed", "aggregated"))
+        calls = {k: sum(1 for kk, _ in queries if kk == k) for k in ("k1", "k3", "none")}
+        remote = [k6 for fed, k6 in executions if fed]
+        log(f"  cosim --offload-policy {policy} at {rate:g} req/s, {cfg.name} (full width, "
+            f"{cfg.n_layers} layers) behind 2 ENs x 2 replicas: {AS_REQUESTS} tasks in "
+            f"{wall:.3f} s wall, virtual makespan {makespan:.6f} s, last completion "
+            f"{max(r.t_complete for r in recs):.6f} s; reuse_pct {s['reuse_pct']:.1f} (cs "
+            f"{s['reuse_pct_cs']:.1f}, en {s['reuse_pct_en']:.1f}); records by reuse kind "
+            f"{kinds}; federation offloads {fs['offloads']} remote_hits {fs['remote_hits']} "
+            f"remote_execs {fs['remote_execs']} remote_coalesced {fs['remote_coalesced']} "
+            f"rebalances {fs['rebalances']} decisions {fs['decisions']}; engines "
+            f"{dict(sorted(stats.items()))}; model executions {len(executions)}, of them "
+            f"for a federated task {len(remote)} (K6 launches {sum(remote)}); EN inserts "
+            f"{en_executed}; store queries by what they launched (calls) {calls}; launches "
+            f"{counts}")
+        log("  " + net.loop.profiler.report(top=8).replace("\n", "\n  "))
+        expect(all(r.t_complete >= 0 for r in recs), f"cosim {policy}: a task did not complete")
+        expect(sum(kinds.values()) == AS_REQUESTS, f"cosim {policy}: records by kind {kinds}")
+        expect(fs["offloads"] == sum(en.stats["offloaded"] for en in net.edge_nodes.values()),
+               f"cosim {policy}: offloads {fs['offloads']} vs the ENs' counts")
+        # K6: 28 launches a model execution, a federated one included
+        expect(counts["flash_attention"] == cfg.n_layers * len(executions)
+               and all(k6 == cfg.n_layers for _, k6 in executions),
+               f"cosim {policy}: {counts['flash_attention']} flash_attention launches for "
+               f"{len(executions)} executions")
+        # K4a (B=1): every client hash, every engine admission (the engine
+        # router's hash; remote executions included) and every EN insert of
+        # an executed result (at the EN that ran it)
+        want_k4 = AS_REQUESTS + admitted + en_executed
+        expect(counts["lsh_hash_mix"] == want_k4,
+               f"cosim {policy}: {counts['lsh_hash_mix']} lsh_hash_mix launches, want "
+               f"{AS_REQUESTS} tasks + {admitted} admissions + {en_executed} inserts")
+        # K3: one a staged store query with a candidate: EN window flushes,
+        # engine dispatches, the federator's peeks and remote queries
+        expect(counts["gather_top1"] == calls["k3"],
+               f"cosim {policy}: {counts['gather_top1']} gather_top1 launches, "
+               f"{calls['k3']} staged queries with a candidate")
+        expect(counts["reuse_top1_probed"] == calls["k1"],
+               f"cosim {policy}: {counts['reuse_top1_probed']} fused launches, "
+               f"{calls['k1']} fused queries")
+        for name in ("lsh_hash", "sim_top1", "decode_attention", "reuse_top1"):
+            expect(counts[name] == 0, f"cosim {policy}: {name} launched {counts[name]} times")
+        return counts, len(remote)
+
+    runs = {policy: run(policy) for policy in FED_POLICIES}
+    if not any(n for _, n in runs.values()):
+        log(f"  no policy ran a miss on the other EN at {AS_RATE:g} req/s: least-loaded at "
+            f"{FED_FALLBACK_RATE:g} req/s")
+        runs["fallback"] = run("least-loaded", FED_FALLBACK_RATE)
+    expect(any(n for _, n in runs.values()),
+           "cosim federation: no model execution on a remote EN")
+    profile_call(f"federated cosim (reuse-affinity) of {AS_REQUESTS} tasks (network run only)",
+                 lambda nets=iter([build("reuse-affinity")[0]]): next(nets).run(), host=False)
+    # the launcher itself, as a user runs it
+    argv = ["--engine", "cosim", "--offload-policy", "reuse-affinity"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_main(argv)
+    text = out.getvalue()
+    log(f"  launcher: main {' '.join(argv)}\n  " + text.strip().replace("\n", "\n  "))
+    expect(f"{AS_REQUESTS} tasks through the co-sim" in text
+           and "federation[reuse-affinity]: offloads=" in text,
+           "cosim launcher: no federation line")
+    return runs["reuse-affinity"][0]
+
+
 # ------------------------------------------------------------------ main
 @contextlib.contextmanager
 def timed(name: str):
@@ -1800,18 +2312,24 @@ def main() -> int:
         paths["async-serve"] = phase_async_serve(dev, model)
     with timed("cosim"):
         paths["cosim"] = phase_cosim(dev, model)
+    with timed("federation"):
+        paths["federation"] = phase_federation(dev, model)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
         expect(paths["async-serve"][name] > 0, f"{name} was not launched on the async-serve path")
     for name in COSIM_PATH:
         expect(paths["cosim"][name] > 0, f"{name} was not launched on the cosim path")
+    for name in FEDERATION_PATH:
+        expect(paths["federation"][name] > 0,
+               f"{name} was not launched on the federation path")
     # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
               "launches": paths[MAIN_PATH.get(name, "serve")][name],
               "async_serve_launches": paths["async-serve"][name],
               "cosim_launches": paths["cosim"][name],
+              "federation_launches": paths["federation"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

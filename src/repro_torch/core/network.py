@@ -28,10 +28,10 @@ forwarding-error peeks; the fused pipeline for windows of
 ``fused_min_batch`` tasks or more).  Virtual times come from
 ``PaperDelayModel``, so they do not depend on the device.
 
-Federation (``offload_policy``, and the store-migration and failover paths
-that churn reaches) is not ported yet: those entry points raise
-``NotImplementedError``.  A run without churn and without a policy never
-reaches them.
+Federation (``offload_policy``, store migration on re-partition and EN
+leave, failover) is ``repro_torch.federation``'s ``Federator``, created
+lazily as in the reference; a ``faults.ChaosController`` fills the
+``chaos`` hooks.
 """
 from __future__ import annotations
 
@@ -56,13 +56,6 @@ from .rfib import owners_batch, partition, rebalance
 from .sim_clock import EventLoop, Future, Timer
 
 APP_FACE = 0  # face id reserved for the local application on every node
-
-
-def _federation_not_ported(what: str) -> None:
-    """The federation layer (``repro/federation``) is not ported yet."""
-    raise NotImplementedError(
-        f"{what} needs the federation layer, which the port does not have yet "
-        "(ROADMAP.md §1 item 4: federation and faults)")
 
 
 # --------------------------------------------------------------------- delays
@@ -408,7 +401,9 @@ class ReservoirNetwork:
         self.federator = None
         if offload_policy is not None:
             assert mode == "reservoir", "federation models the reservoir path"
-            _federation_not_ported(f"offload_policy={offload_policy!r}")
+            from ..federation import Federator  # lazy: no import cycle
+            self.federator = Federator(self, offload_policy,
+                                       **(federation_kw or {}))
 
     # -------------------------------------------------------------- plumbing
     def _connect(self, a: Any, b: Any, delay: float) -> None:
@@ -785,7 +780,8 @@ class ReservoirNetwork:
         rebalance OFF: ``offload_policy=None`` promised no federation
         behavior beyond the failover proxying itself."""
         if self.federator is None:
-            _federation_not_ported("store migration and EN-leave failover")
+            from ..federation import Federator  # lazy: no import cycle
+            self.federator = Federator(self, "local-only", rebalance=False)
         return self.federator
 
     def _failover_interest(self, node: Any, interest: Interest) -> None:
@@ -982,7 +978,7 @@ class ReservoirNetwork:
             # miss, offloaded here.  Bypasses the batch window — the
             # delegating EN already searched — and coalesces in-flight
             # duplicates onto one leader execution.
-            self._ensure_federator().handle_remote(node, interest)
+            self.federator.handle_remote(node, interest)
             return
         if interest.retx and self.mode == "reservoir" \
                 and self._en_retx_coalesce(node, interest):

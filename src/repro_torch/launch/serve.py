@@ -20,8 +20,9 @@ two ENs whose execute path is an ``EngineBackend`` replica set running
 *this model's* prefill (``make_service``) — forwarding, reuse-store search,
 engine batching, and wall-measured model execution share one virtual
 timeline.  ``--trace-out PATH`` writes its per-task trace (Chrome
-trace-event JSON).  ``--offload-policy`` (federation between the ENs) exits
-with an error: the port has no federation layer yet.
+trace-event JSON).  ``--offload-policy`` federates the two ENs
+(``repro_torch.federation``): a miss may execute on, or be answered by, the
+other EN.
 """
 from __future__ import annotations
 
@@ -104,7 +105,7 @@ def build_cosim(model, X: np.ndarray, *, dataset: str = "cctv1",
                 max_batch: int = 8, max_wait_s: float = 0.005,
                 window_s: float = 0.008, seq_len: int = 32,
                 trace: bool = False, profile: Optional[bool] = None,
-                device: DeviceLike = None,
+                offload_policy: Optional[str] = None, device: DeviceLike = None,
                 ) -> Tuple[ReservoirNetwork, EngineBackend]:
     """The co-simulation of ``--engine cosim``, ready to ``run()``.
 
@@ -115,15 +116,18 @@ def build_cosim(model, X: np.ndarray, *, dataset: str = "cctv1",
     0).  ``submit_task`` runs one untimed oracle prefill a task (the answer
     reuse accuracy is measured against), so every one of them has run when
     this returns.  ``trace`` arms the per-task tracer, ``profile`` the event
-    loop's profiler (None: as ``RESERVOIR_PROFILE`` says).  ``device``
+    loop's profiler (None: as ``RESERVOIR_PROFILE`` says).
+    ``offload_policy`` (a name of ``federation.POLICY_NAMES``, None: no
+    federator) lets an EN's miss run on the other EN.  ``device``
     (None: the card) carries the clients' hash, the EN stores and the
     replicas; ``model`` must live there too."""
     g, ens = testbed_topology()
     backend = EngineBackend(n_replicas=replicas, max_batch=max_batch,
                             max_wait_s=max_wait_s, wall_time=True)
     net = ReservoirNetwork(g, ens, LSH_PARAMS, seed=0, en_batch_window_s=window_s,
-                           backend=backend, trace=True if trace else None,
-                           profile=profile, device=device)
+                           backend=backend, offload_policy=offload_policy,
+                           trace=True if trace else None, profile=profile,
+                           device=device)
     net.register_service(make_service(model, dataset, seq_len))
     net.add_user("u0", "fwd1")
     net.add_user("u1", "fwd2")
@@ -159,8 +163,8 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
                     help="cosim EN-side batch window (milliseconds)")
     ap.add_argument("--offload-policy", default=None,
                     choices=("local-only", "least-loaded", "reuse-affinity"),
-                    help="cosim federation policy (not ported yet: the "
-                         "federation slice of the port)")
+                    help="cosim federation policy (reuse-aware offloading "
+                         "between the co-simulated ENs)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="cosim only: arm per-task tracing and write the "
                          "Chrome trace-event / Perfetto JSON here")
@@ -171,9 +175,6 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
     if args.trace_out is not None and args.engine != "cosim":
         ap.error("--trace-out requires --engine cosim (spans live on the "
                  "network's virtual timeline)")
-    if args.offload_policy is not None:
-        ap.error("--offload-policy needs the federation layer, which comes "
-                 "with the federation slice of the port (ROADMAP.md §1 item 4)")
 
     dev = resolve_device(device)
     cfg = get_arch(args.arch).reduced()
@@ -194,7 +195,8 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
             model, X, dataset=args.dataset, threshold=args.threshold,
             rate=args.rate, replicas=args.replicas, max_batch=args.max_batch,
             max_wait_s=args.max_wait_ms * 1e-3, window_s=args.window_ms * 1e-3,
-            seq_len=args.seq_len, trace=args.trace_out is not None, device=dev)
+            seq_len=args.seq_len, trace=args.trace_out is not None,
+            offload_policy=args.offload_policy, device=dev)
         # the oracle prefills ran in build_cosim; the timed region covers
         # only the co-simulation itself
         t_all = time.time()
@@ -221,6 +223,13 @@ def main(argv: Optional[List[str]] = None, device: DeviceLike = None) -> None:
         print("  phases: " + "  ".join(
             f"{p}={ph[p + '_ms']:.2f}ms/n={ph[p + '_n']}"
             for p in ("forward", "search", "execute", "aggregate")))
+        if net.federator is not None:
+            fs = net.federator.stats
+            print(f"  federation[{args.offload_policy}]: "
+                  f"offloads={fs['offloads']} "
+                  f"remote_hits={fs['remote_hits']} "
+                  f"remote_execs={fs['remote_execs']} "
+                  f"rebalances={fs['rebalances']}")
     elif args.engine == "async":
         engine = AsyncServingEngine(
             LSH_PARAMS, replicas, max_batch=args.max_batch,

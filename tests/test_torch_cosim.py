@@ -8,10 +8,15 @@ port against the JAX package's, on the CPU.
 * Four rows of ``BENCH_cosim.json`` (the sweep of benchmarks/cosim.py,
   rebuilt here on both packages): every derived field equal to the JSON at
   its printed precision and to the reference's run.
+* Mirrors of tests/test_cosim.py's local-only federation and zero-fault
+  chaos goldens: the seeded 500-task trace with a ``local-only`` federator,
+  or with a ``ChaosController`` on an empty plan, equals the plain trace
+  record for record, its pinned summaries, and the reference's run.
 * The launcher's ``--engine cosim --trace-out`` on the reduced model: every
   task completes, the records by reuse kind add up, and the trace holds one
   task span a task.  Its virtual durations are measured wall times, so
-  nothing else of it can be compared with the reference.
+  nothing else of it can be compared with the reference.  With
+  ``--offload-policy`` it prints the reference's ``federation[...]`` line.
 """
 import json
 from pathlib import Path
@@ -25,6 +30,8 @@ from repro.core.topology import line_topology as jline
 from repro.core.topology import testbed_topology as jtestbed
 from repro.data import DATASETS as JDATASETS
 from repro.data import dataset_service as jdataset_service
+from repro.faults import ChaosController as JChaos
+from repro.faults import FaultPlan as JFaultPlan
 from repro.serving import EngineBackend as JEngineBackend
 from repro.training.elastic import BackupPolicy as JBackup
 from repro_torch.core.edge_node import Service
@@ -33,6 +40,7 @@ from repro_torch.core.network import ReservoirNetwork
 from repro_torch.core.topology import line_topology
 from repro_torch.core.topology import testbed_topology as _testbed
 from repro_torch.data import DATASETS, dataset_service, make_stream
+from repro_torch.faults import ChaosController, FaultPlan
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.serving import EngineBackend
 from repro_torch.training.elastic import BackupPolicy
@@ -179,6 +187,85 @@ class TestEngineCosim:
         assert scratch / reuse >= 2.0
 
 
+# ----------------------------------------- federation and chaos goldens
+def _trace(port, protocol, offload_policy=None, chaos=False, n_tasks=500):
+    """tests/test_cosim.py::_trace (the testbed, ``stanford_ar``, 3 users, a
+    task every 12 ms, forwarding errors measured) on either package, with a
+    federator of ``offload_policy`` or a chaos controller on an empty plan."""
+    params = (LSHParams if port else J.LSHParams)(dim=64, num_tables=5, num_probes=8)
+    g, ens = (_testbed if port else jtestbed)()
+    net = (ReservoirNetwork if port else J.ReservoirNetwork)(
+        g, ens, params, seed=0, protocol=protocol, measure_fwd_errors=True,
+        offload_policy=offload_policy, **({"device": "cpu"} if port else {}))
+    if chaos:
+        (ChaosController if port else JChaos)(net, (FaultPlan if port else JFaultPlan)())
+    spec = (DATASETS if port else JDATASETS)["stanford_ar"]
+    net.register_service((dataset_service if port else jdataset_service)(spec))
+    for u in range(3):
+        net.add_user(f"u{u}", "fwd1" if u % 2 else "fwd2")
+    X, _ = make_stream(DATASETS["stanford_ar"], n_tasks, seed=7)
+    for i, x in enumerate(X):
+        net.submit_task(f"u{i % 3}", spec.name, x, 0.9, at_time=0.012 * i)
+    net.run()
+    return net
+
+
+def _full_key(r):
+    return (r.task_id, r.t_submit, r.t_complete, r.reuse, r.similarity, r.correct,
+            r.forwarding_error, r.reuse_node, r.aggregated, r.result, r.remote_en,
+            r.stale_owner)
+
+
+# tests/test_cosim.py's pinned summaries of the 500-task trace
+GOLDEN = {
+    "direct": {"tasks": 500, "mean_ct_scratch": 0.11743256895503866,
+               "mean_ct_cs": 0.006210639836999299, "mean_ct_en": 0.015915092919248766,
+               "reuse_pct": 84.0, "reuse_pct_cs": 28.4, "reuse_pct_en": 55.60000000000001,
+               "accuracy_pct": 100.0, "fwd_error_pct": 6.800000000000001},
+    "ttc": {"tasks": 500, "mean_ct_scratch": 0.13539679846951094,
+            "mean_ct_cs": 0.006334329121343468, "mean_ct_en": 0.015930518390692365,
+            "reuse_pct": 86.6, "reuse_pct_cs": 28.000000000000004,
+            "reuse_pct_en": 58.599999999999994, "accuracy_pct": 100.0, "fwd_error_pct": 6.0},
+}
+
+
+def _golden_parity(protocol, **kw):
+    """The trace with ``kw`` on the port equals the plain trace on the port,
+    the pinned summaries and the same trace on the reference."""
+    plain, port, ref = (_trace(True, protocol), _trace(True, protocol, **kw),
+                        _trace(False, protocol, **kw))
+    assert [_full_key(r) for r in port.metrics.records] == \
+        [_full_key(r) for r in plain.metrics.records]
+    assert [_full_key(r) for r in port.metrics.records] == \
+        [_full_key(r) for r in ref.metrics.records]
+    assert port.metrics.summary() == plain.metrics.summary() == ref.metrics.summary()
+    s = port.metrics.summary()
+    for k, v in GOLDEN[protocol].items():
+        assert s[k] == pytest.approx(v, rel=1e-9), k
+    return port, ref
+
+
+@pytest.mark.parametrize("protocol", ("direct", "ttc"))
+def test_local_only_federation_bit_for_bit(protocol):
+    """A local-only federator (gossip ticking, ``decide`` on every miss, no
+    offload) changes nothing."""
+    port, ref = _golden_parity(protocol, offload_policy="local-only")
+    assert port.federator is not None and port.federator.stats["offloads"] == 0
+    assert port.federator.stats["decisions"] > 0
+    assert dict(port.federator.stats) == dict(ref.federator.stats)
+    assert port.federator.gossip.rounds == ref.federator.gossip.rounds
+
+
+@pytest.mark.parametrize("protocol", ("direct", "ttc"))
+def test_zero_fault_chaos_bit_for_bit(protocol):
+    """A chaos controller on an empty plan sits on every link traversal
+    and draws nothing: the run is the plain one."""
+    port, ref = _golden_parity(protocol, chaos=True)
+    assert port.chaos is not None and port.chaos.plan.empty
+    assert all(v == 0 for v in port.chaos.stats.values())
+    assert dict(port.chaos.stats) == dict(ref.chaos.stats)
+
+
 # -------------------------------------------------------- BENCH_cosim.json
 def _bench_run(port, kind, load_hz, window_s, replicas, n_tasks=400, seed=0):
     """benchmarks/cosim.py::_run_one on either package."""
@@ -250,6 +337,50 @@ def test_serve_main_cosim_trace(tmp_path, capsys):
     assert len(spans) == 40
     assert sorted(e["tid"] for e in spans) == list(range(40))
     assert all(e["args"]["outcome"] for e in spans)
+
+
+@pytest.mark.parametrize("policy", ["local-only", "least-loaded", "reuse-affinity"])
+def test_serve_main_cosim_offload_policy(policy, capsys):
+    """``--engine cosim --offload-policy`` runs the co-simulation with a
+    federator between the two ENs and prints the reference's federation
+    line; local-only never offloads."""
+    serve_main(["--engine", "cosim", "--requests", "40", "--rate", "500",
+                "--offload-policy", policy], device="cpu")
+    out = capsys.readouterr().out
+    assert "40 tasks through the co-sim" in out
+    line = [x for x in out.splitlines() if x.strip().startswith("federation[")]
+    assert len(line) == 1 and line[0].strip().startswith(f"federation[{policy}]: offloads=")
+    fields = dict(kv.split("=") for kv in line[0].split(": ", 1)[1].split())
+    assert set(fields) == {"offloads", "remote_hits", "remote_execs", "rebalances"}
+    assert all(v.isdigit() for v in fields.values())
+    if policy == "local-only":
+        assert fields["offloads"] == "0"
+    assert int(fields["remote_hits"]) + int(fields["remote_execs"]) <= int(fields["offloads"])
+
+
+@pytest.mark.parametrize("policy", ["least-loaded", "reuse-affinity"])
+def test_build_cosim_offloads_to_the_other_en(policy):
+    """``build_cosim(..., offload_policy=...)`` on the reduced model, each
+    execution charged 60 ms of virtual time (a B=1 prefill of the full-width
+    model on the card takes about that; the reduced one's wall time would
+    leave the queues empty): the ENs offload misses to each other, the other
+    EN runs some of them on its own replicas, and every task completes."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import build_cosim
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("qwen3-1.7b").reduced(), "cpu", seed=0)
+    X, _ = make_stream(DATASETS["cctv1"], 60, seed=0)
+    net, backend = build_cosim(model, X, rate=200.0, offload_policy=policy, device="cpu")
+    for engine in backend.engines.values():
+        engine.exec_time_fn = lambda *_: 0.06
+    net.run()
+    fs = net.federator.stats
+    assert all(r.t_complete >= 0 for r in net.metrics.records)
+    assert fs["remote_execs"] > 0
+    assert fs["offloads"] == fs["remote_hits"] + fs["remote_execs"] + fs["remote_coalesced"]
+    assert sum(en.stats["offloaded"] for en in net.edge_nodes.values()) == fs["offloads"]
+    assert sum(en.stats["remote_execs"] for en in net.edge_nodes.values()) == fs["remote_execs"]
 
 
 def test_build_cosim_every_task_completes():

@@ -9,8 +9,9 @@
   reference's record by record.
 * Mirrors of tests/test_reuse_batch.py ``TestEdgeNodeBatch`` and
   ``TestNetworkBatchWindow``.
-* Federation is not ported: an ``offload_policy`` and churn that moves
-  stored entries raise ``NotImplementedError``.
+* ``add_en`` before any task moves no entry and creates no federator, as
+  the reference's join does (federation itself:
+  tests/test_torch_{federation,migration,faults}.py).
 * Device plumbing: every store the simulator creates lives on the network's
   device, and without a card the entry points refuse to run unless given
   ``device="cpu"``.
@@ -298,18 +299,6 @@ class TestNetworkBatchWindow:
 
 # ---------------------------------------------------------------- federation
 class TestFederationNotPorted:
-    def test_offload_policy_raises(self):
-        g, ens = _testbed()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-            ReservoirNetwork(g, ens, P, offload_policy="local-only", device="cpu")
-
-    def test_churn_that_moves_entries_raises(self):
-        """An EN leave hands its store to the new owners through the
-        federator: with entries stored, the port stops there."""
-        net = _golden_trace(True, "direct", 0.0, n_tasks=60)
-        with pytest.raises(NotImplementedError, match="federation"):
-            net.remove_en("en2")
-
     def test_join_with_nothing_to_move_is_the_reference_join(self):
         """``add_en`` before any task: a re-partition that moves no entry
         (no federator), equal to the reference's, and the new EN's stores

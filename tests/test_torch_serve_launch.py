@@ -6,9 +6,9 @@
   at 8 requests prints the reference CLI's summary lines (numbers aside; the
   sync run's reuse counts are equal, since they do not depend on wall time).
 * ``--offload-policy`` and ``--trace-out`` need ``--engine cosim`` (the
-  reference's errors), and ``--engine cosim --offload-policy`` exits with an
-  error that names the federation slice (``--engine cosim`` itself runs:
-  tests/test_torch_cosim.py).
+  reference's errors).  ``--engine cosim --offload-policy local-only`` runs
+  and prints the reference's summary lines, its ``federation[local-only]``
+  line equal (``--engine cosim`` itself: tests/test_torch_cosim.py).
 """
 import re
 import sys
@@ -77,20 +77,33 @@ class TestServeMain:
         if engine == "sync":
             assert out[1] == ref[1]    # one execution: no backup can fire
 
-    @pytest.mark.parametrize("flags", [["--engine", "cosim", "--offload-policy", "local-only"],
-                                       ["--offload-policy", "least-loaded"],
+    @pytest.mark.parametrize("flags", [["--offload-policy", "least-loaded"],
                                        ["--trace-out", "trace.json"]])
     def test_cosim_flags_name_the_simulator_slice(self, flags, capsys):
-        """The co-simulation's flags outside it exit as in the reference;
-        federation in it exits naming the slice that ports it."""
+        """The co-simulation's flags outside it exit as in the reference."""
         with pytest.raises(SystemExit) as ei:
             main(flags + ["--requests", "2"], device="cpu")
         assert ei.value.code == 2
-        err = capsys.readouterr().err
-        if "cosim" in flags:
-            assert "--offload-policy" in err and "federation slice" in err
-        else:
-            assert f"{flags[0]} requires --engine cosim" in err
+        assert f"{flags[0]} requires --engine cosim" in capsys.readouterr().err
+
+    def test_cosim_offload_policy_prints_the_federation_line(self, monkeypatch, capsys):
+        """``--engine cosim --offload-policy local-only`` runs the federated
+        co-simulation: the reference's summary lines (numbers aside), and
+        the same ``federation[local-only]`` line (local-only never offloads,
+        whatever the wall-time clock does)."""
+        argv = ["--engine", "cosim", "--offload-policy", "local-only", "--requests", "8"]
+        ref = _run_reference(monkeypatch, capsys, argv)
+        main(argv, device="cpu")
+        out = _lines(capsys.readouterr().out)[1:]
+        fed = [line for line in out if line.strip().startswith("federation[")]
+        assert fed == [line for line in ref if line.strip().startswith("federation[")]
+        assert fed == ["  federation[local-only]: offloads=0 remote_hits=0 remote_execs=0 "
+                       "rebalances=0"]
+        head = [_mask(line) for line in out if not LATENCY.fullmatch(line)
+                and not SPEEDUP.fullmatch(line)]
+        want = [_mask(line) for line in ref if not LATENCY.fullmatch(line)
+                and not SPEEDUP.fullmatch(line)]
+        assert head == want
 
     def test_rejects_unknown_dataset(self, capsys):
         with pytest.raises(SystemExit):
