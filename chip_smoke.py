@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py [--model] [--top1] [--nearest] [--src DIR]
+    python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -47,11 +47,27 @@ just before it and read just after:
   (``--offload-policy least-loaded`` and ``reuse-affinity``: an EN's miss
   may run on, or be answered by, the other EN; K3 also per peek, K6 28 times
   a model execution on either EN), and ``main --engine cosim
-  --offload-policy reuse-affinity``.
+  --offload-policy reuse-affinity``;
+* families: the other model families at full width, one model at a time,
+  each with its own seeded random weights (bf16): qwen2-moe-a2.7b (24
+  layers), zamba2-7b (81), xlstm-125m (12), seamless-m4t-large-v2 (24 + 24,
+  1024 frames), phi-3-vision-4.2b (32, 576 patch embeddings) and
+  llama4-maverick-400b-a17b at depth 1 (1024 patch embeddings); each
+  prefills 2 prompts of 1535 text tokens and decodes 8 greedy tokens, with
+  the exact K6 and K7 launch counts, its first and last K6 call of the
+  prefill and K7 call of decode step 1 held against the plain attention,
+  decode step 1 against a prefill of prompt + token (for an MoE model only
+  where neither prefill dropped a token past capacity, the drops printed;
+  for zamba2 in float32, where bf16 rounding grows past the limit through
+  its depth, the bf16 gap printed beside that of a run with plain
+  attention), and the prefill and first step
+  against a run of the same model with the attention ops swapped for their
+  plain versions (an MoE model routed as the kernels' run was).
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-its path, its launches on the async-serve, cosim and federation paths, error against its plain
+its path, its launches on the async-serve, cosim, federation and families
+paths, error against its plain
 version, time, plain time, bound and the time of one PyTorch library call
 computing the same function (where there is one), and last
 ``{"ok": true, "device": {...}}``.  K4b's path is its caller
@@ -66,14 +82,17 @@ registers and spills, and the sim_topk kernels' (which must not spill).
 K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
 ``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
 ``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
+K6 and K7 are also timed at the head widths 112 and 96 (zamba2's and
+phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
-``--model``, ``--top1`` and ``--nearest`` run only the env and build
-phases and the named ones (the model's prefill and decode; K3 at B in {1, 8,
-32} and K1's id route on the wrappers; ``nearest_neighbor`` first and warm)
-and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
+``--model``, ``--top1``, ``--nearest`` and ``--families`` run only the env
+and build phases and the named ones (the model's prefill and decode; K3 at B
+in {1, 8, 32} and K1's id route on the wrappers; ``nearest_neighbor`` first
+and warm; the families, or those of a comma-separated list of names after
+the flag) and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
 change, change, parent) on one card, one after another, compares two commits.
@@ -83,6 +102,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -151,6 +171,10 @@ ATTN_BF16_MAIN_TOL = 1e-3
 # qwen3 step-1 decode logits vs a prefill of prompt + token, both bf16
 # through 28 layers: max |difference| within this share of max |logit|
 DECODE_LOGIT_REL_TOL = 5e-2
+# the same in float32 with a float32 cache (zamba2's check in phase
+# families): only the order of fp32 sums differs (readings 1.5e-5 to 1.8e-5
+# on the H100)
+DECODE_LOGIT_F32_REL_TOL = 1e-4
 
 SOURCES = {
     "reuse_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
@@ -179,6 +203,7 @@ MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix
 ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
+FAMILIES_PATH = ("flash_attention", "decode_attention")
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -200,6 +225,29 @@ NN_Q, NN_N, NN_TAIL = 4096, 250_000, 1000
 SIM_GRAPH_REPS = 5                        # K5 calls a graph (a call takes milliseconds)
 NEAREST_WARM = 5                          # warm nearest_neighbor calls timed after the first
 MODEL_ARCH = "qwen3-1.7b"
+# phase families: every other family at full width, one model at a time:
+# prefill FAM_B x FAM_S text tokens (both S and S + 1 pass the Mamba2 chunk
+# rule at scan_chunk 256: 5 x 307 and 6 x 256), FAM_STEPS greedy decode
+# steps; seamless encodes FAM_FRAMES frames; llama4 at depth 1 (its 48
+# layers, about 800 GB in bf16, do not fit one card)
+FAMILIES = ("qwen2-moe-a2.7b", "zamba2-7b", "xlstm-125m", "seamless-m4t-large-v2",
+            "phi-3-vision-4.2b", "llama4-maverick-400b-a17b")
+FAM_B, FAM_S, FAM_STEPS, FAM_FRAMES, FAM_WARM = 2, 1535, 8, 1024, 2
+FAM_DEPTH = {"llama4-maverick-400b-a17b": 1}
+# decode step 1 against a longer prefill is held in float32 for zamba2: in
+# bf16 its 81 Mamba2 layers and 13 attention blocks grow the rounding of
+# GEMMs of other shapes (a step is M = 2 rows, a prefill 3072) beyond
+# DECODE_LOGIT_REL_TOL (6.1 % on the H100).  The bf16 gap of the run with
+# plain attention is printed beside the kernels' one.
+FAM_F32_STEP_CHECK = ("zamba2-7b",)
+# (K6 launches a prefill, K7 launches a decode step)
+FAM_LAUNCHES = {"qwen2-moe-a2.7b": (24, 24), "zamba2-7b": (13, 13), "xlstm-125m": (0, 0),
+                "seamless-m4t-large-v2": (72, 48), "phi-3-vision-4.2b": (32, 32),
+                "llama4-maverick-400b-a17b": (1, 1)}
+# phase kernels at the padded head widths (zamba2's 112, phi-3-vision's 96),
+# at each model's heads: model -> tokens of its prefill (1535 text tokens;
+# phi-3-vision's 576 patches besides)
+PADDED_WIDTHS = {"zamba2-7b": FAM_S, "phi-3-vision-4.2b": FAM_S + 576}
 MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
 # phase async-serve: the serve launcher's defaults (launch/serve.py), its CLI at
 # the size the launcher's documented example runs
@@ -706,13 +754,16 @@ def probed_crossover(store: ReuseStore, qd: torch.Tensor) -> dict:
 def profile_call(name: str, fn, top: int = 8, host: bool = True) -> None:
     """Where one call's time goes: device busy share (torch.profiler, one
     call) and, with ``host``, the host functions with the most time
-    (cProfile, another call; ``fn`` draws fresh inputs on each call)."""
+    (cProfile, another call; ``fn`` draws fresh inputs on each call).
+    Without ``host`` the profiler records device activity only (a call of
+    ~100k launches would otherwise spend tens of seconds on host events)."""
     import cProfile
     import pstats
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
@@ -964,7 +1015,14 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
         (2, 100, 180, 16, 8, 128, torch.bfloat16, {"causal": False}),
         (1, 96, 96, 8, 8, 32, torch.float32, {"scale": 0.0625}),
         (1, 48, 16, 4, 4, 32, torch.float32, {"window": 8}),   # rows with no key
-        (8, 32, 32, 16, 8, 128, torch.bfloat16, {}))   # a miss group of 8 (async-serve)
+        (8, 32, 32, 16, 8, 128, torch.bfloat16, {}),   # a miss group of 8 (async-serve)
+        # the padded head widths (zamba2's 112, phi-3-vision's 96), then G = 5
+        # (llama4: 64 rows a warpgroup are not whole groups of 5 heads)
+        (2, 333, 333, 8, 8, 112, torch.float32, {}),
+        (2, 100, 180, 16, 8, 96, torch.float32, {"causal": False}),
+        (1, 257, 257, 8, 4, 112, torch.float32, {"window": 64, "softcap": 30.0}),
+        (2, 200, 200, 8, 8, 96, torch.float32, {}),
+        (1, 300, 300, 40, 8, 128, torch.float32, {}))
     variants += tuple((*v[:6], torch.bfloat16, v[7]) for v in variants
                       if v[6] == torch.float32)
     for B, S, T, H, KV, D, dt, kw in variants:
@@ -976,58 +1034,21 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
         log(f"  flash_attention variant B={B} S={S} T={T} H={H} KV={KV} D={D} "
             f"{str(dt)[6:]} {kw}: max err {err:.3g}")
 
-    # --- K6 at the prefill shape (bf16, causal)
-    B, S, H, KV, D = ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D
-    q = _randn(gen, B, S, H, D, dev=dev)
-    k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
-    scale = 1.0 / np.sqrt(D)
-    fn = lambda: flash_k.flash_attention(q, k, v, scale=scale)  # noqa: E731
-    plain = lambda: ref.flash_attention_ref(q, k, v, scale=scale)  # noqa: E731
-    err = attn_err("flash_attention", fn(), plain())
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
-    err_lib = attn_err("sdpa vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
-    t = attention_times(fn, plain, lib)
-    pairs = S * (S + 1) // 2
-    flop = 4.0 * B * H * D * pairs
-    # q, out (B, S, H, D) and k, v (B, S, KV, D), bf16, each moved once
-    bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop, BF16_FLOP_PER_S)
-    log(f"  flash_attention B={B} S={S} H={H} KV={KV} D={D} bf16 causal: "
-        + _rates(t, flop / 1e9, "TFLOP/s") + f"; bound {bms:.5f} ms by {by}; "
-        f"max err {err:.3g} (sdpa {err_lib:.3g})")
-    out["flash_attention"] = {"max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
-    del q, k, v, qt, kt, vt
-
-    # --- K7 over a ring-sized cache, kv_len below T in some rows
-    T = DECODE_T
-    q = _randn(gen, B, H, D, dev=dev)
-    k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
-    lens = [T, S + 1, 1500, 7]                # one per row of ATTN_B = 4
-    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    fn = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale)  # noqa: E731
-    plain = lambda: ref.decode_attention_ref(q, k, v, kv_len, scale=scale)  # noqa: E731
-    err = attn_err("decode_attention", fn(), plain())
-    for d_lens in ([1] * B, [T] * B):      # kv_len = 1, and the whole cache
-        dl = torch.tensor(d_lens, dtype=torch.int32, device=dev)
-        attn_err(f"decode_attention kv_len={d_lens[0]}",
-                 decode_k.decode_attention(q, k, v, dl, scale=scale),
-                 ref.decode_attention_ref(q, k, v, dl, scale=scale))
-    mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
-    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
-    err_lib = attn_err("sdpa decode vs plain", lib()[:, :, 0], plain(), ATTN_BF16_TOL)
-    t = attention_times(fn, plain, lib)
-    n_slots = sum(lens)
-    n_bytes = 2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B
-    bms, by = bound(n_bytes, 4.0 * H * D * n_slots, BF16_FLOP_PER_S)
-    log(f"  decode_attention B={B} T={T} kv_len={lens} H={H} KV={KV} D={D} bf16: "
-        + _rates(t, n_bytes / 1e6, "GB/s") + f"; bound {bms:.5f} ms by {by} (the "
-        f"device time re-reads a cache that fits in L2); max err {err:.3g} "
-        f"(sdpa {err_lib:.3g})")
-    out["decode_attention"] = {"max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
-    del q, k, v, qt, kt, vt
+    # --- K6 at the prefill shape (bf16, causal), K7 over a ring-sized cache
+    # with kv_len below T in some rows (one per row of ATTN_B = 4)
+    S, T = ATTN_S, DECODE_T
+    heads = (ATTN_H, ATTN_KV, ATTN_D)
+    out["flash_attention"] = flash_row(gen, dev, ATTN_B, S, *heads)
+    out["decode_attention"] = decode_row(gen, dev, T, [T, S + 1, 1500, 7], *heads)
+    # --- the same at the padded head widths, at zamba2's and phi-3-vision's
+    # heads and prefill lengths (extra keys of each row: d112_*, d96_*)
+    for name, S in PADDED_WIDTHS.items():
+        cfg = get_arch(name)
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        for row, got in (("flash_attention", flash_row(gen, dev, FAM_B, S, *heads)),
+                         ("decode_attention",
+                          decode_row(gen, dev, S + FAM_STEPS, [S + 1, S // 2 + 3], *heads))):
+            out[row].update({f"d{heads[2]}_{k}": v for k, v in got.items()})
 
     # --- K5 over the store phase's scale, an n_valid tail and planted ties
     rng = np.random.default_rng(seed)
@@ -1063,6 +1084,67 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     return out
 
 
+def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int) -> dict:
+    """K6 (bf16 route) causal at (B, S, H, D) x (B, S, KV, D): against its
+    plain version, timed beside SDPA, with its bound."""
+    q = _randn(gen, B, S, H, D, dev=dev)
+    k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
+    scale = 1.0 / np.sqrt(D)
+    shape = f"B={B} S={S} H={H} KV={KV} D={D}"
+    fn = lambda: flash_k.flash_attention(q, k, v, scale=scale)  # noqa: E731
+    plain = lambda: ref.flash_attention_ref(q, k, v, scale=scale)  # noqa: E731
+    err = attn_err(f"flash_attention {shape}", fn(), plain())
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=H != KV, scale=scale)
+    err_lib = attn_err(f"sdpa {shape} vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
+    t = attention_times(fn, plain, lib)
+    flop = 4.0 * B * H * D * (S * (S + 1) // 2)
+    # q, out (B, S, H, D) and k, v (B, S, KV, D), bf16, each moved once
+    bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop, BF16_FLOP_PER_S)
+    log(f"  flash_attention {shape} bf16 causal (tiles "
+        f"{flash_k.launch_plan(q.dtype, B, S, S, H, KV, D)['tile_width']} wide): "
+        + _rates(t, flop / 1e9, "TFLOP/s") + f"; bound {bms:.5f} ms by {by}; device time "
+        f"{t['device_ms'] / t['library_device_ms']:.3f}x sdpa's; max err {err:.3g} "
+        f"(sdpa {err_lib:.3g})")
+    return {"shape": [B, S, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
+            "bound_by": by}
+
+
+def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int) -> dict:
+    """K7 at (B, H, D) x (B, T, KV, D), B = len(lens), row b's kv_len
+    lens[b]: against its plain version (also at kv_len 1 and T in every
+    row), timed beside SDPA with a mask, with its bound."""
+    B = len(lens)
+    q = _randn(gen, B, H, D, dev=dev)
+    k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(D)
+    shape = f"B={B} T={T} kv_len={lens} H={H} KV={KV} D={D}"
+    fn = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale)  # noqa: E731
+    plain = lambda: ref.decode_attention_ref(q, k, v, kv_len, scale=scale)  # noqa: E731
+    err = attn_err(f"decode_attention {shape}", fn(), plain())
+    for d_len in (1, T):
+        dl = torch.full((B,), d_len, dtype=torch.int32, device=dev)
+        attn_err(f"decode_attention {shape} at kv_len={d_len}",
+                 decode_k.decode_attention(q, k, v, dl, scale=scale),
+                 ref.decode_attention_ref(q, k, v, dl, scale=scale))
+    mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=scale)
+    err_lib = attn_err(f"sdpa decode {shape} vs plain", lib()[:, :, 0], plain(), ATTN_BF16_TOL)
+    t = attention_times(fn, plain, lib)
+    n_slots = sum(lens)
+    n_bytes = 2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B
+    bms, by = bound(n_bytes, 4.0 * H * D * n_slots, BF16_FLOP_PER_S)
+    log(f"  decode_attention {shape} bf16: " + _rates(t, n_bytes / 1e6, "GB/s")
+        + f"; bound {bms:.5f} ms by {by} (the device time re-reads a cache that fits in "
+        f"L2); max err {err:.3g} (sdpa {err_lib:.3g})")
+    return {"shape": [B, T, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
+            "bound_by": by}
+
+
 # ------------------------------------------------------------------ phase 5b
 def phase_nearest(dev: torch.device, seed: int = 6) -> dict:
     """``ops.nearest_neighbor`` (K5) over a 250k-row store: near-duplicate
@@ -1093,6 +1175,43 @@ def phase_nearest(dev: torch.device, seed: int = 6) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def recorded_attention(n_calls: int, op: str = "flash_attention"):
+    """Keep the arguments and output of the first and the last of
+    ``n_calls`` calls of ``ops.<op>`` (K6 or K7) inside (the kernel runs as
+    usual); yields {index: (tensor arguments, kwargs, out)}."""
+    seen, captured = [0], {}
+    kernel_fn = getattr(ops, op)
+
+    def recording(*args, **kw):
+        o = kernel_fn(*args, **kw)
+        if seen[0] in (0, n_calls - 1):
+            captured[seen[0]] = (tuple(a.clone() for a in args), kw, o.clone())
+        seen[0] += 1
+        return o
+
+    setattr(ops, op, recording)
+    try:
+        yield captured
+    finally:
+        setattr(ops, op, kernel_fn)
+
+
+def check_recorded(name: str, op: str, captured: dict, n_calls: int) -> None:
+    """Hold each recorded call of ``ops.<op>`` against its plain version."""
+    plain = {"flash_attention": ref.flash_attention_ref,
+             "decode_attention": ref.decode_attention_ref}[op]
+    for i, (args, kw, o) in sorted(captured.items()):
+        err = attn_err(f"{name} {op} call {i}", o, plain(*args, **kw))
+        log(f"  {name} {op} call {i} (q {tuple(args[0].shape)}, k {tuple(args[1].shape)}"
+            + (f", kv_len {args[3].tolist()}" if len(args) > 3 else "")
+            + (f", causal {kw.get('causal', True)}" if op == "flash_attention" else "")
+            + f") vs plain: max err {err:.3g}")
+    expect(sorted(captured) == sorted({0, n_calls - 1}) if n_calls else not captured,
+           f"{name}: {op} calls were not captured")
+    captured.clear()
+
+
 # ------------------------------------------------------------------ phase 6
 def phase_model(dev: torch.device, seed: int = 7):
     """qwen3-1.7b at full width and depth: prefill B x S, then greedy decode;
@@ -1111,26 +1230,13 @@ def phase_model(dev: torch.device, seed: int = 7):
     max_len = S + DECODE_STEPS
 
     # record the first and last layer's attention calls (inputs and outputs)
-    seen, captured = [0], {}
-    kernel_fn = ops.flash_attention
-
-    def recording(q, k, v, **kw):
-        o = kernel_fn(q, k, v, **kw)
-        if seen[0] in (0, cfg.n_layers - 1):
-            captured[seen[0]] = (q.clone(), k.clone(), v.clone(), kw, o.clone())
-        seen[0] += 1
-        return o
-
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    ops.flash_attention = recording
-    try:
+    with recorded_attention(cfg.n_layers) as captured:
         t0 = time.perf_counter()
         logits, cache = model.prefill({"tokens": tokens}, max_len)
         sync()
         t_prefill = time.perf_counter() - t0
-    finally:
-        ops.flash_attention = kernel_fn
     after_prefill = ops.launch_counts()
     expect(after_prefill["flash_attention"] == cfg.n_layers,
            f"prefill launched flash_attention {after_prefill['flash_attention']} times")
@@ -1152,12 +1258,7 @@ def phase_model(dev: torch.device, seed: int = 7):
            and counts["decode_attention"] == cfg.n_layers * DECODE_STEPS,
            f"model path launches {counts}")
 
-    for layer, (q, k, v, kw, o) in sorted(captured.items()):
-        err = attn_err(f"layer {layer} attention", o, ref.flash_attention_ref(q, k, v, **kw))
-        log(f"  layer {layer} attention (q {tuple(q.shape)}, k {tuple(k.shape)}) vs plain: "
-            f"max err {err:.3g}")
-    expect(sorted(captured) == [0, cfg.n_layers - 1], "attention calls were not captured")
-    captured.clear()
+    check_recorded(cfg.name, "flash_attention", captured, cfg.n_layers)
     # step 1 of decode against a prefill of prompt + that token
     longer, _ = model.prefill({"tokens": torch.cat([tokens, first_tok], dim=1)}, S + 1)
     a, b = first_logits[:, -1].float(), longer[:, -1].float()
@@ -1183,6 +1284,251 @@ def phase_model(dev: torch.device, seed: int = 7):
     profile_call(f"decode step B={B}", lambda: model.decode_step(tok, cache, last))
     del cache
     return model, counts
+
+
+# ------------------------------------------------------------------ phase 10
+# phase families: the other model families at full width on the card.
+@contextlib.contextmanager
+def plain_attention():
+    """The attention ops swapped for their plain versions (a check of the
+    model's results in this script, not a route of the port)."""
+    kernels = ops.flash_attention, ops.decode_attention
+    ops.flash_attention, ops.decode_attention = ref.flash_attention_ref, ref.decode_attention_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = kernels
+
+
+@contextlib.contextmanager
+def moe_routes(replay=None):
+    """Log the expert ids of every MoE routing call inside
+    (``models/moe.py::route``), with the call's config: nothing else runs
+    in the call (``_drops`` counts its drops afterwards).  With ``replay``
+    (the ids of an earlier log, call by call) each call routes to those
+    experts instead, its gates taken from its own probabilities: a run with
+    other attention then takes the same routing and drops, which a near-tie
+    at a capacity edge would otherwise flip.  A check in this script, not a
+    route of the port."""
+    from repro_torch.models import moe as moe_mod
+
+    route_fn, log_ = moe_mod.route, []
+
+    def logged(params, xf, cfg):
+        probs, gates, ids = route_fn(params, xf, cfg)
+        if replay is not None:
+            ids = replay[len(log_)]
+            gates = probs.gather(1, ids)
+            if getattr(cfg, "renorm_topk", True) and cfg.top_k > 1:
+                gates = gates / gates.sum(dim=-1, keepdim=True)
+        log_.append((ids, cfg))
+        return probs, gates, ids
+
+    moe_mod.route = logged
+    try:
+        yield log_
+    finally:
+        moe_mod.route = route_fn
+
+
+def _drops(log_) -> tuple:
+    """(dropped (token, pick) pairs, tokens with a pick dropped) over the
+    calls of a ``moe_routes`` log: each call's dispatch again on its ids."""
+    from repro_torch.models import moe as moe_mod
+
+    pairs = tokens = 0
+    for ids, cfg in log_:
+        sort_idx, _, keep = moe_mod.dispatch(ids, cfg.n_experts,
+                                             moe_mod.capacity(ids.shape[0], cfg))
+        pairs += int((~keep).sum())
+        tokens += int(torch.unique(sort_idx[~keep] // cfg.top_k).numel())
+    return pairs, tokens
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| of two logit tensors."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _family_inputs(cfg, dev, gen, n_text: int) -> dict:
+    """A batch of FAM_B prompts of ``n_text`` tokens, with 576/1024 patch
+    embeddings (vision) or FAM_FRAMES frames (encoder-decoder), from ``gen``."""
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (FAM_B, n_text), generator=gen,
+                                     device=dev)}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = _randn(gen, FAM_B, cfg.n_frontend_tokens, cfg.d_model,
+                                       dtype=dt, dev=dev) * 0.02
+    if cfg.is_encdec:
+        batch["frames"] = _randn(gen, FAM_B, FAM_FRAMES, cfg.d_model, dtype=dt, dev=dev) * 0.02
+    return batch
+
+
+def run_family(name: str, dev: torch.device, seed: int) -> dict:
+    """One architecture at full width (depth cut only where FAM_DEPTH says):
+    prefill, greedy decode, the checks, the times; returns its launches."""
+    cfg = get_arch(name)
+    if name in FAM_DEPTH:
+        log(f"  {name}: depth cut from {cfg.n_layers} to {FAM_DEPTH[name]} layers (the full "
+            f"depth does not fit one card), full width")
+        cfg = dataclasses.replace(cfg, n_layers=FAM_DEPTH[name])
+    k6_want, k7_want = FAM_LAUNCHES[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=seed)
+    sync()
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {name} ({type(model).__name__}): {n_params} parameters, {n_bytes} bytes "
+        f"({cfg.dtype}), built in {time.perf_counter() - t0:.3f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = _family_inputs(cfg, dev, gen, FAM_S)
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    pos0 = FAM_S + n_front                  # the first decode position
+    max_len = pos0 + FAM_STEPS
+
+    ops.reset_launch_counts()
+    with recorded_attention(k6_want) as captured, moe_routes() as routes_p:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch, max_len)
+        sync()
+        first_ms = (time.perf_counter() - t0) * 1e3
+    drops = _drops(routes_p)
+    k6 = ops.launch_counts()["flash_attention"]
+    expect(k6 == k6_want, f"{name}: prefill launched flash_attention {k6} times, not {k6_want}")
+    expect(bool(torch.isfinite(logits).all()) and logits.shape == (FAM_B, 1, cfg.vocab_size),
+           f"{name}: prefill logits {tuple(logits.shape)} not finite or of the wrong shape")
+    # (a) the first and last K6 call of the prefill, and below the first and
+    # last K7 call of decode step 1, against their plain versions
+    check_recorded(name, "flash_attention", captured, k6_want)
+
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    first_tok, step_ms = tok, []
+    for i in range(FAM_STEPS):
+        # step 1's routing is kept for the plain run
+        with contextlib.ExitStack() as stack:
+            if i == 0:
+                routes_d = stack.enter_context(moe_routes())
+                captured = stack.enter_context(recorded_attention(k7_want, "decode_attention"))
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(tok, cache, pos0 + i)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        expect(bool(torch.isfinite(lg).all()), f"{name}: decode step {i} logits not finite")
+        if i == 0:
+            first_logits = lg
+            check_recorded(name, "decode_attention", captured, k7_want)
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+    counts = ops.launch_counts()
+    expect(counts["flash_attention"] == k6_want
+           and counts["decode_attention"] == k7_want * FAM_STEPS,
+           f"{name}: launches {counts}, want K6 {k6_want} and K7 {k7_want * FAM_STEPS}")
+    del cache
+
+    # (b) step 1 against a prefill of prompt + that token
+    longer_batch = dict(batch, tokens=torch.cat([batch["tokens"], first_tok], dim=1))
+    with moe_routes() as log_:
+        longer, _ = model.prefill(longer_batch, pos0 + 1)
+    drops_longer = _drops(log_)
+    rel = _rel(first_logits[:, -1], longer[:, -1])
+    same = int((first_logits[:, -1].argmax(-1) == longer[:, -1].argmax(-1)).sum())
+    if cfg.n_experts:
+        log(f"  {name}: dropped (token, pick) pairs / tokens with a pick dropped, over its "
+            f"MoE layers: prefill {drops[0]} / {drops[1]}, prefill of prompt + token "
+            f"{drops_longer[0]} / {drops_longer[1]}")
+    checked = not cfg.n_experts or (drops[0] == 0 and drops_longer[0] == 0)
+    why = ("" if checked else " (not held: capacity dropped tokens, which couples the rows)")
+    if name in FAM_F32_STEP_CHECK:
+        checked, why = False, " (in bf16 not held: held in float32 below)"
+    log(f"  {name}: decode step 1 vs prefill of prompt + token: max |diff| / max |logit| "
+        f"{rel:.4g}, argmax equal in {same}/{FAM_B} rows" + why)
+    if checked:
+        expect(rel <= DECODE_LOGIT_REL_TOL, f"{name}: decode logits differ from prefill by "
+               f"{rel:.3g}")
+    del longer
+
+    # the same prefill and first step with the plain attention (an MoE model
+    # routed as the kernels' run was)
+    with plain_attention():
+        with moe_routes([e[0] for e in routes_p]):
+            plain_logits, cache = model.prefill(batch, max_len)
+        with moe_routes([e[0] for e in routes_d]):
+            plain_step, _ = model.decode_step(first_tok, cache, pos0)
+        if name in FAM_F32_STEP_CHECK:
+            # the bf16 gap of (b) with no kernel on the path
+            plain_longer, _ = model.prefill(longer_batch, pos0 + 1)
+            rel_plain = _rel(plain_step[:, -1], plain_longer[:, -1])
+            log(f"  {name}: with plain attention, decode step 1 vs prefill of prompt + "
+                f"token: max |diff| / max |logit| {rel_plain:.4g} (the kernels' run: {rel:.4g})")
+            del plain_longer
+    del cache
+    rel_p, rel_d = _rel(logits, plain_logits), _rel(first_logits, plain_step)
+    log(f"  {name}: kernels vs plain attention: prefill logits {rel_p:.4g}, decode step 1 "
+        f"logits {rel_d:.4g} (max |diff| / max |logit|"
+        + ("; the plain run routed as the kernels' run" if cfg.n_experts else "") + ")")
+    expect(rel_p <= DECODE_LOGIT_REL_TOL and rel_d <= DECODE_LOGIT_REL_TOL,
+           f"{name}: the kernels' logits differ from the plain attention's")
+
+    warm = []
+    for _ in range(FAM_WARM):
+        t0 = time.perf_counter()
+        _, cache = model.prefill(batch, max_len)
+        sync()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name} prefill B={FAM_B} S={FAM_S}+{n_front or 0} text+patches"
+        + (f" with {FAM_FRAMES} frames" if cfg.is_encdec else "")
+        + f": {first_ms:.3f} ms (first call), warm " + ", ".join(f"{t:.3f}" for t in warm)
+        + f" ms; decode per token (B={FAM_B}): median {np.median(step_ms):.3f} ms, steps "
+        + ", ".join(f"{t:.3f}" for t in step_ms) + f" ms; peak memory {peak} bytes; "
+        f"launches K6 {counts['flash_attention']}, K7 {counts['decode_attention']}")
+    profile_call(f"{name} prefill", lambda: model.prefill(batch, max_len), host=False)
+    profile_call(f"{name} decode step", lambda: model.decode_step(tok, cache, max_len - 1),
+                 host=False)
+    del model, cache, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name in FAM_F32_STEP_CHECK:
+        f32_step_check(name, cfg, dev, seed, pos0)
+    return {"flash_attention": counts["flash_attention"],
+            "decode_attention": counts["decode_attention"]}
+
+
+def f32_step_check(name: str, cfg, dev: torch.device, seed: int, pos0: int) -> None:
+    """Decode step 1 against a prefill of prompt + token with the model,
+    its inputs and its cache in float32 (K6's f32 route, K7 over an f32
+    cache), held within DECODE_LOGIT_F32_REL_TOL."""
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg, dev, seed=seed)
+    batch = _family_inputs(cfg, dev, torch.Generator(device=dev).manual_seed(seed), FAM_S)
+    logits, cache = model.prefill(batch, pos0 + 1, cache_dtype=torch.float32)
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    step, _ = model.decode_step(tok, cache, pos0)
+    del cache
+    longer, _ = model.prefill(dict(batch, tokens=torch.cat([batch["tokens"], tok], dim=1)),
+                              pos0 + 1, cache_dtype=torch.float32)
+    rel = _rel(step[:, -1], longer[:, -1])
+    log(f"  {name} in float32 ({sum(p.numel() * 4 for p in model.parameters())} bytes): decode "
+        f"step 1 vs prefill of prompt + token: max |diff| / max |logit| {rel:.4g}")
+    expect(rel <= DECODE_LOGIT_F32_REL_TOL,
+           f"{name}: float32 decode logits differ from prefill by {rel:.3g}")
+    del model, batch, step, longer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_families(dev: torch.device, names=FAMILIES, seed: int = 11) -> dict:
+    """Each family at full width, one model at a time; -> launches summed
+    over the models (and by model)."""
+    total = {"flash_attention": 0, "decode_attention": 0}
+    for name in names:
+        t0 = time.perf_counter()
+        counts = run_family(name, dev, seed + FAMILIES.index(name))   # as in the whole run
+        for k, n in counts.items():
+            total[k] += n
+        log(f"  {name}: {time.perf_counter() - t0:.3f} s")
+    return total
 
 
 # ------------------------------------------------------------------ phase 7
@@ -2247,6 +2593,17 @@ def phase_federation(dev: torch.device, model) -> dict:
 
 
 # ------------------------------------------------------------------ main
+def family_names() -> tuple:
+    """``--families [NAME,NAME...]``: the architectures named after the
+    flag, or all of FAMILIES."""
+    i = sys.argv.index("--families")
+    if i + 1 < len(sys.argv) and not sys.argv[i + 1].startswith("--"):
+        names = tuple(sys.argv[i + 1].split(","))
+        expect(set(names) <= set(FAMILIES), f"--families takes names of {FAMILIES}")
+        return names
+    return FAMILIES
+
+
 @contextlib.contextmanager
 def timed(name: str):
     """Print a phase's start and, when it succeeds, its seconds."""
@@ -2265,14 +2622,14 @@ def main() -> int:
     with timed("env"):
         phase_env()
     log(f"port: {SRC}")
-    only = [m for m in ("--model", "--top1", "--nearest") if m in sys.argv[1:]]
+    only = [m for m in ("--model", "--top1", "--nearest", "--families") if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
         for mode in only:
             with timed(mode[2:]):
-                {"--model": phase_model, "--top1": phase_top1,
-                 "--nearest": phase_nearest}[mode](dev)
+                {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
+                 "--families": lambda d: phase_families(d, family_names())}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -2314,6 +2671,11 @@ def main() -> int:
         paths["cosim"] = phase_cosim(dev, model)
     with timed("federation"):
         paths["federation"] = phase_federation(dev, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with timed("families"):
+        paths["families"] = phase_families(dev)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
@@ -2323,6 +2685,8 @@ def main() -> int:
     for name in FEDERATION_PATH:
         expect(paths["federation"][name] > 0,
                f"{name} was not launched on the federation path")
+    for name in FAMILIES_PATH:
+        expect(paths["families"][name] > 0, f"{name} was not launched on the families path")
     # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
@@ -2330,6 +2694,7 @@ def main() -> int:
               "async_serve_launches": paths["async-serve"][name],
               "cosim_launches": paths["cosim"][name],
               "federation_launches": paths["federation"][name],
+              "families_launches": paths["families"].get(name, 0),
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,10 @@
 //     keeps about 16 bits (a single bf16 P would round every weight to 8).
 //     The TMA swizzle follows the row bytes of one box (32 B at D=16, 64 B
 //     at D=32, 128 B from D=64; wider rows are loaded as 64-column chunks).
+//     D=96 and 112 (zamba2's and phi-3-vision's heads) are not whole chunks:
+//     their tiles are 128 columns wide, the last chunk's box runs past D and
+//     TMA fills it with zeros, S takes only the D/16 real k16 steps, P V runs
+//     at n128 (12.5-25 % of it on zero columns) and the store keeps D.
 //     D=256 takes one consumer warpgroup and 32-key tiles (its accumulator
 //     alone is 128 registers a thread).  The producer is a whole warpgroup
 //     that gives its registers to the consumers (setmaxnreg 40 / 232).
@@ -275,6 +279,8 @@ int launch_t(const void* q, const void* k, const void* v, void* o, int B, int S,
     case 16: return launch_d<T, 16>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     case 32: return launch_d<T, 32>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     case 64: return launch_d<T, 64>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 96: return launch_d<T, 96>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 112: return launch_d<T, 112>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     case 128: return launch_d<T, 128>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     case 256: return launch_d<T, 256>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
@@ -441,7 +447,9 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
 
 // Shapes of the bf16 route for head width D and key tile BN.  The launch
 // shape comes from kernels/flash_attention.py::launch_plan (the CPU tests
-// check it there); `launch` refuses a plan that differs from these.
+// check it there); `launch` refuses a plan that differs from these.  A D
+// that is not whole chunks (96, 112) gets tiles kDp = 128 columns wide: the
+// last chunk's TMA box runs past D and reads zeros there.
 template <int D, int BN>
 struct Cfg {
   static constexpr int kWG = D == 256 ? 1 : 2;        // consumer warpgroups
@@ -449,10 +457,11 @@ struct Cfg {
   static constexpr int kStages = 2;                   // K/V ring depth
   static constexpr int kRows = 64;                    // rows per warpgroup
   static constexpr int kChunk = D < 64 ? D : 64;      // columns per TMA box
-  static constexpr int kNChunk = D / kChunk;
+  static constexpr int kNChunk = (D + kChunk - 1) / kChunk;
+  static constexpr int kDp = kNChunk * kChunk;        // smem tile width
   static constexpr int kRowBytes = kChunk * 2;        // = the swizzle width
-  static constexpr int kQBytes = kRows * D * 2;       // one warpgroup's Q
-  static constexpr int kKVBytes = kBN * D * 2;        // one K or V tile
+  static constexpr int kQBytes = kRows * kDp * 2;     // one warpgroup's Q
+  static constexpr int kKVBytes = kBN * kDp * 2;      // one K or V tile
   // consumer warpgroups, then one producer warpgroup (one thread issues the
   // loads); setmaxnreg moves the producer's registers to the consumers
   static constexpr int kThreads = (kWG + 1) * 128;
@@ -485,7 +494,8 @@ struct TileMask {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // S = Q K^T for one key tile: both K-major, k16 steps advance 32 bytes
-// inside a swizzle row, 64-column chunks are separate boxes.  The descriptors
+// inside a swizzle row, 64-column chunks are separate boxes; only the D/16
+// steps of the real width run (the padding columns are 0 in Q and K).  The descriptors
 // are rebuilt from a base on every call (the mov keeps the compiler from
 // hoisting D/8 loop-invariant 64-bit descriptors into registers).
 template <int D, int kBN, int kRB>
@@ -599,7 +609,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 int S, int T_len, int H, int KV, int P, int causal, int window,
                 float softcap, float scale) {
   using C = Cfg<D, BN>;
-  constexpr int kBN = C::kBN, kNS = C::kStages, kRB = C::kRowBytes;
+  constexpr int kBN = C::kBN, kNS = C::kStages, kRB = C::kRowBytes, kDp = C::kDp;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms
   const uint32_t sQ = base;
@@ -674,9 +684,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < 2; ++i) pos_r[i] = wpos0 + (w4 * 16 + (lane >> 2) + 8 * i) / G;
   const int col = (lane & 3) * 2;                  // first of this thread's column pair
 
-  float acc[D / 2];
+  float acc[kDp / 2];   // P V at the tile width: the columns past D stay 0
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
   // Per key tile: S = Q K^T, the online softmax, acc = alpha * acc + P V;
@@ -698,7 +708,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_arrive(k_empty(s));
     softmax_any<kBN>(sc, t_lo + n * kBN, mask, m_r, l_r, alpha);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < kDp / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         acc[j * 4 + i * 2] *= alpha[i];
@@ -709,21 +719,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // acc += P V: V is MN-major (D contiguous); 64-column chunks LBO apart,
     // 8-key groups SBO apart, a k16 step is 16 key rows
     mbar_wait(v_full(s), ph);
-    fence_regs<D / 2>(acc);
+    fence_regs<kDp / 2>(acc);
     wgmma_fence();
     const uint64_t vd = smem_desc(sV + s * C::kKVBytes, kBN * kRB, 8 * kRB, kRB);
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
-      wgmma_rs<D>(acc, p_hi[kk], vd + ((kk * 16 * kRB) >> 4));
-      wgmma_rs<D>(acc, p_lo[kk], vd + ((kk * 16 * kRB) >> 4));
+      wgmma_rs<kDp>(acc, p_hi[kk], vd + ((kk * 16 * kRB) >> 4));
+      wgmma_rs<kDp>(acc, p_lo[kk], vd + ((kk * 16 * kRB) >> 4));
     }
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<D / 2>(acc);
+    fence_regs<kDp / 2>(acc);
     mbar_arrive(v_empty(s));
   }
 
-  // out (B, S, H, D) contiguous: acc[j*4 + i*2 + e] is (row i, column j*8 + col + e)
+  // out (B, S, H, D) contiguous: acc[j*4 + i*2 + e] is (row i, column j*8 + col + e);
+  // only the first D columns are stored
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = w4 * 16 + (lane >> 2) + 8 * i;
@@ -860,6 +871,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 16064: return tc::launch<16, 64>(TC_ARGS);
     case 32064: return tc::launch<32, 64>(TC_ARGS);
     case 64064: return tc::launch<64, 64>(TC_ARGS);
+    case 96064: return tc::launch<96, 64>(TC_ARGS);
+    case 112064: return tc::launch<112, 64>(TC_ARGS);
     case 128064: return tc::launch<128, 64>(TC_ARGS);
     case 256032: return tc::launch<256, 32>(TC_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);

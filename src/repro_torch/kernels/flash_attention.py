@@ -25,15 +25,19 @@ from . import build, ref
 #: launches of the kernel in this process (``ops.reset_launch_counts``)
 LAUNCHES = {"flash_attention": 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)       # the kernel's compiled head widths
+HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)   # the kernel's compiled head widths
 DTYPES = (torch.float32, torch.bfloat16)
 
 # bf16 route: 64 rows per consumer warpgroup; D=256 takes one warpgroup and
 # 32-key tiles (register budget).  The kernel is compiled for these
 # (``csrc/flash_attention.cu::tc::Cfg``) and refuses a plan that differs.
+# D=96 and 112 are not whole 64-column chunks: their smem tiles are 128
+# columns wide (the plan's ``tile_width``), TMA fills the columns past D with
+# zeros, the S product skips the zero k16 steps, P V runs at width 128 and
+# the store writes only the first D columns.
 TC_ROWS = 64
-TC_WARPGROUPS = {16: 2, 32: 2, 64: 2, 128: 2, 256: 1}
-TC_KEY_TILE = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
+TC_WARPGROUPS = {16: 2, 32: 2, 64: 2, 96: 2, 112: 2, 128: 2, 256: 1}
+TC_KEY_TILE = {16: 64, 32: 64, 64: 64, 96: 64, 112: 64, 128: 64, 256: 32}
 TC_STAGES = 2
 
 
@@ -69,6 +73,7 @@ def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
     pos = TC_ROWS // G
     return {"route": "wgmma", "warpgroups": wg, "threads": 128 * (wg + 1),
             "stages": TC_STAGES, "key_tile": bn, "chunk": chunk,
+            "tile_width": _cdiv(D, chunk) * chunk,
             "swizzle_bytes": 2 * chunk, "q_box": (chunk, G, pos, 1),
             "kv_box": (chunk, 1, bn, 1), "grid": (_cdiv(S, wg * pos), KV, B)}
 

@@ -64,22 +64,37 @@ def make_request(i: int, service: str, emb: np.ndarray, seq_len: int, vocab: int
                         threshold=threshold)
 
 
+def rows_coupled(cfg) -> bool:
+    """Whether a row's prefill depends on the other rows of its batch: an
+    MoE layer's capacity and which tokens it drops depend on every token of
+    the call."""
+    return cfg.n_experts > 0
+
+
 def make_executor(model, seq_len: int) -> Callable[[List[ServeRequest]], List[int]]:
     """``execute(reqs) -> [argmax token of each request's last position]``.
 
     The reference prefills each request alone (batch 1) with ``max_len =
-    seq_len + 8``.  A miss group's prompts all have ``seq_len`` tokens
-    (``make_request``), so they run here as one (n, seq_len) prefill: each
-    row's logits are the same function of its own tokens, so the tokens are
-    the same."""
+    seq_len + 8``, with the payload as the batch (tokens only: a vision
+    model runs without patches, and an encoder-decoder model fails for want
+    of ``frames``, as the reference's does).  A miss group's prompts all
+    have ``seq_len`` tokens (``make_request``); where rows are independent
+    (dense, vision, hybrid, xLSTM) they run as one (n, seq_len) prefill,
+    since each row's logits are the same function of its own tokens.  An
+    MoE model (``rows_coupled``) prefills each request alone, as the
+    reference does."""
     max_len = seq_len + 8
+
+    def prefill(tokens: torch.Tensor) -> List[int]:
+        logits, _ = model.prefill({"tokens": tokens.to(model.device)}, max_len)
+        return logits[:, -1].argmax(dim=-1).tolist()
 
     def execute(reqs: List[ServeRequest]) -> List[int]:
         if not reqs:
             return []
-        tokens = torch.cat([r.payload["tokens"] for r in reqs]).to(model.device)
-        logits, _ = model.prefill({"tokens": tokens}, max_len)
-        return logits[:, -1].argmax(dim=-1).tolist()
+        if rows_coupled(model.cfg):
+            return [tok for r in reqs for tok in prefill(r.payload["tokens"])]
+        return prefill(torch.cat([r.payload["tokens"] for r in reqs]))
 
     return execute
 

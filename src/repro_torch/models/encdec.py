@@ -1,0 +1,186 @@
+"""Encoder-decoder transformer for seamless-m4t-large-v2 ([audio]).
+
+Port of ``repro/models/encdec.py``.  The speech frontend is a stub, as in
+the reference: ``batch["frames"]`` holds precomputed frame embeddings (B,
+S_enc, d_model); the transformer backbone (encoder, decoder with
+cross-attention, tied head) is the reference's.
+
+Every attention call goes through the kernel layer: the encoder's
+self-attention is K6 without a causal mask, the decoder's self-attention K6
+(prefill) and K7 (decode), and its cross-attention K6 at prefill (S decoder
+positions against T encoder frames) and K7 at decode, against the whole
+encoder memory (``kv_len`` = its length).  The reference computes the cross
+attention with its plain ``attn_core``, the same function.
+
+Layers are ``nn.ModuleList``s (row l of the reference's stacked
+``enc_layers`` / ``dec_layers``).  The cache keeps the reference's keys and
+layout: ``k``, ``v`` (L, B, max_len, KV, D) and ``xk``, ``xv`` (L, B, T_enc,
+KV, D); ``decode_step`` updates it in place.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from ..kernels import ops
+from .attention import (
+    _scale,
+    attention_apply,
+    attention_decode,
+    attention_init,
+    attn_dims,
+    project_q,
+)
+from .layers import (
+    activation_dtype,
+    embed_apply,
+    embed_init,
+    frozen,
+    mlp_apply,
+    mlp_init,
+    param_dict,
+    rms_norm,
+    zeros_init,
+)
+
+ENC_MEMORY_LEN = 4_096  # the reference's encoder memory length for decode-shape cells
+
+
+class EncLayer(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = frozen(zeros_init(d, device=device))
+        self.attn = param_dict(attention_init(gen, cfg, device=device, dtype=dtype))
+        self.ln2 = frozen(zeros_init(d, device=device))
+        self.mlp = param_dict(mlp_init(gen, d, cfg.d_ff, device=device, dtype=dtype))
+
+
+class DecLayer(nn.Module):
+    """``ln1``, ``self_attn``, ``lnx``, ``cross_attn``, ``ln2``, ``mlp``."""
+
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = frozen(zeros_init(d, device=device))
+        self.self_attn = param_dict(attention_init(gen, cfg, device=device, dtype=dtype))
+        self.lnx = frozen(zeros_init(d, device=device))
+        self.cross_attn = param_dict(attention_init(gen, cfg, device=device, dtype=dtype))
+        self.ln2 = frozen(zeros_init(d, device=device))
+        self.mlp = param_dict(mlp_init(gen, d, cfg.d_ff, device=device, dtype=dtype))
+
+
+class EncDecModel(nn.Module):
+    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card)."""
+
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+        super().__init__()
+        if not (cfg.enc_layers and cfg.dec_layers):
+            raise ValueError(f"{cfg.name} has no encoder and decoder layers")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.dtype = activation_dtype(cfg)
+        self.init(torch.Generator(device=self.device).manual_seed(seed))
+
+    def init(self, gen: torch.Generator) -> None:
+        cfg, kw = self.cfg, {"device": self.device, "dtype": self.dtype}
+        self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
+        self.enc_layers = nn.ModuleList(EncLayer(gen, cfg, **kw) for _ in range(cfg.enc_layers))
+        self.dec_layers = nn.ModuleList(DecLayer(gen, cfg, **kw) for _ in range(cfg.dec_layers))
+        self.enc_norm = frozen(zeros_init(cfg.d_model, device=self.device))
+        self.dec_norm = frozen(zeros_init(cfg.d_model, device=self.device))
+
+    # ---------------------------------------------------------------- encode
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, T, d_model) -> encoder memory (B, T, d_model)."""
+        cfg = self.cfg
+        x = frames.to(self.device, self.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for p in self.enc_layers:
+            x = x + attention_apply(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                    positions=positions, causal=False)
+            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        return rms_norm(x, self.enc_norm, cfg.norm_eps)
+
+    # ---------------------------------------------------------------- decode
+    def _dec_layer(self, p: DecLayer, x: torch.Tensor, memory: torch.Tensor,
+                   positions: torch.Tensor):
+        """One decoder layer over the whole prompt -> (x, (k, v), (xk, xv))."""
+        cfg = self.cfg
+        h, kv = attention_apply(p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                positions=positions, causal=True, return_kv=True)
+        x = x + h
+        h, xkv = attention_apply(p.cross_attn, rms_norm(x, p.lnx, cfg.norm_eps), cfg,
+                                 positions=positions, memory=memory, return_kv=True)
+        x = x + h
+        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        return x, kv, xkv
+
+    def decode_full(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        """The decoder over ``tokens`` (B, S) -> final-normed hidden."""
+        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for p in self.dec_layers:
+            x, _, _ = self._dec_layer(p, x, memory, positions)
+        return rms_norm(x, self.dec_norm, self.cfg.norm_eps)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied head -> f32 logits."""
+        out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
+        return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+
+    # --------------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        d = attn_dims(self.cfg)
+        L = self.cfg.dec_layers
+        kw = {"dtype": dtype, "device": self.device}
+        return {"k": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
+                "v": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
+                "xk": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw),
+                "xv": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw)}
+
+    def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
+        """Encode ``batch["frames"]`` and run the decoder prompt; build the
+        self- and cross-attention caches -> (last-position logits (B, 1, V)
+        f32, cache)."""
+        memory = self.encode(batch["frames"])
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        positions = torch.arange(S, device=x.device)[None, :]
+        cache = self.init_cache(B, max_len, memory.shape[1], cache_dtype)
+        for layer, p in enumerate(self.dec_layers):
+            x, (k, v), (xk, xv) = self._dec_layer(p, x, memory, positions)
+            cache["k"][layer, :, :S] = k
+            cache["v"][layer, :, :S] = v
+            cache["xk"][layer] = xk
+            cache["xv"][layer] = xv
+        x = rms_norm(x, self.dec_norm, self.cfg.norm_eps)
+        return self.logits(x[:, -1:, :]), cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
+        """tokens (B, 1) at position ``pos`` (an int); updates the self-
+        attention cache in place -> (logits (B, 1, V) f32, cache)."""
+        cfg, pos = self.cfg, int(pos)
+        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        B = x.shape[0]
+        pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32, device=x.device)
+        for layer, p in enumerate(self.dec_layers):
+            h, _, _ = attention_decode(p.self_attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                       cache["k"][layer], cache["v"][layer], pos)
+            x = x + h
+            q = project_q(p.cross_attn, rms_norm(x, p.lnx, cfg.norm_eps), cfg, pos_b)
+            out = ops.decode_attention(q[:, 0], cache["xk"][layer], cache["xv"][layer],
+                                       enc_len, softcap=getattr(cfg, "attn_logit_softcap", None),
+                                       scale=_scale(cfg, q.shape[-1]))
+            x = x + out.reshape(B, 1, -1) @ p.cross_attn["wo"].to(x.dtype)
+            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        x = rms_norm(x, self.dec_norm, cfg.norm_eps)
+        return self.logits(x), cache

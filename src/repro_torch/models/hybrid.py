@@ -1,0 +1,197 @@
+"""Zamba2-style hybrid model: a Mamba2 backbone and one SHARED attention block.
+
+Port of ``repro/models/hybrid.py``.  zamba2-7b: 81 Mamba2 layers; a single
+shared (attention + MLP) block, one parameter set, is applied after every
+``cfg.attn_every`` Mamba layers: G = n_layers // attn_every groups of
+[attn_every x Mamba2, the shared block], then a tail of the remaining Mamba
+layers (13 groups and a tail of 3 for zamba2-7b).  Each application of the
+shared block sees other activations, so each keeps its own KV cache.
+
+Layers are ``nn.ModuleList``s: ``main[g][p]`` is the reference's stacked
+``main`` row (g, p), ``tail[t]`` its ``tail`` row t.  The cache keeps the
+reference's keys and layout: ``ssm`` (G, P, B, H, P, N) and ``conv`` (G, P,
+B, W-1, conv_dim) fp32, ``k``/``v`` (G, B, max_len, KV, D), ``ssm_tail`` and
+``conv_tail``; ``decode_step`` updates it in place.  Every attention call is
+K6 (prefill) or K7 (decode) through ``attention.py``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from .attention import attention_apply, attention_decode, attention_init, attn_dims
+from .layers import (
+    activation_dtype,
+    embed_apply,
+    embed_init,
+    frozen,
+    mlp_apply,
+    mlp_init,
+    param_dict,
+    rms_norm,
+    zeros_init,
+)
+from .ssm import (
+    CONV_WIDTH,
+    _split_in,
+    mamba2_apply,
+    mamba2_decode,
+    mamba2_init,
+    mamba2_state_shapes,
+    ssm_dims,
+)
+
+
+class MambaLayer(nn.Module):
+    """``ln`` and ``mamba``: one row of the reference's ``main``/``tail``."""
+
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+        super().__init__()
+        self.ln = frozen(zeros_init(cfg.d_model, device=device))
+        self.mamba = param_dict(mamba2_init(gen, cfg, device=device, dtype=dtype))
+
+
+class SharedBlock(nn.Module):
+    """``ln1``, ``attn``, ``ln2``, ``mlp``: the reference's ``shared``."""
+
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+        super().__init__()
+        self.ln1 = frozen(zeros_init(cfg.d_model, device=device))
+        self.attn = param_dict(attention_init(gen, cfg, device=device, dtype=dtype))
+        self.ln2 = frozen(zeros_init(cfg.d_model, device=device))
+        self.mlp = param_dict(mlp_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                                       dtype=dtype))
+
+
+class HybridModel(nn.Module):
+    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card)."""
+
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.period = cfg.attn_every
+        self.n_groups = cfg.n_layers // self.period
+        self.n_tail = cfg.n_layers - self.n_groups * self.period
+        self.dtype = activation_dtype(cfg)
+        self.init(torch.Generator(device=self.device).manual_seed(seed))
+
+    def init(self, gen: torch.Generator) -> None:
+        cfg, kw = self.cfg, {"device": self.device, "dtype": self.dtype}
+        self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
+        self.main = nn.ModuleList(
+            nn.ModuleList(MambaLayer(gen, cfg, **kw) for _ in range(self.period))
+            for _ in range(self.n_groups))
+        self.shared = SharedBlock(gen, cfg, **kw)
+        self.final_norm = frozen(zeros_init(cfg.d_model, device=self.device))
+        self.tail = nn.ModuleList(MambaLayer(gen, cfg, **kw) for _ in range(self.n_tail))
+        if not cfg.tie_embeddings:
+            self.head = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
+
+    def _shared_apply(self, x: torch.Tensor, positions: torch.Tensor, *,
+                      return_kv: bool = False):
+        cfg, p = self.cfg, self.shared
+        h, kv = attention_apply(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                positions=positions, causal=True, return_kv=True)
+        x = x + h
+        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        return (x, kv) if return_kv else x
+
+    def _mamba(self, layer: MambaLayer, x: torch.Tensor) -> torch.Tensor:
+        return x + mamba2_apply(layer.mamba, rms_norm(x, layer.ln, self.cfg.norm_eps),
+                                self.cfg, chunk=self.cfg.scan_chunk)
+
+    # --------------------------------------------------------------- forward
+    def hidden_states(self, batch) -> torch.Tensor:
+        """Full-sequence forward -> final-normed hidden (B, S, d_model)."""
+        x = embed_apply(self.embed, batch["tokens"], False, self.cfg.d_model)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        for group in self.main:
+            for layer in group:
+                x = self._mamba(layer, x)
+            x = self._shared_apply(x, positions)
+        for layer in self.tail:
+            x = self._mamba(layer, x)
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        w = self.embed if self.cfg.tie_embeddings else self.head
+        out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
+        return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+
+    # --------------------------------------------------------------- serving
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        d = attn_dims(self.cfg)
+        st, cb = mamba2_state_shapes(self.cfg, batch)
+        gp = (self.n_groups, self.period)
+        f32 = {"dtype": torch.float32, "device": self.device}
+        kv = (self.n_groups, batch, max_len, d.n_kv, d.head_dim)
+        cache = {"ssm": torch.zeros(gp + st, **f32), "conv": torch.zeros(gp + cb, **f32),
+                 "k": torch.zeros(kv, dtype=dtype, device=self.device),
+                 "v": torch.zeros(kv, dtype=dtype, device=self.device)}
+        if self.n_tail:
+            cache["ssm_tail"] = torch.zeros((self.n_tail,) + st, **f32)
+            cache["conv_tail"] = torch.zeros((self.n_tail,) + cb, **f32)
+        return cache
+
+    def _mamba_prefill(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
+                       conv: torch.Tensor) -> torch.Tensor:
+        """One Mamba layer of the prompt; its final state goes to ``ssm`` and
+        the pre-conv activations of the last W-1 positions to ``conv``."""
+        cfg = self.cfg
+        xn = rms_norm(x, layer.ln, cfg.norm_eps)
+        y, hT = mamba2_apply(layer.mamba, xn, cfg, chunk=cfg.scan_chunk, return_state=True)
+        _, xbc_tail, _ = _split_in(layer.mamba, xn[:, x.shape[1] - (CONV_WIDTH - 1):],
+                                   ssm_dims(cfg))
+        ssm.copy_(hT)
+        conv.copy_(xbc_tail)
+        return x + y
+
+    def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
+        """Run the prompt, build the cache -> (last-position logits (B, 1, V)
+        f32, cache)."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        positions = torch.arange(S, device=x.device)[None, :]
+        cache = self.init_cache(B, max_len, cache_dtype)
+        for g, group in enumerate(self.main):
+            for p, layer in enumerate(group):
+                x = self._mamba_prefill(layer, x, cache["ssm"][g, p], cache["conv"][g, p])
+            x, (k, v) = self._shared_apply(x, positions, return_kv=True)
+            cache["k"][g, :, :S] = k
+            cache["v"][g, :, :S] = v
+        for t, layer in enumerate(self.tail):
+            x = self._mamba_prefill(layer, x, cache["ssm_tail"][t], cache["conv_tail"][t])
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self.logits(x[:, -1:, :]), cache
+
+    def _mamba_step(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
+                    conv: torch.Tensor) -> torch.Tensor:
+        y, st, cb = mamba2_decode(layer.mamba, rms_norm(x, layer.ln, self.cfg.norm_eps),
+                                  self.cfg, ssm, conv)
+        ssm.copy_(st)
+        conv.copy_(cb)
+        return x + y
+
+    def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
+        """tokens (B, 1) at position ``pos`` (an int); updates ``cache`` in
+        place -> (logits (B, 1, V) f32, cache)."""
+        cfg, pos = self.cfg, int(pos)
+        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        p = self.shared
+        for g, group in enumerate(self.main):
+            for j, layer in enumerate(group):
+                x = self._mamba_step(layer, x, cache["ssm"][g, j], cache["conv"][g, j])
+            h, _, _ = attention_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                       cache["k"][g], cache["v"][g], pos)
+            x = x + h
+            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        for t, layer in enumerate(self.tail):
+            x = self._mamba_step(layer, x, cache["ssm_tail"][t], cache["conv_tail"][t])
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self.logits(x), cache

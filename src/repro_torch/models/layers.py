@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -25,7 +26,7 @@ def activation_dtype(cfg) -> torch.dtype:
 # The reference draws every leaf in fp32 (normal * scale) from a JAX key; the
 # port draws the same distributions from an explicit torch.Generator.  The
 # two give different numbers from one seed: tests convert the reference's
-# draw (``convert.decoder_lm_from_jax``) instead.
+# draw (``convert.model_from_jax``) instead.
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                scale: Optional[float] = None, *, device=None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -43,6 +44,17 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, *, device=None,
 def zeros_init(dim: int, *, device=None) -> torch.Tensor:
     """Norm scales: zero (the (1 + scale) parameterisation), kept in fp32."""
     return torch.zeros((dim,), device=device, dtype=torch.float32)
+
+
+def frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter that takes no gradient (the port serves)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def param_dict(tensors: dict) -> nn.ParameterDict:
+    """A reference parameter subtree (a flat dict of tensors) as frozen
+    parameters under the same names."""
+    return nn.ParameterDict({k: frozen(v) for k, v in tensors.items()})
 
 
 # ---------------------------------------------------------------------- norms

@@ -1,28 +1,30 @@
 """Model zoo: build the right model class for an ArchConfig.
 
-Port of ``repro/models/model_zoo.py``.  The port has the dense decoder so
-far; the other families raise and name the slice that brings them.
+Port of ``repro/models/model_zoo.py``: every architecture of the registry.
 """
 from __future__ import annotations
 
+from torch import nn
+
 from ..device import DeviceLike
+from .encdec import EncDecModel
+from .hybrid import HybridModel
 from .transformer import DecoderLM
-
-_LATER = {
-    "moe": "the MoE slice",
-    "ssm": "the SSM/xLSTM slice",
-    "hybrid": "the hybrid (SSM + attention) slice",
-    "audio": "the encoder-decoder slice",
-    "vlm": "the vision-frontend slice",
-}
+from .xlstm_model import XLSTMModel
 
 
-def build_model(cfg, device: DeviceLike = None, *, seed: int = 0) -> DecoderLM:
+def model_class(cfg) -> type:
+    """The family's model class, as the reference's ``build_model`` picks it."""
+    if cfg.is_encdec:
+        return EncDecModel
+    if cfg.family == "hybrid":
+        return HybridModel
+    if cfg.family == "ssm":
+        return XLSTMModel
+    return DecoderLM  # dense | moe | vlm
+
+
+def build_model(cfg, device: DeviceLike = None, *, seed: int = 0) -> nn.Module:
     """The model for ``cfg`` on ``device`` (None: the CUDA card), weights
     drawn from ``seed``."""
-    family = "audio" if cfg.is_encdec else cfg.family
-    if family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name} ({family}) is not ported yet; it comes with "
-            f"{_LATER.get(family, 'a later slice')} of the port")
-    return DecoderLM(cfg, device, seed=seed)
+    return model_class(cfg)(cfg, device, seed=seed)

@@ -1,10 +1,12 @@
-"""Decoder-only transformer LM for the dense family.
+"""Decoder-only transformer LM for the dense, MoE and vision families.
 
 Port of ``repro/models/transformer.py::DecoderLM`` for serving: init,
 ``hidden_states``, ``logits``, ``prefill`` and ``decode_step`` with
 ring-buffer KV caches (sliding-window layers allocate only ``window``
-slots).  ``loss`` and ``input_specs`` come with the training slice; MoE
-blocks with the MoE slice.
+slots).  ``loss`` and ``input_specs`` come with the training slice.  MoE
+blocks (``cfg.n_experts > 0``) hold a ``moe`` (``moe.MoEParams``) in place
+of ``mlp``; the vision families prepend ``batch["patch_embeds"]`` to the
+text (early fusion), so their decode writes position ``S + patches``.
 
 Layers are an ``nn.ModuleList`` in depth order instead of the reference's
 scanned groups: layer ``g * len(pattern) + i`` is group ``g``'s variant
@@ -15,8 +17,8 @@ shape (n_groups, B, W, KV, D), so a JAX cache converts directly
 The reference keeps fp32 master weights and casts them at each use
 (``x @ w.astype(x.dtype)``); the port stores each matrix once in
 ``cfg.dtype``, which gives the same numbers for serving and half the
-memory.  Norm scales stay fp32, as the reference reads them.  Parameters do
-not require gradients.
+memory.  Norm scales and the MoE router stay fp32, as the reference reads
+them.  Parameters do not require gradients.
 """
 from __future__ import annotations
 
@@ -31,16 +33,15 @@ from .layers import (
     activation_dtype,
     embed_apply,
     embed_init,
+    frozen,
     mlp_apply,
     mlp_init,
+    param_dict,
     rms_norm,
     softcap,
     zeros_init,
 )
-
-
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
+from .moe import MoEParams, moe_apply
 
 
 # -------------------------------------------------------------------- variants
@@ -51,28 +52,30 @@ def variants_for(cfg) -> Tuple[Dict[str, Any], ...]:
 
 # ---------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """One pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp`` (and gemma2's
-    ``pn1``/``pn2`` post-norms), named as the reference's parameter tree."""
+    """One pre-norm block: ``ln1``, ``attn``, ``ln2``, ``mlp`` or ``moe``
+    (and gemma2's ``pn1``/``pn2`` post-norms), named as the reference's
+    parameter tree."""
 
-    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype):
+    def __init__(self, gen: torch.Generator, cfg, *, device, dtype: torch.dtype,
+                 moe: bool = False):
         super().__init__()
         d = cfg.d_model
-        self.ln1 = _frozen(zeros_init(d, device=device))
-        self.attn = nn.ParameterDict(
-            {k: _frozen(v) for k, v in attention_init(gen, cfg, device=device,
-                                                      dtype=dtype).items()})
-        self.ln2 = _frozen(zeros_init(d, device=device))
-        self.mlp = nn.ParameterDict(
-            {k: _frozen(v) for k, v in mlp_init(gen, cfg.d_model, cfg.d_ff, device=device,
-                                                dtype=dtype).items()})
+        self.ln1 = frozen(zeros_init(d, device=device))
+        self.attn = param_dict(attention_init(gen, cfg, device=device, dtype=dtype))
+        self.ln2 = frozen(zeros_init(d, device=device))
+        if moe:
+            self.moe = MoEParams(gen, cfg, device=device, dtype=dtype)
+        else:
+            self.mlp = param_dict(mlp_init(gen, cfg.d_model, cfg.d_ff, device=device,
+                                           dtype=dtype))
         if cfg.use_post_norms:
-            self.pn1 = _frozen(zeros_init(d, device=device))
-            self.pn2 = _frozen(zeros_init(d, device=device))
+            self.pn1 = frozen(zeros_init(d, device=device))
+            self.pn2 = frozen(zeros_init(d, device=device))
 
 
 def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tensor, *,
                 return_kv: bool = False):
-    """-> (x, (k, v) or None, aux); aux is 0 for the dense family."""
+    """-> (x, (k, v) or None, aux); aux is the MoE loss, 0 for an MLP."""
     eps = cfg.norm_eps
     a_in = rms_norm(x, blk.ln1, eps)
     kv = None
@@ -85,10 +88,16 @@ def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tens
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, blk.pn1, eps)
     x = x + attn_out
-    mlp_out = mlp_apply(blk.mlp, rms_norm(x, blk.ln2, eps), cfg.mlp_act)
+    mlp_out, aux = _ffn(blk, rms_norm(x, blk.ln2, eps), cfg, variant)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, blk.pn2, eps)
-    return x + mlp_out, kv, 0.0
+    return x + mlp_out, kv, aux
+
+
+def _ffn(blk: Block, x: torch.Tensor, cfg, variant):
+    if variant["moe"]:
+        return moe_apply(blk.moe, x, cfg)
+    return mlp_apply(blk.mlp, x, cfg.mlp_act), 0.0
 
 
 def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tensor,
@@ -99,7 +108,7 @@ def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tenso
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, blk.pn1, eps)
     x = x + attn_out
-    mlp_out = mlp_apply(blk.mlp, rms_norm(x, blk.ln2, eps), cfg.mlp_act)
+    mlp_out, _ = _ffn(blk, rms_norm(x, blk.ln2, eps), cfg, variant)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, blk.pn2, eps)
     return x + mlp_out, k_cache, v_cache
@@ -107,16 +116,13 @@ def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tenso
 
 # ----------------------------------------------------------------------- model
 class DecoderLM(nn.Module):
-    """Dense decoder language model, weights drawn from ``seed`` on
-    ``device`` at construction.  ``device=None`` is the CUDA card; without
-    one it raises unless ``device="cpu"``."""
+    """Dense / MoE / early-fusion-VLM decoder language model, weights drawn
+    from ``seed`` on ``device`` at construction.  ``device=None`` is the CUDA
+    card; without one it raises unless ``device="cpu"``."""
 
     def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
         super().__init__()
         self.device = resolve_device(device)
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                f"{cfg.name} has MoE blocks; they come with the MoE slice of the port")
         self.cfg = cfg
         self.variants = variants_for(cfg)
         self.group = len(self.variants)
@@ -132,13 +138,14 @@ class DecoderLM(nn.Module):
         embeddings normal * 0.02, norm scales zero (the reference's
         distributions)."""
         cfg, dev, dt = self.cfg, self.device, self.dtype
-        self.embed = _frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev, dtype=dt))
-        self.final_norm = _frozen(zeros_init(cfg.d_model, device=dev))
+        self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev, dtype=dt))
+        self.final_norm = frozen(zeros_init(cfg.d_model, device=dev))
         if not cfg.tie_embeddings:
-            self.head = _frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
+            self.head = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev,
                                            dtype=dt))
-        self.layers = nn.ModuleList(Block(gen, cfg, device=dev, dtype=dt)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(gen, cfg, device=dev, dtype=dt, moe=self.variant_of(layer)["moe"])
+            for layer in range(cfg.n_layers))
 
     def variant_of(self, layer: int) -> Dict[str, Any]:
         return self.variants[layer % self.group]
@@ -153,12 +160,14 @@ class DecoderLM(nn.Module):
 
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (final-normed hidden, aux loss = 0)."""
+        """Full-sequence forward -> (final-normed hidden, summed aux loss)."""
         x, positions = self._embed_inputs(batch)
+        aux = torch.zeros((), device=x.device)
         for layer, blk in enumerate(self.layers):
-            x, _, _ = block_apply(blk, x, self.cfg, self.variant_of(layer), positions)
+            x, _, a = block_apply(blk, x, self.cfg, self.variant_of(layer), positions)
+            aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return x, torch.zeros((), device=x.device)
+        return x, aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """(..., d_model) -> (..., vocab) f32.  The product runs on 2-D

@@ -82,6 +82,30 @@ class TestFlashAttentionPlain:
         np.testing.assert_allclose(got, _np(jref.flash_attention_ref(jq, jk, jv, **kwargs)),
                                    atol=2e-5)
 
+    @pytest.mark.parametrize("D", [96, 112])
+    @pytest.mark.parametrize("S,T,H,KV,kwargs", [
+        (32, 32, 8, 8, {}),                       # zamba2 / phi-3-vision: MHA
+        (32, 48, 4, 2, {"causal": False}),        # cross-attention, S != T
+        (48, 32, 8, 4, {"causal": False}),
+        (32, 32, 4, 4, {"window": 16, "softcap": 30.0}),
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_padded_head_widths_match_pallas(self, D, S, T, H, KV, kwargs, dtype):
+        """K6's plain version at the head widths the kernel pads to 128
+        columns (zamba2's 112, phi-3-vision's 96), at multiples of the
+        Pallas blocks, where the reference kernel is sound."""
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(2, S, H, D, dtype=dtype),
+                                        _pair(2, T, KV, D, dtype=dtype),
+                                        _pair(2, T, KV, D, dtype=dtype))
+        got = ops.flash_attention(tq, tk, tv, **kwargs)
+        assert got.shape == (2, S, H, D)
+        tol = _tol(dtype)
+        np.testing.assert_allclose(
+            _np(got), _np(jops.flash_attention(jq, jk, jv, block_q=16, block_k=16, **kwargs)),
+            atol=tol)
+        np.testing.assert_allclose(_np(got), _np(jref.flash_attention_ref(jq, jk, jv, **kwargs)),
+                                   atol=tol)
+
     def test_cross_attention_other_length(self):
         (jq, tq), (jk, tk), (jv, tv) = _pair(2, 32, 4, 32), _pair(2, 48, 2, 32), _pair(2, 48, 2, 32)
         np.testing.assert_allclose(
@@ -154,6 +178,7 @@ class TestFlashAttentionPlain:
 class TestDecodeAttentionPlain:
     @pytest.mark.parametrize("B,T,H,KV,D", [
         (1, 64, 4, 4, 32), (2, 96, 8, 2, 64), (4, 128, 8, 1, 128),
+        (2, 64, 4, 4, 96), (2, 96, 8, 8, 112),    # phi-3-vision's and zamba2's heads
     ])
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_matches_pallas_and_oracle(self, B, T, H, KV, D, dtype):

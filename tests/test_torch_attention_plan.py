@@ -43,19 +43,25 @@ def test_route_refuses_what_no_kernel_takes():
 @pytest.mark.parametrize("G", [1, 2, 3, 5, 8, 64])
 def test_tc_boxes_and_rows(D, G):
     """What the kernel and TMA take of the plan: a chunk of D whose row bytes
-    are the swizzle width, a q box over the G heads of one kv head and whole
-    positions of at most 64 rows, boxes within TMA's 256 a side."""
+    are the swizzle width, tiles of whole chunks that hold D (D=96 and 112:
+    128 columns, the last chunk past D), a q box over the G heads of one kv
+    head and whole positions of at most 64 rows, boxes within TMA's 256 a
+    side."""
     p = fa.launch_plan(torch.bfloat16, 1, 50, 50, 2 * G, 2, D)
     chunk, (qc, qh, qp, qb), (kc, kh, kt, kb) = p["chunk"], p["q_box"], p["kv_box"]
-    assert D % chunk == 0 and chunk * 2 == p["swizzle_bytes"] in (32, 64, 128)
+    width = p["tile_width"]
+    assert width % chunk == 0 and D <= width < D + chunk and width % 16 == 0
+    assert width == (128 if D in (96, 112) else D)
+    assert chunk * 2 == p["swizzle_bytes"] in (32, 64, 128)
     assert qc == kc == chunk and qb == kb == kh == 1 and kt == p["key_tile"]
     assert qh == G and qp * G <= fa.TC_ROWS < (qp + 1) * G     # at most G - 1 rows idle
     assert all(1 <= b <= 256 for b in p["q_box"] + p["kv_box"])
     assert p["key_tile"] % 16 == 0 and p["threads"] == 128 * (p["warpgroups"] + 1)
     assert p["stages"] >= 2
-    # a consumer thread holds D/2 fp32 of acc, key_tile/2 of S and key_tile/2
-    # words of P (hi and lo): with addresses and masks, within its 232 registers
-    assert D // 2 + p["key_tile"] <= 200
+    # a consumer thread holds width/2 fp32 of acc, key_tile/2 of S and
+    # key_tile/2 words of P (hi and lo): with addresses and masks, within its
+    # 232 registers
+    assert width // 2 + p["key_tile"] <= 200
     assert fa.tc_launch_args(p) == (p["warpgroups"], p["threads"], p["stages"], p["key_tile"],
                                     chunk, p["swizzle_bytes"], qh, qp, p["grid"][0])
 
@@ -77,6 +83,22 @@ def test_tc_blocks_cover_every_position_once(S, G):
 def test_tc_grid_fills_the_card_at_qwen3_prefill():
     p = fa.launch_plan(torch.bfloat16, 4, 2048, 2048, 16, 8, 128)
     assert p["grid"] == (32, 8, 4) and np.prod(p["grid"]) >= SMS
+
+
+@pytest.mark.parametrize("D", [96, 112])
+def test_padded_widths_feed_tma(D):
+    """At D = 96 and 112 the rows of q, k, v are 192 and 224 bytes: every
+    stride a multiple of 16 bytes, as TMA needs, in place (no padded copy);
+    the q box of two 64-column chunks covers the tile, TMA's zero fill the
+    columns past D; zamba2's and phi-3-vision's prefills (G = 1) take 64
+    positions a warpgroup."""
+    for S, H in ((1535, 32), (2111, 32)):
+        q = torch.zeros(2, S, H, D, dtype=torch.bfloat16)
+        assert fa.tma_strides(q) == (S * H * D, H * D, D)
+        assert all(s * 2 % 16 == 0 for s in fa.tma_strides(q))
+        p = fa.launch_plan(torch.bfloat16, 2, S, S, H, H, D)
+        assert p["q_box"] == (64, 1, 64, 1) and p["kv_box"] == (64, 1, 64, 1)
+        assert p["tile_width"] // p["chunk"] == 2 and p["grid"] == (-(-S // 128), H, 2)
 
 
 def test_tma_strides():

@@ -227,8 +227,29 @@ def test_flash_attention_cross_and_masked_rows(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 112])
+@pytest.mark.parametrize("S,T,H,KV,kwargs", [(333, 333, 8, 8, {}),
+                                             (100, 180, 16, 8, {"causal": False}),
+                                             (257, 257, 8, 4, {"window": 64, "softcap": 30.0})])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_padded_widths(dev, D, S, T, H, KV, kwargs, dtype):
+    """Head widths 96 (phi-3-vision) and 112 (zamba2) on both routes: the
+    bf16 route's tiles are 128 columns, TMA filling the columns past D."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, S, T, H, KV, D, dtype))
+    n0 = fa.LAUNCHES["flash_attention"]
+    got = fa.flash_attention(q, k, v, **kwargs)
+    assert fa.LAUNCHES["flash_attention"] == n0 + 1 and got.shape == (2, S, H, D)
+    _close(got, ref.flash_attention_ref(q, k, v, **kwargs),
+           2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,KV,D", [(1, 64, 4, 4, 32), (2, 96, 8, 2, 64),
-                                        (4, 128, 8, 1, 128), (4, 2064, 16, 8, 128)])
+                                        (2, 1600, 32, 32, 112), (2, 2200, 32, 32, 96),
+                                        (4, 128, 8, 1, 128), (4, 2064, 16, 8, 128),
+                                        (2, 2567, 40, 8, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention(dev, B, T, H, KV, D, dtype):
     from repro_torch.kernels import decode_attention as da
@@ -367,7 +388,7 @@ def _decode_lens(B, T, KV, G, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("G", [1, 2, 5, 8])
 @pytest.mark.parametrize("T,D", [(2064, 128), (300, 256), (500, 64)])
 def test_decode_attention_split_boundaries(dev, G, T, D):
     from repro_torch.kernels import decode_attention as da

@@ -3,11 +3,17 @@
 Both packages run ``get_arch("qwen3-1.7b").reduced()`` (float32, 2 layers,
 d=64, 4 heads, 2 kv heads, head_dim 16) and a reduced gemma2 with the same
 weights: the JAX ``DecoderLM.init(PRNGKey(0))`` tree, converted by
-``convert.decoder_lm_from_jax``.  On the CPU the port's attention runs
+``convert.model_from_jax``.  On the CPU the port's attention runs
 ``ops.flash_attention``/``ops.decode_attention``, whose plain versions take
 the arguments the card's kernels take, so hidden states, logits and every
 KV-cache entry agree within 1e-4 (float32 sums in another order).  Argmax tokens must be
 equal except where the reference's top two logits lie within 1e-4.
+
+Every architecture of the registry builds in the port, and its converter
+round-trips the JAX tree; prefill then decode equals the longer forward for
+all 10 (as tests/test_models_smoke.py holds the reference).  The executor
+prefills an MoE model's requests one at a time, as the reference does: a
+batched prefill would drop other tokens (capacity couples the rows).
 """
 import dataclasses
 
@@ -17,14 +23,16 @@ import numpy as np
 import pytest
 import torch
 
+import torch_families as fam
 from repro.configs import ARCHS as J_ARCHS
 from repro.configs import get_arch as j_get_arch
+from repro.models import build_model as j_build_model
 from repro.models.transformer import DecoderLM as JDecoderLM
 from repro_torch.configs import ARCHS, get_arch
-from repro_torch.convert import cache_from_jax, decoder_lm_from_jax
+from repro_torch.convert import _family_leaves, cache_from_jax, model_from_jax
 from repro_torch.core.lsh import LSHParams, normalize
-from repro_torch.launch.serve import make_executor, make_request
-from repro_torch.models import DecoderLM, build_model
+from repro_torch.launch.serve import make_executor, make_request, rows_coupled
+from repro_torch.models import DecoderLM, build_model, model_class
 from repro_torch.serving.engine import ReplicaEngine
 
 TOL = 1e-4
@@ -56,7 +64,7 @@ def pair():
         tcfg = dataclasses.replace(get_arch(arch).reduced(), **change)
         jm = JDecoderLM(jcfg)
         params = jm.init(jax.random.PRNGKey(0))
-        out[case] = (jcfg, jm, params, decoder_lm_from_jax(tcfg, _tree_np(params), "cpu"))
+        out[case] = (jcfg, jm, params, model_from_jax(tcfg, _tree_np(params), "cpu"))
     return out
 
 
@@ -168,16 +176,65 @@ def test_seeded_init_distributions():
     assert (pa["layers.1.attn.q_norm"] == 0).all() and pa["final_norm"].dtype == torch.float32
 
 
-def test_other_families_raise():
-    for name, cfg in ARCHS.items():
-        red = cfg.reduced()
-        if red.family == "dense" and not red.is_encdec:
-            assert isinstance(build_model(red, "cpu"), DecoderLM)
-            continue
-        with pytest.raises(NotImplementedError, match="slice"):
-            build_model(red, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        DecoderLM(get_arch("qwen2-moe-a2.7b").reduced(), "cpu")
+@pytest.mark.parametrize("name", sorted(ARCHS))
+def test_every_family_builds_and_converts(name):
+    """``build_model`` gives the reference's class for the family, and the
+    converter puts the JAX tree's values on the parameters: the same
+    number of values, the same multiset of them, each leaf row on the
+    parameter it names."""
+    cfg = get_arch(name).reduced()
+    model = build_model(cfg, "cpu")
+    jm = j_build_model(j_get_arch(name).reduced())
+    assert type(model) is model_class(cfg) and type(model).__name__ == type(jm).__name__
+    params = fam.tree_np(jm.init(jax.random.PRNGKey(1)))
+    own = dict(model_from_jax(cfg, params, "cpu").named_parameters())
+    leaves = [np.asarray(x, np.float32) for x in jax.tree_util.tree_leaves(params)]
+    assert sum(p.numel() for p in own.values()) == sum(x.size for x in leaves)
+    np.testing.assert_array_equal(
+        np.sort(np.concatenate([p.detach().float().numpy().ravel() for p in own.values()])),
+        np.sort(np.concatenate([x.ravel() for x in leaves])))
+    for leaf, value in _family_leaves(model, params):
+        np.testing.assert_array_equal(own[leaf].detach().float().numpy(), value)
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_prefill_decode_consistency(arch):
+    """Prefill(prompt) then decode(token) equals the longer forward's last
+    logits, the vision families with patches (decode at S + patches); the
+    hybrid, xLSTM and encoder-decoder families through the replay of a
+    longer prefill (tests/test_models_smoke.py)."""
+    jcfg, _, _, tm = fam.pair(arch)
+    B, S = 2, 16
+    tok = fam.tokens(B, S + 1, jcfg.vocab_size, 7)
+    _, prompt = fam.batches(jcfg, tok[:, :S], seed=7)
+    _, full = fam.batches(jcfg, tok, seed=7)
+    nf = fam.n_front(jcfg)
+    logits_p, cache = tm.prefill(prompt, S + nf + 8, cache_dtype=torch.float32)
+    assert torch.isfinite(logits_p).all()
+    got, _ = tm.decode_step(full["tokens"][:, S:], cache, S + nf)
+    assert got.shape == (B, 1, jcfg.vocab_size) and torch.isfinite(got).all()
+    if jcfg.is_encdec or jcfg.family in ("hybrid", "ssm"):
+        want, _ = tm.prefill(full, S + 8, cache_dtype=torch.float32)
+    else:
+        hidden, _ = tm.hidden_states(full)
+        want = tm.logits(hidden[:, -1:])
+    _close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m", "seamless-m4t-large-v2"])
+def test_stateful_decode_matches_replay(arch):
+    """Recurrent and encoder-decoder families: decode after prefill equals
+    the reference's longer prefill, and so does the port's."""
+    jcfg, jm, params, tm = fam.pair(arch)
+    B, S = 2, 12
+    tok = fam.tokens(B, S + 1, jcfg.vocab_size, 3)
+    jb, tb = fam.batches(jcfg, tok[:, :S], seed=3)
+    jfull, tfull = fam.batches(jcfg, tok, seed=3)
+    _, cache = tm.prefill(tb, S + 4, cache_dtype=torch.float32)
+    got, _ = tm.decode_step(tfull["tokens"][:, S:], cache, S)
+    want, _ = jm.prefill(params, jfull, S + 4, cache_dtype=jnp.float32)
+    _close(got, want)
+    _close(got, tm.prefill(tfull, S + 4, cache_dtype=torch.float32)[0])
 
 
 # ------------------------------------------------------------------- executor
@@ -205,17 +262,43 @@ def _check_tokens(got, want, margins):
     assert not bad.any(), (np.flatnonzero(bad), np.asarray(got)[bad], want[bad])
 
 
-def test_executor_matches_reference_loop(pair):
-    jcfg, jm, params, tm = pair["dense"]
+# the reduced qwen2-moe at qwen2-moe's own capacity factor (1.25; the
+# reduced config's 4.0 drops nothing): a batched prefill of these 12 prompts
+# drops other tokens than 12 prefills at batch 1, and changes argmax tokens
+MOE_EXEC = ("qwen2-moe-a2.7b", (("capacity_factor", 1.25),))
+
+
+@pytest.mark.parametrize("case", ["dense", "moe"])
+def test_executor_matches_reference_loop(pair, case):
+    """The dense model's miss group runs as one (12, 16) prefill; the MoE
+    model's requests run one at a time (rows_coupled), where one batched
+    prefill would give other tokens."""
+    jcfg, jm, params, tm = pair["dense"] if case == "dense" else fam.pair(*MOE_EXEC)
+    assert rows_coupled(tm.cfg) == (case == "moe")
     embs = normalize(np.random.default_rng(5).standard_normal((12, 64)).astype(np.float32))
     reqs = [make_request(i, "svc", e, SEQ_LEN, jcfg.vocab_size) for i, e in enumerate(embs)]
     for r, e in zip(reqs, embs):
         want = (np.abs(e[:SEQ_LEN]) * 1e4).astype(np.int64) % jcfg.vocab_size
         assert r.payload["tokens"].shape == (1, SEQ_LEN)
         assert (r.payload["tokens"][0].numpy() == want).all()
-    got = make_executor(tm, SEQ_LEN)(reqs)                # one (12, 16) prefill
-    _check_tokens(got, *_reference_tokens(jcfg, jm, params, embs))
+    want = _reference_tokens(jcfg, jm, params, embs)
+    _check_tokens(make_executor(tm, SEQ_LEN)(reqs), *want)
     assert make_executor(tm, SEQ_LEN)([]) == []
+    if case == "moe":
+        batched, _ = tm.prefill({"tokens": torch.cat([r.payload["tokens"] for r in reqs])},
+                                SEQ_LEN + 8)
+        assert (batched[:, -1].argmax(-1).numpy() != want[0]).any()
+
+
+def test_executor_needs_frames_for_encdec():
+    """The encoder-decoder model has no frames in a request's payload: the
+    executor fails as the reference's does (no invented frames)."""
+    jcfg, jm, params, tm = fam.pair("seamless-m4t-large-v2")
+    req = make_request(0, "svc", np.ones(64, np.float32), SEQ_LEN, jcfg.vocab_size)
+    with pytest.raises(KeyError, match="frames"):
+        make_executor(tm, SEQ_LEN)([req])
+    with pytest.raises(KeyError, match="frames"):
+        jm.prefill(params, {"tokens": jnp.asarray(req.payload["tokens"].numpy())}, SEQ_LEN + 8)
 
 
 def test_replica_serves_mixed_batches_with_the_model(pair):
