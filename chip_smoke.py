@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--src DIR]
+    python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
+                          [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -62,7 +63,22 @@ just before it and read just after:
   its depth, the bf16 gap printed beside that of a run with plain
   attention), and the prefill and first step
   against a run of the same model with the attention ops swapped for their
-  plain versions (an MoE model routed as the kernels' run was).
+  plain versions (an MoE model routed as the kernels' run was);
+* train: (a) K6's backward (``csrc/flash_attention_bwd.cu``: delta, dK/dV,
+  dQ) and the forward's log-sum-exp against their plain versions in f32
+  and bf16 (head widths 32, 64, 128, 256, GQA, causal, window, softcap,
+  S != T, rows that see no key), then at qwen3-1.7b's training shape (B=4,
+  S=2048, bf16, causal), each entry point timed with its bound and the
+  three beside SDPA's backward; (b) the reduced qwen3 in float32 on the
+  card against the same seeded run on the CPU: every parameter's gradient
+  (none zero), then three train steps (loss, grad norm, lr, parameters),
+  also with 2 microbatches and int8 moments; (c) 2 steps, a checkpoint, a
+  restore into a fresh state and 2 more equal 4 uninterrupted steps bit
+  for bit; (d) ``launch/train.py``'s ``main`` at full width (qwen3-1.7b,
+  28 layers, fp32 masters, remat block, B=4 x 2048 tokens, 4 steps) with
+  its exact K6 counts (56 forward launches a step with the recompute, 28
+  of each backward kernel), ms a step and peak memory, then 3 steps on
+  one repeated batch (the loss must fall) and the idle share of a step.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -83,16 +99,22 @@ K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
 ``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
 ``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
 K6 and K7 are also timed at the head widths 112 and 96 (zamba2's and
-phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``).
+phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``).  The
+backward's rows (``flash_attention_bwd_*``) are launches on the train path
+(d), each entry point's ms a launch (CUDA events); the dK/dV row adds the
+whole backward's time (``whole_backward_ms``, one wrapper call) and
+SDPA's (``library_backward_ms``, also the dK/dV and dQ rows'
+``library_ms``).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
-``--model``, ``--top1``, ``--nearest`` and ``--families`` run only the env
-and build phases and the named ones (the model's prefill and decode; K3 at B
-in {1, 8, 32} and K1's id route on the wrappers; ``nearest_neighbor`` first
-and warm; the families, or those of a comma-separated list of names after
-the flag) and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
+``--model``, ``--top1``, ``--nearest``, ``--families`` and ``--train`` run
+only the env and build phases and the named ones (the model's prefill and
+decode; K3 at B in {1, 8, 32} and K1's id route on the wrappers;
+``nearest_neighbor`` first and warm; the families, or those of a
+comma-separated list of names after the flag; phase train) and print no
+kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
 change, change, parent) on one card, one after another, compares two commits.
@@ -150,6 +172,16 @@ from repro_torch.serving import (  # noqa: E402
     ServingFleet,
 )
 from repro_torch.training.elastic import BackupPolicy  # noqa: E402
+from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.launch.train import synthetic_batch  # noqa: E402
+from repro_torch.training import (  # noqa: E402
+    OptimizerConfig,
+    init_state,
+    make_train_step,
+    restore,
+    save,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, fp32
 # FLOP/s on the CUDA cores, and dense bf16 FLOP/s on the tensor cores (the
@@ -175,6 +207,15 @@ DECODE_LOGIT_REL_TOL = 5e-2
 # families): only the order of fp32 sums differs (readings 1.5e-5 to 1.8e-5
 # on the H100)
 DECODE_LOGIT_F32_REL_TOL = 1e-4
+# phase train: the backward kernels vs plain (fp32 sums of up to S * G
+# products in another order), relative to the largest |value| of a tensor
+# (bf16: plus one bf16 ulp of the plain value); the reduced model's train
+# steps on the card vs the CPU (loss, grad norm, lr, and parameters
+# relative to the largest |parameter|), and its gradients (each relative
+# to its largest |value|, the CPU tests' limit against the reference)
+BWD_REL_TOL = 2e-5
+TRAIN_F32_REL_TOL = 1e-5
+TRAIN_GRAD_REL_TOL = 1e-4
 
 SOURCES = {
     "reuse_top1": ("src/repro_torch/kernels/csrc/sim_topk.cu",
@@ -193,13 +234,19 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:101"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:86"),
+    # K6's backward: the reference differentiates K6's math with jax.grad
+    # (no pallas_call of its own); each entry point is listed as K6's
+    **{f"flash_attention_bwd_{e}": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                    "src/repro/kernels/flash_attention.py:101")
+       for e in ("delta", "dkdv", "dq")},
 }
 # kernel -> the path that must launch it (the id-matrix route of K1 is on
 # none: the serve path's count of it, 0, is reported); the async-serve path
 # must launch K3, K4a and K6 too (each row reports its async_serve_launches)
 MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
              "lsh_hash": "hash-ids", "sim_top1": "nearest", "flash_attention": "model",
-             "decode_attention": "model"}
+             "decode_attention": "model", "flash_attention_bwd_delta": "train",
+             "flash_attention_bwd_dkdv": "train", "flash_attention_bwd_dq": "train"}
 ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
@@ -253,6 +300,11 @@ MS_SEQ, MS_BATCH, MS_BATCHES = 32, 256, 4
 # the size the launcher's documented example runs
 AS_DATASET, AS_REQUESTS, AS_RATE, AS_MAX_BATCH, AS_MAX_WAIT_S = "cctv1", 200, 200.0, 8, 0.005
 AS_CLI_REQUESTS, AS_CLI_RATE = 40, 500.0
+# phase train: the reduced model's steps and sequence length; launch/train.py
+# at full width (qwen3-1.7b, B = ATTN_B, S = ATTN_S) for FULL_STEPS steps,
+# then REPEAT_STEPS steps on one repeated batch
+TRAIN_STEPS, TRAIN_S = 3, 32
+FULL_STEPS, REPEAT_STEPS = 4, 3
 # phase cosim: the launcher's --engine cosim defaults (EN window 8 ms), and
 # the store size at which an EN search is timed (PaperDelayModel's 100k point)
 COSIM_WINDOW_S, COSIM_SEARCH_N = 0.008, 100_000
@@ -2593,6 +2645,367 @@ def phase_federation(dev: torch.device, model) -> dict:
 
 
 # ------------------------------------------------------------------ main
+# ------------------------------------------------------------------ phase 11
+# phase train: K6's backward, the train step against its CPU run, checkpoint
+# and restart, and launch/train.py at full width.
+def grad_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A backward kernel's output vs its plain version's on the same inputs:
+    finite; fp32 within BWD_REL_TOL of the largest |value| (sums of up
+    to S products in another order); bf16 within one bf16 ulp of the plain
+    value plus that share (both round an fp32 sum to bf16).  -> max |error|."""
+    g, w = got.float(), want.float()
+    expect(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    err = (g - w).abs()
+    lim = BWD_REL_TOL * float(w.abs().max())
+    if got.dtype == torch.bfloat16:
+        lim = lim + w.abs() * 2.0 ** -7
+    bad = int((err > lim).sum())
+    expect(bad == 0, f"{name}: {bad} values off, max |error| {err.max().item():.3g}")
+    return float(err.max())
+
+
+def lse_err(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The forward's lse vs the plain lse: +inf at the same rows (no key),
+    the rest within 1e-5 (the bf16 route's softmax runs in base 2)."""
+    inf = torch.isinf(want)
+    expect(bool(torch.equal(torch.isinf(got), inf)) and bool((got[inf] > 0).all()),
+           f"{name}: lse is not +inf exactly at the rows without a key")
+    err = float((got[~inf] - want[~inf]).abs().max()) if bool((~inf).any()) else 0.0
+    expect(err <= 1e-5 * max(1.0, float(want[~inf].abs().max())),
+           f"{name}: lse off by {err:.3g}")
+    return err
+
+
+def bwd_check(gen, dev, B, S, T, H, KV, D, dt, kw) -> dict:
+    """K6 forward with lse, then the three backward kernels, against the
+    plain versions on the same inputs -> max errors by output."""
+    q = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
+    k, v = (_randn(gen, B, T, KV, D, dtype=dt, dev=dev) for _ in range(2))
+    scale = kw.pop("scale", 1.0 / math.sqrt(D))
+    masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"), scale)
+    out, lse = flash_k.forward(q, k, v, *masks, with_lse=True)
+    want_out, want_lse = ref.flash_attention_ref(q, k, v, causal=masks[0], window=masks[1],
+                                                 softcap=masks[2], scale=scale, return_lse=True)
+    shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D} {str(dt)[6:]} {kw}"
+    errs = {"out": attn_err(f"flash_attention {shape}", out, want_out, ATTN_BF16_TOL),
+            "lse": lse_err(f"lse {shape}", lse, want_lse)}
+    dout = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
+    got = flash_k.backward(q, k, v, out, lse, dout, *masks)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=masks[0],
+                                       window=masks[1], softcap=masks[2], scale=scale)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = grad_err(f"{name} {shape}", g, w)
+    log(f"  flash_attention backward {shape}: max err " + ", ".join(
+        f"{k} {e:.3g}" for k, e in errs.items()))
+    return errs
+
+
+def bwd_rows(gen, dev) -> dict:
+    """The backward kernels at qwen3-1.7b's training shape (bf16, causal):
+    against the plain versions, each timed beside its plain version with its
+    bound; the three together beside SDPA's backward."""
+    B, S, H, KV, D = ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D
+    q = _randn(gen, B, S, H, D, dev=dev)
+    k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
+    dout = _randn(gen, B, S, H, D, dev=dev)
+    scale = 1.0 / math.sqrt(D)
+    masks = (True, None, None, scale)
+    out, lse = flash_k.forward(q, k, v, *masks, with_lse=True)
+    want_lse = ref.flash_attention_ref(q, k, v, scale=scale, return_lse=True)[1]
+    lse_e = lse_err("lse at the training shape", lse, want_lse)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, scale=scale)
+    got = flash_k.backward(q, k, v, out, lse, dout, *masks)
+    errs = {n: grad_err(f"{n} at the training shape", g, w)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dims = (B, S, S, H, KV, D, 1, -1, -1.0, scale, 1)
+
+    def run(fn, *a):   # one entry point as the wrapper launches it
+        build.launch("flash_attention_bwd", fn, dev, *a)
+
+    def k_delta():
+        run("flash_attention_bwd_delta_launch", out.data_ptr(), dout.data_ptr(),
+            delta.data_ptr(), B * S * H, D, S, H, 1)
+
+    k_delta()
+    want_delta = (dout.float() * out.float()).sum(-1).permute(0, 2, 1)
+    errs["delta"] = float((delta - want_delta).abs().max())
+    expect(errs["delta"] <= BWD_REL_TOL * float(want_delta.abs().max()),
+           f"delta off by {errs['delta']:.3g}")
+    fns = {"flash_attention_bwd_delta": k_delta,
+           "flash_attention_bwd_dkdv": lambda: run("flash_attention_bwd_dkdv_launch", *args,
+                                                   dk.data_ptr(), dv.data_ptr(), *dims),
+           "flash_attention_bwd_dq": lambda: run("flash_attention_bwd_dq_launch", *args,
+                                                 dq.data_ptr(), *dims)}
+    plain_delta = lambda: (dout.float() * out.float()).sum(-1).permute(0, 2, 1)  # noqa: E731
+    plain_bwd = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,  # noqa: E731
+                                                    scale=scale)
+    half = S * (S + 1) // 2                       # causal (query, key) pairs a head
+    pair_flop = 2.0 * B * H * D * half            # one product over the causal half
+    n_q, n_kv = 2 * q.numel(), 2 * k.numel()      # bf16 bytes of q (= dout, out) and k (= v)
+    lse_b = 4 * B * H * S
+    work = {"flash_attention_bwd_delta": (2 * n_q + lse_b, 2.0 * B * S * H * D),
+            # reads q, k, v, dout, lse, delta; writes dk, dv; S, dP, dV, dK
+            "flash_attention_bwd_dkdv": (2 * n_q + 4 * n_kv + 2 * lse_b, 4 * pair_flop),
+            # reads q, k, v, dout, lse, delta; writes dq; S, dP, dQ
+            "flash_attention_bwd_dq": (3 * n_q + 2 * n_kv + 2 * lse_b, 3 * pair_flop)}
+    rows = {}
+    for name, fn in fns.items():
+        ms = median_ms(fn, REPS)
+        plain_ms = median_ms(plain_delta if name.endswith("delta") else plain_bwd, PLAIN_REPS)
+        bms, by = bound(*work[name], BF16_FLOP_PER_S)
+        err = max(errs[o] for o in {"delta": ("delta",), "dkdv": ("dk", "dv"),
+                                    "dq": ("dq",)}[name.rsplit("_", 1)[1]])
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+                      "bound_by": by, "library_ms": None,
+                      "tflops": work[name][1] / ms / 1e9}
+        log(f"  {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {ms:.4f} ms a call, "
+            f"{work[name][1] / ms / 1e9:.2f} TFLOP/s, bound {bms:.5f} ms by {by}; plain "
+            f"{plain_ms:.4f} ms")
+    # the whole backward (one wrapper call) beside SDPA's backward
+    whole = lambda: flash_k.backward(q, k, v, out, lse, dout, *masks)  # noqa: E731
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
+                                             scale=scale)
+    dout_t = dout.transpose(1, 2).contiguous()
+    lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
+                                      retain_graph=True)
+    # SDPA's backward rounds P and dS to bf16: held only to the same function
+    lib_rel = max(float((g.transpose(1, 2).float() - w.float()).abs().max() / w.float().abs().max())
+                  for g, w in zip(lib(), want))
+    expect(lib_rel <= ATTN_BF16_TOL, f"sdpa backward vs plain: {lib_rel:.3g} of the max off")
+    whole_ms, lib_ms = median_ms(whole, REPS), median_ms(lib, REPS)
+    bms, by = bound(3 * n_q + 4 * n_kv + lse_b, 5 * pair_flop, BF16_FLOP_PER_S)
+    log(f"  flash_attention backward (3 kernels) B={B} S={S} bf16 causal: {whole_ms:.4f} ms a "
+        f"call, {5 * pair_flop / whole_ms / 1e9:.2f} TFLOP/s of the 5 products; sdpa backward "
+        f"{lib_ms:.4f} ms ({whole_ms / lib_ms:.2f}x, its grads {lib_rel:.3g} of the max off "
+        f"plain); bound {bms:.5f} ms by {by}; lse max err "
+        f"{lse_e:.3g}; grads max err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    rows["flash_attention_bwd_dkdv"].update(
+        {"whole_backward_ms": whole_ms, "whole_bound_ms": bms, "whole_bound_by": by,
+         "library_backward_ms": lib_ms})
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        rows[name]["library_ms"] = lib_ms   # SDPA's whole backward (dq, dk and dv)
+    return rows
+
+
+def _train_pair(cfg, dev, seed: int):
+    """The same seeded training model on the card and on the CPU (drawn on
+    the CPU, copied to the card)."""
+    cpu = build_model(cfg, "cpu", seed=seed, trainable=True)
+    card = build_model(cfg, dev, seed=seed, trainable=True)
+    with torch.no_grad():
+        for p, c in zip(card.parameters(), cpu.parameters()):
+            p.copy_(c)
+    return card, cpu
+
+
+def _train_batches(cfg, n: int, B: int, S: int, seed: int):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        lab = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+        lab[0, :5] = -1
+        out.append({"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)),
+                    "labels": torch.from_numpy(lab)})
+    return out
+
+
+def _on(batch: dict, dev) -> dict:
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
+def _int8_flips(card_opt: dict, cpu_opt: dict, flipped: dict) -> int:
+    """Int8 moments of the card and the CPU: scales within
+    TRAIN_F32_REL_TOL and q equal but for single levels (a rounding tie
+    that fp32 noise decides); marks those elements in ``flipped``; -> how
+    many."""
+    n = 0
+    for key in ("m", "v"):
+        for name, a in card_opt[key].items():
+            b = cpu_opt[key][name]
+            dq = (a["q"].cpu().int() - b["q"].int()).abs()
+            expect(int(dq.max()) <= 1, f"int8 {key} {name}: q differs by {int(dq.max())} levels")
+            rel = ((a["scale"].cpu() - b["scale"]).abs() / b["scale"].abs()).max()
+            expect(float(rel) <= TRAIN_F32_REL_TOL,
+                   f"int8 {key} {name}: scales differ by {float(rel):.3g}")
+            flipped[name] = flipped[name] | (dq > 0)
+            n += int((dq > 0).sum())
+    return n
+
+
+def _state_on(state: dict, dev) -> dict:
+    """A copy of a training state on ``dev``."""
+    return {k: _state_on(v, dev) if isinstance(v, dict) else v.to(dev, copy=True)
+            for k, v in state.items()}
+
+
+def train_parity(cfg, dev, ocfg, microbatches: int, seed: int) -> None:
+    """TRAIN_STEPS steps of the reduced model on the card against the same
+    seeded run on the CPU: loss, grad norm and lr each step within
+    TRAIN_F32_REL_TOL; parameters after the last within TRAIN_F32_REL_TOL of
+    the larger of the largest |parameter| and their own change.  With int8
+    moments each step starts the card from the CPU's state (a moment that
+    lands on a rounding tie takes either side, and an element whose stored
+    second moment is 0 then steps by m / |g|, g at float noise: the two
+    runs part there), and those elements are counted and left out, as the
+    CPU tests against the reference do."""
+    card, cpu = _train_pair(cfg, dev, seed)
+    sc, sh = init_state(card, ocfg), init_state(cpu, ocfg)
+    fc = make_train_step(card, ocfg, microbatches=microbatches)
+    fh = make_train_step(cpu, ocfg, microbatches=microbatches)
+    int8 = ocfg.moment_dtype == "int8"
+    flips, free, worst = 0, 0, 0.0
+    for i, batch in enumerate(_train_batches(cfg, TRAIN_STEPS, 4, TRAIN_S, seed)):
+        if int8 or i == 0:
+            before = {n: p.clone() for n, p in sh["params"].items()}
+            skip = {n: torch.zeros(p.shape, dtype=torch.bool) for n, p in before.items()}
+        if int8:
+            sc = _state_on(sh, dev)
+            for n, m in sh["opt"]["m"].items():
+                skip[n] = (sh["opt"]["v"][n]["q"] == 0) & (m["q"] != 0)
+                free += int(skip[n].sum())
+        sc, mc = fc(sc, _on(batch, dev))
+        sh, mh = fh(sh, batch)
+        for key in ("loss", "grad_norm", "lr"):
+            a, b = float(mc[key]), float(mh[key])
+            worst = max(worst, abs(a - b) / abs(b))
+            expect(abs(a - b) <= TRAIN_F32_REL_TOL * abs(b),
+                   f"train step {i + 1} ({ocfg.moment_dtype}, {microbatches} microbatches): "
+                   f"{key} {a} on the card, {b} on the CPU")
+        if int8:
+            flips += _int8_flips(sc["opt"], sh["opt"], skip)
+    top = max(float(p.abs().max()) for p in sh["params"].values())
+    off = 0
+    for name, p in sh["params"].items():
+        lim = TRAIN_F32_REL_TOL * torch.clamp((p - before[name]).abs(), min=top)
+        off += int(((sc["params"][name].cpu() - p).abs() > lim)[~skip[name]].sum())
+    expect(off == 0, f"{off} parameters differ after {TRAIN_STEPS} steps")
+    n = sum(p.numel() for p in before.values())
+    log(f"  train steps on the card vs the CPU ({ocfg.moment_dtype} moments, {microbatches} "
+        f"microbatches): loss, grad norm, lr within {worst:.3g}; parameters within "
+        f"{TRAIN_F32_REL_TOL} of max(max |p| {top:.4f}, their change)"
+        + (f" but {flips} moment elements at rounding ties and {free} of {TRAIN_STEPS} x {n} "
+           "without a second moment (each step from the CPU's state)" if int8 else ""))
+
+
+def phase_train(dev: torch.device, seed: int = 12):
+    """(a) K6's backward against its plain version; (b) the reduced qwen3 at
+    f32 on the card against the CPU; (c) checkpoint and restart; (d)
+    launch/train.py's main at full width; -> (kernel rows, launches of (d))."""
+    for r in build.ptxas_report("flash_attention_bwd"):
+        log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
+            f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # --- (a) the backward kernels: both dtypes, D in {32, 128, 256}, GQA,
+    # window, softcap, S != T, rows without a key
+    for B, S, T, H, KV, D, kw in (
+            (2, 200, 200, 8, 4, 128, {}),
+            (1, 130, 130, 4, 2, 256, {"softcap": 30.0}),
+            (2, 96, 96, 8, 4, 32, {"window": 17}),
+            (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
+            (1, 48, 16, 4, 4, 32, {"window": 8}),       # rows that see no key
+            (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40, "softcap": 2.0})):
+        for dt in (torch.float32, torch.bfloat16):
+            bwd_check(gen, dev, B, S, T, H, KV, D, dt, dict(kw))
+    rows = bwd_rows(gen, dev)
+
+    # --- (b) the reduced model: gradients and steps, card against CPU
+    cfg = get_arch(MODEL_ARCH).reduced()
+    card, cpu = _train_pair(cfg, dev, seed)
+    batch = _train_batches(cfg, 1, 4, TRAIN_S, seed)[0]
+    ops.reset_launch_counts()
+    card.loss(_on(batch, dev))[0].backward()
+    counts = ops.launch_counts()
+    cpu.loss(batch)[0].backward()
+    n_layers = cfg.n_layers
+    expect(counts["flash_attention"] == n_layers * (2 if cfg.remat != "none" else 1)
+           and all(counts[f"flash_attention_bwd_{e}"] == n_layers for e in ("delta", "dkdv", "dq")),
+           f"reduced model's backward launches {counts}")
+    zero = [n for n, p in card.named_parameters() if p.grad is None or not bool(p.grad.any())]
+    expect(not zero, f"parameters without a gradient on the card: {zero}")
+    worst = 0.0
+    for (name, p), c in zip(card.named_parameters(), cpu.parameters()):
+        err = float((p.grad.cpu() - c.grad).abs().max()) / float(c.grad.abs().max())
+        worst = max(worst, err)
+        expect(err <= TRAIN_GRAD_REL_TOL, f"gradient of {name}: {err:.3g} of its max off")
+    log(f"  {cfg.name} reduced ({n_layers} layers, d={cfg.d_model}, f32): every one of "
+        f"{sum(1 for _ in card.parameters())} parameters has a non-zero gradient "
+        f"on the card, within {worst:.3g} of the CPU's (relative to each max); launches {counts}")
+    ocfg = OptimizerConfig(lr=1e-3, total_steps=10)
+    train_parity(cfg, dev, ocfg, 1, seed)
+    train_parity(cfg, dev, dataclasses.replace(ocfg, moment_dtype="int8"), 2, seed)
+
+    # --- (c) checkpoint and restart: 2 + 2 steps equal 4, bit for bit
+    batches = [_on(b, dev) for b in _train_batches(cfg, 4, 4, TRAIN_S, seed + 1)]
+
+    def fresh():
+        model = build_model(cfg, dev, seed=seed, trainable=True)
+        return make_train_step(model, ocfg), init_state(model, ocfg)
+
+    step, state = fresh()
+    straight = [float(step(state, b)[1]["loss"]) for b in batches]
+    step, state = fresh()
+    resumed = [float(step(state, b)[1]["loss"]) for b in batches[:2]]
+    with tempfile.TemporaryDirectory() as d:
+        save(state, d, 2)
+        step, state2 = fresh()
+        restore(d, state2)
+    resumed += [float(step(state2, b)[1]["loss"]) for b in batches[2:]]
+    expect(resumed == straight, f"restart: losses {resumed} vs uninterrupted {straight}")
+    log(f"  checkpoint at step 2 and restart: losses {resumed} equal the uninterrupted run's "
+        "bit for bit")
+
+    # --- (d) launch/train.py at full width, then steps on one repeated batch
+    full = get_arch(MODEL_ARCH)
+    argv = ["--arch", MODEL_ARCH, "--seq-len", str(ATTN_S), "--batch", str(ATTN_B),
+            "--steps", str(FULL_STEPS), "--log-every", "1"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    history = train_main(argv, device=dev)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * full.n_layers * FULL_STEPS,     # forward + remat recompute
+            **{f"flash_attention_bwd_{e}": full.n_layers * FULL_STEPS
+               for e in ("delta", "dkdv", "dq")}}
+    expect(all(counts[k] == n for k, n in want.items()),
+           f"train.py launches {counts}, want {want}")
+    losses = [h["loss"] for h in history]
+    expect(all(np.isfinite(losses)), f"full-width losses {losses}")
+    log(f"  train.py {' '.join(argv)} (remat {full.remat}): ms a step "
+        + ", ".join(f"{h['ms']:.1f}" for h in history) + f"; losses {losses}; peak memory "
+        f"{peak} bytes; K6 launches a step: {counts['flash_attention'] // FULL_STEPS} forward "
+        f"({full.n_layers} + {full.n_layers} recomputed), "
+        + ", ".join(f"{counts[f'flash_attention_bwd_{e}'] // FULL_STEPS} {e}"
+                    for e in ("delta", "dkdv", "dq")))
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(full, dev, seed=seed, trainable=True)
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    step, state = make_train_step(model, ocfg), init_state(model, ocfg)
+    rep = synthetic_batch(model, full, ShapeSpec("cli", ATTN_S, ATTN_B, "train"), 0, dev)
+    rep_losses, rep_ms = [], []
+    for _ in range(REPEAT_STEPS):
+        t0 = time.perf_counter()
+        rep_losses.append(float(step(state, rep)[1]["loss"]))
+        rep_ms.append((time.perf_counter() - t0) * 1e3)
+    expect(all(np.isfinite(rep_losses)) and rep_losses[-1] < rep_losses[0],
+           f"full-width losses on a repeated batch do not decrease: {rep_losses}")
+    log(f"  full width, one batch repeated: losses {rep_losses}, ms a step "
+        + ", ".join(f"{t:.1f}" for t in rep_ms))
+    profile_call("train step qwen3-1.7b B=4 S=2048", lambda: step(state, rep), host=False)
+    del model, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
 def family_names() -> tuple:
     """``--families [NAME,NAME...]``: the architectures named after the
     flag, or all of FAMILIES."""
@@ -2622,14 +3035,16 @@ def main() -> int:
     with timed("env"):
         phase_env()
     log(f"port: {SRC}")
-    only = [m for m in ("--model", "--top1", "--nearest", "--families") if m in sys.argv[1:]]
+    only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train")
+            if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
         for mode in only:
             with timed(mode[2:]):
                 {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
-                 "--families": lambda d: phase_families(d, family_names())}[mode](dev)
+                 "--families": lambda d: phase_families(d, family_names()),
+                 "--train": phase_train}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -2676,6 +3091,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with timed("families"):
         paths["families"] = phase_families(dev)
+    with timed("train"):
+        rows, paths["train"] = phase_train(dev)
+        kern.update(rows)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
@@ -2695,6 +3113,7 @@ def main() -> int:
               "cosim_launches": paths["cosim"][name],
               "federation_launches": paths["federation"][name],
               "families_launches": paths["families"].get(name, 0),
+              "train_launches": paths["train"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

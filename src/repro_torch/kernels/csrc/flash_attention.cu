@@ -7,7 +7,11 @@
 // the running max starts at -1e30 and the denominator is clamped at 1e-30, so
 // a row with every logit masked gives 0 (as the TPU kernel does).  Like the
 // TPU kernel, both products take the inputs' values at fp32 precision and
-// m, l and acc are fp32.
+// m, l and acc are fp32.  With a non-null lse pointer both routes also write
+// each row's log-sum-exp m + log(l) of its scaled, capped logits, (B, H, S)
+// fp32, +inf for a row that sees no key (what the backward,
+// csrc/flash_attention_bwd.cu, recomputes the probabilities from); with
+// null they write nothing else.
 //
 // What bounds it: at qwen3-1.7b's prefill (B=4, S=2048, H=16, KV=8, D=128,
 // causal) the work is 4*B*H*D*S(S+1)/2 = 69 GFLOP over 100.7 MB of q, k, v
@@ -68,6 +72,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "elem_io.cuh"
 
@@ -88,7 +93,7 @@ constexpr size_t smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ o, int S, int T_len, int H, int KV,
+             T* __restrict__ o, float* __restrict__ lse, int S, int T_len, int H, int KV,
              long long qsb, long long qss, long long qsh,
              long long ksb, long long kst, long long ksh,
              long long vsb, long long vst, long long vsh,
@@ -250,12 +255,15 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     T* orow = o + ((static_cast<long long>(b) * S + pos) * H + kvh * G + g) * D;
 #pragma unroll
     for (int e = 0; e < D / 16; ++e) store(orow + tx + 16 * e, acc[i][e] * inv);
+    if (lse != nullptr && tx == 0)   // m, l are the same in the half-warp
+      lse[(static_cast<long long>(b) * H + kvh * G + g) * S + pos] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : CUDART_INF_F;
   }
 }
 
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-             int H, int KV, const long long* st, int causal, int window, float softcap,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+             int T_len, int H, int KV, const long long* st, int causal, int window, float softcap,
              float scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D>,
@@ -266,23 +274,23 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
   dim3 grid((S * G + kRows - 1) / kRows, KV, B);
   flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_len, H, KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
+      static_cast<T*>(o), lse, S, T_len, H, KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8], causal, window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-             int H, int KV, int D, const long long* st, int causal, int window,
+int launch_t(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+             int T_len, int H, int KV, int D, const long long* st, int causal, int window,
              float softcap, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 32: return launch_d<T, 32>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 96: return launch_d<T, 96>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 112: return launch_d<T, 112>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 256: return launch_d<T, 256>(q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 16: return launch_d<T, 16>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 32: return launch_d<T, 32>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 64: return launch_d<T, 64>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 96: return launch_d<T, 96>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 112: return launch_d<T, 112>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 128: return launch_d<T, 128>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 256: return launch_d<T, 256>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -606,7 +614,7 @@ __global__ void __launch_bounds__(Cfg<D, BN>::kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                int S, int T_len, int H, int KV, int P, int causal, int window,
+                float* __restrict__ lse, int S, int T_len, int H, int KV, int P, int causal, int window,
                 float softcap, float scale) {
   using C = Cfg<D, BN>;
   constexpr int kBN = C::kBN, kNS = C::kStages, kRB = C::kRowBytes, kDp = C::kDp;
@@ -740,6 +748,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int r = w4 * 16 + (lane >> 2) + 8 * i;
     if (r >= G * P || pos_r[i] >= S) continue;
     const float inv = 1.f / fmaxf(l_r[i], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)   // m, l are the same in the row's 4 threads
+      lse[(static_cast<long long>(b) * H + kvh * G + r % G) * S + pos_r[i]] =
+          l_r[i] > 0.f ? (m_r[i] + log2f(l_r[i])) * 0.6931471805599453f  // base 2 -> e
+                       : CUDART_INF_F;
     __nv_bfloat16* orow =
         o + ((static_cast<long long>(b) * S + pos_r[i]) * H + kvh * G + r % G) * D + col;
 #pragma unroll
@@ -805,8 +817,8 @@ struct Plan {
 };
 
 template <int D, int BN>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len, int H,
-           int KV, const long long* st, int causal, int window, float softcap, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int T_len, int H, int KV, const long long* st, int causal, int window, float softcap, float scale,
            const Plan& p, cudaStream_t stream) {
   using C = Cfg<D, BN>;
   const int G = H / KV;
@@ -831,7 +843,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(p.n_pos_tiles, KV, B);
   flash_tc_kernel<D, BN><<<grid, p.threads, C::kSmem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), S, T_len, H, KV, p.box_pos, causal,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV, p.box_pos, causal,
       window, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -841,13 +853,15 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 }  // namespace
 
 // window <= 0: no window; softcap <= 0: no softcap.  Strides in elements:
-// q (b, s, h), k (b, t, kv), v (b, t, kv); out is (B, S, H, D) contiguous.
+// q (b, s, h), k (b, t, kv), v (b, t, kv); out is (B, S, H, D) contiguous;
+// lse (B, H, S) fp32 or null (not written; with T_len = 0 the bf16 route
+// writes no lse either).
 // is_bf16 picks the route: bf16 -> tensor cores, launched as the plan from
 // launch_plan says (warpgroups ... n_pos_tiles, see tc::Plan; the TMA boxes
 // are (chunk, box_heads, box_pos) for q and (chunk, 1, key_tile) for k, v),
 // f32 -> CUDA cores (the plan values are not used).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int B, int S, int T_len, int H, int KV, int D,
+                                      void* lse_out, int B, int S, int T_len, int H, int KV, int D,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kst, long long ksh,
                                       long long vsb, long long vst, long long vsh,
@@ -858,15 +872,16 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   if (B == 0 || S == 0) return 0;
   const long long st[9] = {qsb, qss, qsh, ksb, kst, ksh, vsb, vst, vsh};
+  float* lse = static_cast<float*>(lse_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return launch_t<float>(q, k, v, o, B, S, T_len, H, KV, D, st, causal, window, softcap,
+    return launch_t<float>(q, k, v, o, lse, B, S, T_len, H, KV, D, st, causal, window, softcap,
                            scale, s);
   if (T_len == 0)   // no key: every row is 0
     return static_cast<int>(cudaMemsetAsync(o, 0, sizeof(__nv_bfloat16) * B * S * H * D, s));
   const tc::Plan plan{warpgroups, threads,   stages,  key_tile,   chunk,
                       swizzle_bytes, box_heads, box_pos, n_pos_tiles};
-#define TC_ARGS q, k, v, o, B, S, T_len, H, KV, st, causal, window, softcap, scale, plan, s
+#define TC_ARGS q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, plan, s
   switch (D * 1000 + key_tile) {
     case 16064: return tc::launch<16, 64>(TC_ARGS);
     case 32064: return tc::launch<32, 64>(TC_ARGS);

@@ -12,6 +12,15 @@ bf16 runs on the tensor cores (``wgmma`` fed by TMA), f32 on the CUDA cores
 boxes, swizzle and strides are computed here, where the CPU tests reach
 them, and handed to the kernel, which checks them against what it was
 compiled for.
+
+Gradients: when any of q, k, v requires grad, the wrapper goes through
+``FlashAttention`` (a ``torch.autograd.Function``).  Its forward launches
+the same kernel with a per-row log-sum-exp output; its backward launches
+the three entry points of ``csrc/flash_attention_bwd.cu`` (delta, dK/dV,
+dQ) for CUDA tensors and runs ``ref.flash_attention_bwd_ref`` for CPU
+tensors.  The reference has no Pallas backward: it differentiates the same
+attention math with ``jax.grad``.  Without grad the call is the plain
+kernel launch above.
 """
 from __future__ import annotations
 
@@ -23,7 +32,8 @@ import torch
 from . import build, ref
 
 #: launches of the kernel in this process (``ops.reset_launch_counts``)
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_delta": 0,
+            "flash_attention_bwd_dkdv": 0, "flash_attention_bwd_dq": 0}
 
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)   # the kernel's compiled head widths
 DTYPES = (torch.float32, torch.bfloat16)
@@ -142,7 +152,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA prefill attention: q (B, S, H, D), k/v (B, T, KV, D) -> (B, S, H,
     D) in q's dtype, fp32 inside.  ``causal`` masks t > s, ``window`` masks
     t <= s - window, ``softcap`` caps logits at c*tanh(s/c), ``scale``
-    defaults to 1/sqrt(D).  q, k, v share one dtype."""
+    defaults to 1/sqrt(D).  q, k, v share one dtype.  Differentiable in q,
+    k and v (``FlashAttention``)."""
     check_attention(q, k, v, 4)
     if q.dtype != k.dtype:
         raise TypeError("q, k and v must share one dtype")
@@ -150,11 +161,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("window must be a positive number of positions")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return forward(q, k, v, causal, window, softcap, scale)
+
+
+def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: Optional[int], softcap: Optional[float], scale: float,
+            with_lse: bool = False):
+    """The checked call: out, and with ``with_lse`` (out, lse (B, H, S) fp32,
+    +inf for a row that sees no key).  CPU tensors run the plain version."""
     B, S, H, D = q.shape
-    scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale)
+                                       softcap=softcap, scale=scale, return_lse=with_lse)
     T, KV = k.shape[1], k.shape[2]
     plan = launch_plan(q.dtype, B, S, T, H, KV, D)
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -162,10 +183,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tc = plan["route"] == "wgmma"
     st = [s for x in (q, k, v) for s in (tma_strides(x) if tc else x.stride()[:3])]
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = None
+    if with_lse:   # T = 0: the bf16 route zeroes out without a launch, writes no lse
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        if T == 0:
+            lse.fill_(torch.inf)
     build.launch(
         "flash_attention", "flash_attention_launch", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         B, S, T, H, KV, D, *st, int(causal), -1 if window is None else int(window),
         -1.0 if softcap is None else float(softcap), scale, int(tc), *tc_launch_args(plan))
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+             lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: Optional[int],
+             softcap: Optional[float], scale: float):
+    """(dq, dk, dv) in q's dtype: ``ref.flash_attention_bwd_ref`` for CPU
+    tensors; for CUDA tensors the three kernels of
+    ``csrc/flash_attention_bwd.cu`` on contiguous copies of the inputs:
+    delta = rowsum(dO * O) (B, H, S), then dK and dV (a block per key tile,
+    kv head and batch, over every query row of the kv head's G heads: no
+    atomics), then dQ (a block per query tile), each counted in
+    ``LAUNCHES``.  Deterministic: the same inputs give the same bits."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
+                                           window=window, softcap=softcap, scale=scale)
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout.to(q.dtype)))
+    launch_plan(q.dtype, B, S, T, H, KV, D)        # the dtype and width checks
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B * S == 0 or T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
+    masks = (int(causal), -1 if window is None else int(window),
+             -1.0 if softcap is None else float(softcap), scale)
+    build.launch("flash_attention_bwd", "flash_attention_bwd_delta_launch", q.device,
+                 out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B * S * H, D, S, H, bf16)
+    LAUNCHES["flash_attention_bwd_delta"] += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    build.launch("flash_attention_bwd", "flash_attention_bwd_dkdv_launch", q.device,
+                 *ptrs, dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, *masks, bf16)
+    LAUNCHES["flash_attention_bwd_dkdv"] += 1
+    build.launch("flash_attention_bwd", "flash_attention_bwd_dq_launch", q.device,
+                 *ptrs, dq.data_ptr(), B, S, T, H, KV, D, *masks, bf16)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K6 with its gradient: the forward kernel with lse, saved with q, k, v
+    and out; the backward kernels on dO.  Arguments as ``forward``'s."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        out, lse = forward(q, k, v, causal, window, softcap, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.masks = (causal, window, softcap, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = backward(q, k, v, out, lse, dout, *ctx.masks)
+        return dq, dk, dv, None, None, None, None

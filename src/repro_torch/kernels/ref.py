@@ -162,33 +162,97 @@ def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
 
 
+def _attention_mask(S: int, T: int, causal: bool, window: Optional[int],
+                    device) -> torch.Tensor:
+    """(S, T): position s sees t where ``t <= s`` (causal) and ``t > s -
+    window`` (window)."""
+    sidx = torch.arange(S, device=device)[:, None]
+    tidx = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= tidx <= sidx
+    if window is not None:
+        mask &= tidx > sidx - window
+    return mask
+
+
+def _scaled_logits(qg: torch.Tensor, k: torch.Tensor, scale: float,
+                   softcap: Optional[float]):
+    """(B, KV, G, S, T) fp32 logits ``softcap(scale * q.k)`` and, with a
+    softcap, tanh of the capped argument (the backward needs it)."""
+    with fp32_matmul():
+        logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if softcap is None:
+        return logits, None
+    th = torch.tanh(logits / softcap)
+    return softcap * th, th
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None, return_lse: bool = False):
     """GQA prefill attention.  q (B, S, H, D), k/v (B, T, KV, D) -> (B, S,
     H, D) in q's dtype; logits and softmax in fp32.  Position s sees t where
-    ``t <= s`` (causal) and ``t > s - window`` (window)."""
+    ``t <= s`` (causal) and ``t > s - window`` (window).
+
+    ``return_lse``: also return each row's log-sum-exp of its visible
+    logits, (B, H, S) fp32, what the backward recomputes the probabilities
+    from (``p = exp(logit - lse)``).  A row that sees no key has lse = +inf,
+    so every p of it is 0 (as FlashAttention-2 defines it)."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    logits, _ = _scaled_logits(q.reshape(B, S, KV, G, D).float(), k, scale, softcap)
+    mask = _attention_mask(S, T, causal, window, q.device)
+    probs = _softmax_masked(logits, mask)
+    with fp32_matmul():
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    out = out.reshape(B, S, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~mask, -torch.inf), dim=-1)
+    return out, lse.masked_fill(lse == -torch.inf, torch.inf).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True, window: Optional[int] = None,
+                            softcap: Optional[float] = None,
+                            scale: Optional[float] = None):
+    """The gradient of ``flash_attention_ref`` -> (dq, dk, dv) in q's, k's
+    and v's dtypes, written out as the backward kernel computes it (not
+    through autograd), all in fp32:
+
+        P  = exp(softcap(scale q.k) - lse), 0 where masked
+        dV = P^T dO          dP = dO V^T          delta = rowsum(dO * O)
+        dS = P * (dP - delta) * (1 - tanh^2(scale q.k / softcap))
+        dQ = scale dS K      dK = scale dS^T Q
+
+    The G query heads of a kv head sum into its dK and dV.  ``out`` and
+    ``lse`` are the forward's (lse from ``return_lse``)."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, S, KV, G, D).float()
+    logits, th = _scaled_logits(qg, k, scale, softcap)
+    mask = _attention_mask(S, T, causal, window, q.device)
+    p = torch.where(mask, torch.exp(logits - lse.reshape(B, KV, G, S, 1)),
+                    torch.zeros_like(logits))
+    do = dout.reshape(B, S, KV, G, D).float()
+    delta = (do * out.reshape(B, S, KV, G, D).float()).sum(-1).permute(0, 2, 3, 1)
     with fp32_matmul():
-        logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
-    if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
-    sidx = torch.arange(S, device=q.device)[:, None]
-    tidx = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= tidx <= sidx
-    if window is not None:
-        mask &= tidx > sidx - window
-    probs = _softmax_masked(logits, mask)
+        dv = torch.einsum("bkgst,bskgd->btkd", p, do)
+        dp = torch.einsum("bskgd,btkd->bkgst", do, v.float())
+    ds = p * (dp - delta[..., None])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
     with fp32_matmul():
-        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(B, S, H, D).to(q.dtype)
+        dq = torch.einsum("bkgst,btkd->bskgd", ds, k.float()) * scale
+        dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    return dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

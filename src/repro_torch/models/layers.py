@@ -51,6 +51,18 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def trainable_masters(module: nn.Module) -> nn.Module:
+    """Make every parameter of ``module`` (built with fp32 weights) a
+    trainable master that takes a gradient.  The layers cast each at use
+    to the activation dtype (``w.to(x.dtype)``), as the reference casts its
+    fp32 masters, so the forward's numbers do not change."""
+    for name, p in module.named_parameters():
+        if p.dtype != torch.float32:
+            raise ValueError(f"{name}: a trainable master must be float32, not {p.dtype}")
+        p.requires_grad_(True)
+    return module
+
+
 def param_dict(tensors: dict) -> nn.ParameterDict:
     """A reference parameter subtree (a flat dict of tensors) as frozen
     parameters under the same names."""

@@ -1,9 +1,9 @@
 """Decoder-only transformer LM for the dense, MoE and vision families.
 
-Port of ``repro/models/transformer.py::DecoderLM`` for serving: init,
-``hidden_states``, ``logits``, ``prefill`` and ``decode_step`` with
-ring-buffer KV caches (sliding-window layers allocate only ``window``
-slots).  ``loss`` and ``input_specs`` come with the training slice.  MoE
+Port of ``repro/models/transformer.py::DecoderLM``: init,
+``hidden_states``, ``logits``, the chunked-vocab ``loss``, ``input_specs``,
+and for serving ``prefill`` and ``decode_step`` with ring-buffer KV caches
+(sliding-window layers allocate only ``window`` slots).  MoE
 blocks (``cfg.n_experts > 0``) hold a ``moe`` (``moe.MoEParams``) in place
 of ``mlp``; the vision families prepend ``batch["patch_embeds"]`` to the
 text (early fusion), so their decode writes position ``S + patches``.
@@ -15,10 +15,18 @@ shape (n_groups, B, W, KV, D), so a JAX cache converts directly
 (``convert.cache_from_jax``).
 
 The reference keeps fp32 master weights and casts them at each use
-(``x @ w.astype(x.dtype)``); the port stores each matrix once in
-``cfg.dtype``, which gives the same numbers for serving and half the
-memory.  Norm scales and the MoE router stay fp32, as the reference reads
-them.  Parameters do not require gradients.
+(``x @ w.astype(x.dtype)``); for serving the port stores each matrix once in
+``cfg.dtype``, which gives the same numbers and half the memory, and its
+parameters take no gradient.  ``trainable=True`` builds the training
+construction instead: every parameter an fp32 master that requires grad,
+cast at use as the reference does (the forward's numbers are the
+reference's).  Norm scales and the MoE router stay fp32 in both.
+
+``cfg.remat`` ("block" or "full") recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant): both policies recompute the
+whole block here, where the reference's "block" keeps its matmul outputs.
+The policy changes time and memory, not numbers (the kernels are
+deterministic, so a recomputed block gives the same bits).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
@@ -39,9 +48,12 @@ from .layers import (
     param_dict,
     rms_norm,
     softcap,
+    trainable_masters,
     zeros_init,
 )
 from .moe import MoEParams, moe_apply
+
+AUX_LOSS_COEF = 0.01
 
 
 # -------------------------------------------------------------------- variants
@@ -118,9 +130,12 @@ def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tenso
 class DecoderLM(nn.Module):
     """Dense / MoE / early-fusion-VLM decoder language model, weights drawn
     from ``seed`` on ``device`` at construction.  ``device=None`` is the CUDA
-    card; without one it raises unless ``device="cpu"``."""
+    card; without one it raises unless ``device="cpu"``.  ``trainable``:
+    fp32 master parameters that require grad (else ``cfg.dtype`` matrices
+    without gradients, for serving)."""
 
-    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -130,14 +145,17 @@ class DecoderLM(nn.Module):
             raise ValueError(f"{cfg.n_layers} layers do not fill groups of {self.group}")
         self.n_groups = cfg.n_layers // self.group
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed))
+        self.init(torch.Generator(device=self.device).manual_seed(seed),
+                  torch.float32 if trainable else self.dtype)
+        if trainable:
+            trainable_masters(self)
 
     # ------------------------------------------------------------------ init
-    def init(self, gen: torch.Generator) -> None:
-        """Draw every weight from ``gen``: matrices normal / sqrt(in),
-        embeddings normal * 0.02, norm scales zero (the reference's
-        distributions)."""
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+    def init(self, gen: torch.Generator, dt: torch.dtype) -> None:
+        """Draw every weight from ``gen``: matrices normal / sqrt(in) and
+        embeddings normal * 0.02, stored in ``dt``; norm scales zero (the
+        reference's distributions)."""
+        cfg, dev = self.cfg, self.device
         self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev, dtype=dt))
         self.final_norm = frozen(zeros_init(cfg.d_model, device=dev))
         if not cfg.tie_embeddings:
@@ -153,18 +171,25 @@ class DecoderLM(nn.Module):
     # ------------------------------------------------------------- embedding
     def _embed_inputs(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        x = embed_apply(self.embed, batch["tokens"], cfg.scale_embeddings, cfg.d_model)
+        # the table cast first, as the reference casts it (a no-op for serving;
+        # in training the gather's backward then sums in cfg.dtype, as there)
+        x = embed_apply(self.embed.to(self.dtype), batch["tokens"], cfg.scale_embeddings,
+                        cfg.d_model)
         if cfg.frontend is not None and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x), x], dim=1)   # early fusion
         return x, torch.arange(x.shape[1], device=x.device)[None, :]
 
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward -> (final-normed hidden, summed aux loss)."""
+        """Full-sequence forward -> (final-normed hidden, summed aux loss).
+        Under grad, ``cfg.remat`` recomputes each block in the backward."""
         x, positions = self._embed_inputs(batch)
         aux = torch.zeros((), device=x.device)
+        remat = self.cfg.remat != "none" and torch.is_grad_enabled()
         for layer, blk in enumerate(self.layers):
-            x, _, a = block_apply(blk, x, self.cfg, self.variant_of(layer), positions)
+            args = (blk, x, self.cfg, self.variant_of(layer), positions)
+            x, _, a = (checkpoint(block_apply, *args, use_reentrant=False) if remat
+                       else block_apply(*args))
             aux = aux + a
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return x, aux
@@ -177,6 +202,58 @@ class DecoderLM(nn.Module):
         out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
         out = out.reshape(*hidden.shape[:-1], out.shape[-1])
         return softcap(out.float(), self.cfg.final_logit_softcap)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked-vocab causal LM loss -> (nll + AUX_LOSS_COEF * aux, {"nll",
+        "aux", "tokens"}).  ``batch["labels"]`` are the next-token ids, -1 a
+        pad; a vision model's patch positions take label -1.  The logits
+        are taken ``cfg.loss_chunk`` positions at a time (then the
+        remainder), so (B, S, vocab) is never held at once in the forward."""
+        cfg = self.cfg
+        hidden, aux = self.hidden_states(batch)
+        labels = batch["labels"].to(hidden.device, torch.long)
+        if cfg.frontend is not None and "patch_embeds" in batch:
+            pad = labels.new_full((labels.shape[0], batch["patch_embeds"].shape[1]), -1)
+            labels = torch.cat([pad, labels], dim=1)
+        S = hidden.shape[1]
+        chunk = min(cfg.loss_chunk, S)
+        w = (self.embed if cfg.tie_embeddings else self.head).to(hidden.dtype)
+        tot = cnt = torch.zeros((), device=hidden.device)
+        for lo in range(0, S, chunk):   # the whole chunks, then the remainder
+            t, n = self._ce(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], w)
+            tot, cnt = tot + t, cnt + n
+        nll = tot / cnt.clamp_min(1.0)
+        return nll + AUX_LOSS_COEF * aux, {"nll": nll, "aux": aux, "tokens": cnt}
+
+    def _ce(self, h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
+        """(summed cross entropy of the labelled positions, their count)."""
+        logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
+        logits = softcap(logits.float(), self.cfg.final_logit_softcap)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        valid = (labels >= 0).float()
+        return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
+
+    def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward, ``loss`` (so that ``torch.func.functional_call``
+        runs the model on other parameter tensors)."""
+        return self.loss(batch)
+
+    def input_specs(self, shape) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every model input of a ``ShapeSpec``: tokens and
+        (train) labels of the text positions, a vision model's patch
+        embeddings, or one decode token."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        n_front = cfg.n_frontend_tokens if cfg.frontend else 0
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((B, 1), torch.int32)}
+        specs = {"tokens": ((B, S - n_front), torch.int32)}
+        if n_front:
+            specs["patch_embeds"] = ((B, n_front, cfg.d_model), self.dtype)
+        if shape.kind == "train":
+            specs["labels"] = ((B, S - n_front), torch.int32)
+        return specs
 
     # --------------------------------------------------------------- serving
     def cache_window(self, variant, max_len: int) -> int:
@@ -220,7 +297,8 @@ class DecoderLM(nn.Module):
         Updates ``cache`` in place and returns (logits (B, 1, V) f32,
         cache)."""
         pos = int(pos)
-        x = embed_apply(self.embed, tokens, self.cfg.scale_embeddings, self.cfg.d_model)
+        x = embed_apply(self.embed.to(self.dtype), tokens, self.cfg.scale_embeddings,
+                        self.cfg.d_model)
         for layer, blk in enumerate(self.layers):
             i, g = layer % self.group, layer // self.group
             x, _, _ = block_decode(blk, x, self.cfg, self.variant_of(layer),

@@ -798,3 +798,91 @@ def test_engine_backend_on_the_card(dev):
         assert (a.t_complete, a.reuse, a.result, a.aggregated) == (
             b.t_complete, b.reuse, b.result, b.aggregated)
         assert abs(a.similarity - b.similarity) <= 1e-6
+
+
+# ------------------------------------------------------- K6's backward
+_BWD_CASES = [(2, 200, 200, 8, 4, 128, {}), (1, 130, 130, 4, 2, 256, {"softcap": 30.0}),
+              (2, 96, 96, 8, 4, 32, {"window": 17}),
+              (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
+              (1, 48, 16, 4, 4, 16, {"window": 8}),          # rows that see no key
+              (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40}),
+              (2, 80, 80, 8, 8, 96, {}), (1, 90, 90, 4, 2, 112, {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D,kw", _BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward(dev, B, S, T, H, KV, D, kw, dtype):
+    """Through autograd: the forward with lse, then the three backward
+    kernels (one launch each), against the plain backward on the same
+    forward output and lse; f32 within 2e-5 of each gradient's largest
+    value, bf16 within that plus one bf16 ulp."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev).requires_grad_() for x in _qkv(B, S, T, H, KV, D, dtype))
+    dout = torch.from_numpy(RNG.standard_normal((B, S, H, D)).astype(np.float32)).to(dev, dtype)
+    n0 = dict(fa.LAUNCHES)
+    out = fa.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert {n: fa.LAUNCHES[n] - n0[n] for n in n0} == {
+        "flash_attention": 1, "flash_attention_bwd_delta": 1, "flash_attention_bwd_dkdv": 1,
+        "flash_attention_bwd_dq": 1}
+    masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+             kw.get("scale", D ** -0.5))
+    with torch.no_grad():
+        o2, lse = fa.forward(q, k, v, *masks, with_lse=True)
+        want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o2, lse, dout, **kw)
+    assert torch.equal(out, o2)                      # the same forward, with or without lse
+    inf = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), inf)
+    _close(lse[~inf], want_lse[~inf], 1e-5 * max(1.0, want_lse[~inf].abs().max().item()))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        lim = 2e-5 * w.float().abs().max().item()
+        err = (g.float() - w.float()).abs()
+        if dtype == torch.bfloat16:
+            err = err - w.float().abs() * 2.0 ** -7
+        assert err.max().item() <= lim
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_is_deterministic(dev):
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(2, 300, 300, 16, 8, 128, torch.bfloat16))
+    dout = torch.randn_like(q)
+    out, lse = fa.forward(q, k, v, True, None, None, 0.1, with_lse=True)
+    a = fa.backward(q, k, v, out, lse, dout, True, None, None, 0.1)
+    b = fa.backward(q, k, v, out, lse, dout, True, None, None, 0.1)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_decoder_loss_gives_every_parameter_a_gradient(dev):
+    """The reduced qwen3 in its training construction: every parameter gets a
+    non-zero gradient on the card (attention's through K6's backward, one
+    call a layer; the forward again in the remat recompute), within 1e-4 of
+    the CPU's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    cfg = get_arch("qwen3-1.7b").reduced()
+    cpu = build_model(cfg, "cpu", seed=1, trainable=True)
+    card = build_model(cfg, dev, seed=1, trainable=True)
+    with torch.no_grad():
+        for p, c in zip(card.parameters(), cpu.parameters()):
+            p.copy_(c)
+    tok = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32))
+    lab = torch.from_numpy(RNG.integers(-1, cfg.vocab_size, (4, 40)).astype(np.int32))
+    ops.reset_launch_counts()
+    card.loss({"tokens": tok.to(dev), "labels": lab.to(dev)})[0].backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert all(counts[f"flash_attention_bwd_{e}"] == cfg.n_layers for e in ("delta", "dkdv", "dq"))
+    cpu.loss({"tokens": tok, "labels": lab})[0].backward()
+    for (name, p), c in zip(card.named_parameters(), cpu.parameters()):
+        assert p.grad is not None and bool(p.grad.any()), name
+        err = (p.grad.cpu() - c.grad).abs().max() / c.grad.abs().max()
+        assert err.item() <= 1e-4, name

@@ -71,6 +71,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.device import resolve_device
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.launch.train import main as train_main
     from repro_torch.serving import AsyncServingEngine, ServingFleet
     from repro_torch.serving.engine import ReplicaEngine, ReuseRouter
 
@@ -84,7 +85,8 @@ def test_entry_points_default_to_cuda():
                  lambda: ReplicaEngine(0, p, list), lambda: ReuseRouter(p, 2),
                  lambda: resolve_device("cuda"), lambda: build_model(cfg),
                  lambda: DecoderLM(cfg), lambda: AsyncServingEngine(p, cpu_replicas),
-                 lambda: ServingFleet(p, cpu_replicas), lambda: serve_main(["--requests", "1"])):
+                 lambda: ServingFleet(p, cpu_replicas), lambda: serve_main(["--requests", "1"]),
+                 lambda: train_main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ReuseStore(p, device="cpu").device.type == "cpu"
