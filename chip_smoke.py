@@ -65,11 +65,12 @@ just before it and read just after:
   against a run of the same model with the attention ops swapped for their
   plain versions (an MoE model routed as the kernels' run was);
 * train: (a) K6's backward (``csrc/flash_attention_bwd.cu``: delta, dK/dV,
-  dQ) and the forward's log-sum-exp against their plain versions in f32
-  and bf16 (head widths 32, 64, 128, 256, GQA, causal, window, softcap,
-  S != T, rows that see no key), then at qwen3-1.7b's training shape (B=4,
-  S=2048, bf16, causal), each entry point timed with its bound and the
-  three beside SDPA's backward; (b) the reduced qwen3 in float32 on the
+  dQ; bf16 up to D=128 on the tensor cores) and the forward's log-sum-exp
+  against their plain versions in f32 and bf16 (head widths 32 to 256, G
+  from 1 to 8, causal, window, softcap, S != T, ragged S, rows that see no
+  key), then at qwen3-1.7b's training shape (B=4, S=2048, bf16, causal),
+  each entry point timed with its bound and the three beside SDPA's
+  backward; (b) the reduced qwen3 in float32 on the
   card against the same seeded run on the CPU: every parameter's gradient
   (none zero), then three train steps (loss, grad norm, lr, parameters),
   also with 2 microbatches and int8 moments; (c) 2 steps, a checkpoint, a
@@ -94,17 +95,22 @@ kernels and their library calls also give ``device_ms`` and
 which leaves out the host's time to enqueue a call (longer than the kernel
 itself at these shapes) and re-reads inputs that may sit in L2.  The build
 line gives the attention kernels' wgmma and TMA instruction counts and their
-registers and spills, and the sim_topk kernels' (which must not spill).
+registers and spills, and the sim_topk kernels' (which must not spill); it
+fails if K6's bf16 backward kernels have no wgmma or TMA load, or spill.
 K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
 ``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
 ``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
 K6 and K7 are also timed at the head widths 112 and 96 (zamba2's and
 phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``).  The
 backward's rows (``flash_attention_bwd_*``) are launches on the train path
-(d), each entry point's ms a launch (CUDA events); the dK/dV row adds the
-whole backward's time (``whole_backward_ms``, one wrapper call) and
-SDPA's (``library_backward_ms``, also the dK/dV and dQ rows'
-``library_ms``).
+(d), each entry point's ms a launch (CUDA events) and ``device_ms``, its
+route (``kernel_route``) and the TFLOP/s of the products its outputs need
+(``tflops``) and of those it issues (``issued_tflops``); the dK/dV row adds
+the whole backward's times (``whole_backward_ms``, one wrapper call, and
+``whole_backward_device_ms``) and SDPA's (``library_backward_ms`` and
+``library_backward_device_ms``, from torch.profiler's kernel times: a
+graph does not capture autograd's backward; also the dK/dV and dQ rows'
+``library_ms`` and ``library_device_ms``).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
@@ -2700,10 +2706,33 @@ def bwd_check(gen, dev, B, S, T, H, KV, D, dt, kw) -> dict:
     return errs
 
 
+def profiled_device_ms(fn, reps: int) -> float:
+    """Device time per call in ms from torch.profiler's kernel times over
+    ``reps`` calls (after a warm-up call), for a call a CUDA graph cannot
+    hold: autograd runs a backward on its forward's stream, so a capture on
+    another stream does not see it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+                 if str(e.device_type).endswith("CUDA")) / 1e3
+    expect(dev_ms > 0, "the profiler saw no device time")
+    return dev_ms / reps
+
+
 def bwd_rows(gen, dev) -> dict:
-    """The backward kernels at qwen3-1.7b's training shape (bf16, causal):
-    against the plain versions, each timed beside its plain version with its
-    bound; the three together beside SDPA's backward."""
+    """The backward kernels at qwen3-1.7b's training shape (bf16, causal),
+    each entry point launched as the wrapper launches it (the route and
+    launch shape of ``bwd_launch_plan``): against the plain versions, each
+    timed (a call with its launch, and device time over a CUDA graph)
+    beside its plain version with its bound and the TFLOP/s of the
+    products it issues and of those its outputs need; the three together
+    beside SDPA's backward."""
     B, S, H, KV, D = ATTN_B, ATTN_S, ATTN_H, ATTN_KV, ATTN_D
     q = _randn(gen, B, S, H, D, dev=dev)
     k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
@@ -2717,6 +2746,8 @@ def bwd_rows(gen, dev) -> dict:
     got = flash_k.backward(q, k, v, out, lse, dout, *masks)
     errs = {n: grad_err(f"{n} at the training shape", g, w)
             for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    plan = flash_k.bwd_launch_plan(q.dtype, B, S, S, H, KV, D)
+    tc = plan["route"] == "wgmma"
     delta = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
@@ -2736,10 +2767,12 @@ def bwd_rows(gen, dev) -> dict:
     expect(errs["delta"] <= BWD_REL_TOL * float(want_delta.abs().max()),
            f"delta off by {errs['delta']:.3g}")
     fns = {"flash_attention_bwd_delta": k_delta,
-           "flash_attention_bwd_dkdv": lambda: run("flash_attention_bwd_dkdv_launch", *args,
-                                                   dk.data_ptr(), dv.data_ptr(), *dims),
-           "flash_attention_bwd_dq": lambda: run("flash_attention_bwd_dq_launch", *args,
-                                                 dq.data_ptr(), *dims)}
+           "flash_attention_bwd_dkdv": lambda: run(
+               "flash_attention_bwd_dkdv_launch", *args, dk.data_ptr(), dv.data_ptr(), *dims,
+               *flash_k.bwd_launch_args(plan, "dkdv")),
+           "flash_attention_bwd_dq": lambda: run(
+               "flash_attention_bwd_dq_launch", *args, dq.data_ptr(), *dims,
+               *flash_k.bwd_launch_args(plan, "dq"))}
     plain_delta = lambda: (dout.float() * out.float()).sum(-1).permute(0, 2, 1)  # noqa: E731
     plain_bwd = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,  # noqa: E731
                                                     scale=scale)
@@ -2752,19 +2785,28 @@ def bwd_rows(gen, dev) -> dict:
             "flash_attention_bwd_dkdv": (2 * n_q + 4 * n_kv + 2 * lse_b, 4 * pair_flop),
             # reads q, k, v, dout, lse, delta; writes dq; S, dP, dQ
             "flash_attention_bwd_dq": (3 * n_q + 2 * n_kv + 2 * lse_b, 3 * pair_flop)}
+    # product passes each kernel issues: on the wgmma route dV, dK and dQ
+    # twice (P and dS split hi + lo), S^T in both warpgroups of dK/dV
+    issued = {"flash_attention_bwd_delta": 2.0 * B * S * H * D,
+              "flash_attention_bwd_dkdv": (7 if tc else 4) * pair_flop,
+              "flash_attention_bwd_dq": (4 if tc else 3) * pair_flop}
     rows = {}
     for name, fn in fns.items():
-        ms = median_ms(fn, REPS)
+        ms, dev_ms = median_ms(fn, REPS), graph_ms(fn, REPS)
         plain_ms = median_ms(plain_delta if name.endswith("delta") else plain_bwd, PLAIN_REPS)
         bms, by = bound(*work[name], BF16_FLOP_PER_S)
         err = max(errs[o] for o in {"delta": ("delta",), "dkdv": ("dk", "dv"),
                                     "dq": ("dq",)}[name.rsplit("_", 1)[1]])
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                      "bound_by": by, "library_ms": None,
-                      "tflops": work[name][1] / ms / 1e9}
-        log(f"  {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {ms:.4f} ms a call, "
-            f"{work[name][1] / ms / 1e9:.2f} TFLOP/s, bound {bms:.5f} ms by {by}; plain "
-            f"{plain_ms:.4f} ms")
+        # "route" of the kernels line is the language (cuda); this is the plan's
+        rows[name] = {"kernel_route": plan["route"], "max_abs_err": err, "ms": ms,
+                      "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": None, "library_device_ms": None,
+                      "tflops": work[name][1] / dev_ms / 1e9,
+                      "issued_tflops": issued[name] / dev_ms / 1e9}
+        log(f"  {name} B={B} S={S} H={H} KV={KV} D={D} bf16 causal ({plan['route']}): {ms:.4f} "
+            f"ms a call, {dev_ms:.4f} ms device; {work[name][1] / dev_ms / 1e9:.2f} TFLOP/s of "
+            f"the products its outputs need, {issued[name] / dev_ms / 1e9:.2f} of those it "
+            f"issues; bound {bms:.5f} ms by {by}; plain {plain_ms:.4f} ms")
     # the whole backward (one wrapper call) beside SDPA's backward
     whole = lambda: flash_k.backward(q, k, v, out, lse, dout, *masks)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
@@ -2778,17 +2820,23 @@ def bwd_rows(gen, dev) -> dict:
                   for g, w in zip(lib(), want))
     expect(lib_rel <= ATTN_BF16_TOL, f"sdpa backward vs plain: {lib_rel:.3g} of the max off")
     whole_ms, lib_ms = median_ms(whole, REPS), median_ms(lib, REPS)
+    whole_dev, lib_dev = graph_ms(whole, REPS), profiled_device_ms(lib, REPS)
     bms, by = bound(3 * n_q + 4 * n_kv + lse_b, 5 * pair_flop, BF16_FLOP_PER_S)
-    log(f"  flash_attention backward (3 kernels) B={B} S={S} bf16 causal: {whole_ms:.4f} ms a "
-        f"call, {5 * pair_flop / whole_ms / 1e9:.2f} TFLOP/s of the 5 products; sdpa backward "
-        f"{lib_ms:.4f} ms ({whole_ms / lib_ms:.2f}x, its grads {lib_rel:.3g} of the max off "
+    log(f"  flash_attention backward (3 kernels, {plan['route']}) B={B} S={S} bf16 causal: "
+        f"{whole_ms:.4f} ms a call, {whole_dev:.4f} ms device, "
+        f"{5 * pair_flop / whole_dev / 1e9:.2f} TFLOP/s of the 5 products; sdpa backward "
+        f"{lib_ms:.4f} ms a call, {lib_dev:.4f} ms device (profiler) ({whole_ms / lib_ms:.2f}x "
+        f"a call, {whole_dev / lib_dev:.2f}x on device, its grads {lib_rel:.3g} of the max off "
         f"plain); bound {bms:.5f} ms by {by}; lse max err "
         f"{lse_e:.3g}; grads max err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
     rows["flash_attention_bwd_dkdv"].update(
-        {"whole_backward_ms": whole_ms, "whole_bound_ms": bms, "whole_bound_by": by,
-         "library_backward_ms": lib_ms})
+        {"whole_backward_ms": whole_ms, "whole_backward_device_ms": whole_dev,
+         "whole_tflops": 5 * pair_flop / whole_dev / 1e9, "whole_bound_ms": bms,
+         "whole_bound_by": by, "library_backward_ms": lib_ms,
+         "library_backward_device_ms": lib_dev})
     for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
-        rows[name]["library_ms"] = lib_ms   # SDPA's whole backward (dq, dk and dv)
+        # SDPA's whole backward (dq, dk and dv)
+        rows[name].update({"library_ms": lib_ms, "library_device_ms": lib_dev})
     return rows
 
 
@@ -2901,7 +2949,8 @@ def phase_train(dev: torch.device, seed: int = 12):
         log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
             f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    # --- (a) the backward kernels: both dtypes, D in {32, 128, 256}, GQA,
+    # --- (a) the backward kernels: both dtypes (bf16 up to D=128 on the
+    # tensor cores), D in {32, 64, 96, 112, 128, 256}, G in {1, 2, 3, 8},
     # window, softcap, S != T, rows without a key
     for B, S, T, H, KV, D, kw in (
             (2, 200, 200, 8, 4, 128, {}),
@@ -2909,7 +2958,11 @@ def phase_train(dev: torch.device, seed: int = 12):
             (2, 96, 96, 8, 4, 32, {"window": 17}),
             (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
             (1, 48, 16, 4, 4, 32, {"window": 8}),       # rows that see no key
-            (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40, "softcap": 2.0})):
+            (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40, "softcap": 2.0}),
+            (2, 80, 80, 8, 8, 96, {}),                  # G = 1 at the padded widths
+            (1, 90, 90, 8, 1, 112, {}),                 # G = 8
+            (1, 203, 203, 6, 2, 64, {}),                # G = 3: 21-position tiles, ragged S
+            (1, 77, 77, 4, 4, 128, {"softcap": 30.0})):
         for dt in (torch.float32, torch.bfloat16):
             bwd_check(gen, dev, B, S, T, H, KV, D, dt, dict(kw))
     rows = bwd_rows(gen, dev)
@@ -3048,14 +3101,25 @@ def main() -> int:
         return 0
     with timed("build"):
         build.build_all()
-        for name in ("flash_attention", "decode_attention"):
+        for name in ("flash_attention", "decode_attention", "flash_attention_bwd"):
             log(f"  {name} SASS: {build.sass_count(name, 'HGMMA')} HGMMA (wgmma), "
                 f"{build.sass_count(name, 'UTMALDG')} UTMALDG (TMA loads)")
             for r in build.ptxas_report(name):
-                if "flash_tc_kernel" in r["entry"] or "decode_split_kernel" in r["entry"]:
+                if "_tc_kernel" in r["entry"] or "decode_split_kernel" in r["entry"]:
                     log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} "
                         f"bytes static smem, spill stores {r['spill_stores']} bytes, "
                         f"spill loads {r['spill_loads']} bytes")
+            for line in build.ptxas_warnings(name):
+                log(f"  ptxas {name}: {line}")
+        # K6's bf16 backward (D <= 128) must run on the tensor cores, unspilled
+        for kern in ("dkdv_tc_kernel", "dq_tc_kernel"):
+            n_mma = build.sass_count("flash_attention_bwd", "HGMMA", kern)
+            n_tma = build.sass_count("flash_attention_bwd", "UTMALDG", kern)
+            log(f"  flash_attention_bwd {kern}: {n_mma} HGMMA, {n_tma} UTMALDG")
+            expect(n_mma > 0 and n_tma > 0, f"{kern}: no wgmma or no TMA load in its SASS")
+        spilled = [r["entry"] for r in build.ptxas_report("flash_attention_bwd")
+                   if "_tc_kernel" in r["entry"] and (r["spill_stores"] or r["spill_loads"])]
+        expect(not spilled, f"K6's bf16 backward kernels spill registers: {spilled}")
         for name in ("sim_topk", "reuse_probed", "lsh_hash"):
             log(f"  ptxas {name}: " + "; ".join(
                 f"{r['entry'].split('_cu_')[-1][8:]} {r['registers']} registers, spills "

@@ -50,8 +50,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_delta_launch": [_P, _P, _P, *[_I] * 5, _P],
-        "flash_attention_bwd_dkdv_launch": [*[_P] * 8, *[_I] * 8, _F, _F, _I, _P],
-        "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 8, _F, _F, _I, _P],
+        "flash_attention_bwd_dkdv_launch": [*[_P] * 8, *[_I] * 8, _F, _F, *[_I] * 11, _P],
+        "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 8, _F, _F, *[_I] * 11, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,
@@ -130,14 +130,26 @@ def ptxas_report(name: str) -> List[Dict]:
     return rows
 
 
-def sass_count(name: str, opcode: str) -> int:
+def ptxas_warnings(name: str) -> List[str]:
+    """The lines of a built library's ``-Xptxas=-v`` log that report a
+    performance loss (e.g. wgmma serialized where a register of an
+    in-flight wgmma is written)."""
+    log = library_path(name).with_suffix(".log")
+    return [line.strip() for line in (log.read_text().splitlines() if log.exists() else [])
+            if "Performance Loss" in line]
+
+
+def sass_count(name: str, opcode: str, function: str = "") -> int:
     """Instructions of a built library's SASS whose opcode starts with
     ``opcode`` (e.g. HGMMA for wgmma, UTMALDG for a TMA load), by cuobjdump
-    from nvcc's directory."""
+    from nvcc's directory; with ``function``, only in the kernels whose
+    (mangled) names contain it."""
     tool = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", str(library_path(name))], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return len(re.findall(rf"\b{opcode}\b", sass))
+    parts = re.split(r"Function : (\S+)", sass)   # [head, name, body, name, body, ...]
+    bodies = [b for n, b in zip(parts[1::2], parts[2::2]) if function in n]
+    return sum(len(re.findall(rf"\b{opcode}\b", b)) for b in bodies)
 
 
 def build_all() -> None:

@@ -17,10 +17,11 @@ Gradients: when any of q, k, v requires grad, the wrapper goes through
 ``FlashAttention`` (a ``torch.autograd.Function``).  Its forward launches
 the same kernel with a per-row log-sum-exp output; its backward launches
 the three entry points of ``csrc/flash_attention_bwd.cu`` (delta, dK/dV,
-dQ) for CUDA tensors and runs ``ref.flash_attention_bwd_ref`` for CPU
-tensors.  The reference has no Pallas backward: it differentiates the same
-attention math with ``jax.grad``.  Without grad the call is the plain
-kernel launch above.
+dQ; bf16 up to D=128 on the tensor cores, f32 and bf16 D=256 on the CUDA
+cores, as ``bwd_launch_plan`` picks) for CUDA tensors and runs
+``ref.flash_attention_bwd_ref`` for CPU tensors.  The reference has no
+Pallas backward: it differentiates the same attention math with
+``jax.grad``.  Without grad the call is the plain kernel launch above.
 """
 from __future__ import annotations
 
@@ -86,6 +87,65 @@ def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
             "tile_width": _cdiv(D, chunk) * chunk,
             "swizzle_bytes": 2 * chunk, "q_box": (chunk, G, pos, 1),
             "kv_box": (chunk, 1, bn, 1), "grid": (_cdiv(S, wg * pos), KV, B)}
+
+
+# K6's backward (``csrc/flash_attention_bwd.cu``): bf16 at these widths runs
+# on the tensor cores, two consumer warpgroups a block and tiles of 64 rows
+# (keys, or (position, head) rows) with a two-stage ring; f32 at every
+# width and bf16 at D=256 run on the CUDA cores (one 64 x 256 accumulator
+# is already 128 of the 168 registers ptxas gives a thread of a 384-thread
+# block).  The kernels are compiled for these (``tc::Cfg``) and refuse a
+# plan that differs.
+BWD_TC_DIMS = (16, 32, 64, 96, 112, 128)
+BWD_WARPGROUPS, BWD_TILE, BWD_STAGES = 2, 64, 2
+
+
+def bwd_launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
+                    D: int) -> dict:
+    """The backward kernels' route and, on the wgmma route, their launch.
+
+    ``route`` is "wgmma" (bf16 at ``BWD_TC_DIMS``) or "fma" (f32, and bf16
+    at D=256).  On the wgmma route a block of ``threads`` runs
+    ``warpgroups`` consumer warpgroups and a producer; every tile is
+    ``tile`` rows of ``tile_width`` columns, loaded as boxes of ``chunk``
+    columns swizzled over ``swizzle_bytes``.  The dK/dV kernel gives each
+    block ``tile`` keys (``kv_box``, loaded once; one warpgroup makes their
+    dV, the other their dK) and walks the query rows that may see them a
+    ``q_box`` at a time (``q_box[2]`` whole positions of the kv head's G
+    heads, row = position * G + head) through a ring of ``stages`` Q/dO
+    tiles: grid ``dkdv_grid`` (key tiles, KV, B).  The dQ kernel gives
+    each warpgroup one ``q_box`` of rows (loaded once) and walks its keys a
+    ``kv_box`` at a time: grid ``dq_grid`` (position blocks, KV, B)."""
+    if dtype not in DTYPES:
+        raise TypeError(f"no kernel route for {dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head width {D} not compiled; the kernel takes {HEAD_DIMS}")
+    if dtype == torch.float32 or D not in BWD_TC_DIMS:
+        return {"route": "fma"}
+    G = H // KV
+    if G > BWD_TILE:
+        raise ValueError(f"{G} query heads per kv head: the bf16 kernels take at most "
+                         f"{BWD_TILE}")
+    wg, chunk, pos = BWD_WARPGROUPS, min(D, 64), BWD_TILE // G
+    return {"route": "wgmma", "warpgroups": wg, "threads": 128 * (wg + 1),
+            "stages": BWD_STAGES, "tile": BWD_TILE, "chunk": chunk,
+            "tile_width": _cdiv(D, chunk) * chunk, "swizzle_bytes": 2 * chunk,
+            "q_box": (chunk, G, pos, 1), "kv_box": (chunk, 1, BWD_TILE, 1),
+            "dkdv_grid": (_cdiv(T, BWD_TILE), KV, B),
+            "dq_grid": (_cdiv(S, wg * pos), KV, B)}
+
+
+def bwd_launch_args(plan: dict, kernel: str) -> Tuple[int, ...]:
+    """The plan as ``flash_attention_bwd_{kernel}_launch`` takes it
+    (``kernel`` "dkdv" or "dq"): the route (1 wgmma, 0 fma), warpgroups,
+    threads, stages, tile, chunk, swizzle bytes, the q box's heads and
+    positions, the kernel's blocks along its grid's first axis (zeros after
+    the route on the fma route, which takes none)."""
+    if plan["route"] != "wgmma":
+        return (0,) * 10
+    return (1, plan["warpgroups"], plan["threads"], plan["stages"], plan["tile"],
+            plan["chunk"], plan["swizzle_bytes"], plan["q_box"][1], plan["q_box"][2],
+            plan[f"{kernel}_grid"][0])
 
 
 def tc_launch_args(plan: dict) -> Tuple[int, ...]:
@@ -203,18 +263,19 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
              softcap: Optional[float], scale: float):
     """(dq, dk, dv) in q's dtype: ``ref.flash_attention_bwd_ref`` for CPU
     tensors; for CUDA tensors the three kernels of
-    ``csrc/flash_attention_bwd.cu`` on contiguous copies of the inputs:
-    delta = rowsum(dO * O) (B, H, S), then dK and dV (a block per key tile,
-    kv head and batch, over every query row of the kv head's G heads: no
-    atomics), then dQ (a block per query tile), each counted in
-    ``LAUNCHES``.  Deterministic: the same inputs give the same bits."""
+    ``csrc/flash_attention_bwd.cu`` on contiguous copies of the inputs, on
+    the route ``bwd_launch_plan`` picks: delta = rowsum(dO * O) (B, H, S),
+    then dK and dV (a block per key tile, kv head and batch, over every
+    query row of the kv head's G heads: no atomics), then dQ (a block per
+    row block), each counted in ``LAUNCHES``.  Deterministic: the same
+    inputs give the same bits."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                            window=window, softcap=softcap, scale=scale)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout.to(q.dtype)))
-    launch_plan(q.dtype, B, S, T, H, KV, D)        # the dtype and width checks
+    plan = bwd_launch_plan(q.dtype, B, S, T, H, KV, D)   # also the dtype and width checks
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B * S == 0 or T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -228,10 +289,12 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
     build.launch("flash_attention_bwd", "flash_attention_bwd_dkdv_launch", q.device,
-                 *ptrs, dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, *masks, bf16)
+                 *ptrs, dk.data_ptr(), dv.data_ptr(), B, S, T, H, KV, D, *masks, bf16,
+                 *bwd_launch_args(plan, "dkdv"))
     LAUNCHES["flash_attention_bwd_dkdv"] += 1
     build.launch("flash_attention_bwd", "flash_attention_bwd_dq_launch", q.device,
-                 *ptrs, dq.data_ptr(), B, S, T, H, KV, D, *masks, bf16)
+                 *ptrs, dq.data_ptr(), B, S, T, H, KV, D, *masks, bf16,
+                 *bwd_launch_args(plan, "dq"))
     LAUNCHES["flash_attention_bwd_dq"] += 1
     return dq, dk, dv
 

@@ -806,7 +806,10 @@ _BWD_CASES = [(2, 200, 200, 8, 4, 128, {}), (1, 130, 130, 4, 2, 256, {"softcap":
               (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
               (1, 48, 16, 4, 4, 16, {"window": 8}),          # rows that see no key
               (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40}),
-              (2, 80, 80, 8, 8, 96, {}), (1, 90, 90, 4, 2, 112, {})]
+              (2, 80, 80, 8, 8, 96, {}), (1, 90, 90, 4, 2, 112, {}),
+              (1, 77, 77, 4, 4, 128, {}),                    # G = 1
+              (1, 203, 203, 6, 2, 64, {}),                   # G = 3: 21-position tiles, ragged S
+              (2, 333, 333, 16, 2, 128, {"window": 100})]    # G = 8, ragged S
 
 
 @pytest.mark.cuda
@@ -844,6 +847,34 @@ def test_flash_attention_backward(dev, B, S, T, H, KV, D, kw, dtype):
         if dtype == torch.bfloat16:
             err = err - w.float().abs() * 2.0 ** -7
         assert err.max().item() <= lim
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_takes_the_wgmma_route(dev, monkeypatch):
+    """A bf16 call at D=128 launches dK/dV and dQ with the route and launch
+    shape of ``bwd_launch_plan`` (the tensor cores); f32 with the CUDA-core
+    route's zeros."""
+    from repro_torch.kernels import flash_attention as fa
+
+    calls = []
+    launch = fa.build.launch
+
+    def recording(name, fn, device, *args):
+        calls.append((fn, args))
+        return launch(name, fn, device, *args)
+
+    monkeypatch.setattr(fa.build, "launch", recording)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dev) for x in _qkv(2, 100, 100, 8, 4, 128, dtype))
+        out, lse = fa.forward(q, k, v, True, None, None, 0.1, with_lse=True)
+        calls.clear()
+        fa.backward(q, k, v, out, lse, torch.randn_like(q), True, None, None, 0.1)
+        plan = fa.bwd_launch_plan(dtype, 2, 100, 100, 8, 4, 128)
+        assert plan["route"] == ("wgmma" if dtype == torch.bfloat16 else "fma")
+        for kernel in ("dkdv", "dq"):
+            args = dict(calls)[f"flash_attention_bwd_{kernel}_launch"]
+            assert args[-10:] == fa.bwd_launch_args(plan, kernel)
+            assert args[-10] == (1 if dtype == torch.bfloat16 else 0)
 
 
 @pytest.mark.cuda
