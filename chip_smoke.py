@@ -79,7 +79,23 @@ just before it and read just after:
   28 layers, fp32 masters, remat block, B=4 x 2048 tokens, 4 steps) with
   its exact K6 counts (56 forward launches a step with the recompute, 28
   of each backward kernel), ms a step and peak memory, then 3 steps on
-  one repeated batch (the loss must fall) and the idle share of a step.
+  one repeated batch (the loss must fall) and the idle share of a step;
+  (e) every other family's reduced config (zamba2, xlstm, seamless,
+  qwen2-moe, phi-3-vision, llama4) in float32 on the card against the same
+  seeded model on the CPU: exact K6 launches (derived from depth and
+  remat: ``train_launches``), every gradient non-zero and within 1e-4 (an
+  MoE model's CPU run routed as the card's), and a restart of the reduced
+  zamba2 bit for bit; (f) full-width steps of each family that fits one
+  card (B=4 x 2048 synthetic tokens, fp32 masters, bf16 activations, f32
+  moments, each config's remat): xlstm-125m and seamless at full depth
+  through ``launch/train.py``'s ``main``, as is phi-3-vision (it fits at
+  full depth too), zamba2 and qwen2-moe cut in depth only
+  (``TRAIN_FAM_DEPTH``) through ``make_train_step``; exact K6 counts,
+  finite losses, ms a step, peak memory, a profiled step's idle share and
+  device ops, and K6's backward at each family's attention shape (D=112,
+  96, 128, and 64 with and without the causal mask) against its plain
+  version, its bound and SDPA's backward.  llama4 takes no full-width step
+  (one layer's experts are about 16 B parameters).
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -110,7 +126,10 @@ the whole backward's times (``whole_backward_ms``, one wrapper call, and
 ``whole_backward_device_ms``) and SDPA's (``library_backward_ms`` and
 ``library_backward_device_ms``, from torch.profiler's kernel times: a
 graph does not capture autograd's backward; also the dK/dV and dQ rows'
-``library_ms`` and ``library_device_ms``).
+``library_ms`` and ``library_device_ms``), and ``family_backward``: the
+same whole-backward times, bound and SDPA times at each family's training
+shape (phase train (f)), with its calls a step.  ``train_families_launches``
+counts each kernel's launches in (f).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
@@ -257,6 +276,8 @@ ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FAMILIES_PATH = ("flash_attention", "decode_attention")
+TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
+                       "flash_attention_bwd_dq")
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -311,6 +332,21 @@ AS_CLI_REQUESTS, AS_CLI_RATE = 40, 500.0
 # then REPEAT_STEPS steps on one repeated batch
 TRAIN_STEPS, TRAIN_S = 3, 32
 FULL_STEPS, REPEAT_STEPS = 4, 3
+# phase train (e): every other family's reduced config at f32, card vs CPU
+# (FAMILIES, llama4 included); (f): a full-width step of each family that
+# can take one on one card, B = ATTN_B x S = ATTN_S synthetic tokens,
+# TRAIN_FAM_STEPS steps (the first timed apart).  xlstm-125m, seamless and
+# phi-3-vision fit at full depth (peaks 27.4, 35.8 and 64.0 GB of the
+# card's 85.0) and run through launch/train.py's main; the others are cut
+# in depth only (16 bytes a parameter: fp32 masters, gradients and two f32
+# moments), as deep as the measured peak allows: zamba2-7b to 5 groups of 6
+# Mamba2 layers and the 3 tail layers (33 of 81: 76.9 GB; a group more adds
+# 7.5 GB of state alone), qwen2-moe to 6 of 24 layers (74.5 GB; a layer
+# more adds 9.1 GB).  llama4 takes no step: one layer's 128 experts are
+# about 16 B parameters.
+TRAIN_FAM_FULL = ("xlstm-125m", "seamless-m4t-large-v2", "phi-3-vision-4.2b")
+TRAIN_FAM_DEPTH = {"zamba2-7b": 33, "qwen2-moe-a2.7b": 6}
+TRAIN_FAM_STEPS = 3
 # phase cosim: the launcher's --engine cosim defaults (EN window 8 ms), and
 # the store size at which an EN search is timed (PaperDelayModel's 100k point)
 COSIM_WINDOW_S, COSIM_SEARCH_N = 0.008, 100_000
@@ -809,12 +845,14 @@ def probed_crossover(store: ReuseStore, qd: torch.Tensor) -> dict:
 
 
 # ------------------------------------------------------------------ phase 4
-def profile_call(name: str, fn, top: int = 8, host: bool = True) -> None:
+def profile_call(name: str, fn, top: int = 8, host: bool = True) -> dict:
     """Where one call's time goes: device busy share (torch.profiler, one
     call) and, with ``host``, the host functions with the most time
     (cProfile, another call; ``fn`` draws fresh inputs on each call).
     Without ``host`` the profiler records device activity only (a call of
-    ~100k launches would otherwise spend tens of seconds on host events)."""
+    ~100k launches would otherwise spend tens of seconds on host events).
+    -> the profiled call's wall and device ms, device ops, and (ms, count)
+    by device op name."""
     import cProfile
     import pstats
 
@@ -826,18 +864,25 @@ def profile_call(name: str, fn, top: int = 8, host: bool = True) -> None:
         fn()
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side entries only (kernels, copies): an op's entry repeats them
-    dev_events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-    on_dev = [(getattr(e, "self_device_time_total", 0.0) / 1e3, e.key) for e in dev_events]
-    dev_ms = sum(t for t, _ in on_dev)
-    busy = (f"device busy {dev_ms:.3f} ms in {sum(e.count for e in dev_events)} device "
-            f"ops, idle share {1 - dev_ms / wall_ms:.3f}"
+    # device-side entries only (kernels, copies), summed by name from the raw
+    # trace: the profiler's per-op tables (key_averages) take minutes to build
+    # for a call of ~500k launches (an xLSTM train step)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            t, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + e.duration_ns() / 1e6, n + 1)
+    dev_ms = sum(t for t, _ in by_name.values())
+    n_ops = sum(n for _, n in by_name.values())
+    busy = (f"device busy {dev_ms:.3f} ms in {n_ops} device ops, idle share "
+            f"{1 - dev_ms / wall_ms:.3f}"
             if dev_ms > 0 else "device time not measured (the profiler saw none)")
     log(f"  profile {name}: wall {wall_ms:.3f} ms (under the profiler), {busy}; "
-        "top device ops " + "; ".join(f"{k} {t:.3f} ms"
-                                      for t, k in sorted(on_dev, reverse=True)[:4]))
+        "top device ops " + "; ".join(f"{k[:160]} {t:.3f} ms" for k, (t, _) in sorted(
+            by_name.items(), key=lambda kv: kv[1][0], reverse=True)[:4]))
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms, "device_ops": n_ops, "by_name": by_name}
     if not host:
-        return
+        return out
     prof_host = cProfile.Profile()
     t0 = time.perf_counter()
     prof_host.enable()
@@ -854,6 +899,7 @@ def profile_call(name: str, fn, top: int = 8, host: bool = True) -> None:
     log(f"  host profile {name}: wall {wall_ms:.3f} ms (under cProfile); own time "
         + "; ".join(f"{k} {t * 1e3:.2f} ms" for t, k in own))
     log(f"  host stages {name}: " + "; ".join(f"{k} {t * 1e3:.2f} ms" for t, k in stages))
+    return out
 
 
 def _route_and_serve(router: ReuseRouter, replicas, reqs):
@@ -2808,36 +2854,59 @@ def bwd_rows(gen, dev) -> dict:
             f"the products its outputs need, {issued[name] / dev_ms / 1e9:.2f} of those it "
             f"issues; bound {bms:.5f} ms by {by}; plain {plain_ms:.4f} ms")
     # the whole backward (one wrapper call) beside SDPA's backward
+    t = whole_backward_times(q, k, v, out, lse, dout, masks, want)
+    log(f"  flash_attention backward (3 kernels, {plan['route']}) B={B} S={S} bf16 causal: "
+        f"{t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms device, {t['tflops']:.2f} TFLOP/s "
+        f"of the 5 products; sdpa backward {t['library_backward_ms']:.4f} ms a call, "
+        f"{t['library_backward_device_ms']:.4f} ms device (profiler) "
+        f"({t['ms'] / t['library_backward_ms']:.2f}x a call, "
+        f"{t['device_ms'] / t['library_backward_device_ms']:.2f}x on device, its grads "
+        f"{t['library_rel']:.3g} of the max off plain); bound {t['bound_ms']:.5f} ms by "
+        f"{t['bound_by']}; lse max err {lse_e:.3g}; grads max err "
+        + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    rows["flash_attention_bwd_dkdv"].update(
+        {"whole_backward_ms": t["ms"], "whole_backward_device_ms": t["device_ms"],
+         "whole_tflops": t["tflops"], "whole_bound_ms": t["bound_ms"],
+         "whole_bound_by": t["bound_by"], "library_backward_ms": t["library_backward_ms"],
+         "library_backward_device_ms": t["library_backward_device_ms"]})
+    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
+        # SDPA's whole backward (dq, dk and dv)
+        rows[name].update({"library_ms": t["library_backward_ms"],
+                           "library_device_ms": t["library_backward_device_ms"]})
+    return rows
+
+
+def whole_backward_times(q, k, v, out, lse, dout, masks, want) -> dict:
+    """K6's whole backward (one wrapper call: delta, dK/dV, dQ) and SDPA's
+    backward on the same bf16 inputs: ms a call (CUDA events) and device ms
+    (a CUDA graph; SDPA's from torch.profiler's kernel times, as a graph
+    does not capture autograd's backward), K6's TFLOP/s of the 5 products
+    and its bound (q, k, v, out, dout, lse read once, dq, dk, dv written; 5
+    products at bf16).  SDPA's backward rounds P and dS to bf16, so its
+    gradients are held to ``want`` (the plain backward's) only as the same
+    function (ATTN_BF16_TOL of each's max)."""
+    causal, _, _, scale = masks
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
     whole = lambda: flash_k.backward(q, k, v, out, lse, dout, *masks)  # noqa: E731
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True,
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KV,
                                              scale=scale)
     dout_t = dout.transpose(1, 2).contiguous()
     lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
                                       retain_graph=True)
-    # SDPA's backward rounds P and dS to bf16: held only to the same function
     lib_rel = max(float((g.transpose(1, 2).float() - w.float()).abs().max() / w.float().abs().max())
                   for g, w in zip(lib(), want))
     expect(lib_rel <= ATTN_BF16_TOL, f"sdpa backward vs plain: {lib_rel:.3g} of the max off")
-    whole_ms, lib_ms = median_ms(whole, REPS), median_ms(lib, REPS)
-    whole_dev, lib_dev = graph_ms(whole, REPS), profiled_device_ms(lib, REPS)
-    bms, by = bound(3 * n_q + 4 * n_kv + lse_b, 5 * pair_flop, BF16_FLOP_PER_S)
-    log(f"  flash_attention backward (3 kernels, {plan['route']}) B={B} S={S} bf16 causal: "
-        f"{whole_ms:.4f} ms a call, {whole_dev:.4f} ms device, "
-        f"{5 * pair_flop / whole_dev / 1e9:.2f} TFLOP/s of the 5 products; sdpa backward "
-        f"{lib_ms:.4f} ms a call, {lib_dev:.4f} ms device (profiler) ({whole_ms / lib_ms:.2f}x "
-        f"a call, {whole_dev / lib_dev:.2f}x on device, its grads {lib_rel:.3g} of the max off "
-        f"plain); bound {bms:.5f} ms by {by}; lse max err "
-        f"{lse_e:.3g}; grads max err " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
-    rows["flash_attention_bwd_dkdv"].update(
-        {"whole_backward_ms": whole_ms, "whole_backward_device_ms": whole_dev,
-         "whole_tflops": 5 * pair_flop / whole_dev / 1e9, "whole_bound_ms": bms,
-         "whole_bound_by": by, "library_backward_ms": lib_ms,
-         "library_backward_device_ms": lib_dev})
-    for name in ("flash_attention_bwd_dkdv", "flash_attention_bwd_dq"):
-        # SDPA's whole backward (dq, dk and dv)
-        rows[name].update({"library_ms": lib_ms, "library_device_ms": lib_dev})
-    return rows
+    pairs = S * (S + 1) // 2 if causal else S * T      # (query, key) pairs a head (S <= T)
+    flop = 10.0 * B * H * D * pairs
+    n_q, n_kv = 2 * q.numel(), 2 * k.numel()
+    bms, by = bound(4 * n_q + 4 * n_kv + 4 * B * H * S, flop, BF16_FLOP_PER_S)
+    dev_ms = graph_ms(whole, REPS)
+    return {"ms": median_ms(whole, REPS), "device_ms": dev_ms, "tflops": flop / dev_ms / 1e9,
+            "bound_ms": bms, "bound_by": by, "library_backward_ms": median_ms(lib, REPS),
+            "library_backward_device_ms": profiled_device_ms(lib, REPS),
+            "library_rel": lib_rel}
 
 
 def _train_pair(cfg, dev, seed: int):
@@ -2852,15 +2921,49 @@ def _train_pair(cfg, dev, seed: int):
 
 
 def _train_batches(cfg, n: int, B: int, S: int, seed: int):
+    """``n`` CPU batches of S tokens and their labels (5 pads), with a vision
+    model's patch embeddings or an encoder-decoder's S // 2 frames."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         lab = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
         lab[0, :5] = -1
-        out.append({"tokens": torch.from_numpy(
+        batch = {"tokens": torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)),
-                    "labels": torch.from_numpy(lab)})
+                 "labels": torch.from_numpy(lab)}
+        extra = {"patch_embeds": cfg.n_frontend_tokens if cfg.frontend == "vision" else 0,
+                 "frames": S // 2 if cfg.is_encdec else 0}
+        for name, m in extra.items():
+            if m:
+                batch[name] = torch.from_numpy(
+                    (rng.standard_normal((B, m, cfg.d_model)) * 0.02).astype(np.float32))
+        out.append(batch)
     return out
+
+
+BWD_ENTRIES = ("delta", "dkdv", "dq")
+
+
+def train_launches(cfg) -> tuple:
+    """(K6 forward launches, launches of each backward entry point) of one
+    loss and its backward: an attention a decoder layer, a shared-block
+    application (hybrid), an encoder layer, two a decoder layer (self and
+    cross), none in xLSTM; the forward again in each remat recompute."""
+    if cfg.is_encdec:
+        n = cfg.enc_layers + 2 * cfg.dec_layers
+    elif cfg.family == "hybrid":
+        n = cfg.n_layers // cfg.attn_every
+    elif cfg.family == "ssm":
+        n = 0
+    else:
+        n = cfg.n_layers
+    return n * (2 if cfg.remat != "none" else 1), n
+
+
+def expect_launches(what: str, counts: dict, fwd: int, bwd: int) -> None:
+    want = {"flash_attention": fwd, **{f"flash_attention_bwd_{e}": bwd for e in BWD_ENTRIES}}
+    got = {k: counts[k] for k in want}
+    expect(got == want, f"{what}: launches {got}, want {want}")
 
 
 def _on(batch: dict, dev) -> dict:
@@ -2941,10 +3044,209 @@ def train_parity(cfg, dev, ocfg, microbatches: int, seed: int) -> None:
            "without a second moment (each step from the CPU's state)" if int8 else ""))
 
 
+def family_train_check(name: str, dev, seed: int) -> None:
+    """(b), (e): ``name``'s reduced config in float32, the same seeded model
+    on the card and on the CPU: one loss and its backward with the exact K6
+    launches on the card, every parameter's gradient non-zero there and
+    within TRAIN_GRAD_REL_TOL of the CPU's (each relative to its largest
+    |value|).  An MoE model's CPU run is routed as the card's was
+    (``moe_routes(replay=...)``), after counting the routing calls whose
+    picks its own routing would change."""
+    cfg = get_arch(name).reduced()
+    fwd, bwd = train_launches(cfg)
+    card, cpu = _train_pair(cfg, dev, seed)
+    batch = _train_batches(cfg, 1, 4, TRAIN_S, seed)[0]
+    ops.reset_launch_counts()
+    with moe_routes() as card_routes:
+        card.loss(_on(batch, dev))[0].backward()
+    expect_launches(f"{name} reduced, loss and backward", ops.launch_counts(), fwd, bwd)
+    routed = ""
+    if cfg.n_experts:
+        with torch.no_grad(), moe_routes() as own:     # a forward: no recompute
+            cpu.loss(batch)
+        differ = sum(int(not torch.equal(a.cpu(), b)) for (a, _), (b, _) in zip(card_routes, own))
+        routed = (f"; routing calls whose picks differ on the CPU: {differ} of {len(own)} "
+                  "(the CPU routed as the card)")
+    with moe_routes([ids.cpu() for ids, _ in card_routes] if cfg.n_experts else None):
+        cpu.loss(batch)[0].backward()
+    zero = [n for n, p in card.named_parameters() if p.grad is None or not bool(p.grad.any())]
+    expect(not zero, f"{name}: parameters without a gradient on the card: {zero}")
+    worst = 0.0
+    for (pname, p), c in zip(card.named_parameters(), cpu.parameters()):
+        err = float((p.grad.cpu() - c.grad).abs().max()) / float(c.grad.abs().max())
+        worst = max(worst, err)
+        expect(err <= TRAIN_GRAD_REL_TOL, f"{name}: gradient of {pname}: {err:.3g} of its max off")
+    log(f"  {name} reduced ({type(card).__name__}, {cfg.n_layers} layers, d={cfg.d_model}, f32, "
+        f"remat {cfg.remat}): every one of {sum(1 for _ in card.parameters())} parameters has a "
+        f"non-zero gradient on the card, within {worst:.3g} of the CPU's (relative to each "
+        f"max); K6 launches {fwd} forward, {bwd} of each backward entry point" + routed)
+    del card, cpu
+
+
+def restart_check(cfg, dev, ocfg, seed: int) -> None:
+    """(c), (e): 2 steps, a checkpoint, a restore into a fresh state and 2
+    more steps give the losses of 4 uninterrupted steps, bit for bit."""
+    batches = [_on(b, dev) for b in _train_batches(cfg, 4, 4, TRAIN_S, seed + 1)]
+
+    def fresh():
+        model = build_model(cfg, dev, seed=seed, trainable=True)
+        return make_train_step(model, ocfg), init_state(model, ocfg)
+
+    step, state = fresh()
+    straight = [float(step(state, b)[1]["loss"]) for b in batches]
+    step, state = fresh()
+    resumed = [float(step(state, b)[1]["loss"]) for b in batches[:2]]
+    with tempfile.TemporaryDirectory() as d:
+        save(state, d, 2)
+        step, state2 = fresh()
+        restore(d, state2)
+    resumed += [float(step(state2, b)[1]["loss"]) for b in batches[2:]]
+    expect(resumed == straight, f"{cfg.name} restart: losses {resumed} vs uninterrupted "
+           f"{straight}")
+    log(f"  {cfg.name} reduced: checkpoint at step 2 and restart: losses {resumed} equal the "
+        "uninterrupted run's bit for bit")
+
+
+def _bwd_device_ms(prof: dict) -> float:
+    """K6's backward kernels' device ms in a profile (``profile_call``)."""
+    return sum(t for k, (t, _) in prof["by_name"].items()
+               if any(n in k for n in ("delta_kernel", "dkdv_", "dq_kernel", "dq_tc_kernel")))
+
+
+def family_train_step(name: str, dev, seed: int) -> dict:
+    """(f): ``name`` at full width, B = ATTN_B x S = ATTN_S synthetic tokens
+    (the launcher's stream), bf16 activations, fp32 masters, AdamW with f32
+    moments and the config's remat, TRAIN_FAM_STEPS steps: through
+    launch/train.py's main at full depth (TRAIN_FAM_FULL), else through
+    make_train_step on the config cut to TRAIN_FAM_DEPTH layers.  Exact K6
+    launches, finite losses; ms a step, peak memory, then one profiled step
+    (idle share, device ops, K6's backward device time a call).  -> its
+    launches and measurements."""
+    cfg = get_arch(name)
+    depth = TRAIN_FAM_DEPTH.get(name)
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    fwd, bwd = train_launches(cfg)
+    shape = ShapeSpec("cli", ATTN_S, ATTN_B, "train")
+    ocfg = OptimizerConfig(total_steps=TRAIN_FAM_STEPS)      # the launcher's defaults
+
+    def build_step():
+        model = build_model(cfg, dev, seed=seed, trainable=True)
+        return model, make_train_step(model, ocfg), init_state(model, ocfg)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    if depth is None:
+        argv = ["--arch", name, "--seq-len", str(ATTN_S), "--batch", str(ATTN_B),
+                "--steps", str(TRAIN_FAM_STEPS), "--log-every", "1"]
+        history = train_main(argv, device=dev)
+        ms, losses = [h["ms"] for h in history], [h["loss"] for h in history]
+        how = "launch/train.py " + " ".join(argv)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, step, state = build_step()        # for the profiled step
+    else:
+        model, step, state = build_step()
+        ms, losses = [], []
+        for i in range(TRAIN_FAM_STEPS):
+            batch = synthetic_batch(model, cfg, shape, i, dev)
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch)[1]["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        how = (f"make_train_step, depth cut to {depth} of {get_arch(name).n_layers} layers, "
+               f"B={ATTN_B} S={ATTN_S}")
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in model.parameters())
+    expect_launches(f"{name} full-width steps", counts, fwd * TRAIN_FAM_STEPS,
+                    bwd * TRAIN_FAM_STEPS)
+    expect(all(np.isfinite(losses)), f"{name}: full-width losses {losses}")
+    batch = synthetic_batch(model, cfg, shape, 0, dev)
+    prof = profile_call(f"train step {name}", lambda: step(state, batch), host=False)
+    k6_bwd = _bwd_device_ms(prof) / bwd if bwd else None
+    log(f"  {name} ({type(model).__name__}, {n_params} parameters, remat {cfg.remat}) via {how}: "
+        f"ms a step " + ", ".join(f"{t:.1f}" for t in ms) + f" (the first in the process "
+        f"first); losses {losses}; peak memory {peak} bytes; K6 launches a step {fwd} forward, "
+        f"{bwd} of each backward entry point; a profiled step: device busy "
+        f"{prof['device_ms']:.3f} ms in {prof['device_ops']} device ops, idle share "
+        f"{1 - prof['device_ms'] / prof['wall_ms']:.3f}"
+        + (f", K6's backward {k6_bwd:.4f} ms device a call" if bwd else ""))
+    del model, step, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "ms": ms, "peak": peak, "k6_bwd_step_ms": k6_bwd,
+            "bwd_calls": bwd}
+
+
+def family_bwd_rows(gen, dev, steps: dict) -> dict:
+    """K6's backward (one wrapper call: delta, dK/dV, dQ on the route
+    ``bwd_launch_plan`` picks) at each attention shape of the families' full-
+    width steps (B = ATTN_B, bf16): against its plain version, timed (a
+    call, and device time over a CUDA graph) beside its bound (5 products
+    at bf16) and SDPA's backward (device time from the profiler); with its
+    launches a step in (f) and its device time a call inside the profiled
+    step."""
+    B = ATTN_B
+    shapes = []
+    for name in ("zamba2-7b", "phi-3-vision-4.2b", "qwen2-moe-a2.7b"):
+        cfg = get_arch(name)
+        hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+        shapes.append((name, ATTN_S, cfg.n_heads, cfg.n_kv_heads, hd, True,
+                       steps[name]["bwd_calls"]))
+    cfg = get_arch("seamless-m4t-large-v2")
+    half = ATTN_S // 2
+    shapes += [("seamless-m4t-large-v2 encoder self and cross", half, cfg.n_heads,
+                cfg.n_kv_heads, cfg.head_dim, False, cfg.enc_layers + cfg.dec_layers),
+               ("seamless-m4t-large-v2 decoder self", half, cfg.n_heads, cfg.n_kv_heads,
+                cfg.head_dim, True, cfg.dec_layers)]
+    out = {}
+    for name, S, H, KV, D, causal, calls in shapes:
+        q = _randn(gen, B, S, H, D, dev=dev)
+        k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
+        dout = _randn(gen, B, S, H, D, dev=dev)
+        scale = 1.0 / math.sqrt(D)
+        masks = (causal, None, None, scale)
+        out_, lse = flash_k.forward(q, k, v, *masks, with_lse=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, out_, lse, dout, causal=causal, scale=scale)
+        got = flash_k.backward(q, k, v, out_, lse, dout, *masks)
+        errs = {n: grad_err(f"{n} at {name}'s training shape", g, w)
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        del got
+        plan = flash_k.bwd_launch_plan(q.dtype, B, S, S, H, KV, D)
+        t = whole_backward_times(q, k, v, out_, lse, dout, masks, want)
+        del want
+        plain_ms = median_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, out_, lse, dout, causal=causal, scale=scale), PLAIN_REPS)
+        in_step = steps.get(name.split()[0], {}).get("k6_bwd_step_ms")
+        out[name] = {"B": B, "S": S, "T": S, "H": H, "KV": KV, "D": D, "causal": causal,
+                     "kernel_route": plan["route"], "max_abs_err": max(errs.values()),
+                     "plain_ms": plain_ms, "launches_a_step": calls,
+                     "in_step_device_ms": in_step, **t}
+        log(f"  flash_attention backward at {name}'s training shape B={B} S=T={S} H={H} KV={KV} "
+            f"D={D} bf16 {'causal' if causal else 'not causal'} ({plan['route']}): {t['ms']:.4f} "
+            f"ms a call, {t['device_ms']:.4f} ms device, {t['tflops']:.2f} TFLOP/s of the 5 "
+            f"products; bound {t['bound_ms']:.5f} ms by {t['bound_by']}; sdpa backward "
+            f"{t['library_backward_ms']:.4f} ms a call, {t['library_backward_device_ms']:.4f} ms "
+            f"device ({t['device_ms'] / t['library_backward_device_ms']:.2f}x on device); plain "
+            f"{plain_ms:.4f} ms; {calls} calls a step"
+            + (f" ({in_step:.4f} ms device a call inside the profiled step, the family's "
+               "shapes together)" if in_step else "")
+            + "; max err " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+        del q, k, v, dout, out_, lse
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_train(dev: torch.device, seed: int = 12):
     """(a) K6's backward against its plain version; (b) the reduced qwen3 at
     f32 on the card against the CPU; (c) checkpoint and restart; (d)
-    launch/train.py's main at full width; -> (kernel rows, launches of (d))."""
+    launch/train.py's main at full width; (e) every other family's reduced
+    config on the card against the CPU, and a restart of the reduced zamba2;
+    (f) a full-width step of each family that fits one card, and K6's
+    backward at their shapes; -> (kernel rows, launches of (d), of (f))."""
     for r in build.ptxas_report("flash_attention_bwd"):
         log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
             f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
@@ -2969,49 +3271,13 @@ def phase_train(dev: torch.device, seed: int = 12):
 
     # --- (b) the reduced model: gradients and steps, card against CPU
     cfg = get_arch(MODEL_ARCH).reduced()
-    card, cpu = _train_pair(cfg, dev, seed)
-    batch = _train_batches(cfg, 1, 4, TRAIN_S, seed)[0]
-    ops.reset_launch_counts()
-    card.loss(_on(batch, dev))[0].backward()
-    counts = ops.launch_counts()
-    cpu.loss(batch)[0].backward()
-    n_layers = cfg.n_layers
-    expect(counts["flash_attention"] == n_layers * (2 if cfg.remat != "none" else 1)
-           and all(counts[f"flash_attention_bwd_{e}"] == n_layers for e in ("delta", "dkdv", "dq")),
-           f"reduced model's backward launches {counts}")
-    zero = [n for n, p in card.named_parameters() if p.grad is None or not bool(p.grad.any())]
-    expect(not zero, f"parameters without a gradient on the card: {zero}")
-    worst = 0.0
-    for (name, p), c in zip(card.named_parameters(), cpu.parameters()):
-        err = float((p.grad.cpu() - c.grad).abs().max()) / float(c.grad.abs().max())
-        worst = max(worst, err)
-        expect(err <= TRAIN_GRAD_REL_TOL, f"gradient of {name}: {err:.3g} of its max off")
-    log(f"  {cfg.name} reduced ({n_layers} layers, d={cfg.d_model}, f32): every one of "
-        f"{sum(1 for _ in card.parameters())} parameters has a non-zero gradient "
-        f"on the card, within {worst:.3g} of the CPU's (relative to each max); launches {counts}")
+    family_train_check(MODEL_ARCH, dev, seed)
     ocfg = OptimizerConfig(lr=1e-3, total_steps=10)
     train_parity(cfg, dev, ocfg, 1, seed)
     train_parity(cfg, dev, dataclasses.replace(ocfg, moment_dtype="int8"), 2, seed)
 
     # --- (c) checkpoint and restart: 2 + 2 steps equal 4, bit for bit
-    batches = [_on(b, dev) for b in _train_batches(cfg, 4, 4, TRAIN_S, seed + 1)]
-
-    def fresh():
-        model = build_model(cfg, dev, seed=seed, trainable=True)
-        return make_train_step(model, ocfg), init_state(model, ocfg)
-
-    step, state = fresh()
-    straight = [float(step(state, b)[1]["loss"]) for b in batches]
-    step, state = fresh()
-    resumed = [float(step(state, b)[1]["loss"]) for b in batches[:2]]
-    with tempfile.TemporaryDirectory() as d:
-        save(state, d, 2)
-        step, state2 = fresh()
-        restore(d, state2)
-    resumed += [float(step(state2, b)[1]["loss"]) for b in batches[2:]]
-    expect(resumed == straight, f"restart: losses {resumed} vs uninterrupted {straight}")
-    log(f"  checkpoint at step 2 and restart: losses {resumed} equal the uninterrupted run's "
-        "bit for bit")
+    restart_check(cfg, dev, ocfg, seed)
 
     # --- (d) launch/train.py at full width, then steps on one repeated batch
     full = get_arch(MODEL_ARCH)
@@ -3024,11 +3290,8 @@ def phase_train(dev: torch.device, seed: int = 12):
     history = train_main(argv, device=dev)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": 2 * full.n_layers * FULL_STEPS,     # forward + remat recompute
-            **{f"flash_attention_bwd_{e}": full.n_layers * FULL_STEPS
-               for e in ("delta", "dkdv", "dq")}}
-    expect(all(counts[k] == n for k, n in want.items()),
-           f"train.py launches {counts}, want {want}")
+    fwd, bwd = train_launches(full)     # forward + remat recompute, backward
+    expect_launches("train.py", counts, fwd * FULL_STEPS, bwd * FULL_STEPS)
     losses = [h["loss"] for h in history]
     expect(all(np.isfinite(losses)), f"full-width losses {losses}")
     log(f"  train.py {' '.join(argv)} (remat {full.remat}): ms a step "
@@ -3040,8 +3303,8 @@ def phase_train(dev: torch.device, seed: int = 12):
     gc.collect()
     torch.cuda.empty_cache()
     model = build_model(full, dev, seed=seed, trainable=True)
-    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
-    step, state = make_train_step(model, ocfg), init_state(model, ocfg)
+    rep_ocfg = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    step, state = make_train_step(model, rep_ocfg), init_state(model, rep_ocfg)
     rep = synthetic_batch(model, full, ShapeSpec("cli", ATTN_S, ATTN_B, "train"), 0, dev)
     rep_losses, rep_ms = [], []
     for _ in range(REPEAT_STEPS):
@@ -3056,7 +3319,23 @@ def phase_train(dev: torch.device, seed: int = 12):
     del model, state, step
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, counts
+
+    # --- (e) every other family's reduced config, card against CPU, and a
+    # restart of the reduced zamba2
+    for i, name in enumerate(FAMILIES):
+        family_train_check(name, dev, seed + 1 + i)
+    restart_check(get_arch("zamba2-7b").reduced(), dev, ocfg, seed)
+
+    # --- (f) a full-width step of each family that fits, and K6's backward
+    # at each of their attention shapes against its bound and SDPA's
+    fam_counts = {k: 0 for k in counts}
+    steps = {}
+    for name in TRAIN_FAM_FULL + tuple(TRAIN_FAM_DEPTH):
+        steps[name] = family_train_step(name, dev, seed)
+        for k in fam_counts:
+            fam_counts[k] += steps[name]["counts"][k]
+    rows["flash_attention_bwd_dkdv"]["family_backward"] = family_bwd_rows(gen, dev, steps)
+    return rows, counts, fam_counts
 
 
 def family_names() -> tuple:
@@ -3156,7 +3435,7 @@ def main() -> int:
     with timed("families"):
         paths["families"] = phase_families(dev)
     with timed("train"):
-        rows, paths["train"] = phase_train(dev)
+        rows, paths["train"], paths["train-families"] = phase_train(dev)
         kern.update(rows)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
@@ -3169,6 +3448,9 @@ def main() -> int:
                f"{name} was not launched on the federation path")
     for name in FAMILIES_PATH:
         expect(paths["families"][name] > 0, f"{name} was not launched on the families path")
+    for name in TRAIN_FAMILIES_PATH:
+        expect(paths["train-families"][name] > 0,
+               f"{name} was not launched by the families' full-width train steps")
     # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
@@ -3178,6 +3460,7 @@ def main() -> int:
               "federation_launches": paths["federation"][name],
               "families_launches": paths["families"].get(name, 0),
               "train_launches": paths["train"][name],
+              "train_families_launches": paths["train-families"].get(name, 0),
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,12 @@
 
 Port of ``repro/launch/train.py``, with its flags and defaults.  Runs real
 steps on the CUDA card (``main(argv, device="cpu")`` runs them on the CPU;
-use ``--reduced`` there): the model's training construction (fp32 masters
-drawn from seed 0), AdamW with the moment dtype and gradient compression
-asked for, microbatching, the deterministic synthetic token stream, and
-checkpoint/restart: with ``--ckpt-dir`` it resumes from the latest
+use ``--reduced`` there) for any of the 10 architectures: the model's
+training construction (fp32 masters drawn from seed 0), AdamW with the
+moment dtype and gradient compression asked for, microbatching, the
+deterministic synthetic stream (tokens and labels, and a family's float
+inputs: a vision model's patch embeddings, an encoder-decoder's frames),
+and checkpoint/restart: with ``--ckpt-dir`` it resumes from the latest
 checkpoint there and saves asynchronously every ``--ckpt-every`` steps.
 It prints the reference's step lines.  The reference's mesh and shardings
 belong to the parallel layout, which is not ported yet: one device.
@@ -41,7 +43,9 @@ def synthetic_batch(model, cfg, shape: ShapeSpec, step: int,
                     device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """Deterministic synthetic token stream (data pipeline stand-in): the
     reference's draws from ``np.random.default_rng(1234 + step)``, in the
-    order of ``model.input_specs``, bit for bit."""
+    order of ``model.input_specs``, bit for bit: int32 inputs uniform over
+    the vocabulary, float inputs (patch embeddings, frames) standard normal
+    cast to their dtype and scaled by 0.02."""
     rng = np.random.default_rng(1234 + step)
     batch = {}
     for name, (shp, dtype) in model.input_specs(shape).items():

@@ -16,13 +16,22 @@ Layers are ``nn.ModuleList``s (row l of the reference's stacked
 ``enc_layers`` / ``dec_layers``).  The cache keeps the reference's keys and
 layout: ``k``, ``v`` (L, B, max_len, KV, D) and ``xk``, ``xv`` (L, B, T_enc,
 KV, D); ``decode_step`` updates it in place.
+
+``trainable=True`` builds the training construction, as ``DecoderLM``
+does: fp32 masters that take gradients, cast at use.  ``loss`` is the
+reference's: encode ``frames``, run the decoder over ``tokens``, the
+chunked cross entropy over whole chunks only (the remainder is dropped),
+no auxiliary term.  ``cfg.remat`` recomputes each encoder layer and each
+decoder layer in the backward, as the reference's ``_remat(body, cfg)``.
+Train and prefill shapes split ``seq_len`` in two: S/2 frames, S/2 tokens.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
@@ -42,7 +51,10 @@ from .layers import (
     mlp_apply,
     mlp_init,
     param_dict,
+    remat_on,
     rms_norm,
+    trainable_masters,
+    whole_chunks_loss,
     zeros_init,
 )
 
@@ -76,19 +88,27 @@ class DecLayer(nn.Module):
 
 
 class EncDecModel(nn.Module):
-    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card)."""
+    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card);
+    ``trainable``: fp32 masters that take gradients (else ``cfg.dtype``
+    matrices without gradients, for serving)."""
 
-    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         if not (cfg.enc_layers and cfg.dec_layers):
             raise ValueError(f"{cfg.name} has no encoder and decoder layers")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed))
+        self.init(torch.Generator(device=self.device).manual_seed(seed),
+                  torch.float32 if trainable else self.dtype)
+        if trainable:
+            trainable_masters(self)
 
-    def init(self, gen: torch.Generator) -> None:
-        cfg, kw = self.cfg, {"device": self.device, "dtype": self.dtype}
+    def init(self, gen: torch.Generator, dt: torch.dtype) -> None:
+        """Draw every weight from ``gen`` (the reference's distributions),
+        matrices stored in ``dt``."""
+        cfg, kw = self.cfg, {"device": self.device, "dtype": dt}
         self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
         self.enc_layers = nn.ModuleList(EncLayer(gen, cfg, **kw) for _ in range(cfg.enc_layers))
         self.dec_layers = nn.ModuleList(DecLayer(gen, cfg, **kw) for _ in range(cfg.dec_layers))
@@ -96,16 +116,22 @@ class EncDecModel(nn.Module):
         self.dec_norm = frozen(zeros_init(cfg.d_model, device=self.device))
 
     # ---------------------------------------------------------------- encode
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, T, d_model) -> encoder memory (B, T, d_model)."""
+    def _enc_layer(self, p: EncLayer, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
+        x = x + attention_apply(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                                positions=positions, causal=False)
+        return x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, T, d_model) -> encoder memory (B, T, d_model).  Under
+        grad, ``cfg.remat`` recomputes each layer in the backward."""
         x = frames.to(self.device, self.dtype)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat_on(self.cfg)
         for p in self.enc_layers:
-            x = x + attention_apply(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
-                                    positions=positions, causal=False)
-            x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
-        return rms_norm(x, self.enc_norm, cfg.norm_eps)
+            x = (checkpoint(self._enc_layer, p, x, positions, use_reentrant=False) if remat
+                 else self._enc_layer(p, x, positions))
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
 
     # ---------------------------------------------------------------- decode
     def _dec_layer(self, p: DecLayer, x: torch.Tensor, memory: torch.Tensor,
@@ -121,18 +147,53 @@ class EncDecModel(nn.Module):
         x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
         return x, kv, xkv
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+
     def decode_full(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        """The decoder over ``tokens`` (B, S) -> final-normed hidden."""
-        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        """The decoder over ``tokens`` (B, S) -> final-normed hidden.  Under
+        grad, ``cfg.remat`` recomputes each layer in the backward."""
+        x = self._embed(tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat_on(self.cfg)
         for p in self.dec_layers:
-            x, _, _ = self._dec_layer(p, x, memory, positions)
+            x = (checkpoint(self._dec_layer, p, x, memory, positions, use_reentrant=False)
+                 if remat else self._dec_layer(p, x, memory, positions))[0]
         return rms_norm(x, self.dec_norm, self.cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head -> f32 logits."""
         out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
         return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Encode ``batch["frames"]``, decode ``batch["tokens"]``: the
+        chunked-vocab loss over whole chunks (tied head) -> (nll, {"nll",
+        "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
+        hidden = self.decode_full(batch["tokens"], self.encode(batch["frames"]))
+        labels = batch["labels"].to(hidden.device, torch.long)
+        return whole_chunks_loss(hidden, labels, self.embed.to(hidden.dtype),
+                                 self.cfg.loss_chunk)
+
+    def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward, ``loss`` (for ``torch.func.functional_call``)."""
+        return self.loss(batch)
+
+    def input_specs(self, shape) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every model input of a ``ShapeSpec``, in the
+        reference's order: train and prefill take S/2 frame embeddings in
+        ``cfg.dtype`` and S/2 tokens (train adds their labels); decode one
+        token."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((B, 1), torch.int32)}
+        half = S // 2
+        specs = {"frames": ((B, half, self.cfg.d_model), self.dtype),
+                 "tokens": ((B, half), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((B, half), torch.int32)
+        return specs
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
@@ -152,7 +213,7 @@ class EncDecModel(nn.Module):
         memory = self.encode(batch["frames"])
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        x = self._embed(tokens)
         positions = torch.arange(S, device=x.device)[None, :]
         cache = self.init_cache(B, max_len, memory.shape[1], cache_dtype)
         for layer, p in enumerate(self.dec_layers):
@@ -168,7 +229,7 @@ class EncDecModel(nn.Module):
         """tokens (B, 1) at position ``pos`` (an int); updates the self-
         attention cache in place -> (logits (B, 1, V) f32, cache)."""
         cfg, pos = self.cfg, int(pos)
-        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        x = self._embed(tokens)
         B = x.shape[0]
         pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
         enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32, device=x.device)

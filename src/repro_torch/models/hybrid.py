@@ -13,13 +13,23 @@ reference's keys and layout: ``ssm`` (G, P, B, H, P, N) and ``conv`` (G, P,
 B, W-1, conv_dim) fp32, ``k``/``v`` (G, B, max_len, KV, D), ``ssm_tail`` and
 ``conv_tail``; ``decode_step`` updates it in place.  Every attention call is
 K6 (prefill) or K7 (decode) through ``attention.py``.
+
+``trainable=True`` builds the training construction, as ``DecoderLM``
+does: fp32 masters that take gradients, cast at use.  The shared block's
+masters collect the gradient of every application.  ``loss`` is the
+reference's: the chunked cross entropy over whole chunks only (the
+remainder is dropped) and no auxiliary term.  ``cfg.remat`` recomputes each
+group (its Mamba2 layers and the shared block's application) in the
+backward, as the reference's ``_remat(group_body, cfg)``; the tail layers
+are not recomputed.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
@@ -31,7 +41,10 @@ from .layers import (
     mlp_apply,
     mlp_init,
     param_dict,
+    remat_on,
     rms_norm,
+    trainable_masters,
+    whole_chunks_loss,
     zeros_init,
 )
 from .ssm import (
@@ -67,9 +80,12 @@ class SharedBlock(nn.Module):
 
 
 class HybridModel(nn.Module):
-    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card)."""
+    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card);
+    ``trainable``: fp32 masters that take gradients (else ``cfg.dtype``
+    matrices without gradients, for serving)."""
 
-    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -77,10 +93,15 @@ class HybridModel(nn.Module):
         self.n_groups = cfg.n_layers // self.period
         self.n_tail = cfg.n_layers - self.n_groups * self.period
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed))
+        self.init(torch.Generator(device=self.device).manual_seed(seed),
+                  torch.float32 if trainable else self.dtype)
+        if trainable:
+            trainable_masters(self)
 
-    def init(self, gen: torch.Generator) -> None:
-        cfg, kw = self.cfg, {"device": self.device, "dtype": self.dtype}
+    def init(self, gen: torch.Generator, dt: torch.dtype) -> None:
+        """Draw every weight from ``gen`` (the reference's distributions),
+        matrices stored in ``dt``."""
+        cfg, kw = self.cfg, {"device": self.device, "dtype": dt}
         self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, **kw))
         self.main = nn.ModuleList(
             nn.ModuleList(MambaLayer(gen, cfg, **kw) for _ in range(self.period))
@@ -104,23 +125,60 @@ class HybridModel(nn.Module):
         return x + mamba2_apply(layer.mamba, rms_norm(x, layer.ln, self.cfg.norm_eps),
                                 self.cfg, chunk=self.cfg.scan_chunk)
 
+    def _group(self, group: nn.ModuleList, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+        """One group: its Mamba2 layers, then the shared block."""
+        for layer in group:
+            x = self._mamba(layer, x)
+        return self._shared_apply(x, positions)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> torch.Tensor:
-        """Full-sequence forward -> final-normed hidden (B, S, d_model)."""
-        x = embed_apply(self.embed, batch["tokens"], False, self.cfg.d_model)
+        """Full-sequence forward -> final-normed hidden (B, S, d_model).
+        Under grad, ``cfg.remat`` recomputes each group in the backward."""
+        x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        remat = remat_on(self.cfg)
         for group in self.main:
-            for layer in group:
-                x = self._mamba(layer, x)
-            x = self._shared_apply(x, positions)
+            x = (checkpoint(self._group, group, x, positions, use_reentrant=False) if remat
+                 else self._group(group, x, positions))
         for layer in self.tail:
             x = self._mamba(layer, x)
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
+    def _head(self) -> torch.Tensor:
+        return self.embed if self.cfg.tie_embeddings else self.head
+
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        w = self.embed if self.cfg.tie_embeddings else self.head
-        out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
+        out = hidden.reshape(-1, hidden.shape[-1]) @ self._head().to(hidden.dtype).T
         return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Chunked-vocab causal LM loss over whole chunks -> (nll, {"nll",
+        "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
+        hidden = self.hidden_states(batch)
+        labels = batch["labels"].to(hidden.device, torch.long)
+        return whole_chunks_loss(hidden, labels, self._head().to(hidden.dtype),
+                                 self.cfg.loss_chunk)
+
+    def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward, ``loss`` (for ``torch.func.functional_call``)."""
+        return self.loss(batch)
+
+    def input_specs(self, shape) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every model input of a ``ShapeSpec``: tokens
+        and (train) labels, or one decode token."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((B, 1), torch.int32)}
+        specs = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), torch.int32)
+        return specs
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int,
@@ -156,7 +214,7 @@ class HybridModel(nn.Module):
         f32, cache)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = embed_apply(self.embed, tokens, False, self.cfg.d_model)
+        x = self._embed(tokens)
         positions = torch.arange(S, device=x.device)[None, :]
         cache = self.init_cache(B, max_len, cache_dtype)
         for g, group in enumerate(self.main):
@@ -182,7 +240,7 @@ class HybridModel(nn.Module):
         """tokens (B, 1) at position ``pos`` (an int); updates ``cache`` in
         place -> (logits (B, 1, V) f32, cache)."""
         cfg, pos = self.cfg, int(pos)
-        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        x = self._embed(tokens)
         p = self.shared
         for g, group in enumerate(self.main):
             for j, layer in enumerate(group):

@@ -8,7 +8,7 @@ the same in both packages and a JAX parameter tree converts leaf by leaf.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,3 +133,39 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor, scale: bool,
     if scale:  # gemma scales embeddings by sqrt(d_model)
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
     return x
+
+
+# ----------------------------------------------------------------------- loss
+def ce_sum(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+           cap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(summed cross entropy of the positions labelled >= 0, their count):
+    logits ``h @ w.T`` in h's dtype (on 2-D rows), then in fp32 and soft-
+    capped at ``cap``, as the reference's ``ce``."""
+    logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
+    logits = softcap(logits.float(), cap)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
+
+
+def whole_chunks_loss(hidden: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
+                      loss_chunk: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The hybrid's and the encoder-decoder's loss -> (nll, {"nll",
+    "tokens"}): cross entropy over the whole chunks of ``min(loss_chunk,
+    S)`` positions only.  Their references take ``hidden[:, :n_chunks *
+    chunk]``, so the remainder's positions count for nothing (the decoder's
+    loss keeps them)."""
+    S = hidden.shape[1]
+    chunk = min(loss_chunk, S)
+    tot = cnt = torch.zeros((), device=hidden.device)
+    for lo in range(0, S // chunk * chunk, chunk):
+        t, n = ce_sum(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], w)
+        tot, cnt = tot + t, cnt + n
+    nll = tot / cnt.clamp_min(1.0)
+    return nll, {"nll": nll, "tokens": cnt}
+
+
+def remat_on(cfg) -> bool:
+    """Whether ``cfg.remat`` recomputes each checkpointed unit in the
+    backward: only under grad (a no-grad forward saves nothing)."""
+    return cfg.remat != "none" and torch.is_grad_enabled()

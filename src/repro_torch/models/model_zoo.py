@@ -28,12 +28,5 @@ def build_model(cfg, device: DeviceLike = None, *, seed: int = 0,
                 trainable: bool = False) -> nn.Module:
     """The model for ``cfg`` on ``device`` (None: the CUDA card), weights
     drawn from ``seed``.  ``trainable``: the training construction (fp32
-    master parameters that take gradients), which only ``DecoderLM`` (the
-    dense, MoE and vision families) has so far."""
-    cls = model_class(cfg)
-    if not trainable:
-        return cls(cfg, device, seed=seed)
-    if cls is not DecoderLM:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family has no training "
-                                  "construction yet")
-    return cls(cfg, device, seed=seed, trainable=True)
+    master parameters that take gradients), every family's."""
+    return model_class(cfg)(cfg, device, seed=seed, trainable=trainable)

@@ -13,8 +13,9 @@ update.  A depthwise causal conv (width 4) precedes x/B/C; n_groups = 1.
 The scan is plain PyTorch in fp32, as the reference leaves it plain jnp.
 
 Parameters are a dict of tensors with the reference's names: ``in_proj``,
-``out_proj`` and ``conv_w`` in the activation dtype (the reference casts its
-fp32 masters to it at each use), the rest fp32.
+``out_proj`` and ``conv_w`` in the activation dtype for serving, fp32
+masters in the training construction, each cast to the activations' dtype
+at use (as the reference casts its fp32 masters); the rest fp32.
 """
 from __future__ import annotations
 

@@ -40,12 +40,14 @@ from ..device import DeviceLike, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
 from .layers import (
     activation_dtype,
+    ce_sum,
     embed_apply,
     embed_init,
     frozen,
     mlp_apply,
     mlp_init,
     param_dict,
+    remat_on,
     rms_norm,
     softcap,
     trainable_masters,
@@ -185,7 +187,7 @@ class DecoderLM(nn.Module):
         Under grad, ``cfg.remat`` recomputes each block in the backward."""
         x, positions = self._embed_inputs(batch)
         aux = torch.zeros((), device=x.device)
-        remat = self.cfg.remat != "none" and torch.is_grad_enabled()
+        remat = remat_on(self.cfg)
         for layer, blk in enumerate(self.layers):
             args = (blk, x, self.cfg, self.variant_of(layer), positions)
             x, _, a = (checkpoint(block_apply, *args, use_reentrant=False) if remat
@@ -221,18 +223,11 @@ class DecoderLM(nn.Module):
         w = (self.embed if cfg.tie_embeddings else self.head).to(hidden.dtype)
         tot = cnt = torch.zeros((), device=hidden.device)
         for lo in range(0, S, chunk):   # the whole chunks, then the remainder
-            t, n = self._ce(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], w)
+            t, n = ce_sum(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], w,
+                          cfg.final_logit_softcap)
             tot, cnt = tot + t, cnt + n
         nll = tot / cnt.clamp_min(1.0)
         return nll + AUX_LOSS_COEF * aux, {"nll": nll, "aux": aux, "tokens": cnt}
-
-    def _ce(self, h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor):
-        """(summed cross entropy of the labelled positions, their count)."""
-        logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
-        logits = softcap(logits.float(), self.cfg.final_logit_softcap)
-        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-        valid = (labels >= 0).float()
-        return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
 
     def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training forward, ``loss`` (so that ``torch.func.functional_call``

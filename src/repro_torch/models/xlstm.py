@@ -16,8 +16,11 @@ The recurrences are plain PyTorch, as the reference leaves them plain jnp.
 Activations are the reference's: ``jax.nn.gelu`` is the tanh approximation,
 ``log_sigmoid`` is ``F.logsigmoid``; the stabilisers start at -1e30 (mLSTM)
 and -10 (sLSTM).  Parameters are dicts of tensors with the reference's
-names: the projections and ``conv_w`` in the activation dtype, the biases,
-norm scales and sLSTM's recurrent ``r`` fp32 (as the reference reads them).
+names: the projections and ``conv_w`` in the activation dtype for serving
+(fp32 masters in the training construction), each cast to the activations'
+dtype at use; the biases, norm scales and sLSTM's recurrent ``r`` fp32 (as
+the reference reads them).  The sLSTM time loop builds a new state each
+step (no in-place write), so autograd runs through it.
 """
 from __future__ import annotations
 

@@ -12,22 +12,32 @@ reference's keys and layout (``mC``, ``mn``, ``mm``, ``mbuf`` over (G,
 n_mlstm, ...); ``sh``, ``sc``, ``sn``, ``sm``, ``sbuf`` over (G, ...), all
 fp32); ``decode_step`` updates it in place and ignores ``pos``.  The head is
 tied to the embedding.
+
+``trainable=True`` builds the training construction, as ``DecoderLM``
+does: fp32 masters that take gradients, cast at use.  ``loss`` is the
+reference's: the cross entropy of the full logits (not chunked), no
+auxiliary term; ``cfg.remat`` recomputes each group in the backward, as
+the reference's ``_remat(group_body, cfg)`` (xlstm-125m's is "none").
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .layers import (
     activation_dtype,
+    ce_sum,
     embed_apply,
     embed_init,
     frozen,
     param_dict,
+    remat_on,
     rms_norm,
+    trainable_masters,
     zeros_init,
 )
 from .xlstm import (
@@ -57,9 +67,12 @@ class XBlock(nn.Module):
 
 
 class XLSTMModel(nn.Module):
-    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card)."""
+    """Weights drawn from ``seed`` on ``device`` (None: the CUDA card);
+    ``trainable``: fp32 masters that take gradients (else ``cfg.dtype``
+    matrices without gradients, for serving)."""
 
-    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0):
+    def __init__(self, cfg, device: DeviceLike = None, *, seed: int = 0,
+                 trainable: bool = False):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -69,10 +82,15 @@ class XLSTMModel(nn.Module):
         self.n_groups = cfg.n_layers // self.period
         self.n_mlstm = self.period - 1 if cfg.slstm_every else self.period
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed))
+        self.init(torch.Generator(device=self.device).manual_seed(seed),
+                  torch.float32 if trainable else self.dtype)
+        if trainable:
+            trainable_masters(self)
 
-    def init(self, gen: torch.Generator) -> None:
-        cfg, dev, dt = self.cfg, self.device, self.dtype
+    def init(self, gen: torch.Generator, dt: torch.dtype) -> None:
+        """Draw every weight from ``gen`` (the reference's distributions),
+        matrices stored in ``dt``."""
+        cfg, dev = self.cfg, self.device
         self.embed = frozen(embed_init(gen, cfg.vocab_size, cfg.d_model, device=dev, dtype=dt))
         self.mlstm = nn.ModuleList(
             nn.ModuleList(XBlock(mlstm_init(gen, cfg, device=dev, dtype=dt), cfg.d_model, dev)
@@ -87,22 +105,58 @@ class XLSTMModel(nn.Module):
     def _norm(self, x: torch.Tensor, b: XBlock) -> torch.Tensor:
         return rms_norm(x, b.ln, self.cfg.norm_eps)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+
+    def _group(self, g: int, x: torch.Tensor) -> torch.Tensor:
+        """Group ``g``: its mLSTM blocks, then its sLSTM block."""
+        cfg = self.cfg
+        for b in self.mlstm[g]:
+            x = x + mlstm_apply(b.blk, self._norm(x, b), cfg)
+        if cfg.slstm_every:
+            b = self.slstm[g]
+            x = x + slstm_apply(b.blk, self._norm(x, b), cfg)
+        return x
+
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> torch.Tensor:
-        """Full-sequence forward -> final-normed hidden (B, S, d_model)."""
-        cfg = self.cfg
-        x = embed_apply(self.embed, batch["tokens"], False, cfg.d_model)
+        """Full-sequence forward -> final-normed hidden (B, S, d_model).
+        Under grad, ``cfg.remat`` recomputes each group in the backward."""
+        x = self._embed(batch["tokens"])
+        remat = remat_on(self.cfg)
         for g in range(self.n_groups):
-            for b in self.mlstm[g]:
-                x = x + mlstm_apply(b.blk, self._norm(x, b), cfg)
-            if cfg.slstm_every:
-                b = self.slstm[g]
-                x = x + slstm_apply(b.blk, self._norm(x, b), cfg)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+            x = (checkpoint(self._group, g, x, use_reentrant=False) if remat
+                 else self._group(g, x))
+        return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
         return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Causal LM loss over the full logits (tied head) -> (nll, {"nll",
+        "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
+        hidden = self.hidden_states(batch)
+        labels = batch["labels"].to(hidden.device, torch.long)
+        tot, cnt = ce_sum(hidden, labels, self.embed.to(hidden.dtype))
+        nll = tot / cnt.clamp_min(1.0)
+        return nll, {"nll": nll, "tokens": cnt}
+
+    def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training forward, ``loss`` (for ``torch.func.functional_call``)."""
+        return self.loss(batch)
+
+    def input_specs(self, shape) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+        """(shape, dtype) of every model input of a ``ShapeSpec``: tokens
+        and (train) labels, or one decode token."""
+        B, S = shape.global_batch, shape.seq_len
+        if shape.kind not in ("train", "prefill"):
+            return {"tokens": ((B, 1), torch.int32)}
+        specs = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = ((B, S), torch.int32)
+        return specs
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int = 0,
@@ -129,7 +183,7 @@ class XLSTMModel(nn.Module):
         (last-position logits (B, 1, V) f32, cache)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        x = self._embed(tokens)
         cache = self.init_cache(tokens.shape[0], max_len, cache_dtype)
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
@@ -150,7 +204,7 @@ class XLSTMModel(nn.Module):
         """tokens (B, 1); ``pos`` is ignored.  Updates ``cache`` in place ->
         (logits (B, 1, V) f32, cache)."""
         cfg = self.cfg
-        x = embed_apply(self.embed, tokens, False, cfg.d_model)
+        x = self._embed(tokens)
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
                 state = tuple(cache[key][g, j] for key in _M_KEYS)

@@ -809,7 +809,12 @@ _BWD_CASES = [(2, 200, 200, 8, 4, 128, {}), (1, 130, 130, 4, 2, 256, {"softcap":
               (2, 80, 80, 8, 8, 96, {}), (1, 90, 90, 4, 2, 112, {}),
               (1, 77, 77, 4, 4, 128, {}),                    # G = 1
               (1, 203, 203, 6, 2, 64, {}),                   # G = 3: 21-position tiles, ragged S
-              (2, 333, 333, 16, 2, 128, {"window": 100})]    # G = 8, ragged S
+              (2, 333, 333, 16, 2, 128, {"window": 100}),    # G = 8, ragged S
+              # the other families' training shapes: zamba2 (D=112, G=1),
+              # phi-3-vision (D=96, G=1), seamless's encoder and cross attention
+              (1, 300, 300, 4, 4, 112, {}), (1, 257, 257, 4, 4, 96, {}),
+              (2, 256, 256, 4, 4, 64, {"causal": False}),
+              (1, 190, 330, 4, 4, 64, {"causal": False})]
 
 
 @pytest.mark.cuda
@@ -889,30 +894,48 @@ def test_flash_attention_backward_is_deterministic(dev):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# reduced config -> (K6 forward launches of one loss and backward, with the
+# remat recompute; launches of each backward entry point): one attention a
+# decoder layer, one a shared-block application (zamba2: one group), one an
+# encoder layer and two a decoder layer (seamless), none in xLSTM
+_TRAIN_LAUNCHES = {"qwen3-1.7b": (4, 2), "zamba2-7b": (2, 1), "xlstm-125m": (0, 0),
+                   "seamless-m4t-large-v2": (12, 6), "qwen2-moe-a2.7b": (4, 2),
+                   "llama4-maverick-400b-a17b": (4, 2), "phi-3-vision-4.2b": (4, 2)}
+
+
 @pytest.mark.cuda
-def test_decoder_loss_gives_every_parameter_a_gradient(dev):
-    """The reduced qwen3 in its training construction: every parameter gets a
-    non-zero gradient on the card (attention's through K6's backward, one
-    call a layer; the forward again in the remat recompute), within 1e-4 of
-    the CPU's."""
+@pytest.mark.parametrize("arch", _TRAIN_LAUNCHES)
+def test_decoder_loss_gives_every_parameter_a_gradient(dev, arch):
+    """Each family's reduced config in its training construction: every
+    parameter gets a non-zero gradient on the card (attention's through K6's
+    backward; the forward again in the remat recompute), within 1e-4 of the
+    CPU's.  An MoE model routes alike on both (the reduced capacity drops
+    no token)."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
-    cfg = get_arch("qwen3-1.7b").reduced()
+    cfg = get_arch(arch).reduced()
     cpu = build_model(cfg, "cpu", seed=1, trainable=True)
     card = build_model(cfg, dev, seed=1, trainable=True)
     with torch.no_grad():
         for p, c in zip(card.parameters(), cpu.parameters()):
             p.copy_(c)
-    tok = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32))
-    lab = torch.from_numpy(RNG.integers(-1, cfg.vocab_size, (4, 40)).astype(np.int32))
+    batch = {"tokens": torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)),
+             "labels": torch.from_numpy(RNG.integers(-1, cfg.vocab_size, (4, 40)).astype(np.int32))}
+    extra = {"patch_embeds": cfg.n_frontend_tokens if cfg.frontend == "vision" else 0,
+             "frames": 20 if cfg.is_encdec else 0}
+    for name, n in extra.items():
+        if n:
+            batch[name] = torch.from_numpy(
+                (RNG.standard_normal((4, n, cfg.d_model)) * 0.02).astype(np.float32))
     ops.reset_launch_counts()
-    card.loss({"tokens": tok.to(dev), "labels": lab.to(dev)})[0].backward()
+    card.loss({k: v.to(dev) for k, v in batch.items()})[0].backward()
     counts = ops.launch_counts()
-    assert counts["flash_attention"] == 2 * cfg.n_layers
-    assert all(counts[f"flash_attention_bwd_{e}"] == cfg.n_layers for e in ("delta", "dkdv", "dq"))
-    cpu.loss({"tokens": tok, "labels": lab})[0].backward()
+    fwd, bwd = _TRAIN_LAUNCHES[arch]
+    assert counts["flash_attention"] == fwd
+    assert all(counts[f"flash_attention_bwd_{e}"] == bwd for e in ("delta", "dkdv", "dq"))
+    cpu.loss(batch)[0].backward()
     for (name, p), c in zip(card.named_parameters(), cpu.parameters()):
         assert p.grad is not None and bool(p.grad.any()), name
         err = (p.grad.cpu() - c.grad).abs().max() / c.grad.abs().max()
