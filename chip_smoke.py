@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
-                          [--src DIR]
+                          [--layout] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -75,8 +75,9 @@ just before it and read just after:
   (none zero), then three train steps (loss, grad norm, lr, parameters),
   also with 2 microbatches and int8 moments; (c) 2 steps, a checkpoint, a
   restore into a fresh state and 2 more equal 4 uninterrupted steps bit
-  for bit; (d) ``launch/train.py``'s ``main`` at full width (qwen3-1.7b,
-  28 layers, fp32 masters, remat block, B=4 x 2048 tokens, 4 steps) with
+  for bit; (d) ``launch/train.py``'s ``main`` at full width (on its 1 x 1
+  host mesh; qwen3-1.7b, 28 layers, fp32 masters, remat block, B=4 x 2048
+  tokens, 4 steps) with
   its exact K6 counts (56 forward launches a step with the recompute, 28
   of each backward kernel), ms a step and peak memory, then 3 steps on
   one repeated batch (the loss must fall) and the idle share of a step;
@@ -95,7 +96,25 @@ just before it and read just after:
   device ops, and K6's backward at each family's attention shape (D=112,
   96, 128, and 64 with and without the causal mask) against its plain
   version, its bound and SDPA's backward.  llama4 takes no full-width step
-  (one layer's experts are about 16 B parameters).
+  (one layer's experts are about 16 B parameters);
+* layout: (a) K6 with ``q_offset`` at qwen3-1.7b's attention shape (B=4,
+  H=16, KV=8, D=128, causal) in bf16 and f32: 512-row chunks at q_offset
+  0, 512 and 1536 (T = q_offset + 512), each against its plain version,
+  timed beside SDPA with the chunk's mask, its bound over the (row, key)
+  pairs the mask keeps; a window of 256 with softcap 50 at 1536; the four
+  chunks of a 2048-token prompt against one call; the backward at 1536
+  against its plain version; (b) qwen3-1.7b's 4 x 2048 prefill at full
+  width and depth through ``attn_impl="blocked"`` (``blocked_attention``,
+  28 K6 launches, counted from 0 around the blocked prefill alone), logits
+  and cache bit-equal to the default route's; (c) ``launch/train.py``'s
+  ``main`` at full width on its host mesh (1 x 1, nccl, where
+  ``distribute`` leaves the state plain; 4 steps, the exact K6 counts of
+  (d), counted from 0 around ``main`` alone), then 4 steps of
+  ``make_train_step`` from the same state on plain tensors and on DTensors
+  of the 1 x 1 mesh: the launcher's and the DTensors' losses and grad
+  norms against the plain ones (bit-equal, or within 1e-6 relative), ms a
+  step and a profiled step's idle share each way (what DTensor's dispatch
+  would cost on one card).
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -129,17 +148,22 @@ graph does not capture autograd's backward; also the dK/dV and dQ rows'
 ``library_ms`` and ``library_device_ms``), and ``family_backward``: the
 same whole-backward times, bound and SDPA times at each family's training
 shape (phase train (f)), with its calls a step.  ``train_families_launches``
-counts each kernel's launches in (f).
+counts each kernel's launches in (f), ``layout_blocked_launches`` and
+``layout_train_launches`` in phase layout (b) and (c); K6's row adds
+``q_offset_chunks`` (each chunk of (a): its offset, dtype, visible pairs,
+times, bound and error), ``q_offset_concat_max_err``,
+``q_offset_bwd_max_err`` and ``layout_train`` ((c): ms a step and
+profiled device time, each way).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
-``--model``, ``--top1``, ``--nearest``, ``--families`` and ``--train`` run
-only the env and build phases and the named ones (the model's prefill and
-decode; K3 at B in {1, 8, 32} and K1's id route on the wrappers;
-``nearest_neighbor`` first and warm; the families, or those of a
-comma-separated list of names after the flag; phase train) and print no
-kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
+``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train`` and
+``--layout`` run only the env and build phases and the named ones (the
+model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
+wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
+comma-separated list of names after the flag; phase train; phase layout)
+and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
 change, change, parent) on one card, one after another, compares two commits.
@@ -198,8 +222,12 @@ from repro_torch.serving import (  # noqa: E402
 )
 from repro_torch.training.elastic import BackupPolicy  # noqa: E402
 from repro_torch.configs import ShapeSpec  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.shardings import batch_shardings  # noqa: E402
+from repro_torch.launch.shardings import state_shardings  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthetic_batch  # noqa: E402
+from repro_torch.models import use_mesh  # noqa: E402
 from repro_torch.training import (  # noqa: E402
     OptimizerConfig,
     init_state,
@@ -278,6 +306,7 @@ FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FAMILIES_PATH = ("flash_attention", "decode_attention")
 TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                        "flash_attention_bwd_dq")
+LAYOUT_PATH = {"layout-blocked": ("flash_attention",), "layout-train": TRAIN_FAMILIES_PATH}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -2734,17 +2763,20 @@ def bwd_check(gen, dev, B, S, T, H, KV, D, dt, kw) -> dict:
     q = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
     k, v = (_randn(gen, B, T, KV, D, dtype=dt, dev=dev) for _ in range(2))
     scale = kw.pop("scale", 1.0 / math.sqrt(D))
+    qo = kw.get("q_offset", 0)
     masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"), scale)
-    out, lse = flash_k.forward(q, k, v, *masks, with_lse=True)
+    out, lse = flash_k.forward(q, k, v, *masks, with_lse=True, q_offset=qo)
     want_out, want_lse = ref.flash_attention_ref(q, k, v, causal=masks[0], window=masks[1],
-                                                 softcap=masks[2], scale=scale, return_lse=True)
+                                                 softcap=masks[2], scale=scale, return_lse=True,
+                                                 q_offset=qo)
     shape = f"B={B} S={S} T={T} H={H} KV={KV} D={D} {str(dt)[6:]} {kw}"
     errs = {"out": attn_err(f"flash_attention {shape}", out, want_out, ATTN_BF16_TOL),
             "lse": lse_err(f"lse {shape}", lse, want_lse)}
     dout = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
-    got = flash_k.backward(q, k, v, out, lse, dout, *masks)
+    got = flash_k.backward(q, k, v, out, lse, dout, *masks, q_offset=qo)
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=masks[0],
-                                       window=masks[1], softcap=masks[2], scale=scale)
+                                       window=masks[1], softcap=masks[2], scale=scale,
+                                       q_offset=qo)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         errs[name] = grad_err(f"{name} {shape}", g, w)
     log(f"  flash_attention backward {shape}: max err " + ", ".join(
@@ -2798,7 +2830,7 @@ def bwd_rows(gen, dev) -> dict:
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr())
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dims = (B, S, S, H, KV, D, 1, -1, -1.0, scale, 1)
+    dims = (B, S, S, H, KV, D, 1, -1, 0, -1.0, scale, 1)
 
     def run(fn, *a):   # one entry point as the wrapper launches it
         build.launch("flash_attention_bwd", fn, dev, *a)
@@ -3338,6 +3370,183 @@ def phase_train(dev: torch.device, seed: int = 12):
     return rows, counts, fam_counts
 
 
+# ------------------------------------------------------------------ phase 12
+# phase layout: K6 with q_offset at qwen3-1.7b's attention shape, chunks of
+# LAYOUT_CHUNK rows of an ATTN_S-token prompt at LAYOUT_OFFSETS; the blocked
+# prefill; launch/train.py on a 1 x 1 nccl mesh against plain tensors
+LAYOUT_CHUNK, LAYOUT_OFFSETS = 512, (0, 512, 1536)
+LAYOUT_TRAIN_REL_TOL = 1e-6   # mesh against plain: loss and grad norm, relative
+
+
+def chunk_row(gen, dev, dt, q_offset: int, **kw) -> dict:
+    """K6 (``dt``) at (B, LAYOUT_CHUNK, H, D) x (B, q_offset + LAYOUT_CHUNK,
+    KV, D), causal, with ``q_offset``: against its plain version, timed
+    beside SDPA with the chunk's boolean mask (none with a softcap, which
+    SDPA lacks), bound over the (row, key) pairs the mask keeps."""
+    B, S, H, KV, D = ATTN_B, LAYOUT_CHUNK, ATTN_H, ATTN_KV, ATTN_D
+    T = q_offset + S
+    q = _randn(gen, B, S, H, D, dtype=dt, dev=dev)
+    k, v = (_randn(gen, B, T, KV, D, dtype=dt, dev=dev) for _ in range(2))
+    kw = dict(kw, q_offset=q_offset)
+    fn = lambda: flash_k.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
+    name = f"flash_attention chunk {str(dt)[6:]} B={B} S={S} T={T} H={H} KV={KV} D={D} {kw}"
+    err = attn_err(name, fn(), plain())
+    mask = ref._attention_mask(S, T, True, kw.get("window"), dev, q_offset)
+    pairs = int(mask.sum()) * B * H
+    if kw.get("softcap") is None:
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=1.0 / math.sqrt(D))
+        attn_err(f"sdpa {name} vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
+        t = attention_times(fn, plain, lib)
+    else:
+        t = {"ms": median_ms(fn, REPS), "plain_ms": median_ms(plain, PLAIN_REPS),
+             "library_ms": None, "device_ms": graph_ms(fn, REPS), "library_device_ms": None}
+    flop = 4.0 * D * pairs
+    bms, by = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flop,
+                    BF16_FLOP_PER_S if dt == torch.bfloat16 else FP32_FLOP_PER_S)
+    log(f"  {name}: {pairs} visible pairs, {flop / 1e9:.2f} GFLOP; {t['ms']:.4f} ms a call, "
+        f"{t['device_ms']:.4f} ms device ({flop / t['device_ms'] / 1e9:.1f} TFLOP/s), sdpa "
+        + ("none (softcap)" if t["library_ms"] is None else
+           f"{t['library_ms']:.4f} ms, {t['library_device_ms']:.4f} ms device")
+        + f"; plain {t['plain_ms']:.4f} ms; bound {bms:.5f} ms by {by}; max err {err:.3g}")
+    return {"dtype": str(dt)[6:], "q_offset": q_offset, "S": S, "T": T, **{
+        k_: kw[k_] for k_ in ("window", "softcap") if k_ in kw}, "pairs": pairs,
+        "gflop": flop / 1e9, "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
+
+
+def phase_layout(dev: torch.device, seed: int = 13):
+    """(a) K6 with q_offset: chunks, a window with a softcap, the chunks of a
+    prompt against one call, the backward; (b) qwen3-1.7b's prefill through
+    attn_impl="blocked" against the default route; (c) launch/train.py's
+    main on a 1 x 1 nccl mesh against make_train_step on plain tensors ->
+    (K6 row fields, launches of (b) and (c))."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
+    # --- (a) the chunks, each dtype; the window + softcap chunk
+    chunks, concat, bwd = [], {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        for qo in LAYOUT_OFFSETS:
+            chunks.append(chunk_row(gen, dev, dt, qo))
+        chunks.append(chunk_row(gen, dev, dt, LAYOUT_OFFSETS[-1], window=256, softcap=50.0))
+        # a prompt's chunks, each against the keys so far, against one call
+        q = _randn(gen, B, ATTN_S, H, D, dtype=dt, dev=dev)
+        k, v = (_randn(gen, B, ATTN_S, KV, D, dtype=dt, dev=dev) for _ in range(2))
+        whole = flash_k.flash_attention(q, k, v)
+        parts = torch.cat([flash_k.flash_attention(q[:, lo:lo + LAYOUT_CHUNK],
+                                                   k[:, :lo + LAYOUT_CHUNK],
+                                                   v[:, :lo + LAYOUT_CHUNK], q_offset=lo)
+                           for lo in range(0, ATTN_S, LAYOUT_CHUNK)], dim=1)
+        name = str(dt)[6:]
+        concat[name] = attn_err(f"{ATTN_S // LAYOUT_CHUNK} chunks vs one call {name}",
+                                parts, whole)
+        log(f"  flash_attention {name}: {ATTN_S // LAYOUT_CHUNK} chunks of {LAYOUT_CHUNK} rows "
+            f"at their q_offsets vs one call at S={ATTN_S}: max err {concat[name]:.3g}, "
+            f"bit-equal {bool(torch.equal(parts, whole))}")
+        bwd[name] = bwd_check(gen, dev, B, LAYOUT_CHUNK, LAYOUT_OFFSETS[-1] + LAYOUT_CHUNK, H,
+                              KV, D, dt, {"q_offset": LAYOUT_OFFSETS[-1]})
+    rows = {"q_offset_chunks": chunks, "q_offset_concat_max_err": concat,
+            "q_offset_bwd_max_err": bwd}
+
+    # --- (b) the prefill through blocked_attention against the default route
+    cfg = get_arch(MODEL_ARCH)
+    tokens = torch.randint(0, cfg.vocab_size, (ATTN_B, ATTN_S), generator=gen, device=dev)
+    blocked = build_model(dataclasses.replace(cfg, attn_impl="blocked"), dev, seed=7)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        lb, cb = blocked.prefill({"tokens": tokens}, ATTN_S)
+    blocked_counts = ops.launch_counts()
+    expect(blocked_counts["flash_attention"] == cfg.n_layers,
+           f"blocked prefill launched K6 {blocked_counts['flash_attention']} times")
+    del blocked
+    naive = build_model(cfg, dev, seed=7)
+    with torch.no_grad():
+        ln, cn = naive.prefill({"tokens": tokens}, ATTN_S)
+    same = bool(torch.equal(lb, ln)) and all(torch.equal(cb[n], cn[n]) for n in cn)
+    expect(same, "the blocked prefill's logits or cache differ from the default route's")
+    log(f"  qwen3-1.7b prefill B={ATTN_B} S={ATTN_S} attn_impl=blocked: "
+        f"{blocked_counts['flash_attention']} "
+        f"K6 launches; logits and cache bit-equal to attn_impl=naive's")
+    del naive, cb, cn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (c) launch/train.py on the host mesh (1 x 1, nccl: ``distribute``
+    # leaves the state plain), then the same steps from the same state with
+    # make_train_step on plain tensors, and on DTensors of the 1 x 1 mesh
+    full = get_arch(MODEL_ARCH)
+    argv = ["--arch", MODEL_ARCH, "--seq-len", str(ATTN_S), "--batch", str(ATTN_B),
+            "--steps", str(FULL_STEPS), "--log-every", "1"]
+    ops.reset_launch_counts()
+    history = train_main(argv, device=dev)
+    train_counts = ops.launch_counts()
+    fwd, bwd_n = train_launches(full)
+    expect_launches("train.py on the host mesh", train_counts, fwd * FULL_STEPS,
+                    bwd_n * FULL_STEPS)
+    ocfg = OptimizerConfig(lr=3e-4, total_steps=FULL_STEPS)   # main's, from its defaults
+    shape = ShapeSpec("cli", ATTN_S, ATTN_B, "train")
+    mesh = make_host_mesh(device=dev)
+    runs, prof = {}, {}
+    for way in ("plain", "dtensor"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(full, dev, seed=0, trainable=True)
+        state = init_state(model, ocfg)
+        with use_mesh(mesh):
+            shd = state_shardings(state, mesh, "tp", full.family)
+            if way == "dtensor":
+                state = as_dtensors(state, shd, mesh)
+            step = make_train_step(model, ocfg, grad_shardings=shd["params"])
+            bshd = batch_shardings(model.input_specs(shape), mesh)
+            put = (lambda b: as_dtensors(b, bshd, mesh)) if way == "dtensor" else (lambda b: b)
+            runs[way] = []
+            for i in range(FULL_STEPS):
+                t0 = time.perf_counter()
+                m = step(state, put(synthetic_batch(model, full, shape, i, dev)))[1]
+                runs[way].append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                  "ms": (time.perf_counter() - t0) * 1e3})
+            batch = put(synthetic_batch(model, full, shape, FULL_STEPS, dev))
+            prof[way] = profile_call(f"train step qwen3-1.7b, {way} tensors on the 1 x 1 mesh",
+                                     lambda: step(state, batch), host=False)
+        del model, state, step, batch
+    gaps = {w: [max(abs(h[k] - p[k]) / abs(p[k]) for k in ("loss", "grad_norm"))
+                for h, p in zip(hist, runs["plain"])]
+            for w, hist in (("launcher", history), ("dtensor", runs["dtensor"]))}
+    for w, g in gaps.items():
+        expect(max(g) <= LAYOUT_TRAIN_REL_TOL, f"{w} vs plain steps differ by {g}")
+    log(f"  {FULL_STEPS} steps: train.py on the 1 x 1 mesh, make_train_step on DTensors of "
+        f"that mesh, and on plain tensors: losses {[h['loss'] for h in history]}, "
+        f"{[h['loss'] for h in runs['dtensor']]}, {[p['loss'] for p in runs['plain']]}; "
+        f"grad norms {[h['grad_norm'] for h in history]}, "
+        f"{[h['grad_norm'] for h in runs['dtensor']]}, "
+        f"{[p['grad_norm'] for p in runs['plain']]}; relative gaps to plain {gaps} "
+        f"(bit-equal: launcher {all(g == 0 for g in gaps['launcher'])}, dtensor "
+        f"{all(g == 0 for g in gaps['dtensor'])}); ms a step "
+        + "; ".join(", ".join(f"{h['ms']:.1f}" for h in hist) for hist in
+                    (history, runs["dtensor"], runs["plain"])))
+    rows["layout_train"] = {
+        "launcher_ms": [h["ms"] for h in history],
+        **{f"{w}_ms": [h["ms"] for h in runs[w]] for w in runs},
+        "launcher_rel_gaps": gaps["launcher"], "dtensor_rel_gaps": gaps["dtensor"],
+        **{f"{w}_profiled_{k}": prof[w][k] for w in prof
+           for k in ("wall_ms", "device_ms", "device_ops")}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, blocked_counts, train_counts
+
+
+def as_dtensors(tree, shardings, mesh):
+    """Every leaf of ``tree`` as a DTensor of its placements in the matching
+    tree ``shardings`` on a 1 x 1 mesh, its storage kept: the DTensor path
+    that ``distribute`` leaves out on one rank, timed for its host cost."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: as_dtensors(v, shardings[k], mesh) for k, v in tree.items()}
+    return DTensor.from_local(tree.detach(), mesh, tuple(shardings))
+
+
 def family_names() -> tuple:
     """``--families [NAME,NAME...]``: the architectures named after the
     flag, or all of FAMILIES."""
@@ -3367,7 +3576,7 @@ def main() -> int:
     with timed("env"):
         phase_env()
     log(f"port: {SRC}")
-    only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train")
+    only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout")
             if m in sys.argv[1:]]
     if only:
         with timed("build"):
@@ -3376,7 +3585,7 @@ def main() -> int:
             with timed(mode[2:]):
                 {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
                  "--families": lambda d: phase_families(d, family_names()),
-                 "--train": phase_train}[mode](dev)
+                 "--train": phase_train, "--layout": phase_layout}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -3437,6 +3646,9 @@ def main() -> int:
     with timed("train"):
         rows, paths["train"], paths["train-families"] = phase_train(dev)
         kern.update(rows)
+    with timed("layout"):
+        rows, paths["layout-blocked"], paths["layout-train"] = phase_layout(dev)
+        kern["flash_attention"].update(rows)
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
@@ -3451,6 +3663,9 @@ def main() -> int:
     for name in TRAIN_FAMILIES_PATH:
         expect(paths["train-families"][name] > 0,
                f"{name} was not launched by the families' full-width train steps")
+    for path, names in LAYOUT_PATH.items():
+        for name in names:
+            expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     # each kernel's launches on its own path (reuse_top1: the serve path's, 0)
     lines = [{"name": name, "route": "cuda", "source": SOURCES[name][0],
               "replaces": SOURCES[name][1],
@@ -3461,6 +3676,8 @@ def main() -> int:
               "families_launches": paths["families"].get(name, 0),
               "train_launches": paths["train"][name],
               "train_families_launches": paths["train-families"].get(name, 0),
+              "layout_blocked_launches": paths["layout-blocked"][name],
+              "layout_train_launches": paths["layout-train"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

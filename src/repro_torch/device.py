@@ -2,7 +2,9 @@
 
 ``None`` means the CUDA card.  Without one, the entry points refuse to run
 rather than carry on silently on the CPU: the caller asks for the CPU with
-``device="cpu"`` (as the CPU tests do).
+``device="cpu"`` (as the CPU tests do).  A model built on ``"meta"`` has
+its parameters' names, shapes and dtypes and no values (for deriving a
+layout's shardings at a width no host holds).
 """
 from __future__ import annotations
 
@@ -21,9 +23,15 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the port "
             "on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A generator seeded with ``seed`` for draws on ``device`` (a meta draw
+    takes a CPU generator and draws nothing)."""
+    return torch.Generator(device="cpu" if device.type == "meta" else device).manual_seed(seed)
 
 
 @contextlib.contextmanager

@@ -45,13 +45,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "lsh_hash_launch": [_P, _P, _P, *[_I] * 7, _P],
     },
     "flash_attention": {
-        "flash_attention_launch": [*[_P] * 5, *[_I] * 6, *[_L] * 9, _I, _I, _F, _F,
+        "flash_attention_launch": [*[_P] * 5, *[_I] * 6, *[_L] * 9, _I, _I, _I, _F, _F,
                                    *[_I] * 10, _P],
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_delta_launch": [_P, _P, _P, *[_I] * 5, _P],
-        "flash_attention_bwd_dkdv_launch": [*[_P] * 8, *[_I] * 8, _F, _F, *[_I] * 11, _P],
-        "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 8, _F, _F, *[_I] * 11, _P],
+        "flash_attention_bwd_dkdv_launch": [*[_P] * 8, *[_I] * 9, _F, _F, *[_I] * 11, _P],
+        "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 9, _F, _F, *[_I] * 11, _P],
     },
     "decode_attention": {
         "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,

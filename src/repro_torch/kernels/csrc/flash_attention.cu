@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel): q (B, S, H, D) against k, v (B, T, KV, D),
 // f32 or bf16, out (B, S, H, D) in q's dtype.  Causal mask, sliding window,
-// logit softcap c*tanh(s/c), scale; masked logits are -1e30 and contribute 0,
+// logit softcap c*tanh(s/c), scale, and q_offset, the absolute position of
+// q's row 0 (a chunk of a longer prompt: row s is masked as position s +
+// q_offset); masked logits are -1e30 and contribute 0,
 // the running max starts at -1e30 and the denominator is clamped at 1e-30, so
 // a row with every logit masked gives 0 (as the TPU kernel does).  Like the
 // TPU kernel, both products take the inputs' values at fp32 precision and
@@ -100,7 +102,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
              long long qsb, long long qss, long long qsh,
              long long ksb, long long kst, long long ksh,
              long long vsb, long long vst, long long vsh,
-             int causal, int window, float softcap, float scale) {
+             int causal, int window, int q_offset, float softcap, float scale) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   extern __shared__ float smem[];
   float* Qs = smem;                    // [kRows][D]
@@ -129,9 +131,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     for (int j = 0; j < V; ++j) Qs[rr * D + d + j] = x[j];
   }
 
-  // keys any row of this block may see
-  const int pos_lo = r0 / G;
-  const int pos_hi = (min(r0 + kRows, n_rows) - 1) / G;
+  // keys any row of this block may see (mask positions: row position + q_offset)
+  const int pos_lo = r0 / G + q_offset;
+  const int pos_hi = (min(r0 + kRows, n_rows) - 1) / G + q_offset;
   int t_lo = 0, t_hi = T_len;
   if (causal) t_hi = min(T_len, pos_hi + 1);
   if (window > 0) t_lo = max(0, pos_lo - window + 1);
@@ -142,7 +144,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   for (int i = 0; i < 4; ++i) {
     const int r = r0 + ty * 4 + i;
     my_row[i] = r < n_rows;
-    my_pos[i] = r / G;
+    my_pos[i] = r / G + q_offset;
   }
 
   float m[4], l[4], acc[4][D / 16];
@@ -266,8 +268,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-             int T_len, int H, int KV, const long long* st, int causal, int window, float softcap,
-             float scale, cudaStream_t stream) {
+             int T_len, int H, int KV, const long long* st, int causal, int window, int q_offset,
+             float softcap, float scale, cudaStream_t stream) {
   const size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -278,22 +280,22 @@ int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, i
   flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, S, T_len, H, KV, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
-      st[7], st[8], causal, window, softcap, scale);
+      st[7], st[8], causal, window, q_offset, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_t(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
              int T_len, int H, int KV, int D, const long long* st, int causal, int window,
-             float softcap, float scale, cudaStream_t stream) {
+             int q_offset, float softcap, float scale, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_d<T, 16>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 32: return launch_d<T, 32>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 64: return launch_d<T, 64>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 96: return launch_d<T, 96>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 112: return launch_d<T, 112>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 128: return launch_d<T, 128>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
-    case 256: return launch_d<T, 256>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, stream);
+    case 16: return launch_d<T, 16>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 32: return launch_d<T, 32>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 64: return launch_d<T, 64>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 96: return launch_d<T, 96>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 112: return launch_d<T, 112>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 128: return launch_d<T, 128>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
+    case 256: return launch_d<T, 256>(q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -341,7 +343,7 @@ __device__ __forceinline__ void key_range(int pos_lo, int pos_end, int T_len, in
 
 // Which scores of a tile a warpgroup's rows may see, and how to scale them.
 struct TileMask {
-  int T_len, causal, window;
+  int T_len, causal, window;     // positions below are mask positions (+ q_offset)
   float softcap, scale;
   float scale_log2;            // scale * log2(e): the softmax runs in base 2
   int wpos_lo, wpos_hi;        // the warpgroup's valid positions
@@ -424,7 +426,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
                 float* __restrict__ lse, int S, int T_len, int H, int KV, int P, int causal, int window,
-                float softcap, float scale) {
+                int q_offset, float softcap, float scale) {
   using C = Cfg<D, BN>;
   constexpr int kBN = C::kBN, kNS = C::kStages, kRB = C::kRowBytes, kDp = C::kDp;
   extern __shared__ uint8_t smem_raw[];
@@ -445,7 +447,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int pos0 = tile * C::kWG * P;
   const int pos_end = min(S, pos0 + C::kWG * P);
   int t_lo, t_hi;
-  key_range(pos0, pos_end, T_len, causal, window, t_lo, t_hi);
+  key_range(pos0 + q_offset, pos_end + q_offset, T_len, causal, window, t_lo, t_hi);
   const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + kBN - 1) / kBN : 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -508,8 +510,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // Per key tile: S = Q K^T, the online softmax, acc = alpha * acc + P V;
   // each smem stage is released as soon as its product has landed.
-  const TileMask mask{T_len, causal, window, softcap, scale, scale * kLog2e, wpos0, wpos_hi,
-                      {pos_r[0], pos_r[1]}, col};
+  // the mask compares keys with positions + q_offset; pos_r stays the row's address
+  const TileMask mask{T_len, causal, window, softcap, scale, scale * kLog2e, wpos0 + q_offset,
+                      wpos_hi + q_offset, {pos_r[0] + q_offset, pos_r[1] + q_offset}, col};
   float alpha[2];
   mbar_wait(q_full, 0);
   for (int n = 0; n < n_tiles; ++n) {
@@ -578,8 +581,8 @@ struct Plan {
 
 template <int D, int BN>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
-           int T_len, int H, int KV, const long long* st, int causal, int window, float softcap, float scale,
-           const Plan& p, cudaStream_t stream) {
+           int T_len, int H, int KV, const long long* st, int causal, int window, int q_offset,
+           float softcap, float scale, const Plan& p, cudaStream_t stream) {
   using C = Cfg<D, BN>;
   const int G = H / KV;
   // the plan must be the one this instance was compiled for, its q box one
@@ -604,7 +607,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   dim3 grid(p.n_pos_tiles, KV, B);
   flash_tc_kernel<D, BN><<<grid, p.threads, C::kSmem, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV, p.box_pos, causal,
-      window, softcap, scale);
+      window, q_offset, softcap, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -612,7 +615,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 }  // namespace
 
-// window <= 0: no window; softcap <= 0: no softcap.  Strides in elements:
+// window <= 0: no window; softcap <= 0: no softcap; q_offset: the absolute
+// position of q's row 0 (the masks compare key t with position s + q_offset;
+// out, lse and q are addressed by s).  Strides in elements:
 // q (b, s, h), k (b, t, kv), v (b, t, kv); out is (B, S, H, D) contiguous;
 // lse (B, H, S) fp32 or null (not written; with T_len = 0 the bf16 route
 // writes no lse either).
@@ -625,8 +630,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kst, long long ksh,
                                       long long vsb, long long vst, long long vsh,
-                                      int causal, int window, float softcap, float scale,
-                                      int is_bf16, int warpgroups, int threads, int stages,
+                                      int causal, int window, int q_offset, float softcap,
+                                      float scale, int is_bf16, int warpgroups, int threads, int stages,
                                       int key_tile, int chunk, int swizzle_bytes,
                                       int box_heads, int box_pos, int n_pos_tiles,
                                       void* stream) {
@@ -635,13 +640,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   float* lse = static_cast<float*>(lse_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16)
-    return launch_t<float>(q, k, v, o, lse, B, S, T_len, H, KV, D, st, causal, window, softcap,
-                           scale, s);
+    return launch_t<float>(q, k, v, o, lse, B, S, T_len, H, KV, D, st, causal, window, q_offset,
+                           softcap, scale, s);
   if (T_len == 0)   // no key: every row is 0
     return static_cast<int>(cudaMemsetAsync(o, 0, sizeof(__nv_bfloat16) * B * S * H * D, s));
   const tc::Plan plan{warpgroups, threads,   stages,  key_tile,   chunk,
                       swizzle_bytes, box_heads, box_pos, n_pos_tiles};
-#define TC_ARGS q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, softcap, scale, plan, s
+#define TC_ARGS \
+  q, k, v, o, lse, B, S, T_len, H, KV, st, causal, window, q_offset, softcap, scale, plan, s
   switch (D * 1000 + key_tile) {
     case 16064: return tc::launch<16, 64>(TC_ARGS);
     case 32064: return tc::launch<32, 64>(TC_ARGS);

@@ -14,7 +14,9 @@
 //   dS    = P * (dP - delta) * (1 - tanh^2(scale q.k / softcap)),  dP = dO V^T
 //   dQ    = scale dS K                                dQ kernel
 //
-// The masks are the forward's: causal t <= s, window t > s - window, t < T.
+// The masks are the forward's: causal t <= s + q_offset, window t > s +
+// q_offset - window, t < T (q_offset, the absolute position of q's row 0, is
+// 0 for a whole prompt).
 //
 // Deterministic, without atomics: a dK/dV block owns keys of one kv head and
 // batch and loops over every query row that may see them, for all G query
@@ -117,10 +119,13 @@ constexpr int kOther = 64;        // the other axis of a score tile: 4 a thread
 constexpr int kTs = kOther + 1;   // row stride of a transposed tile [D][kTs]
 constexpr int kPs = kOther + 4;   // row stride of a score tile [own][kPs]
 
+// qo (q_offset): the absolute position of q's row 0.  The kernels address
+// rows by their position s in q; the masks compare keys with s + qo.
 struct Masks {
-  int S, T, H, KV, G, causal, window;
+  int S, T, H, KV, G, causal, window, qo;
   float softcap, scale;
   __device__ __forceinline__ bool visible(int pos, int t) const {
+    pos += qo;
     return t < T && (!causal || t <= pos) && (window <= 0 || t > pos - window);
   }
 };
@@ -210,11 +215,12 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     load_piece<T, D>(t < mk.T ? v + off : nullptr, i - c * DV, Vs + c * kKs, 1);
   }
 
-  // the rows that may see a key of this tile
+  // the rows that may see a key of this tile (key t is seen from position
+  // t - qo on, and up to t + window - 1 - qo)
   const int t_last = min(t0 + BK, mk.T) - 1;
-  const int pos_lo = mk.causal ? t0 : 0;
-  const int pos_hi = mk.window > 0 ? min(S - 1, t_last + mk.window - 1) : S - 1;
-  const int r_begin = pos_lo * G, r_end = (pos_hi + 1) * G;
+  const int pos_lo = mk.causal ? max(0, t0 - mk.qo) : 0;
+  const int pos_hi = mk.window > 0 ? min(S - 1, t_last + mk.window - 1 - mk.qo) : S - 1;
+  const int r_begin = pos_lo * G, r_end = max(r_begin, (pos_hi + 1) * G);
 
   float acc_k[KPT][E], acc_v[KPT][E];
 #pragma unroll
@@ -361,8 +367,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     delta_r[i] = r < n_rows ? delta[row] : 0.f;
   }
 
-  // the keys this block's rows may see
-  const int pos_lo = r0 / G, pos_hi = (min(r0 + BR, n_rows) - 1) / G;
+  // the keys this block's rows may see (mask positions + qo)
+  const int pos_lo = r0 / G + mk.qo, pos_hi = (min(r0 + BR, n_rows) - 1) / G + mk.qo;
   const int t_lo = mk.window > 0 ? max(0, pos_lo - mk.window + 1) : 0;
   const int t_hi = mk.causal ? min(mk.T, pos_hi + 1) : mk.T;
 
@@ -642,9 +648,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int t0 = blockIdx.x * kT;   // causal: block 0 has the longest range
   const int t_last = min(t0 + kT, mk.T) - 1;
-  // positions that may see a key of the block
-  const int pos_lo = mk.causal ? t0 : 0;
-  const int pos_hi = mk.window > 0 ? min(S - 1, t_last + mk.window - 1) : S - 1;
+  // positions that may see a key of the block (key t is seen from position
+  // t - qo on, and up to t + window - 1 - qo)
+  const int pos_lo = mk.causal ? max(0, t0 - mk.qo) : 0;
+  const int pos_hi = mk.window > 0 ? min(S - 1, t_last + mk.window - 1 - mk.qo) : S - 1;
   const int n_tiles = pos_hi >= pos_lo ? (pos_hi - pos_lo + P) / P : 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -732,15 +739,16 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       const int s = n % kNS;
       const uint32_t ph = (n / kNS) & 1;
       const int p0 = pos_lo + n * P, p_last = min(S - 1, p0 + P - 1);
+      const int m0 = p0 + mk.qo, m_last = p_last + mk.qo;   // mask positions
       mbar_wait(full(s), ph);
       // some pair of the block's keys and the tile's positions visible?
       const bool any =
-          (!mk.causal || p_last >= t0) && (mk.window <= 0 || t_last > p0 - mk.window);
+          (!mk.causal || m_last >= t0) && (mk.window <= 0 || t_last > m0 - mk.window);
       if (any) {
         const uint32_t sQs = sQ + s * C::kTileBytes, sdOs = sdO + s * C::kTileBytes;
         const float* l2 = row_vals + s * 2 * kT;
-        const bool whole = t_last == t0 + kT - 1 && (!mk.causal || p0 >= t_last) &&
-                           (mk.window <= 0 || t0 > p_last - mk.window);
+        const bool whole = t_last == t0 + kT - 1 && (!mk.causal || m0 >= t_last) &&
+                           (mk.window <= 0 || t0 > m_last - mk.window);
         float sc[kT / 2], dp[kT / 2];
         uint32_t hi[kT / 16][4], lo[kT / 16][4];
         // S^T = K Q^T (and dP^T = V dO^T): both operands K-major
@@ -816,8 +824,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int tile = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
   const int pos0 = tile * C::kWG * P;
   const int pos_end = min(S, pos0 + C::kWG * P);
-  const int t_lo = mk.window > 0 ? max(0, pos0 - mk.window + 1) : 0;
-  const int t_hi = mk.causal ? min(mk.T, pos_end) : mk.T;
+  const int t_lo = mk.window > 0 ? max(0, pos0 + mk.qo - mk.window + 1) : 0;
+  const int t_hi = mk.causal ? min(mk.T, pos_end + mk.qo) : mk.T;
   const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + kT - 1) / kT : 0;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -888,8 +896,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     const uint32_t ph = (n / kNS) & 1;
     const int t0 = t_lo + n * kT;
     mbar_wait(full(s), ph);
-    const bool any = wpos_hi >= wpos0 && (!mk.causal || t0 <= wpos_hi) &&
-                     (mk.window <= 0 || t0 + kT - 1 > wpos0 - mk.window);
+    const int m0 = wpos0 + mk.qo, m_hi = wpos_hi + mk.qo;   // mask positions
+    const bool any = wpos_hi >= wpos0 && (!mk.causal || t0 <= m_hi) &&
+                     (mk.window <= 0 || t0 + kT - 1 > m0 - mk.window);
     if (any) {
       const uint32_t sKs = sK + s * C::kTileBytes, sVs = sV + s * C::kTileBytes;
       float sc[kT / 2], dp[kT / 2];
@@ -901,8 +910,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
       wgmma_wait<0>();
       fence_regs<kT / 2>(sc);
       fence_regs<kT / 2>(dp);
-      const bool whole = t0 + kT <= mk.T && (!mk.causal || t0 + kT - 1 <= wpos0) &&
-                         (mk.window <= 0 || t0 > wpos_hi - mk.window);
+      const bool whole = t0 + kT <= mk.T && (!mk.causal || t0 + kT - 1 <= m0) &&
+                         (mk.window <= 0 || t0 > m_hi - mk.window);
 #define GRAD_TILE(cap, masked) \
   grad_tile_rows<kT, cap, masked>(sc, dp, lse2, dlt, pos_r, t0, col, mk, scale_log2)
       if (mk.softcap > 0.f) {
@@ -1049,12 +1058,12 @@ int launch_f32(bool dkdv, int D, const Args& a) {
 // at D = 256; the plan is not used).
 int launch(bool dkdv, const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv, int B, int S,
-           int T_len, int H, int KV, int D, int causal, int window, float softcap, float scale,
-           int is_bf16, int route, const tc::Plan& plan, void* stream) {
+           int T_len, int H, int KV, int D, int causal, int window, int q_offset, float softcap,
+           float scale, int is_bf16, int route, const tc::Plan& plan, void* stream) {
   if (B == 0 || S == 0 || T_len == 0) return 0;
   if (KV <= 0 || H % KV) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
-               dq, dk, dv, B, Masks{S, T_len, H, KV, H / KV, causal, window, softcap, scale},
+               dq, dk, dv, B, Masks{S, T_len, H, KV, H / KV, causal, window, q_offset, softcap, scale},
                static_cast<cudaStream_t>(stream)};
   if (!is_bf16) return route ? static_cast<int>(cudaErrorInvalidValue) : launch_f32(dkdv, D, a);
   if (route) return tc::launch_width(dkdv, D, a, plan);
@@ -1085,30 +1094,30 @@ extern "C" int flash_attention_bwd_delta_launch(const void* out, const void* dou
 
 // dk, dv (B, T, KV, D) in the inputs' dtype.  q, dout (B, S, H, D) and k, v
 // (B, T, KV, D) contiguous; lse, delta (B, H, S) fp32; window <= 0: none,
-// softcap <= 0: none.  route and the plan (warpgroups ... n_blocks, see
+// softcap <= 0: none; q_offset: the absolute position of q's row 0.  route and the plan (warpgroups ... n_blocks, see
 // tc::Plan; the TMA boxes are (chunk, box_heads, box_pos) for q and dout,
 // (chunk, 1, tile) for k and v) as bwd_launch_plan gives them.
 extern "C" int flash_attention_bwd_dkdv_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dk, void* dv, int B, int S, int T_len, int H, int KV, int D,
-    int causal, int window, float softcap, float scale, int is_bf16, int route, int warpgroups,
+    int causal, int window, int q_offset, float softcap, float scale, int is_bf16, int route, int warpgroups,
     int threads, int stages, int tile, int chunk, int swizzle_bytes, int box_heads, int box_pos,
     int n_blocks, void* stream) {
   const tc::Plan plan{warpgroups, threads,   stages,  tile,    chunk,
                       swizzle_bytes, box_heads, box_pos, n_blocks};
   return launch(true, q, k, v, dout, lse, delta, nullptr, dk, dv, B, S, T_len, H, KV, D, causal,
-                window, softcap, scale, is_bf16, route, plan, stream);
+                window, q_offset, softcap, scale, is_bf16, route, plan, stream);
 }
 
 // dq (B, S, H, D) in the inputs' dtype; arguments as above.
 extern "C" int flash_attention_bwd_dq_launch(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, void* dq, int B, int S, int T_len, int H, int KV, int D, int causal,
-    int window, float softcap, float scale, int is_bf16, int route, int warpgroups, int threads,
+    int window, int q_offset, float softcap, float scale, int is_bf16, int route, int warpgroups, int threads,
     int stages, int tile, int chunk, int swizzle_bytes, int box_heads, int box_pos, int n_blocks,
     void* stream) {
   const tc::Plan plan{warpgroups, threads,   stages,  tile,    chunk,
                       swizzle_bytes, box_heads, box_pos, n_blocks};
   return launch(false, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, S, T_len, H, KV, D,
-                causal, window, softcap, scale, is_bf16, route, plan, stream);
+                causal, window, q_offset, softcap, scale, is_bf16, route, plan, stream);
 }

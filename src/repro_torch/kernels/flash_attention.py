@@ -208,12 +208,14 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None, q_offset: int = 0) -> torch.Tensor:
     """GQA prefill attention: q (B, S, H, D), k/v (B, T, KV, D) -> (B, S, H,
-    D) in q's dtype, fp32 inside.  ``causal`` masks t > s, ``window`` masks
-    t <= s - window, ``softcap`` caps logits at c*tanh(s/c), ``scale``
-    defaults to 1/sqrt(D).  q, k, v share one dtype.  Differentiable in q,
-    k and v (``FlashAttention``)."""
+    D) in q's dtype, fp32 inside.  Row s of q is position s + ``q_offset``
+    (the absolute position of q[0]: a chunk of a longer prompt whose keys
+    are k[:, :T]); ``causal`` masks t > s + q_offset, ``window`` masks t <=
+    s + q_offset - window, ``softcap`` caps logits at c*tanh(s/c),
+    ``scale`` defaults to 1/sqrt(D).  q, k, v share one dtype.
+    Differentiable in q, k and v (``FlashAttention``)."""
     check_attention(q, k, v, 4)
     if q.dtype != k.dtype:
         raise TypeError("q, k and v must share one dtype")
@@ -221,21 +223,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("window must be a positive number of positions")
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
+    if q_offset < 0:
+        raise ValueError("q_offset is a position: it cannot be negative")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
-    return forward(q, k, v, causal, window, softcap, scale)
+        return FlashAttention.apply(q, k, v, causal, window, softcap, scale, int(q_offset))
+    return forward(q, k, v, causal, window, softcap, scale, q_offset=int(q_offset))
 
 
 def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int], softcap: Optional[float], scale: float,
-            with_lse: bool = False):
+            with_lse: bool = False, q_offset: int = 0):
     """The checked call: out, and with ``with_lse`` (out, lse (B, H, S) fp32,
     +inf for a row that sees no key).  CPU tensors run the plain version."""
     B, S, H, D = q.shape
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap, scale=scale, return_lse=with_lse)
+                                       softcap=softcap, scale=scale, return_lse=with_lse,
+                                       q_offset=q_offset)
     T, KV = k.shape[1], k.shape[2]
     plan = launch_plan(q.dtype, B, S, T, H, KV, D)
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -253,14 +258,15 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, S, T, H, KV, D, *st, int(causal), -1 if window is None else int(window),
-        -1.0 if softcap is None else float(softcap), scale, int(tc), *tc_launch_args(plan))
+        int(q_offset), -1.0 if softcap is None else float(softcap), scale, int(tc),
+        *tc_launch_args(plan))
     LAUNCHES["flash_attention"] += 1
     return (out, lse) if with_lse else out
 
 
 def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
              lse: torch.Tensor, dout: torch.Tensor, causal: bool, window: Optional[int],
-             softcap: Optional[float], scale: float):
+             softcap: Optional[float], scale: float, q_offset: int = 0):
     """(dq, dk, dv) in q's dtype: ``ref.flash_attention_bwd_ref`` for CPU
     tensors; for CUDA tensors the three kernels of
     ``csrc/flash_attention_bwd.cu`` on contiguous copies of the inputs, on
@@ -271,7 +277,8 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
     inputs give the same bits."""
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
-                                           window=window, softcap=softcap, scale=scale)
+                                           window=window, softcap=softcap, scale=scale,
+                                           q_offset=q_offset)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout.to(q.dtype)))
@@ -281,7 +288,7 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     bf16 = int(q.dtype == torch.bfloat16)
-    masks = (int(causal), -1 if window is None else int(window),
+    masks = (int(causal), -1 if window is None else int(window), int(q_offset),
              -1.0 if softcap is None else float(softcap), scale)
     build.launch("flash_attention_bwd", "flash_attention_bwd_delta_launch", q.device,
                  out.data_ptr(), dout.data_ptr(), delta.data_ptr(), B * S * H, D, S, H, bf16)
@@ -301,17 +308,19 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
 
 class FlashAttention(torch.autograd.Function):
     """K6 with its gradient: the forward kernel with lse, saved with q, k, v
-    and out; the backward kernels on dO.  Arguments as ``forward``'s."""
+    and out; the backward kernels on dO.  Arguments as ``forward``'s; the
+    masks and ``q_offset`` are not tensors and take no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, scale):
-        out, lse = forward(q, k, v, causal, window, softcap, scale, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, softcap, scale, q_offset):
+        out, lse = forward(q, k, v, causal, window, softcap, scale, with_lse=True,
+                           q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.masks = (causal, window, softcap, scale)
+        ctx.masks = (causal, window, softcap, scale, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = backward(q, k, v, out, lse, dout, *ctx.masks)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

@@ -130,17 +130,95 @@ def reuse_query_top1(embs: torch.Tensor, lsh, slots_dev: torch.Tensor,
 
 
 # ------------------------------------------------------------------ attention
+def _dtensors(*xs) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in xs)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """(B, S, H, D) x (B, T, KV, D)^2 -> (B, S, H, D): prefill attention."""
-    return _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                  softcap=softcap, scale=scale)
+                    softcap: Optional[float] = None, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(B, S, H, D) x (B, T, KV, D)^2 -> (B, S, H, D): prefill attention;
+    row s of q is position s + ``q_offset``.  DTensors (under a mesh) run
+    K6 on each rank's shards (``sharded_flash_attention``)."""
+    kw = {"causal": causal, "window": window, "softcap": softcap, "scale": scale,
+          "q_offset": q_offset}
+    if _dtensors(q, k, v):
+        return sharded_flash_attention(q, k, v, **kw)
+    return _flash.flash_attention(q, k, v, **kw)
+
+
+def _head_split(mesh, H: int, G: int) -> int:
+    """Ranks of the "model" axis that q's H heads split over (1: replicated):
+    each rank's heads must cover whole kv heads, or lie within one."""
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return 1
+    m = mesh.size(names.index("model"))
+    hl = H // m if H % m == 0 else 0
+    return m if hl and (hl % G == 0 or G % hl == 0) else 1
+
+
+def sharded_flash_attention(q, k, v, **kw):
+    """K6 on DTensors, the counterpart of running the kernel under
+    ``shard_map``: q, k, v are redistributed so that the batch splits over
+    the batch axes ("pod", "data"; where they divide it) and q's heads over
+    "model" (where each rank's heads cover whole kv heads or lie within
+    one), k and v replicated over "model".  Each rank hands K6 its q heads
+    [h0, h1) and the kv heads h0 // G .. (h1 - 1) // G they read (not all
+    KV heads: K6 derives G from the shapes), and the output carries q's
+    placements.  Gradients flow through ``to_local``: a rank's dK and dV
+    cover its kv heads only, so over "model" they are partial sums."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not all(isinstance(x, DTensor) for x in (q, k, v)):
+        raise TypeError("q, k and v must all be DTensors, or none")
+    mesh = q.device_mesh
+    names = mesh.mesh_dim_names or ()
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    batch = [a for a in ("pod", "data") if a in names]
+    nb = 1
+    for a in batch:
+        nb *= mesh.size(names.index(a))
+    split_b = B % nb == 0
+    m = _head_split(mesh, H, H // KV)
+    qp, kp, kgrad = [], [], []
+    for a in names:
+        if a in batch and split_b:
+            qp.append(Shard(0)), kp.append(Shard(0)), kgrad.append(Shard(0))
+        elif a == "model" and m > 1:
+            qp.append(Shard(2)), kp.append(Replicate()), kgrad.append(Partial())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), kgrad.append(Replicate())
+    ql = q.redistribute(mesh, qp).to_local(grad_placements=qp)
+    kl = k.redistribute(mesh, kp).to_local(grad_placements=kgrad)
+    vl = v.redistribute(mesh, kp).to_local(grad_placements=kgrad)
+    if m > 1:
+        G, hl = H // KV, H // m
+        h0 = mesh.get_local_rank("model") * hl
+        kv0, kv1 = h0 // G, (h0 + hl - 1) // G + 1
+        kl, vl = kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
+    out = _flash.flash_attention(ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, qp)   # even shards: q's global shape
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: Optional[float] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
-    """(B, H, D) x (B, T, KV, D)^2 + (B,) -> (B, H, D): one decode step."""
+    """(B, H, D) x (B, T, KV, D)^2 + (B,) -> (B, H, D): one decode step.
+    Takes no DTensor: sharded serving (a cache sharded over its sequence
+    dim needs a cross-rank log-sum-exp combine) is a later slice
+    (ROADMAP §1, "Sharded serving")."""
+    if _dtensors(q, k, v, kv_len):
+        from torch.distributed.tensor import DTensor, Shard
+
+        seq = any(isinstance(x, DTensor) and Shard(1) in x.placements for x in (k, v))
+        raise NotImplementedError(
+            ("K7 on a KV cache sharded over its sequence dim" if seq else "K7 on DTensors")
+            + " needs sharded serving (a cross-rank log-sum-exp combine of the shards' "
+            "partial softmaxes; ROADMAP §1, 'Sharded serving'), not ported: the cache is "
+            "not gathered")
     return _decode.decode_attention(q, k, v, kv_len, softcap=softcap, scale=scale)

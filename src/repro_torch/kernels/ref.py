@@ -163,10 +163,10 @@ def _softmax_masked(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _attention_mask(S: int, T: int, causal: bool, window: Optional[int],
-                    device) -> torch.Tensor:
-    """(S, T): position s sees t where ``t <= s`` (causal) and ``t > s -
-    window`` (window)."""
-    sidx = torch.arange(S, device=device)[:, None]
+                    device, q_offset: int = 0) -> torch.Tensor:
+    """(S, T): row s, at position s + ``q_offset``, sees t where ``t <= s +
+    q_offset`` (causal) and ``t > s + q_offset - window`` (window)."""
+    sidx = torch.arange(S, device=device)[:, None] + q_offset
     tidx = torch.arange(T, device=device)[None, :]
     mask = torch.ones((S, T), dtype=torch.bool, device=device)
     if causal:
@@ -191,10 +191,12 @@ def _scaled_logits(qg: torch.Tensor, k: torch.Tensor, scale: float,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None,
-                        scale: Optional[float] = None, return_lse: bool = False):
+                        scale: Optional[float] = None, return_lse: bool = False,
+                        q_offset: int = 0):
     """GQA prefill attention.  q (B, S, H, D), k/v (B, T, KV, D) -> (B, S,
-    H, D) in q's dtype; logits and softmax in fp32.  Position s sees t where
-    ``t <= s`` (causal) and ``t > s - window`` (window).
+    H, D) in q's dtype; logits and softmax in fp32.  Row s is position s +
+    ``q_offset`` (a chunk of a longer prompt) and sees t where ``t <= s +
+    q_offset`` (causal) and ``t > s + q_offset - window`` (window).
 
     ``return_lse``: also return each row's log-sum-exp of its visible
     logits, (B, H, S) fp32, what the backward recomputes the probabilities
@@ -205,7 +207,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     logits, _ = _scaled_logits(q.reshape(B, S, KV, G, D).float(), k, scale, softcap)
-    mask = _attention_mask(S, T, causal, window, q.device)
+    mask = _attention_mask(S, T, causal, window, q.device, q_offset)
     probs = _softmax_masked(logits, mask)
     with fp32_matmul():
         out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
@@ -220,7 +222,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
                             causal: bool = True, window: Optional[int] = None,
                             softcap: Optional[float] = None,
-                            scale: Optional[float] = None):
+                            scale: Optional[float] = None, q_offset: int = 0):
     """The gradient of ``flash_attention_ref`` -> (dq, dk, dv) in q's, k's
     and v's dtypes, written out as the backward kernel computes it (not
     through autograd), all in fp32:
@@ -238,7 +240,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, S, KV, G, D).float()
     logits, th = _scaled_logits(qg, k, scale, softcap)
-    mask = _attention_mask(S, T, causal, window, q.device)
+    mask = _attention_mask(S, T, causal, window, q.device, q_offset)
     p = torch.where(mask, torch.exp(logits - lse.reshape(B, KV, G, S, 1)),
                     torch.zeros_like(logits))
     do = dout.reshape(B, S, KV, G, D).float()

@@ -9,8 +9,15 @@ deterministic synthetic stream (tokens and labels, and a family's float
 inputs: a vision model's patch embeddings, an encoder-decoder's frames),
 and checkpoint/restart: with ``--ckpt-dir`` it resumes from the latest
 checkpoint there and saves asynchronously every ``--ckpt-every`` steps.
-It prints the reference's step lines.  The reference's mesh and shardings
-belong to the parallel layout, which is not ported yet: one device.
+It prints the reference's step lines.  As the reference does, it runs on
+a host mesh (``launch/mesh.py::make_host_mesh``: every rank of the job in
+(data, 1); a world of one when no process group was started) under
+``use_mesh``: the state is distributed with ``state_shardings(..., "tp")``
+placements (a checkpoint is restored with them), each batch with
+``batch_shardings``, and the gradients are redistributed to the
+parameters' placements (``grad_shardings``).  On a mesh of one rank
+``distribute`` leaves the tensors plain, and the step runs without
+DTensor's dispatch.
 
 The random weights differ from the reference's (a torch generator against
 a JAX key); a run that resumes from a checkpoint of the reference's state
@@ -28,7 +35,8 @@ import torch
 
 from ..configs import ShapeSpec, get_arch
 from ..device import DeviceLike, resolve_device
-from ..models import build_model
+from ..models import build_model, use_mesh
+from ..models.partitioning import whole
 from ..training import (
     AsyncCheckpointer,
     OptimizerConfig,
@@ -37,6 +45,8 @@ from ..training import (
     make_train_step,
     restore,
 )
+from .mesh import make_host_mesh
+from .shardings import batch_shardings, distribute, state_shardings
 
 
 def synthetic_batch(model, cfg, shape: ShapeSpec, step: int,
@@ -87,34 +97,41 @@ def main(argv: Optional[Sequence[str]] = None, device: DeviceLike = None) -> Lis
     shape = ShapeSpec("cli", args.seq_len, args.batch, "train")
     ocfg = OptimizerConfig(lr=args.lr, moment_dtype=args.moment_dtype,
                            compress_grads=args.compress_grads, total_steps=args.steps)
+    mesh = make_host_mesh(device=dev)
     ckpt = AsyncCheckpointer()
-    step_fn = make_train_step(model, ocfg, microbatches=args.microbatches)
-    state = init_state(model, ocfg)
-    start_step = 0
-    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
-        restore(args.ckpt_dir, state)
-        start_step = int(state["opt"]["step"])
-        print(f"resumed from step {start_step}")
 
-    history = []
-    t0 = time.time()
-    for step in range(start_step, args.steps):
-        t_step = time.perf_counter()
-        batch = synthetic_batch(model, cfg, shape, step, dev)
-        state, metrics = step_fn(state, batch)
-        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])   # waits for the step
-        history.append({"step": step + 1, "loss": loss, "grad_norm": gn,
-                        "lr": float(metrics["lr"]),
-                        "ms": (time.perf_counter() - t_step) * 1e3})
-        if (step + 1) % args.log_every == 0 or step == start_step:
-            dt = (time.time() - t0) / max(step - start_step + 1, 1)
-            print(f"step {step + 1:5d}  loss {loss:.4f}  gnorm {gn:.3f}  "
-                  f"{dt * 1e3:.0f} ms/step", flush=True)
-            if not np.isfinite(loss):
-                raise FloatingPointError("loss diverged")
-        if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(state, args.ckpt_dir, step + 1)
-    ckpt.wait()
+    with use_mesh(mesh):
+        state = init_state(model, ocfg)
+        shd = state_shardings(state, mesh, "tp", cfg.family)
+        start_step = 0
+        if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+            restore(args.ckpt_dir, state, shardings=shd)
+            start_step = int(whole(state["opt"]["step"]))
+            print(f"resumed from step {start_step}")
+        state = distribute(state, shd, mesh)
+        step_fn = make_train_step(model, ocfg, microbatches=args.microbatches,
+                                  grad_shardings=shd["params"])
+        batch_shd = batch_shardings(model.input_specs(shape), mesh)
+
+        history = []
+        t0 = time.time()
+        for step in range(start_step, args.steps):
+            t_step = time.perf_counter()
+            batch = distribute(synthetic_batch(model, cfg, shape, step, dev), batch_shd, mesh)
+            state, metrics = step_fn(state, batch)
+            loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])   # waits for the step
+            history.append({"step": step + 1, "loss": loss, "grad_norm": gn,
+                            "lr": float(metrics["lr"]),
+                            "ms": (time.perf_counter() - t_step) * 1e3})
+            if (step + 1) % args.log_every == 0 or step == start_step:
+                dt = (time.time() - t0) / max(step - start_step + 1, 1)
+                print(f"step {step + 1:5d}  loss {loss:.4f}  gnorm {gn:.3f}  "
+                      f"{dt * 1e3:.0f} ms/step", flush=True)
+                if not np.isfinite(loss):
+                    raise FloatingPointError("loss diverged")
+            if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
+                ckpt.save(state, args.ckpt_dir, step + 1)
+        ckpt.wait()
     print(f"done: {args.steps - start_step} steps in {time.time() - t0:.1f}s")
     return history
 

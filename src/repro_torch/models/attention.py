@@ -2,12 +2,14 @@
 
 Port of ``repro/models/attention.py``.  Every attention call goes through
 the kernel layer: self- and cross-attention through ``ops.flash_attention``
-(K6) whatever ``cfg.attn_impl`` says (the reference's ``blocked_attention``
-is the same math as K6, so it has no module of its own here), and one
-decode step through ``ops.decode_attention`` (K7).  On the CUDA card these
-launch the hand-written kernels; on the CPU they run the kernels' plain
-versions, so the CPU tests drive the same arguments (scale, softcap,
-window, kv_len) that the card receives.  ``attn_core`` keeps the
+(K6), self-attention with ``cfg.attn_impl == "blocked"`` through
+``blocked_attention`` (the reference's flash-style route, which is K6's
+contract: it calls the same kernel), and one decode step through
+``ops.decode_attention`` (K7).  q and k take the reference's logical
+sharding (``partitioning.shard``; a no-op without a mesh).  On the CUDA
+card these launch the hand-written kernels; on the CPU they run the
+kernels' plain versions, so the CPU tests drive the same arguments (scale,
+softcap, window, kv_len) that the card receives.  ``attn_core`` keeps the
 reference's plain math as a test reference.
 
 Numerics: the kernels take fp32 logits from the inputs' values; the
@@ -22,7 +24,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from .blocked_attention import blocked_attention
 from .layers import apply_rope, dense_init, rms_norm, softcap, zeros_init
+from .partitioning import shard
 
 
 class AttnDims(NamedTuple):
@@ -140,9 +144,15 @@ def attention_apply(params, x: torch.Tensor, cfg, *,
     else:
         k, v = project_kv(params, memory, cfg, None)
         causal = False
-    out = ops.flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=getattr(cfg, "attn_logit_softcap", None),
-                              scale=_scale(cfg, q.shape[-1]))
+    q = shard(q, "batch", "seq", "heads", "head_dim")
+    k = shard(k, "batch", "seq", "kv", "head_dim")
+    kw = {"causal": causal, "window": window,
+          "softcap": getattr(cfg, "attn_logit_softcap", None), "scale": _scale(cfg, q.shape[-1])}
+    if getattr(cfg, "attn_impl", "naive") == "blocked" and memory is None:
+        out = blocked_attention(q, k, v, block_q=getattr(cfg, "attn_block_q", 2048),
+                                block_k=getattr(cfg, "attn_block_k", 1024), **kw)
+    else:
+        out = ops.flash_attention(q, k, v, **kw)
     y = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
     if return_kv:
         return y, (k, v)

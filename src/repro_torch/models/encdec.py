@@ -33,8 +33,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, generator, resolve_device
 from ..kernels import ops
+from .partitioning import shard
 from .attention import (
     _scale,
     attention_apply,
@@ -100,7 +101,7 @@ class EncDecModel(nn.Module):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed),
+        self.init(generator(self.device, seed),
                   torch.float32 if trainable else self.dtype)
         if trainable:
             trainable_masters(self)
@@ -120,12 +121,13 @@ class EncDecModel(nn.Module):
         cfg = self.cfg
         x = x + attention_apply(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
                                 positions=positions, causal=False)
-        return x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
+        return shard(x, "batch", "seq", "embed")
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames (B, T, d_model) -> encoder memory (B, T, d_model).  Under
         grad, ``cfg.remat`` recomputes each layer in the backward."""
-        x = frames.to(self.device, self.dtype)
+        x = shard(frames.to(self.device, self.dtype), "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         remat = remat_on(self.cfg)
         for p in self.enc_layers:
@@ -145,7 +147,7 @@ class EncDecModel(nn.Module):
                                  positions=positions, memory=memory, return_kv=True)
         x = x + h
         x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
-        return x, kv, xkv
+        return shard(x, "batch", "seq", "embed"), kv, xkv
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
@@ -164,7 +166,8 @@ class EncDecModel(nn.Module):
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head -> f32 logits."""
         out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
-        return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
+                     "batch", "seq", "vocab")
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -197,14 +200,21 @@ class EncDecModel(nn.Module):
 
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
-                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+                   dtype: torch.dtype = torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+        """Zero self- and cross-attention caches on ``device`` (default: the
+        model's)."""
         d = attn_dims(self.cfg)
         L = self.cfg.dec_layers
-        kw = {"dtype": dtype, "device": self.device}
+        kw = {"dtype": dtype, "device": self.device if device is None else device}
         return {"k": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
                 "v": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
                 "xk": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw),
                 "xv": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw)}
+
+    def cache_specs(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """The caches' keys, shapes and dtypes as meta tensors (no memory)."""
+        return self.init_cache(batch, max_len, enc_len, dtype, device="meta")
 
     def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
         """Encode ``batch["frames"]`` and run the decoder prompt; build the

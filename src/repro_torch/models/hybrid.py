@@ -31,8 +31,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
+from .partitioning import batch_local, shard
 from .layers import (
     activation_dtype,
     embed_apply,
@@ -93,7 +94,7 @@ class HybridModel(nn.Module):
         self.n_groups = cfg.n_layers // self.period
         self.n_tail = cfg.n_layers - self.n_groups * self.period
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed),
+        self.init(generator(self.device, seed),
                   torch.float32 if trainable else self.dtype)
         if trainable:
             trainable_masters(self)
@@ -122,8 +123,11 @@ class HybridModel(nn.Module):
         return (x, kv) if return_kv else x
 
     def _mamba(self, layer: MambaLayer, x: torch.Tensor) -> torch.Tensor:
-        return x + mamba2_apply(layer.mamba, rms_norm(x, layer.ln, self.cfg.norm_eps),
-                                self.cfg, chunk=self.cfg.scan_chunk)
+        cfg = self.cfg
+        y = batch_local(lambda x_, p, ln: mamba2_apply(p, rms_norm(x_, ln, cfg.norm_eps), cfg,
+                                                       chunk=cfg.scan_chunk),
+                        x, dict(layer.mamba.items()), layer.ln)
+        return shard(x + y, "batch", "seq", "embed")
 
     def _group(self, group: nn.ModuleList, x: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
@@ -139,7 +143,7 @@ class HybridModel(nn.Module):
     def hidden_states(self, batch) -> torch.Tensor:
         """Full-sequence forward -> final-normed hidden (B, S, d_model).
         Under grad, ``cfg.remat`` recomputes each group in the backward."""
-        x = self._embed(batch["tokens"])
+        x = shard(self._embed(batch["tokens"]), "batch", "seq", "embed")
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         remat = remat_on(self.cfg)
         for group in self.main:
@@ -154,7 +158,8 @@ class HybridModel(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         out = hidden.reshape(-1, hidden.shape[-1]) @ self._head().to(hidden.dtype).T
-        return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
+                     "batch", "seq", "vocab")
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -181,20 +186,27 @@ class HybridModel(nn.Module):
         return specs
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Zero states and KV caches on ``device`` (default: the model's)."""
         d = attn_dims(self.cfg)
+        dev = self.device if device is None else device
         st, cb = mamba2_state_shapes(self.cfg, batch)
         gp = (self.n_groups, self.period)
-        f32 = {"dtype": torch.float32, "device": self.device}
+        f32 = {"dtype": torch.float32, "device": dev}
         kv = (self.n_groups, batch, max_len, d.n_kv, d.head_dim)
         cache = {"ssm": torch.zeros(gp + st, **f32), "conv": torch.zeros(gp + cb, **f32),
-                 "k": torch.zeros(kv, dtype=dtype, device=self.device),
-                 "v": torch.zeros(kv, dtype=dtype, device=self.device)}
+                 "k": torch.zeros(kv, dtype=dtype, device=dev),
+                 "v": torch.zeros(kv, dtype=dtype, device=dev)}
         if self.n_tail:
             cache["ssm_tail"] = torch.zeros((self.n_tail,) + st, **f32)
             cache["conv_tail"] = torch.zeros((self.n_tail,) + cb, **f32)
         return cache
+
+    def cache_specs(self, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """The cache's keys, shapes and dtypes as meta tensors (no memory)."""
+        return self.init_cache(batch, max_len, dtype, device="meta")
 
     def _mamba_prefill(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
                        conv: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .partitioning import shard
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -142,8 +144,10 @@ def ce_sum(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
     logits ``h @ w.T`` in h's dtype (on 2-D rows), then in fp32 and soft-
     capped at ``cap``, as the reference's ``ce``."""
     logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
-    logits = softcap(logits.float(), cap)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    logits = shard(softcap(logits.float(), cap), "batch", "seq", "vocab")
+    # the gathered column is reduced over "vocab" before the last axis drops
+    # (a vocab-sharded gather leaves a partial sum whose mask keeps the axis)
+    gold = shard(logits.gather(-1, labels.clamp_min(0)[..., None]), "batch", "seq", None)[..., 0]
     valid = (labels >= 0).float()
     return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
 

@@ -21,6 +21,7 @@ auxiliary loss is returned.
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +30,7 @@ from torch import nn
 
 from ..device import fp32_matmul
 from .layers import dense_init, frozen, mlp_apply, mlp_init, param_dict
+from .partitioning import like, shard, whole
 
 
 def expert_init(gen: torch.Generator, n: int, in_dim: int, out_dim: int, *, device,
@@ -103,9 +105,9 @@ def moe_apply(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, to
     groups = getattr(cfg, "moe_dispatch_groups", 0) or 0
     B, S, d = x.shape
     if groups > 1 and (B * S) % groups == 0:
-        xg = x.reshape(groups, (B * S) // groups, 1, d)
+        xg = shard(x.reshape(groups, (B * S) // groups, 1, d), "batch", None, None, "embed")
         outs = [_moe_dispatch(params, xs, cfg) for xs in xg]
-        y = torch.stack([o[0] for o in outs]).reshape(B, S, d)
+        y = shard(torch.stack([o[0] for o in outs]), "batch", None, None, "embed").reshape(B, S, d)
         return y, torch.stack([o[1] for o in outs]).mean()
     return _moe_dispatch(params, x, cfg)
 
@@ -115,31 +117,37 @@ def _moe_dispatch(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor
     E, k = cfg.n_experts, cfg.top_k
     N = B * S
     C = capacity(N, cfg)
-    xf = x.reshape(N, d)
-
-    probs, gates, expert_ids = route(params, xf, cfg)
+    xs = x.reshape(N, d)
+    # Under a mesh every rank routes all N tokens (whole, replicated): the
+    # capacity couples them, and the sort and count ops have no DTensor
+    # rules.  The expert products run on the (E, C, d) buffer sharded as
+    # "experts" says.
+    xf = whole(xs)
+    probs, gates, expert_ids = route(SimpleNamespace(router=whole(params.router)), xf, cfg)
     # Switch-style load-balance aux loss: E * sum(mean prob * dispatch fraction)
     density = torch.bincount(expert_ids[:, 0], minlength=E).float() / N
-    aux = E * torch.sum(probs.mean(dim=0) * density)
+    aux = like(E * torch.sum(probs.mean(dim=0) * density), x)
 
     sort_idx, slot, keep = dispatch(expert_ids, E, C)
     token_idx = sort_idx // k
-    buf = x.new_zeros((E * C, d))
+    buf = xf.new_zeros((E * C, d))
     buf[slot[keep]] = xf[token_idx[keep]]
+    buf = shard(like(buf.reshape(E, C, d), x), "experts", "expert_cap", "embed")
 
     # expert computation: fused gate+up, (E, C, *) batched products
-    gate, up = torch.bmm(buf.reshape(E, C, d), params.wi.to(x.dtype)).chunk(2, dim=-1)
-    eout = torch.bmm(F.silu(gate) * up, params.wo.to(x.dtype))
+    gate, up = torch.bmm(buf, params.wi.to(x.dtype)).chunk(2, dim=-1)
+    eout = shard(torch.bmm(F.silu(gate) * up, params.wo.to(x.dtype)),
+                 "experts", "expert_cap", "embed")
 
     # combine: each (token, pick) pair's gated output back in token order,
     # then the k picks of a token summed in pick order
-    flat_out = torch.cat([eout.reshape(E * C, d), x.new_zeros((1, d))])
+    flat_out = torch.cat([whole(eout).reshape(E * C, d), xf.new_zeros((1, d))])
     g = torch.where(keep, gates.reshape(-1)[sort_idx].to(x.dtype), 0.0)
     y_k = flat_out[slot] * g[:, None]
     inv = torch.empty_like(sort_idx)
-    inv[sort_idx] = torch.arange(N * k, device=x.device)
-    y = y_k[inv].reshape(N, k, d).sum(dim=1)
+    inv[sort_idx] = torch.arange(N * k, device=xf.device)
+    y = like(y_k[inv].reshape(N, k, d).sum(dim=1), x)
 
     if params.shared is not None:
-        y = y + mlp_apply(params.shared, xf, act="silu")
+        y = y + mlp_apply(params.shared, xs, act="silu")
     return y.reshape(B, S, d), aux

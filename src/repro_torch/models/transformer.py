@@ -36,7 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
 from .layers import (
     activation_dtype,
@@ -54,6 +54,7 @@ from .layers import (
     zeros_init,
 )
 from .moe import MoEParams, moe_apply
+from .partitioning import shard
 
 AUX_LOSS_COEF = 0.01
 
@@ -105,7 +106,7 @@ def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tens
     mlp_out, aux = _ffn(blk, rms_norm(x, blk.ln2, eps), cfg, variant)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, blk.pn2, eps)
-    return x + mlp_out, kv, aux
+    return shard(x + mlp_out, "batch", "seq", "embed"), kv, aux
 
 
 def _ffn(blk: Block, x: torch.Tensor, cfg, variant):
@@ -147,7 +148,7 @@ class DecoderLM(nn.Module):
             raise ValueError(f"{cfg.n_layers} layers do not fill groups of {self.group}")
         self.n_groups = cfg.n_layers // self.group
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed),
+        self.init(generator(self.device, seed),
                   torch.float32 if trainable else self.dtype)
         if trainable:
             trainable_masters(self)
@@ -179,6 +180,7 @@ class DecoderLM(nn.Module):
                         cfg.d_model)
         if cfg.frontend is not None and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x), x], dim=1)   # early fusion
+        x = shard(x, "batch", "seq", "embed")
         return x, torch.arange(x.shape[1], device=x.device)[None, :]
 
     # --------------------------------------------------------------- forward
@@ -203,7 +205,7 @@ class DecoderLM(nn.Module):
         w = self.embed if self.cfg.tie_embeddings else self.head
         out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
         out = out.reshape(*hidden.shape[:-1], out.shape[-1])
-        return softcap(out.float(), self.cfg.final_logit_softcap)
+        return shard(softcap(out.float(), self.cfg.final_logit_softcap), "batch", "seq", "vocab")
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -255,16 +257,23 @@ class DecoderLM(nn.Module):
         w = variant["window"]
         return min(w, max_len) if w else max_len
 
-    def init_cache(self, batch: int, max_len: int,
-                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Zero KV caches on ``device`` (default: the model's)."""
         d = attn_dims(self.cfg)
+        dev = self.device if device is None else device
         cache = {}
         for i, variant in enumerate(self.variants):
             shp = (self.n_groups, batch, self.cache_window(variant, max_len), d.n_kv,
                    d.head_dim)
-            cache[f"k{i}"] = torch.zeros(shp, dtype=dtype, device=self.device)
-            cache[f"v{i}"] = torch.zeros(shp, dtype=dtype, device=self.device)
+            cache[f"k{i}"] = torch.zeros(shp, dtype=dtype, device=dev)
+            cache[f"v{i}"] = torch.zeros(shp, dtype=dtype, device=dev)
         return cache
+
+    def cache_specs(self, batch: int, max_len: int,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """The cache's keys, shapes and dtypes as meta tensors (no memory)."""
+        return self.init_cache(batch, max_len, dtype, device="meta")
 
     def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
         """Run the prompt, build the KV cache, return (last-position logits
@@ -296,7 +305,8 @@ class DecoderLM(nn.Module):
                         self.cfg.d_model)
         for layer, blk in enumerate(self.layers):
             i, g = layer % self.group, layer // self.group
-            x, _, _ = block_decode(blk, x, self.cfg, self.variant_of(layer),
-                                   cache[f"k{i}"][g], cache[f"v{i}"][g], pos)
+            kc = shard(cache[f"k{i}"][g], "batch", "kv_seq", "kv", "head_dim")
+            vc = shard(cache[f"v{i}"][g], "batch", "kv_seq", "kv", "head_dim")
+            x, _, _ = block_decode(blk, x, self.cfg, self.variant_of(layer), kc, vc, pos)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x), cache

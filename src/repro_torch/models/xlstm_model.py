@@ -27,7 +27,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, generator, resolve_device
+from .partitioning import batch_local, shard
 from .layers import (
     activation_dtype,
     ce_sum,
@@ -82,7 +83,7 @@ class XLSTMModel(nn.Module):
         self.n_groups = cfg.n_layers // self.period
         self.n_mlstm = self.period - 1 if cfg.slstm_every else self.period
         self.dtype = activation_dtype(cfg)
-        self.init(torch.Generator(device=self.device).manual_seed(seed),
+        self.init(generator(self.device, seed),
                   torch.float32 if trainable else self.dtype)
         if trainable:
             trainable_masters(self)
@@ -102,8 +103,9 @@ class XLSTMModel(nn.Module):
                 XBlock(slstm_init(gen, cfg, device=dev, dtype=dt), cfg.d_model, dev)
                 for _ in range(self.n_groups))
 
-    def _norm(self, x: torch.Tensor, b: XBlock) -> torch.Tensor:
-        return rms_norm(x, b.ln, self.cfg.norm_eps)
+    def _norm(self, x: torch.Tensor, b) -> torch.Tensor:
+        """rms_norm by block ``b``'s ``ln`` (or by the scale ``b``)."""
+        return rms_norm(x, b.ln if isinstance(b, XBlock) else b, self.cfg.norm_eps)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
@@ -112,17 +114,20 @@ class XLSTMModel(nn.Module):
         """Group ``g``: its mLSTM blocks, then its sLSTM block."""
         cfg = self.cfg
         for b in self.mlstm[g]:
-            x = x + mlstm_apply(b.blk, self._norm(x, b), cfg)
+            y = batch_local(lambda x_, blk, ln: mlstm_apply(blk, self._norm(x_, ln), cfg),
+                            x, dict(b.blk.items()), b.ln)
+            x = shard(x + y, "batch", "seq", "embed")
         if cfg.slstm_every:
             b = self.slstm[g]
-            x = x + slstm_apply(b.blk, self._norm(x, b), cfg)
+            x = x + batch_local(lambda x_, blk, ln: slstm_apply(blk, self._norm(x_, ln), cfg),
+                                x, dict(b.blk.items()), b.ln)
         return x
 
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> torch.Tensor:
         """Full-sequence forward -> final-normed hidden (B, S, d_model).
         Under grad, ``cfg.remat`` recomputes each group in the backward."""
-        x = self._embed(batch["tokens"])
+        x = shard(self._embed(batch["tokens"]), "batch", "seq", "embed")
         remat = remat_on(self.cfg)
         for g in range(self.n_groups):
             x = (checkpoint(self._group, g, x, use_reentrant=False) if remat
@@ -131,7 +136,8 @@ class XLSTMModel(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
-        return out.reshape(*hidden.shape[:-1], out.shape[-1]).float()
+        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
+                     "batch", "seq", "vocab")
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -159,12 +165,13 @@ class XLSTMModel(nn.Module):
         return specs
 
     # --------------------------------------------------------------- serving
-    def init_cache(self, batch: int, max_len: int = 0,
-                   dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
-        """The recurrent state; ``max_len`` and ``dtype`` are ignored (the
-        state is O(1) in context and fp32)."""
+    def init_cache(self, batch: int, max_len: int = 0, dtype: torch.dtype = torch.bfloat16,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """The recurrent state on ``device`` (default: the model's);
+        ``max_len`` and ``dtype`` are ignored (the state is O(1) in context
+        and fp32)."""
         g, nm = self.n_groups, self.n_mlstm
-        f32 = {"dtype": torch.float32, "device": self.device}
+        f32 = {"dtype": torch.float32, "device": self.device if device is None else device}
         mC, mn, mm, mbuf = mlstm_state_shapes(self.cfg, batch)
         cache = {"mC": torch.zeros((g, nm) + mC, **f32), "mn": torch.zeros((g, nm) + mn, **f32),
                  "mm": torch.full((g, nm) + mm, -1e30, **f32),
@@ -178,6 +185,11 @@ class XLSTMModel(nn.Module):
                           "sbuf": torch.zeros((g,) + sbuf, **f32)})
         return cache
 
+    def cache_specs(self, batch: int, max_len: int = 0,
+                    dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """The state's keys, shapes and dtypes as meta tensors (no memory)."""
+        return self.init_cache(batch, max_len, dtype, device="meta")
+
     def prefill(self, batch, max_len: int = 0, cache_dtype: torch.dtype = torch.bfloat16):
         """Parallel prefill with the exact final recurrent states ->
         (last-position logits (B, 1, V) f32, cache)."""
@@ -188,13 +200,13 @@ class XLSTMModel(nn.Module):
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
                 y, state, buf = mlstm_prefill(b.blk, self._norm(x, b), cfg)
-                x = x + y
+                x = shard(x + y, "batch", "seq", "embed")
                 for key, t in zip(_M_KEYS + ("mbuf",), state + (buf,)):
                     cache[key][g, j] = t
             if cfg.slstm_every:
                 b = self.slstm[g]
                 y, state, buf = slstm_prefill(b.blk, self._norm(x, b), cfg)
-                x = x + y
+                x = shard(x + y, "batch", "seq", "embed")
                 for key, t in zip(_S_KEYS + ("sbuf",), state + (buf,)):
                     cache[key][g] = t
         x = rms_norm(x, self.final_norm, cfg.norm_eps)

@@ -24,6 +24,12 @@ copies into the leaves of the tree it is given, in place (one copy of the
 training state).  ``AsyncCheckpointer.save`` snapshots a copy on the host
 before it returns, so a step that then updates the state in place does not
 change what is written.
+
+Under a mesh the leaves are DTensors: a snapshot gathers each one's whole
+value (a collective: every rank calls ``save``; rank 0 writes), and
+``restore(..., shardings=)`` places every restored leaf with the given
+placements, as the reference's ``restore`` places its leaves with
+``NamedSharding``s.
 """
 from __future__ import annotations
 
@@ -120,10 +126,24 @@ def save(tree: Mapping, directory: str, step: int, keep: int = 3) -> str:
 
 
 def _snapshot(tree: Mapping):
-    """A host copy of every leaf (a CPU tensor's ``.cpu()`` is itself)."""
+    """A host copy of every leaf (a CPU tensor's ``.cpu()`` is itself; a
+    DTensor's whole value)."""
     return {k: _snapshot(v) if isinstance(v, Mapping)
-            else v.detach().to("cpu", copy=True) if isinstance(v, torch.Tensor)
+            else _whole(v.detach()).to("cpu", copy=True) if isinstance(v, torch.Tensor)
             else np.array(v, copy=True) for k, v in tree.items()}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no process group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class AsyncCheckpointer:
@@ -136,6 +156,8 @@ class AsyncCheckpointer:
     def save(self, tree: Mapping, directory: str, step: int, keep: int = 3) -> None:
         host_tree = _snapshot(tree)
         self.wait()
+        if not _writer():
+            return
         self._thread = threading.Thread(
             target=self._write, args=(host_tree, directory, step, keep), daemon=True)
         self._thread.start()
@@ -199,11 +221,18 @@ def read(directory: str, step: Optional[int] = None) -> Dict[str, Any]:
     return tree
 
 
-def restore(directory: str, target_tree: Mapping, step: Optional[int] = None) -> Mapping:
+def restore(directory: str, target_tree: Mapping, step: Optional[int] = None,
+            shardings: Optional[Mapping] = None) -> Mapping:
     """Copy a checkpoint (the latest without ``step``) into the tensors of
     ``target_tree``, in place, and return the tree.  Every target leaf must
-    be in the checkpoint with its shape and dtype."""
+    be in the checkpoint with its shape and dtype.  ``shardings``: a tree
+    of placements keyed like ``target_tree`` (``launch.shardings.
+    state_shardings``); each leaf is then restored as a DTensor with its
+    placements, on the target DTensor's mesh or else the active mesh
+    (``models.partitioning.use_mesh``): in place when the target already is
+    such a DTensor, as a new leaf of the tree otherwise."""
     by_name = dict(_flatten(read(directory, step)))
+    want = dict(_flatten(shardings)) if shardings is not None else {}
     staged = []
     for name, ref in _flatten(target_tree):
         if name not in by_name:
@@ -213,11 +242,44 @@ def restore(directory: str, target_tree: Mapping, step: Optional[int] = None) ->
             raise ValueError(f"{name}: shape {tuple(value.shape)} != expected {tuple(ref.shape)}")
         if value.dtype != ref.dtype:
             raise ValueError(f"{name}: dtype {value.dtype} != expected {ref.dtype}")
-        staged.append((ref, value))
+        if name in want:
+            value = _placed(name, value, ref, tuple(want[name]))
+        staged.append((name, ref, value))
     with torch.no_grad():
-        for ref, value in staged:
-            ref.copy_(value)
+        for name, ref, value in staged:
+            if _same_layout(ref, value):
+                ref.copy_(value)
+            else:   # a plain target, or one of other placements: the new DTensor
+                *path, last = name.split("/")
+                node = target_tree
+                for key in path:
+                    node = node[key]
+                node[last] = value
     return target_tree
+
+
+def _placed(name: str, value: torch.Tensor, ref, placements):
+    """``value`` as a DTensor with ``placements`` on ``ref``'s mesh (a
+    DTensor's) or the active mesh; every rank read the whole value."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    from ..models.partitioning import get_mesh
+
+    mesh = ref.device_mesh if isinstance(ref, DTensor) else get_mesh()
+    if mesh is None:
+        raise ValueError(f"{name}: placements given, but no mesh (use_mesh) is active")
+    return distribute_tensor(value.to(mesh.device_type), mesh, placements, src_data_rank=None)
+
+
+def _same_layout(ref, value) -> bool:
+    """Whether ``value`` copies into ``ref`` as it is: both plain, or both
+    DTensors with the same placements."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(ref, DTensor) or isinstance(value, DTensor):
+        return (isinstance(ref, DTensor) and isinstance(value, DTensor)
+                and tuple(ref.placements) == tuple(value.placements))
+    return True
 
 
 def _gc(directory: str, keep: int) -> None:

@@ -25,6 +25,8 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
+from ..models.partitioning import is_dtensor
+
 Tensors = Dict[str, torch.Tensor]
 
 
@@ -104,6 +106,14 @@ def adamw_init(params: Tensors, cfg: OptimizerConfig) -> Dict[str, Any]:
     return state
 
 
+def _keep_layout(new: Tensors, old: Tensors) -> Tensors:
+    """A new int8 moment with the placements of the one it replaces (under
+    a mesh the state keeps its ``state_shardings`` layout)."""
+    return {k: v.redistribute(old[k].device_mesh, old[k].placements)
+            if is_dtensor(old[k]) and tuple(v.placements) != tuple(old[k].placements) else v
+            for k, v in new.items()}
+
+
 def _compress(g: torch.Tensor, e: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 round trip of g + e, the residual it leaves)."""
     t = g.float() + e
@@ -139,7 +149,7 @@ def adamw_update(params: Tensors, grads: Tensors, state: Dict[str, Any],
         p.copy_(p.float() * (1 - lr * cfg.weight_decay) - lr * update)
         for key, x in (("m", mf), ("v", vf)):
             if cfg.moment_dtype == "int8":
-                state[key][n] = _quantize(x)
+                state[key][n] = _keep_layout(_quantize(x), state[key][n])
             else:
                 state[key][n].copy_(x)
     state["step"].copy_(step)

@@ -16,9 +16,16 @@ scales with the microbatch.  ``compute_dtype="bfloat16"`` takes a bf16
 working copy of each >= 2-D fp32 master once per step and takes the
 gradient with respect to that copy, as the reference does.
 
-The reference's ``grad_shardings`` (per-microbatch gradients constrained to
-the parameter sharding) belongs to the parallel layout, which is not
-ported yet: the step runs on one device.
+Under a mesh of two ranks or more the state's tensors are DTensors
+(``launch/shardings.py``: ``distribute`` with ``state_shardings``; on one
+rank it leaves them plain) and the batch is distributed with
+``batch_shardings``; the model runs on them as written, and K6 runs on
+each rank's shards.  ``grad_shardings`` (the parameters' placements, as
+``state_shardings(...)["params"]`` gives them) redistributes each
+microbatch's gradients to the parameter sharding before they are summed,
+as the reference constrains them (``with_sharding_constraint``): with FSDP
+placements the sum is then a reduce-scatter, not an all-reduce.  The loss
+and metrics come back as plain tensors, equal on every rank.
 """
 from __future__ import annotations
 
@@ -26,8 +33,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.func import functional_call
 
+from ..models.partitioning import is_dtensor, replicated_placements, whole
 from .optimizer import OptimizerConfig, adamw_init, adamw_update
 
 TrainState = Dict[str, Any]   # {"params", "opt"}
@@ -52,17 +61,31 @@ class _LossGrads(nn.Module):
         self.model = model
 
     def forward(self, batch, wrt):
-        loss, metrics = self.model.loss(batch)
-        grads = torch.autograd.grad(loss, wrt)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+        # the plain tensors the model makes (positions, rotary tables) are the
+        # same on every rank: DTensor ops take them as replicated
+        with implicit_replication():
+            loss, metrics = self.model.loss(batch)
+            if is_dtensor(loss):   # one value on every rank: its gradient seed is 1, once
+                loss = loss.redistribute(loss.device_mesh, replicated_placements(loss.device_mesh))
+            grads = torch.autograd.grad(loss, wrt)
+        return whole(loss.detach()), {k: whole(v.detach()) for k, v in metrics.items()}, grads
 
 
 def make_train_step(model: nn.Module, ocfg: OptimizerConfig, microbatches: int = 1,
+                    grad_shardings: Optional[Dict[str, Any]] = None,
                     compute_dtype: Optional[str] = None):
     """-> ``train_step(state, batch) -> (state, metrics)``: ``metrics`` holds
     "loss", "grad_norm" and "lr" (0-d tensors), and with one microbatch the
-    model's "nll", "aux" and "tokens"."""
+    model's "nll", "aux" and "tokens".  ``grad_shardings``: {parameter name:
+    placements} for DTensor gradients (see the module docstring)."""
     runner = _LossGrads(model)
+
+    def constrain(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if grad_shardings is None:
+            return grads
+        return {n: g.redistribute(g.device_mesh, tuple(grad_shardings[n]))
+                if is_dtensor(g) and tuple(g.placements) != tuple(grad_shardings[n]) else g
+                for n, g in grads.items()}
 
     def working(master: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         dt = None if compute_dtype is None else getattr(torch, compute_dtype)
@@ -78,7 +101,7 @@ def make_train_step(model: nn.Module, ocfg: OptimizerConfig, microbatches: int =
         loss, metrics, grads = functional_call(
             runner, {f"model.{n}": t for n, t in params.items()},
             (batch, tuple(params.values())))
-        return loss, metrics, dict(zip(params, grads))
+        return loss, metrics, constrain(dict(zip(params, grads)))
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         master = state["params"]
@@ -93,12 +116,13 @@ def make_train_step(model: nn.Module, ocfg: OptimizerConfig, microbatches: int =
                 n = b // microbatches
                 return x[i * n:(i + 1) * n]
 
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for n, p in params.items()}
+            grads = {}
             loss = torch.zeros((), device=next(iter(master.values())).device)
             for i in range(microbatches):
                 l_i, _, g = grad_fn(params, {k: split(x, i) for k, x in batch.items()})
                 for n, gi in g.items():
+                    if n not in grads:   # fp32 zeros with the gradient's placements
+                        grads[n] = torch.zeros_like(gi, dtype=torch.float32)
                     grads[n] += gi
                 loss = loss + l_i
                 del g
@@ -108,7 +132,8 @@ def make_train_step(model: nn.Module, ocfg: OptimizerConfig, microbatches: int =
             metrics = {}
         del params
         _, _, opt_metrics = adamw_update(master, grads, state["opt"], ocfg)
-        return state, {"loss": loss, **opt_metrics, **metrics}
+        return state, {"loss": loss, **{k: whole(v) for k, v in opt_metrics.items()},
+                       **metrics}
 
     return train_step
 

@@ -854,6 +854,65 @@ def test_flash_attention_backward(dev, B, S, T, H, KV, D, kw, dtype):
         assert err.max().item() <= lim
 
 
+# (B, S, T, H, KV, D, q_offset, kw): chunks of a longer prompt (T = q_offset +
+# S), a ragged T on either side of it, windows that start inside the chunk
+_QOFF_CASES = [(2, 128, 640, 8, 4, 128, 512, {}), (1, 100, 300, 8, 2, 64, 200, {"window": 90}),
+               (1, 70, 200, 4, 4, 96, 130, {"softcap": 20.0}),
+               (2, 96, 150, 16, 8, 128, 64, {}),              # T < q_offset + S: late keys cut
+               (1, 64, 200, 4, 2, 256, 100, {}),              # keys past the last row's position
+               (1, 90, 700, 4, 1, 112, 610, {"window": 33, "softcap": 30.0}),
+               (1, 33, 50, 4, 2, 32, 17, {"causal": False})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,KV,D,q_offset,kw", _QOFF_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_q_offset(dev, B, S, T, H, KV, D, q_offset, kw, dtype):
+    """K6 with ``q_offset`` forward and backward (through autograd) against
+    the plain versions at the same offset: f32 within 2e-5 of the largest
+    value, bf16 within that plus one bf16 ulp (the tolerances of the tests
+    above)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev).requires_grad_() for x in _qkv(B, S, T, H, KV, D, dtype))
+    dout = torch.from_numpy(RNG.standard_normal((B, S, H, D)).astype(np.float32)).to(dev, dtype)
+    out = fa.flash_attention(q, k, v, q_offset=q_offset, **kw)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+             kw.get("scale", D ** -0.5))
+    with torch.no_grad():
+        o2, lse = fa.forward(q, k, v, *masks, with_lse=True, q_offset=q_offset)
+        want_out, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True,
+                                                     q_offset=q_offset, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, o2, lse, dout, q_offset=q_offset, **kw)
+    assert torch.equal(out, o2)
+    inf = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), inf)
+    _close(lse[~inf], want_lse[~inf], 1e-5 * max(1.0, want_lse[~inf].abs().max().item()))
+    for g, w in [(out, want_out), *zip(got, want)]:
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        lim = 2e-5 * w.float().abs().max().item()
+        err = (g.float() - w.float()).abs()
+        if dtype == torch.bfloat16:
+            err = err - w.float().abs() * 2.0 ** -7
+        assert err.max().item() <= lim
+
+
+@pytest.mark.cuda
+def test_flash_attention_chunks_equal_one_call(dev):
+    """A 512-row prompt's four 128-row chunks at q_offset 0, 128, 256, 384
+    (each against the keys so far) give the one-call rows bit for bit: a
+    row's visible keys and their tiles are the same either way."""
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (x.to(dev) for x in _qkv(2, 512, 512, 16, 8, 128, dtype))
+        whole = fa.flash_attention(q, k, v)
+        parts = [fa.flash_attention(q[:, lo:lo + 128], k[:, :lo + 128], v[:, :lo + 128],
+                                    q_offset=lo) for lo in range(0, 512, 128)]
+        assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
 @pytest.mark.cuda
 def test_flash_attention_backward_takes_the_wgmma_route(dev, monkeypatch):
     """A bf16 call at D=128 launches dK/dV and dQ with the route and launch

@@ -70,6 +70,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch.core.reuse_store import ReuseStore
     from repro_torch.device import resolve_device
     from repro_torch.models import DecoderLM, build_model
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.train import main as train_main
     from repro_torch.serving import AsyncServingEngine, ServingFleet
@@ -86,9 +87,28 @@ def test_entry_points_default_to_cuda():
                  lambda: resolve_device("cuda"), lambda: build_model(cfg),
                  lambda: DecoderLM(cfg), lambda: AsyncServingEngine(p, cpu_replicas),
                  lambda: ServingFleet(p, cpu_replicas), lambda: serve_main(["--requests", "1"]),
-                 lambda: train_main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])):
+                 lambda: train_main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"]),
+                 lambda: make_host_mesh(), lambda: make_production_mesh()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert ReuseStore(p, device="cpu").device.type == "cpu"
     assert build_model(cfg, device="cpu").embed.device.type == "cpu"
     assert AsyncServingEngine(p, cpu_replicas, device="cpu").router.lsh.device.type == "cpu"
+
+
+LAYOUT_MODULES = ("repro_torch.models.partitioning", "repro_torch.models.blocked_attention",
+                  "repro_torch.launch.mesh", "repro_torch.launch.shardings")
+
+
+@pytest.mark.parametrize("mod", LAYOUT_MODULES)
+def test_layout_modules_are_checked(mod):
+    """The parallel layout's modules are among those the checks above import
+    and scan, and import without touching a device or a process group."""
+    import importlib
+
+    import torch.distributed as dist
+
+    assert mod in MODULES
+    started = dist.is_available() and dist.is_initialized()
+    importlib.import_module(mod)
+    assert (dist.is_available() and dist.is_initialized()) == started

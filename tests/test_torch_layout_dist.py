@@ -1,0 +1,83 @@
+"""Sharded train steps of the port on 4 CPU ranks against one device.
+
+Each case starts 4 processes (``tests/torch_layout_worker.py``) that join
+a gloo group through a ``FileStore`` under ``tmp_path`` (no network) and
+build a (2, 2) ("data", "model") mesh.  Two train steps of a reduced config
+run with the state as DTensors placed by ``state_shardings`` (reduced
+qwen3 in "tp" and in "fsdp", the latter also with int8 moments and int8
+gradient compression, reduced qwen2-moe in "ep" with experts over "data",
+reduced xLSTM, whose layout is pure data parallelism), and the
+same two steps run on one device with plain tensors from the same state.
+The losses and the updated parameters agree within 1e-5, and so does each
+gradient the optimizer receives (relative to its largest value); every
+leaf of the state (parameters, moments, residuals, the step) keeps its
+``state_shardings`` placements, and every gradient
+reaches the optimizer with its ``grad_shardings`` placements.  A rank that
+hangs fails its case at the time limit; the case's processes are then
+killed.  One more case holds K6 on DTensors (the GQA head split) and its
+gradients against plain tensors.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+WORKER = Path(__file__).with_name("torch_layout_worker.py")
+WORLD = 4
+TIME_LIMIT = 180   # seconds a case may take, all ranks together
+TOL = 1e-5
+
+
+def _run(case, tmp_path):
+    """Start the case's ranks, wait for them within TIME_LIMIT, and return
+    each rank's JSON result."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]), OMP_NUM_THREADS="1")
+    store = tmp_path / "store"
+    outs = [tmp_path / f"rank{r}.json" for r in range(WORLD)]
+    procs = [subprocess.Popen([sys.executable, str(WORKER), case, str(r), str(WORLD),
+                               str(store), str(outs[r])], env=env, cwd=tmp_path,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(WORLD)]
+    try:
+        logs = [p.communicate(timeout=TIME_LIMIT)[0].decode(errors="replace") for p in procs]
+    except subprocess.TimeoutExpired:
+        pytest.fail(f"{case}: a rank did not finish within {TIME_LIMIT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{log[-4000:]}"
+    return [json.loads(out.read_text()) for out in outs]
+
+
+@pytest.mark.parametrize("case", ["qwen3-1.7b:tp", "qwen3-1.7b:fsdp", "qwen3-1.7b:fsdp:int8",
+                                  "qwen2-moe-a2.7b:ep", "xlstm-125m:tp"])
+def test_sharded_steps_match_one_device(case, tmp_path):
+    for r, res in enumerate(_run(case, tmp_path)):
+        assert res["bad"] == [], res["bad"][:5]
+        assert res["n_grads"] > 0
+        for got, want in zip(res["got"], res["want"]):
+            assert abs(got - want) <= TOL, (r, res["got"], res["want"])
+        assert res["param_gap"] <= TOL, (r, res["param_gap"])
+        assert res["grad_gap"] <= TOL, (r, res["grad_gap"])
+    if not case.startswith("xlstm"):   # pure DP replicates every xLSTM block
+        assert res["n_sharded"] > 0
+
+
+def test_sharded_attention_matches_one_device(tmp_path):
+    """K6 on DTensors over the (2, 2) mesh, forward and gradients, within 1e-5
+    (relative to the largest value) of plain tensors; heads split over
+    "model" where each rank's heads cover whole kv heads or lie within one,
+    replicated over it where they do not (6 heads over 3 kv heads)."""
+    for res in _run("attention:gqa", tmp_path):
+        assert res["gap"] <= TOL, res["gap"]
+        assert res["placements"] == [[0, 2]] * 3 + [[0, None]]   # Shard(d) as d

@@ -1,0 +1,146 @@
+"""One rank of ``test_torch_layout_dist.py``'s sharded train steps.
+
+``python tests/torch_layout_worker.py CASE RANK WORLD STORE OUT`` (with
+``src`` on ``PYTHONPATH``) joins a gloo group through a ``FileStore`` at
+STORE, builds a (2, WORLD / 2) ("data", "model") CPU mesh and, for CASE
+(``ARCH:MODE``), runs two train steps of the reduced config twice from one
+seeded state: on one device with plain tensors, and under ``use_mesh`` with
+the state distributed by ``state_shardings`` and the batches by
+``batch_shardings``.  It writes OUT (JSON): the two runs' losses, the
+largest parameter gap, and every state leaf or gradient whose placements
+differ from ``state_shardings`` / ``grad_shardings`` (``ARCH:MODE:int8``:
+with int8 moments and int8 gradient compression).  CASE
+``attention:gqa`` holds K6 on DTensors (``ops.flash_attention``: batch
+over "data", heads over "model") and its gradients against plain tensors
+at several head groupings instead.
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+import torch.distributed as dist
+
+from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.launch import shardings as shl
+from repro_torch.launch.train import synthetic_batch
+from repro_torch.models import build_model, use_mesh
+from repro_torch.training import OptimizerConfig, init_state, make_train_step
+from repro_torch.training import train_loop
+
+STEPS = 2
+SHAPE = ShapeSpec("layout", 32, 4, "train")
+
+
+def _copy(tree):
+    return {k: _copy(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def attention_case(mesh) -> dict:
+    """K6 on DTensors against plain tensors, forward and gradients: (H, KV)
+    with each rank's two heads covering a kv head (8, 4), lying within one
+    (4, 1), one head a kv head (8, 8), and heads that do not split into
+    whole groups on 2 ranks (6, 3: replicated over "model")."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator().manual_seed(0)
+    gap, placed = 0.0, []
+    for H, KV, kw in ((8, 4, {}), (4, 1, {"window": 5}), (8, 8, {"q_offset": 4}),
+                      (6, 3, {"softcap": 20.0})):
+        B, S, D = 4, 12, 16
+        T = S + kw.get("q_offset", 0)
+        q, w = (torch.randn(B, S, H, D, generator=gen) for _ in range(2))
+        k, v = (torch.randn(B, T, KV, D, generator=gen) for _ in range(2))
+        plain = [x.clone().requires_grad_() for x in (q, k, v)]
+        (ops.flash_attention(*plain, **kw) * w).sum().backward()
+        with use_mesh(mesh):
+            dq = distribute_tensor(q, mesh, (Shard(0), Replicate())).requires_grad_()
+            dk, dv = (distribute_tensor(x, mesh, (Shard(0), Replicate())).requires_grad_()
+                      for x in (k, v))
+            out = ops.flash_attention(dq, dk, dv, **kw)
+            placed.append([p.dim if p.is_shard() else None for p in out.placements])
+            (out * distribute_tensor(w, mesh, out.placements)).sum().full_tensor().backward()
+        want = ops.flash_attention(q, k, v, **kw)
+        for got, ref in ((out.full_tensor(), want), *((d.grad.full_tensor(), p.grad)
+                                                      for d, p in zip((dq, dk, dv), plain))):
+            gap = max(gap, float((got - ref).abs().max() / ref.abs().max()))
+    return {"gap": gap, "placements": placed}
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def main(case: str, rank: int, world: int, store: str, out: str) -> None:
+    arch, mode, *moments = case.split(":")
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    from torch.distributed.device_mesh import init_device_mesh
+
+    mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
+    if arch == "attention":
+        with open(out, "w") as f:
+            json.dump(attention_case(mesh), f)
+        dist.destroy_process_group()
+        return
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, "cpu", seed=0, trainable=True)
+    # ARCH:MODE:int8 takes int8 moments and int8 gradient compression
+    ocfg = OptimizerConfig(moment_dtype="int8", compress_grads=True) if moments else \
+        OptimizerConfig()
+    base = _copy(init_state(model, ocfg))
+    batches = [synthetic_batch(model, cfg, SHAPE, s, "cpu") for s in range(STEPS)]
+
+    seen = []   # (name, gradient) as the optimizer receives them
+    update = train_loop.adamw_update
+
+    def recording(params, grads, state, cfg_):
+        seen.extend(grads.items())
+        return update(params, grads, state, cfg_)
+
+    train_loop.adamw_update = recording
+    plain = _copy(base)
+    plain_step = make_train_step(model, ocfg)
+    want = [float(plain_step(plain, b)[1]["loss"]) for b in batches]
+    plain_grads, seen = seen, []
+
+    rules = {"experts": "data"} if mode == "ep" else None
+    with use_mesh(mesh, rules):
+        shd = shl.state_shardings(base, mesh, mode, cfg.family)
+        state = shl.distribute(_copy(base), shd, mesh)
+        step = make_train_step(model, ocfg, grad_shardings=shd["params"])
+        bshd = shl.batch_shardings(model.input_specs(SHAPE), mesh)
+        got = [float(step(state, shl.distribute(b, bshd, mesh))[1]["loss"]) for b in batches]
+    train_loop.adamw_update = update
+
+    def wanted(path):
+        node = shd
+        for k in path:
+            node = node[k]
+        return tuple(node)
+
+    bad = [f"state {'/'.join(path)}: {tuple(t.placements)} != {wanted(path)}"
+           for path, t in _leaves(state) if tuple(t.placements) != wanted(path)]
+    bad += [f"grad {n}: {tuple(g.placements)} != {tuple(shd['params'][n])}"
+            for n, g in seen if tuple(g.placements) != tuple(shd["params"][n])]
+    # each gradient against the one-device run's, relative to its largest value
+    grad_gap = max(float((g.full_tensor() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                   for (n, g), (_, w) in zip(seen, plain_grads))
+    gap = max(float((t.full_tensor() - plain["params"][n]).abs().max())
+              for n, t in state["params"].items())
+    sharded = sum(any(not p.is_replicate() for p in shd["params"][n]) for n in shd["params"])
+    with open(out, "w") as f:
+        json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap, "bad": bad,
+                   "n_grads": len(seen), "n_sharded": sharded}, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
