@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
-                          [--layout] [--src DIR]
+                          [--layout] [--dryrun] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -114,7 +114,21 @@ just before it and read just after:
   of the 1 x 1 mesh: the launcher's and the DTensors' losses and grad
   norms against the plain ones (bit-equal, or within 1e-6 relative), ms a
   step and a profiled step's idle share each way (what DTensor's dispatch
-  would cost on one card).
+  would cost on one card);
+* dryrun: (a) K7 with ``return_lse`` against its plain version at
+  decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
+  D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
+  K7 with lse on each (q in f32) merged by ``decode_attention.combine``
+  (what ``ops.sharded_decode_attention`` runs over a 16-way "model" axis)
+  against one call: out within 1e-5 of max |out|, lse within 1e-5; K7's
+  time with and without lse and the combine's; (b)
+  ``launch/hlo_analysis.py`` on phase train's full-width qwen3-1.7b step on
+  fake CUDA tensors and on the card: FLOPs equal, the fake peak within 10 %
+  of ``max_memory_allocated``, the roofline terms beside the step's time;
+  (c) ``launch/dryrun.py``'s CLI on qwen3-1.7b's four cells on the 16 x 16
+  mesh with fake CUDA tensors in a fake world of 256 ranks (the phase runs
+  last: the process group of phase layout is ended first), each cell ok,
+  no kernel launched.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -153,16 +167,23 @@ counts each kernel's launches in (f), ``layout_blocked_launches`` and
 ``q_offset_chunks`` (each chunk of (a): its offset, dtype, visible pairs,
 times, bound and error), ``q_offset_concat_max_err``,
 ``q_offset_bwd_max_err`` and ``layout_train`` ((c): ms a step and
-profiled device time, each way).
+profiled device time, each way).  ``dryrun_launches`` counts each
+kernel's real launches in phase dryrun (a) and (b); K7's row adds
+``lse_max_abs_err``, ``split`` ((a): the split's errors, K7's times with
+and without lse, the combine's, bounds), ``analysis`` ((b)) and
+``dryrun_cells`` ((c): each cell's seconds, per-device bytes, FLOPs and
+dominant term).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
-``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train`` and
-``--layout`` run only the env and build phases and the named ones (the
+``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
+``--layout`` and ``--dryrun`` run only the env and build phases and the
+named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
-comma-separated list of names after the flag; phase train; phase layout)
+comma-separated list of names after the flag; phase train; phase layout;
+phase dryrun)
 and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
@@ -228,8 +249,11 @@ from repro_torch.launch.shardings import state_shardings  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthetic_batch  # noqa: E402
 from repro_torch.models import use_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import hlo_analysis  # noqa: E402
 from repro_torch.training import (  # noqa: E402
     OptimizerConfig,
+    adamw_init,
     init_state,
     make_train_step,
     restore,
@@ -3536,6 +3560,212 @@ def phase_layout(dev: torch.device, seed: int = 13):
     return rows, blocked_counts, train_counts
 
 
+# ------------------------------------------------------------------ phase 13
+# phase dryrun: K7 with lse, and qwen3-1.7b's decode cache (B = 8, H = 16,
+# KV = 8, D = 128, a bf16 cache of 32768 slots) cut into DRYRUN_SPLITS
+# shards as a 16-way "model" axis cuts it (rows with shards that hold no
+# valid slot); the analysis of a full-width train step, fake against real;
+# the dry-run CLI on qwen3's four cells with fake CUDA tensors
+DRYRUN_SPLITS, DRYRUN_B, DRYRUN_T = 16, 8, 32768
+DRYRUN_LENS = (32768, 20000, 1500, 7, 2048, 16385, 30000, 1)
+DRYRUN_CELLS = ("qwen3-1.7b:train_4k", "qwen3-1.7b:prefill_32k", "qwen3-1.7b:decode_32k",
+                "qwen3-1.7b:long_500k")
+SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
+PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
+
+
+def decode_lse_rows(gen, dev) -> dict:
+    """(a) K7 with ``return_lse`` against its plain version at decode_row's
+    shape (qwen3's heads, a ring-sized cache, ragged kv_len), then the split:
+    DRYRUN_SPLITS shards of the decode cache, K7 with lse on each (q in f32,
+    as ``ops.sharded_decode_attention`` runs it) merged by
+    ``decode_attention.combine``, against one K7 call on the whole cache;
+    K7's time with and without lse and the combine's, each beside its
+    bound."""
+    H, KV, D = ATTN_H, ATTN_KV, ATTN_D
+    T, lens = DECODE_T, [DECODE_T, ATTN_S + 1, 1500, 7]
+    B = len(lens)
+    q = _randn(gen, B, H, D, dev=dev)
+    k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(D)
+    out, lse = decode_k.decode_attention(q, k, v, kv_len, scale=scale, return_lse=True)
+    w_out, w_lse = ref.decode_attention_ref(q, k, v, kv_len, scale=scale, return_lse=True)
+    err = attn_err("decode_attention with lse", out, w_out)
+    expect(bool(torch.isfinite(lse).all()), "decode_attention: non-finite lse at kv_len > 0")
+    lse_e = float((lse - w_lse).abs().max())
+    expect(lse_e <= SPLIT_REL_TOL * max(1.0, float(w_lse.abs().max())),
+           f"decode_attention lse off by {lse_e:.3g}")
+
+    # --- the split of qwen3-1.7b's decode cache
+    B, T = DRYRUN_B, DRYRUN_T
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
+    kv_len = torch.tensor(DRYRUN_LENS, dtype=torch.int32, device=dev)
+    tl = T // DRYRUN_SPLITS
+    full = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale,  # noqa: E731
+                                             return_lse=True)
+    bare = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale)  # noqa: E731
+    shards = [(k[:, r * tl:(r + 1) * tl], v[:, r * tl:(r + 1) * tl],
+               (kv_len - r * tl).clamp(0, tl).to(torch.int32)) for r in range(DRYRUN_SPLITS)]
+    parts = [decode_k.decode_attention(q, ks, vs, ls, scale=scale, return_lse=True)
+             for ks, vs, ls in shards]
+    outs, lses = torch.stack([o for o, _ in parts]), torch.stack([s_ for _, s_ in parts])
+    empty = int(torch.isneginf(lses).any(-1).sum())
+    merge = lambda: decode_k.combine(outs, lses, lambda x: x.amax(0, keepdim=True),  # noqa: E731
+                                     lambda x: x.sum(0))
+    w_out, w_lse = full()
+    got = merge()
+    split_err = float((got - w_out).abs().max() / w_out.abs().max())
+    split_lse = float((torch.logsumexp(lses, 0) - w_lse).abs().max())
+    expect(split_err <= SPLIT_REL_TOL, f"split K7: out off by {split_err:.3g} of max |out|")
+    expect(split_lse <= SPLIT_REL_TOL, f"split K7: lse off by {split_lse:.3g}")
+    slots = int(kv_len.clamp(0, T).sum())
+    work = decode_k.work(B, H, KV, D, slots, 4, 2, True)
+    bms, by = bound(work["bytes"], work["flops"], BF16_FLOP_PER_S)
+    # the combine reads the stacked partials (out and lse of each shard) once
+    # and writes the merged out: bytes, at most 3 operations an element
+    c_bytes = 4 * (outs.numel() + lses.numel() + got.numel())
+    c_bms, c_by = bound(c_bytes, 3.0 * outs.numel(), FP32_FLOP_PER_S)
+    t = {"lse_ms": median_ms(full, REPS), "lse_device_ms": graph_ms(full, REPS),
+         "nolse_ms": median_ms(bare, REPS), "nolse_device_ms": graph_ms(bare, REPS),
+         "combine_ms": median_ms(merge, REPS), "combine_device_ms": graph_ms(merge, REPS)}
+    log(f"  decode_attention with lse B={len(lens)} T={DECODE_T} kv_len={lens} H={H} KV={KV} "
+        f"D={D} bf16: max err {err:.3g}, lse max err {lse_e:.3g}")
+    log(f"  decode_attention split B={B} T={T} into {DRYRUN_SPLITS} shards of {tl} (f32 q, bf16 "
+        f"cache, kv_len {list(DRYRUN_LENS)}; {empty} shard rows with no valid slot): out "
+        f"{split_err:.3g} of max |out|, lse {split_lse:.3g} off one call; one call with lse "
+        f"{t['lse_ms']:.4f} ms ({t['lse_device_ms']:.4f} device), without "
+        f"{t['nolse_ms']:.4f} ({t['nolse_device_ms']:.4f} device), bound {bms:.5f} ms by {by}; "
+        f"combine {t['combine_ms']:.4f} ms ({t['combine_device_ms']:.4f} device), bound "
+        f"{c_bms:.5f} ms by {c_by}")
+    return {"lse_max_abs_err": lse_e, "split": {
+        "shape": [B, T, H, KV, D], "shards": DRYRUN_SPLITS, "kv_len": list(DRYRUN_LENS),
+        "empty_shard_rows": empty, "max_rel_err": split_err, "lse_max_abs_err": split_lse,
+        **t, "bound_ms": bms, "bound_by": by, "combine_bound_ms": c_bms,
+        "combine_bound_by": c_by}}
+
+
+def analysis_check(dev, seed: int) -> dict:
+    """(b) ``hlo_analysis.analyze`` of phase train's full-width qwen3-1.7b
+    step (B = ATTN_B x ATTN_S, one card, plain tensors, f32 masters and
+    moments, as launch/train.py runs it) on fake CUDA tensors (the model
+    built on "meta", nothing allocated) and on the card: FLOPs counted the
+    same way must be equal, the fake peak (arguments + temp) within
+    PEAK_REL_TOL of ``max_memory_allocated`` over the real step (less what
+    was allocated before the model); the roofline terms beside the step's
+    measured time."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    full = get_arch(MODEL_ARCH)
+    ocfg = OptimizerConfig()
+    shape = ShapeSpec("cli", ATTN_S, ATTN_B, "train")
+    meta = build_model(full, "meta", trainable=True)
+    meta.device = dev
+    params = dict(meta.named_parameters())
+    specs = {"params": params, "opt": adamw_init(params, ocfg)}
+
+    def fake_like(tree):
+        return {k: fake_like(x) if isinstance(x, dict)
+                else torch.empty(tuple(x.shape), dtype=x.dtype, device=dev)
+                for k, x in tree.items()}
+
+    with FakeTensorMode():
+        state = fake_like(specs)
+        batch = {k: torch.empty(shp, dtype=dt, device=dev)
+                 for k, (shp, dt) in meta.input_specs(shape).items()}
+        fake = hlo_analysis.analyze(make_train_step(meta, ocfg), state, batch, donate=[state])
+    del meta, params, specs, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    model = build_model(full, dev, seed=seed, trainable=True)
+    state = init_state(model, ocfg)
+    step = make_train_step(model, ocfg)
+    batch = synthetic_batch(model, full, shape, 0, dev)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    real = hlo_analysis.analyze(step, state, batch, donate=[state])
+    sync()
+    peak = torch.cuda.max_memory_allocated() - before
+    t0 = time.perf_counter()
+    step(state, synthetic_batch(model, full, shape, 1, dev))
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del model, state, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = fake["peak_bytes"] / peak - 1
+    expect(fake["flops"] == real["flops"],
+           f"analysis: fake FLOPs {fake['flops']} != real {real['flops']}")
+    expect(fake["kernel_launches"] == real["kernel_launches"],
+           f"analysis: fake kernels {fake['kernel_launches']} != real {real['kernel_launches']}")
+    expect(abs(gap) <= PEAK_REL_TOL,
+           f"analysis: fake peak {fake['peak_bytes']} vs max_memory_allocated {peak}")
+    roof = dryrun.roofline_terms({"chips": 1, "hlo_flops": fake["flops"],
+                                  "hlo_bytes": fake["bytes"], "collective_bytes": 0.0},
+                                 dryrun.model_flops_for(full, shape))
+    log(f"  analysis of the qwen3-1.7b train step B={ATTN_B} S={ATTN_S}: FLOPs fake "
+        f"{fake['flops']:.6e} = real {real['flops']:.6e}; bytes fake {fake['bytes']:.6e}, real "
+        f"{real['bytes']:.6e}; peak fake {fake['peak_bytes']} (arguments "
+        f"{fake['argument_size_in_bytes']} + temp {fake['temp_size_in_bytes']}) vs "
+        f"max_memory_allocated {peak} ({100 * gap:+.2f} %); kernels {fake['kernel_launches']}; "
+        f"fake run {fake['seconds']:.1f} s, real run under the analysis {real['seconds']:.2f} s; "
+        f"roofline compute {roof['compute_s'] * 1e3:.1f} ms, memory "
+        f"{roof['memory_s'] * 1e3:.1f} ms ({roof['dominant']}) beside a measured step of "
+        f"{step_ms:.1f} ms")
+    return {"flops": fake["flops"], "bytes": fake["bytes"], "real_bytes": real["bytes"],
+            "fake_peak_bytes": fake["peak_bytes"], "max_memory_allocated": peak,
+            "peak_gap": gap, "fake_s": fake["seconds"], "step_ms": step_ms,
+            "roofline": roof}
+
+
+def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
+    """(a) K7's lse and the 16-way split, (b) the analysis against the card,
+    (c) ``launch/dryrun.py`` on qwen3-1.7b's four cells on the 16 x 16 mesh
+    with fake CUDA tensors, in a fake world of 256 ranks (the process's
+    group, if any, is ended first: the phase runs last), each cell ok and
+    no real kernel launched.  -> (K7's extra row keys, the real launches of
+    (a) and (b), the cells' figures)."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    rows = decode_lse_rows(gen, dev)
+    rows["analysis"] = analysis_check(dev, seed)
+    counts = ops.launch_counts()
+    # --- (c) the CLI, fake CUDA tensors, no real launch
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    ops.reset_launch_counts()
+    out = ROOT / "build" / "dryrun_torch"    # beside the built kernels (not tracked)
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(["--cells", ",".join(DRYRUN_CELLS), "--device", "cuda", "--out", str(out)])
+    except SystemExit as e:
+        raise SmokeFailure(f"dryrun CLI failed ({e.code}): see {out}") from None
+    cli_s = time.perf_counter() - t0
+    real = ops.launch_counts()
+    expect(not any(real.values()), f"the dry run launched kernels: {real}")
+    cells = {}
+    for cell in DRYRUN_CELLS:
+        arch, shp = cell.split(":")
+        res = json.loads((out / f"{arch}__{shp}__16x16.json").read_text())
+        keys = ("lower_s", "argument_size_in_bytes", "temp_size_in_bytes",
+                "alias_size_in_bytes", "output_size_in_bytes", "hlo_flops", "hlo_bytes",
+                "collective_bytes")
+        cells[cell] = {**{k: res[k] for k in keys}, "dominant": res["roofline"]["dominant"]}
+        log(f"  dryrun {cell} 16x16 (fake cuda): ok, {res['lower_s']} s; per device: args "
+            f"{res['argument_size_in_bytes']}, temp {res['temp_size_in_bytes']}, alias "
+            f"{res['alias_size_in_bytes']}, flops {res['hlo_flops']:.6e}, bytes "
+            f"{res['hlo_bytes']:.6e}, collective {res['collective_bytes']:.6e} "
+            f"{res['collective_counts']}; dominant {res['roofline']['dominant']}")
+    log(f"  dryrun CLI: {len(cells)} cells in {cli_s:.1f} s, real launches {real}")
+    return rows, counts, cells
+
+
 def as_dtensors(tree, shardings, mesh):
     """Every leaf of ``tree`` as a DTensor of its placements in the matching
     tree ``shardings`` on a 1 x 1 mesh, its storage kept: the DTensor path
@@ -3576,8 +3806,8 @@ def main() -> int:
     with timed("env"):
         phase_env()
     log(f"port: {SRC}")
-    only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout")
-            if m in sys.argv[1:]]
+    only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
+                        "--dryrun") if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
@@ -3585,7 +3815,8 @@ def main() -> int:
             with timed(mode[2:]):
                 {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
                  "--families": lambda d: phase_families(d, family_names()),
-                 "--train": phase_train, "--layout": phase_layout}[mode](dev)
+                 "--train": phase_train, "--layout": phase_layout,
+                 "--dryrun": phase_dryrun}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -3649,6 +3880,10 @@ def main() -> int:
     with timed("layout"):
         rows, paths["layout-blocked"], paths["layout-train"] = phase_layout(dev)
         kern["flash_attention"].update(rows)
+    with timed("dryrun"):
+        rows, paths["dryrun"], dryrun_cells = phase_dryrun(dev)
+        kern["decode_attention"].update(rows)
+        kern["decode_attention"]["dryrun_cells"] = dryrun_cells
     for name, path in MAIN_PATH.items():
         expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in ASYNC_PATH:
@@ -3678,6 +3913,7 @@ def main() -> int:
               "train_families_launches": paths["train-families"].get(name, 0),
               "layout_blocked_launches": paths["layout-blocked"][name],
               "layout_train_launches": paths["layout-train"][name],
+              "dryrun_launches": paths["dryrun"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

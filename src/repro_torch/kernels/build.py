@@ -9,6 +9,16 @@ The compiler's log (``-Xptxas=-v``: registers, spills per kernel) is kept
 beside each library and read by ``ptxas_report``.  Nothing is built when a module is
 imported: the first launch of a kernel builds its library, and
 ``build_all`` builds every source at once with one ``nvcc`` process each.
+
+Fake launches: a wrapper handed FakeTensors (``torch._subclasses``' fake
+tensors: shapes, dtypes and devices without storage, what a dry run
+traces) allocates what its kernel allocates, launches nothing, counts no
+launch, and reports the kernel's work through ``record_work`` to whoever
+``observe_work`` installed (``launch/hlo_analysis.py``; while one is
+installed, a real launch reports its work as well).  The branch is
+taken on fakeness (``is_fake``), before the device check, so a fake CPU
+tensor never runs a kernel's plain version and a real tensor never takes
+it.
 """
 from __future__ import annotations
 
@@ -54,7 +64,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 9, _F, _F, *[_I] * 11, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [*[_P] * 8, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,
+        "decode_attention_launch": [*[_P] * 9, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,
                                     _I, _I, _P],
     },
 }
@@ -157,6 +167,46 @@ def build_all() -> None:
     started = {name: _start(name) for name in SIGNATURES}
     for name, st in started.items():
         _finish(name, st)
+
+
+def is_fake(*xs) -> bool:
+    """Whether any of ``xs`` is a FakeTensor."""
+    from torch._subclasses.fake_tensor import is_fake as _fake
+
+    return any(isinstance(x, torch.Tensor) and _fake(x) for x in xs)
+
+
+_OBSERVERS: List = []
+
+
+class observe_work:
+    """Context manager: ``fn(kernel, flops, bytes, transcendental)`` is called
+    for every fake launch inside it (nests)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __enter__(self):
+        _OBSERVERS.append(self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        _OBSERVERS.remove(self.fn)
+        return False
+
+
+def observing() -> bool:
+    """Whether an ``observe_work`` is active (a wrapper's real launch then
+    reports its work too, so that a real run is counted as a fake one)."""
+    return bool(_OBSERVERS)
+
+
+def record_work(kernel: str, work: Dict[str, float]) -> None:
+    """A launch of ``kernel`` (fake, or real while observed) and its
+    ``work``: "flops" it computes, "bytes" it reads and writes (each operand
+    and result once) and "transcendental" (its exp and tanh)."""
+    for fn in _OBSERVERS:
+        fn(kernel, float(work["flops"]), float(work["bytes"]), float(work["transcendental"]))
 
 
 def load(name: str) -> ctypes.CDLL:

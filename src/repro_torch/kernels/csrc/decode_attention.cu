@@ -6,7 +6,9 @@
 // softcap, scale; out (B, H, D) in q's dtype.  q and the cache may differ in
 // dtype (f32 or bf16 each); everything is computed in fp32.  Slots at or
 // after kv_len are masked (-1e30, weight 0); the denominator is clamped at
-// 1e-30, so kv_len = 0 gives 0.
+// 1e-30, so kv_len = 0 gives 0.  On request the combine also writes each
+// row's log-sum-exp over its valid slots, lse (B, H) f32 (-inf where kv_len
+// = 0): what a caller needs to merge the outputs of several cache shards.
 //
 // What bounds it: the cache bytes, about 1 FLOP a byte.  At qwen3-1.7b's
 // decode (B=4, KV=8, D=128, bf16, ~2k slots a row) one call reads up to
@@ -236,13 +238,15 @@ decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   }
 }
 
-// One block per (b, h): merge the row's used splits.
+// One block per (b, h): merge the row's used splits; lse (when not null)
+// takes the row's log-sum-exp, M + log L.
 template <typename TQ>
 __global__ void decode_combine_kernel(const float* __restrict__ m_in,
                                       const float* __restrict__ l_in,
                                       const float* __restrict__ acc_in,
                                       const int* __restrict__ kv_len, TQ* __restrict__ o,
-                                      int T_len, int H, int KV, int D, int n_split) {
+                                      float* __restrict__ lse, int T_len, int H, int KV,
+                                      int D, int n_split) {
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int G = H / KV, kvh = h / G, g = h - kvh * G;
   const int len = min(max(kv_len[b], 0), T_len);
@@ -255,6 +259,8 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_in,
   for (int s = 0; s < n_used; ++s)
     L += l_in[(base + s) * G + g] * expf(m_in[(base + s) * G + g] - M);
   const float inv = 1.f / fmaxf(L, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0)   // -inf for a row with no valid slot
+    lse[bh] = L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
   for (int e = threadIdx.x; e < D; e += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < n_used; ++s)
@@ -265,9 +271,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_in,
 
 template <typename TQ, typename TK, int GB, int PPL>
 int launch_g(const void* q, const void* k, const void* v, const int* kv_len, void* o,
-             float* m_scr, float* l_scr, float* acc_scr, int B, int T_len, int H, int KV,
-             int D, const long long* st, int n_split, int lanes_log2, float softcap,
-             float scale, cudaStream_t stream) {
+             float* m_scr, float* l_scr, float* acc_scr, float* lse, int B, int T_len,
+             int H, int KV, int D, const long long* st, int n_split, int lanes_log2,
+             float softcap, float scale, cudaStream_t stream) {
   const int G = H / KV, n_hg = (G + GB - 1) / GB;
   dim3 grid(n_split, KV * n_hg, B);
   decode_split_kernel<TQ, TK, GB, PPL><<<grid, kThreads, 0, stream>>>(
@@ -277,17 +283,17 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, voi
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   decode_combine_kernel<TQ><<<B * H, 128, 0, stream>>>(m_scr, l_scr, acc_scr, kv_len,
-                                                       static_cast<TQ*>(o), T_len, H, KV, D,
-                                                       n_split);
+                                                       static_cast<TQ*>(o), lse, T_len, H,
+                                                       KV, D, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TK, int PPL>
 int launch_p(int heads_per_block, const void* q, const void* k, const void* v,
-             const int* kv_len, void* o, float* m_scr, float* l_scr, float* acc_scr, int B,
-             int T_len, int H, int KV, int D, const long long* st, int n_split,
-             int lanes_log2, float softcap, float scale, cudaStream_t stream) {
-#define ARGS q, k, v, kv_len, o, m_scr, l_scr, acc_scr, B, T_len, H, KV, D, st, n_split, \
+             const int* kv_len, void* o, float* m_scr, float* l_scr, float* acc_scr,
+             float* lse, int B, int T_len, int H, int KV, int D, const long long* st,
+             int n_split, int lanes_log2, float softcap, float scale, cudaStream_t stream) {
+#define ARGS q, k, v, kv_len, o, m_scr, l_scr, acc_scr, lse, B, T_len, H, KV, D, st, n_split, \
              lanes_log2, softcap, scale, stream
   switch (heads_per_block) {
     case 1: return launch_g<TQ, TK, 1, PPL>(ARGS);
@@ -302,11 +308,12 @@ int launch_p(int heads_per_block, const void* q, const void* k, const void* v,
 template <typename TQ, typename TK>
 int launch_t(int heads_per_block, int pieces_per_lane, const void* q, const void* k,
              const void* v, const int* kv_len, void* o, float* m_scr, float* l_scr,
-             float* acc_scr, int B, int T_len, int H, int KV, int D, const long long* st,
-             int n_split, int lanes_log2, float softcap, float scale, cudaStream_t stream) {
+             float* acc_scr, float* lse, int B, int T_len, int H, int KV, int D,
+             const long long* st, int n_split, int lanes_log2, float softcap, float scale,
+             cudaStream_t stream) {
   if (D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-#define ARGS heads_per_block, q, k, v, kv_len, o, m_scr, l_scr, acc_scr, B, T_len, H, KV, D, \
-             st, n_split, lanes_log2, softcap, scale, stream
+#define ARGS heads_per_block, q, k, v, kv_len, o, m_scr, l_scr, acc_scr, lse, B, T_len, H, KV, \
+             D, st, n_split, lanes_log2, softcap, scale, stream
   switch (pieces_per_lane) {
     case 1: return launch_p<TQ, TK, 1>(ARGS);
     case 2:   // two pieces a lane only for an f32 cache row of more than 512 bytes
@@ -321,14 +328,15 @@ int launch_t(int heads_per_block, int pieces_per_lane, const void* q, const void
 
 // softcap <= 0: none.  Strides in elements: q (b, h); k, v (b, t, kv); out is
 // (B, H, D) contiguous.  Scratch: m, l (B*KV*n_split*G), acc (... * D) fp32.
+// lse: null, or (B, H) f32 contiguous for each row's log-sum-exp.
 // The plan (decode_attention.py::split_plan): n_split blocks per row and kv
 // head, heads_per_block (1, 2, 4 or 8), L = 2**lanes_log2 lanes per cache row
 // and pieces_per_lane 16-byte pieces of it per lane (L * pieces_per_lane *
 // 16 bytes >= a row).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* kv_len, void* o, float* m_scr,
-                                       float* l_scr, float* acc_scr, int B, int T_len, int H,
-                                       int KV, int D, long long qsb, long long qsh,
+                                       float* l_scr, float* acc_scr, float* lse, int B,
+                                       int T_len, int H, int KV, int D, long long qsb, long long qsh,
                                        long long ksb, long long kst, long long ksh,
                                        long long vsb, long long vst, long long vsh,
                                        int n_split, int heads_per_block, int lanes_log2,
@@ -338,7 +346,7 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
   const long long st[8] = {qsb, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define DECODE_ARGS heads_per_block, pieces_per_lane, q, k, v, kv_len, o, m_scr, l_scr, \
-                    acc_scr, B, T_len, H, KV, D, st, n_split, lanes_log2, softcap, scale, s
+                    acc_scr, lse, B, T_len, H, KV, D, st, n_split, lanes_log2, softcap, scale, s
   if (q_bf16)
     return kv_bf16 ? launch_t<__nv_bfloat16, __nv_bfloat16>(DECODE_ARGS)
                    : launch_t<__nv_bfloat16, float>(DECODE_ARGS);

@@ -7,7 +7,11 @@ allocates the output and the split scratch, launches the hand-written kernel
 launch (the split plan is computed here, ``split_plan``, where the CPU
 tests reach it); for a CPU tensor it runs the plain version
 ``ref.decode_attention_ref``.  There is no fallback: a CUDA input either
-launches the kernel or raises.
+launches the kernel or raises.  ``return_lse`` adds each row's log-sum-exp
+over its valid slots, which the combine pass writes (what merging the
+outputs of several cache shards needs: ``ops.sharded_decode_attention``).
+FakeTensors (a dry run) allocate what the kernel allocates (out, the split
+scratch, lse), launch nothing, count no launch and record ``work``.
 """
 from __future__ import annotations
 
@@ -63,12 +67,46 @@ def row_chunk(length: int, n_split: int) -> int:
     return max(CHUNK_ALIGN, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
+def work(B: int, H: int, KV: int, D: int, slots: int, q_elem: int, cache_elem: int,
+         with_lse: bool = False) -> dict:
+    """K7's work over rows whose valid slots number ``slots`` in all: 4 D
+    FLOPs a (slot, head) (q.k and p.v), each valid slot's k and v read once,
+    q read and out written once (``q_elem`` bytes an element), kv_len read
+    (4 bytes a row) and lse written (4 bytes a row and head), an exp a
+    (slot, head)."""
+    return {"flops": 4.0 * H * D * slots,
+            "bytes": q_elem * 2 * B * H * D + cache_elem * 2 * slots * KV * D + 4 * B
+            + (4 * B * H if with_lse else 0),
+            "transcendental": float(H * slots)}
+
+
+def combine(out: torch.Tensor, lse: torch.Tensor, all_max, all_sum) -> torch.Tensor:
+    """Merge the partial outputs of K7 over the shards of a cache (slots cut
+    into shards, each shard run with ``return_lse``): ``out`` (..., D) f32
+    and ``lse`` (...) are this shard's, ``all_max`` and ``all_sum`` reduce a
+    tensor over the shards (collectives across ranks, or a reduction over a
+    leading shard dim of stacked shards).  M = max lse, w = exp(lse - M) (0
+    for a shard with no valid slot, lse = -inf), out = sum w out / sum w,
+    the two sums in one reduction; 0 where every shard is empty, as K7 gives.
+    -> the merged (..., D) f32."""
+    m = all_max(lse)
+    w = torch.where(lse == -torch.inf, 0.0, torch.exp(lse - m))
+    acc = all_sum(torch.cat([out * w[..., None], w[..., None]], dim=-1))
+    # the weights sum to 0 (every shard empty: so does the numerator) or to
+    # at least 1 (the largest shard's weight is exp(0))
+    return acc[..., :-1] / acc[..., -1:].clamp_min(1.0)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: Optional[float] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, return_lse: bool = False):
     """One query per row against a (ring) cache: q (B, H, D), k/v (B, T,
     KV, D), kv_len (B,) valid slots per row -> (B, H, D) in q's dtype, fp32
-    inside.  The cache may be in another dtype than q."""
+    inside.  The cache may be in another dtype than q.  ``return_lse``:
+    (out, lse (B, H) f32), lse = -inf for a row with no valid slot (its out
+    is 0).  A fake kv_len has no values: the recorded work takes every row
+    as full (kv_len = T), which is what the dry run's decode at the cache's
+    last position gives."""
     check_attention(q, k, v, 3)
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
@@ -77,8 +115,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kv_len.shape != (B,) or kv_len.device != q.device:
         raise ValueError(f"kv_len must be ({B},) on {q.device}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
-    if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, kv_len, scale=scale, softcap=softcap)
+    fake = build.is_fake(q, k, v, kv_len)
+    if q.device.type == "cpu" and not fake:
+        return ref.decode_attention_ref(q, k, v, kv_len, scale=scale, softcap=softcap,
+                                        return_lse=return_lse)
     if D % 8 or D > MAX_D:
         raise ValueError(f"head width {D}: the kernel takes multiples of 8 up to {MAX_D}")
     if q.stride(-1) != 1:
@@ -90,17 +130,27 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = split_plan(B, KV, T, G, D, k.element_size())
     n_split = plan["n_split"]
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     n_part = B * KV * n_split * G          # one scratch buffer: m, l, then acc
     scr = torch.empty(n_part * (2 + D), dtype=torch.float32, device=q.device)
+    if fake:   # what the kernel allocates (out, lse and the scratch) is all it does
+        build.record_work("decode_attention", work(
+            B, H, KV, D, B * T, q.element_size(), k.element_size(), return_lse))
+        return (out, lse) if return_lse else out
     m_scr, l_scr, acc_scr = scr[:n_part], scr[n_part:2 * n_part], scr[2 * n_part:]
     build.launch(
         "decode_attention", "decode_attention_launch", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(), B, T, H, KV, D,
+        m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, T, H, KV, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2), n_split, plan["heads_per_block"],
         plan["lanes_log2"], plan["pieces_per_lane"],
         -1.0 if softcap is None else float(softcap), scale,
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
     LAUNCHES["decode_attention"] += 1
-    return out
+    if build.observing():   # the slots this call's rows hold (a host read, only when observed)
+        slots = int(kv_len.clamp(0, T).sum())
+        build.record_work("decode_attention", work(
+            B, H, KV, D, slots, q.element_size(), k.element_size(), return_lse))
+    return (out, lse) if return_lse else out

@@ -22,12 +22,19 @@ cores, as ``bwd_launch_plan`` picks) for CUDA tensors and runs
 ``ref.flash_attention_bwd_ref`` for CPU tensors.  The reference has no
 Pallas backward: it differentiates the same attention math with
 ``jax.grad``.  Without grad the call is the plain kernel launch above.
+
+FakeTensors (a dry run) take neither route: ``forward`` and ``backward``
+allocate what the kernels allocate (out and lse; delta and the gradients),
+launch nothing, count no launch, and record the kernels' work
+(``forward_work``, ``backward_work``: the visible (row, key) pairs they
+compute, not the masked ones) through ``build.record_work``.
 """
 from __future__ import annotations
 
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import build, ref
@@ -176,12 +183,51 @@ def tma_strides(x: torch.Tensor) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def visible_pairs(S: int, T: int, causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> int:
+    """(row, key) pairs of one head the kernels compute: row s, at position
+    s + ``q_offset``, sees the keys t < T with t <= s + q_offset (causal) and
+    t > s + q_offset - window."""
+    pos = np.arange(S, dtype=np.int64) + q_offset
+    hi = np.minimum(T - 1, pos) if causal else np.full(S, T - 1, dtype=np.int64)
+    lo = np.maximum(0, pos - window + 1) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def forward_work(B: int, S: int, T: int, H: int, KV: int, D: int, elem: int, *,
+                 causal: bool = True, window: Optional[int] = None,
+                 softcap: Optional[float] = None, q_offset: int = 0,
+                 with_lse: bool = False) -> dict:
+    """K6's forward on (B, S, H, D) x (B, T, KV, D) inputs of ``elem`` bytes
+    an element: 4 D FLOPs a visible pair (q.k and p.v), q, k and v read and
+    out written once (lse, f32, with ``with_lse``), an exp a pair (and a tanh
+    with a softcap)."""
+    pairs = B * H * visible_pairs(S, T, causal, window, q_offset)
+    return {"flops": 4.0 * D * pairs,
+            "bytes": elem * (2 * B * S * H * D + 2 * B * T * KV * D)
+            + (4 * B * H * S if with_lse else 0),
+            "transcendental": pairs * (2 if softcap is not None else 1)}
+
+
+def backward_work(B: int, S: int, T: int, H: int, KV: int, D: int, elem: int, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None, q_offset: int = 0) -> dict:
+    """K6's whole backward: the five products (S again, dP, dV, dQ, dK), 10 D
+    FLOPs a visible pair; q, out, dout, k, v and lse read and dq, dk, dv
+    written once; an exp a pair (and a tanh with a softcap)."""
+    pairs = B * H * visible_pairs(S, T, causal, window, q_offset)
+    return {"flops": 10.0 * D * pairs,
+            "bytes": elem * (4 * B * S * H * D + 4 * B * T * KV * D) + 4 * B * H * S,
+            "transcendental": pairs * (2 if softcap is not None else 1)}
+
+
 def check_vector_rows(name: str, x: torch.Tensor) -> None:
     """The kernels read rows 16 bytes at a time: the last axis contiguous,
-    every other stride and the base 16-byte aligned."""
+    every other stride and the base 16-byte aligned (a FakeTensor has no
+    base to check)."""
     per16 = 16 // x.element_size()
     if (x.stride(-1) != 1 or any(s % per16 for s in x.stride()[:-1])
-            or x.data_ptr() % 16):
+            or (not build.is_fake(x) and x.data_ptr() % 16)):
         raise ValueError(f"{name}: rows must be contiguous and 16-byte aligned "
                          f"(strides {x.stride()})")
 
@@ -237,11 +283,19 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     """The checked call: out, and with ``with_lse`` (out, lse (B, H, S) fp32,
     +inf for a row that sees no key).  CPU tensors run the plain version."""
     B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    if build.is_fake(q, k, v):
+        launch_plan(q.dtype, B, S, T, H, KV, D)      # the dtype and width checks
+        out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if with_lse else None
+        build.record_work("flash_attention", forward_work(
+            B, S, T, H, KV, D, q.element_size(), causal=causal, window=window,
+            softcap=softcap, q_offset=q_offset, with_lse=with_lse))
+        return (out, lse) if with_lse else out
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        softcap=softcap, scale=scale, return_lse=with_lse,
                                        q_offset=q_offset)
-    T, KV = k.shape[1], k.shape[2]
     plan = launch_plan(q.dtype, B, S, T, H, KV, D)
     for name, x in (("q", q), ("k", k), ("v", v)):
         check_vector_rows(name, x)
@@ -261,6 +315,10 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         int(q_offset), -1.0 if softcap is None else float(softcap), scale, int(tc),
         *tc_launch_args(plan))
     LAUNCHES["flash_attention"] += 1
+    if build.observing():
+        build.record_work("flash_attention", forward_work(
+            B, S, T, H, KV, D, q.element_size(), causal=causal, window=window,
+            softcap=softcap, q_offset=q_offset, with_lse=with_lse))
     return (out, lse) if with_lse else out
 
 
@@ -274,7 +332,20 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
     then dK and dV (a block per key tile, kv head and batch, over every
     query row of the kv head's G heads: no atomics), then dQ (a block per
     row block), each counted in ``LAUNCHES``.  Deterministic: the same
-    inputs give the same bits."""
+    inputs give the same bits.  FakeTensors allocate what the CUDA route
+    does (contiguous copies of the inputs that are not, delta, the three
+    gradients) and record ``backward_work``."""
+    if build.is_fake(q, k, v, out, lse, dout):
+        B, S, H, D = q.shape
+        T, KV = k.shape[1], k.shape[2]
+        q, k, v, out, dout = (x.contiguous() for x in (q, k, v, out, dout.to(q.dtype)))
+        bwd_launch_plan(q.dtype, B, S, T, H, KV, D)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)  # noqa: F841
+        build.record_work("flash_attention_bwd", backward_work(
+            B, S, T, H, KV, D, q.element_size(), causal=causal, window=window,
+            softcap=softcap, q_offset=q_offset))
+        return dq, dk, dv
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal,
                                            window=window, softcap=softcap, scale=scale,
@@ -303,6 +374,10 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
                  *ptrs, dq.data_ptr(), B, S, T, H, KV, D, *masks, bf16,
                  *bwd_launch_args(plan, "dq"))
     LAUNCHES["flash_attention_bwd_dq"] += 1
+    if build.observing():
+        build.record_work("flash_attention_bwd", backward_work(
+            B, S, T, H, KV, D, q.element_size(), causal=causal, window=window,
+            softcap=softcap, q_offset=q_offset))
     return dq, dk, dv
 
 

@@ -209,16 +209,78 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: Optional[float] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """(B, H, D) x (B, T, KV, D)^2 + (B,) -> (B, H, D): one decode step.
-    Takes no DTensor: sharded serving (a cache sharded over its sequence
-    dim needs a cross-rank log-sum-exp combine) is a later slice
-    (ROADMAP §1, "Sharded serving")."""
+    DTensors (under a mesh) run K7 on each rank's cache shard
+    (``sharded_decode_attention``)."""
     if _dtensors(q, k, v, kv_len):
-        from torch.distributed.tensor import DTensor, Shard
-
-        seq = any(isinstance(x, DTensor) and Shard(1) in x.placements for x in (k, v))
-        raise NotImplementedError(
-            ("K7 on a KV cache sharded over its sequence dim" if seq else "K7 on DTensors")
-            + " needs sharded serving (a cross-rank log-sum-exp combine of the shards' "
-            "partial softmaxes; ROADMAP §1, 'Sharded serving'), not ported: the cache is "
-            "not gathered")
+        return sharded_decode_attention(q, k, v, kv_len, softcap=softcap, scale=scale)
     return _decode.decode_attention(q, k, v, kv_len, softcap=softcap, scale=scale)
+
+
+def sharded_decode_attention(q, k, v, kv_len, *, softcap: Optional[float] = None,
+                             scale: Optional[float] = None):
+    """K7 on a DTensor cache sharded over its batch (dim 0) and, for context
+    parallelism, its sequence (dim 1), without gathering the cache: the
+    counterpart of the reference's decode under ``cache_shardings``.
+
+    q is redistributed to the cache's batch split and replicated over the
+    other mesh axes.  Each rank takes its local cache shard, slots [t0, t0 +
+    Tl) of rows [b0, b0 + Bl) (DTensor's chunks: where T does not divide
+    over the sequence axes the shards are uneven and each rank takes its own
+    Tl and t0, an empty one Tl = 0), counts its valid slots kv_len_r =
+    clamp(kv_len - t0, 0, Tl) and runs K7 with ``return_lse`` on q in f32,
+    so that the partial outputs it combines are f32.  Over the sequence
+    axes the shards' partial softmaxes are merged by their log-sum-exps
+    (``decode_attention.combine``): M = max_r lse_r (an all-reduce), w_r =
+    exp(lse_r - M) (0 where lse_r is -inf: a shard with no valid slot), out
+    = sum_r w_r out_r / sum_r w_r (the two sums in one all-reduce); a row
+    whose shards are all empty gives 0, as K7 does.  The output is q's
+    dtype with the cache's batch placement.  ``kv_len`` is a plain (B,)
+    tensor (the same on every rank) or a DTensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..models.partitioning import contiguous_strides, local_shape_and_offset
+
+    if not all(isinstance(x, DTensor) for x in (q, k, v)):
+        raise TypeError("q, k and v must all be DTensors, or none")
+    mesh = k.device_mesh
+    if tuple(v.placements) != tuple(k.placements):
+        raise ValueError(f"k and v are placed differently: {k.placements}, {v.placements}")
+    qp, seq_dims = [], []
+    for i, p in enumerate(k.placements):
+        if isinstance(p, Shard) and p.dim in (1, -3):
+            seq_dims.append(i)
+            qp.append(Replicate())
+        elif isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in (0, -4)):
+            qp.append(Shard(0) if isinstance(p, Shard) else Replicate())
+        else:
+            raise ValueError(f"K7 takes a cache sharded over its batch or sequence dim, "
+                             f"not {tuple(k.placements)}")
+    qp = tuple(qp)
+    B = q.shape[0]
+    (Bl, Tl, _, _), (b0, t0, _, _) = local_shape_and_offset(k.shape, mesh, k.placements)
+    ql = q.redistribute(mesh, qp).to_local()
+    kl, vl = k.to_local(), v.to_local()
+    if isinstance(kv_len, DTensor):
+        lens = kv_len.redistribute(mesh, qp).to_local()
+    else:
+        lens = kv_len[b0:b0 + Bl]
+
+    def global_(x: torch.Tensor, placed) -> torch.Tensor:
+        shape = (B,) + tuple(x.shape[1:])
+        return DTensor.from_local(x, mesh, placed, shape=shape,
+                                  stride=contiguous_strides(shape))
+
+    if not seq_dims:
+        out = _decode.decode_attention(ql, kl, vl, lens, softcap=softcap, scale=scale)
+        return global_(out, qp)
+    lens = (lens - t0).clamp(0, Tl).to(torch.int32)
+    out_r, lse_r = _decode.decode_attention(ql.float(), kl, vl, lens, softcap=softcap,
+                                            scale=scale, return_lse=True)
+
+    def reduced(x: torch.Tensor, op: str) -> torch.Tensor:
+        part = tuple(Partial(op) if i in seq_dims else p for i, p in enumerate(qp))
+        return global_(x, part).redistribute(mesh, qp).to_local()
+
+    out = _decode.combine(out_r, lse_r, lambda x: reduced(x, "max"),
+                          lambda x: reduced(x, "sum"))
+    return global_(out.to(q.dtype), qp)

@@ -259,13 +259,19 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_len: torch.Tensor, *, scale: Optional[float] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
+                         softcap: Optional[float] = None, return_lse: bool = False):
     """One-query attention over a cache.  q (B, H, D), k/v (B, T, KV, D),
     kv_len (B,): slots ``t < kv_len[b]`` are valid.  -> (B, H, D) in q's
-    dtype."""
+    dtype; a row with no valid slot gives 0.  ``return_lse``: also each
+    row's log-sum-exp of its valid logits, (B, H) f32, -inf for a row with
+    no valid slot."""
     B, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
+    if T == 0:   # an empty cache (an empty shard of one): no valid slot in any row
+        out = q.new_zeros((B, H, D))
+        lse = torch.full((B, H), -torch.inf, device=q.device)
+        return (out, lse) if return_lse else out
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qg = q.reshape(B, KV, G, D).float()
     with fp32_matmul():
@@ -276,4 +282,8 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = _softmax_masked(logits, mask[:, None, None, :])
     with fp32_matmul():
         out = torch.einsum("bkgt,btkd->bkgd", probs, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(logits.masked_fill(~mask[:, None, None, :], -torch.inf), dim=-1)
+    return out, lse.reshape(B, H)

@@ -10,7 +10,8 @@ A mesh is one rank a device over the default process group.  When no group
 exists, the functions start a world of one with an in-process ``HashStore``
 (no network rendezvous); a multi-rank job starts its group first
 (``torch.distributed.init_process_group`` with its own address, world size
-and rank) and then calls them on every rank.
+and rank) and then calls them on every rank.  A dry run starts a fake world
+instead (``start_fake_world``): one process that is rank 0 of 256 or 512.
 """
 from __future__ import annotations
 
@@ -36,6 +37,24 @@ def _world(device: DeviceLike = None) -> Tuple[str, int]:
         dist.init_process_group(_backend(device_type), store=dist.HashStore(), rank=0,
                                 world_size=1)
     return device_type, dist.get_world_size()
+
+
+def start_fake_world(world_size: int) -> None:
+    """Make this process rank 0 of a world of ``world_size`` ranks in which
+    no other rank exists: the ``"fake"`` backend of
+    ``torch.testing._internal.distributed.fake_pg`` (a collective returns at
+    once and moves nothing; with FakeTensors only shapes flow).  Then
+    ``make_production_mesh`` builds the 16 x 16 mesh (256) or the 2 x 16 x
+    16 one (512; a world of 512 holds both) without a card or a network.  A
+    fake world already as large is kept; any other group raises."""
+    if dist.is_initialized():
+        if dist.get_backend() == "fake" and dist.get_world_size() >= world_size:
+            return
+        raise RuntimeError(f"a {dist.get_backend()} group of {dist.get_world_size()} ranks "
+                           f"is running: cannot start a fake world of {world_size}")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
 def _mesh(device_type: str, shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:

@@ -26,7 +26,7 @@ import torch
 from ..kernels import ops
 from .blocked_attention import blocked_attention
 from .layers import apply_rope, dense_init, rms_norm, softcap, zeros_init
-from .partitioning import shard
+from .partitioning import at_use, merge_heads, shard, split_heads, write_slots
 
 
 class AttnDims(NamedTuple):
@@ -65,10 +65,10 @@ def attention_init(gen: torch.Generator, cfg, *, device=None,
 # ----------------------------------------------------------------- projection
 def project_q(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
     d = attn_dims(cfg)
-    q = x @ params["wq"].to(x.dtype)
+    q = x @ at_use(params["wq"], x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-    q = q.reshape(*x.shape[:-1], d.n_heads, d.head_dim)
+    q = split_heads(q, d.n_heads, "heads", "batch", "seq")
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], getattr(cfg, "norm_eps", 1e-6))
     return apply_rope(q, positions, cfg.rope_theta)
@@ -77,13 +77,13 @@ def project_q(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Te
 def project_kv(params, x: torch.Tensor, cfg,
                positions: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     d = attn_dims(cfg)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    k = x @ at_use(params["wk"], x.dtype)
+    v = x @ at_use(params["wv"], x.dtype)
     if "bk" in params:
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    k = k.reshape(*x.shape[:-1], d.n_kv, d.head_dim)
-    v = v.reshape(*x.shape[:-1], d.n_kv, d.head_dim)
+    k = split_heads(k, d.n_kv, "kv", "batch", "seq")
+    v = split_heads(v, d.n_kv, "kv", "batch", "seq")
     if "k_norm" in params:
         k = rms_norm(k, params["k_norm"], getattr(cfg, "norm_eps", 1e-6))
     if positions is not None:  # cross-attention keys carry no rope
@@ -153,7 +153,9 @@ def attention_apply(params, x: torch.Tensor, cfg, *,
                                 block_k=getattr(cfg, "attn_block_k", 1024), **kw)
     else:
         out = ops.flash_attention(q, k, v, **kw)
-    y = out.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    # the residual stream's layout: a row-parallel product's partial sums
+    # are reduced here, as the reference constrains the block's output
+    y = shard(merge_heads(out) @ at_use(params["wo"], x.dtype), "batch", "seq", "embed")
     if return_kv:
         return y, (k, v)
     return y
@@ -166,19 +168,22 @@ def attention_decode(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
     The new k/v are written in place at slot ``pos % W`` (the reference
     returns an updated copy); masking needs only the valid slot count
     ``min(pos + 1, W)``, since keys carry their true RoPE positions and the
-    softmax does not care about slot order.  Returns (y, k_cache, v_cache).
+    softmax does not care about slot order.  A DTensor cache sharded over
+    its slots (``cache_spec``'s context parallelism) takes the new k/v on
+    the rank whose shard holds the slot, in that shard
+    (``partitioning.write_slots``), and K7 runs on every rank's shard
+    (``ops.sharded_decode_attention``).  Returns (y, k_cache, v_cache).
     """
     B = x.shape[0]
     W = k_cache.shape[1]
     pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
     q = project_q(params, x, cfg, pos_b)
     k_new, v_new = project_kv(params, x, cfg, pos_b)
-    slot = pos % W
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    write_slots(k_cache, k_new, pos % W)
+    write_slots(v_cache, v_new, pos % W)
     kv_len = torch.full((B,), min(pos + 1, W), dtype=torch.int32, device=x.device)
     out = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len,
                                softcap=getattr(cfg, "attn_logit_softcap", None),
                                scale=_scale(cfg, q.shape[-1]))
-    y = out.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    y = shard(merge_heads(out[:, None]) @ at_use(params["wo"], x.dtype), "batch", "seq", "embed")
     return y, k_cache, v_cache

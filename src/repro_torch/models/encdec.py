@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
 from ..kernels import ops
-from .partitioning import shard
+from .partitioning import at_use, merge_heads, shard, write_slots, zeros
 from .attention import (
     _scale,
     attention_apply,
@@ -150,7 +150,7 @@ class EncDecModel(nn.Module):
         return shard(x, "batch", "seq", "embed"), kv, xkv
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+        return embed_apply(at_use(self.embed, self.dtype), tokens, False, self.cfg.d_model)
 
     def decode_full(self, tokens: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
         """The decoder over ``tokens`` (B, S) -> final-normed hidden.  Under
@@ -165,7 +165,7 @@ class EncDecModel(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head -> f32 logits."""
-        out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
+        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self.embed, hidden.dtype).T
         return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
                      "batch", "seq", "vocab")
 
@@ -176,7 +176,7 @@ class EncDecModel(nn.Module):
         "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
         hidden = self.decode_full(batch["tokens"], self.encode(batch["frames"]))
         labels = batch["labels"].to(hidden.device, torch.long)
-        return whole_chunks_loss(hidden, labels, self.embed.to(hidden.dtype),
+        return whole_chunks_loss(hidden, labels, at_use(self.embed, hidden.dtype),
                                  self.cfg.loss_chunk)
 
     def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -202,14 +202,17 @@ class EncDecModel(nn.Module):
     def init_cache(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
                    dtype: torch.dtype = torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
         """Zero self- and cross-attention caches on ``device`` (default: the
-        model's)."""
+        model's); under a mesh, DTensors with their slots over "model" (the
+        cross cache too), as ``launch/shardings.py::cache_shardings``
+        places them."""
         d = attn_dims(self.cfg)
         L = self.cfg.dec_layers
         kw = {"dtype": dtype, "device": self.device if device is None else device}
-        return {"k": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
-                "v": torch.zeros((L, batch, max_len, d.n_kv, d.head_dim), **kw),
-                "xk": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw),
-                "xv": torch.zeros((L, batch, enc_len, d.n_kv, d.head_dim), **kw)}
+        axes = ("batch", "kv_seq", "kv", "head_dim")
+        return {"k": zeros((L, batch, max_len, d.n_kv, d.head_dim), *axes, **kw),
+                "v": zeros((L, batch, max_len, d.n_kv, d.head_dim), *axes, **kw),
+                "xk": zeros((L, batch, enc_len, d.n_kv, d.head_dim), *axes, **kw),
+                "xv": zeros((L, batch, enc_len, d.n_kv, d.head_dim), *axes, **kw)}
 
     def cache_specs(self, batch: int, max_len: int, enc_len: int = ENC_MEMORY_LEN,
                     dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
@@ -228,10 +231,8 @@ class EncDecModel(nn.Module):
         cache = self.init_cache(B, max_len, memory.shape[1], cache_dtype)
         for layer, p in enumerate(self.dec_layers):
             x, (k, v), (xk, xv) = self._dec_layer(p, x, memory, positions)
-            cache["k"][layer, :, :S] = k
-            cache["v"][layer, :, :S] = v
-            cache["xk"][layer] = xk
-            cache["xv"][layer] = xv
+            for name, t in (("k", k), ("v", v), ("xk", xk), ("xv", xv)):
+                write_slots(cache[name][layer], t, 0)
         x = rms_norm(x, self.dec_norm, self.cfg.norm_eps)
         return self.logits(x[:, -1:, :]), cache
 
@@ -251,7 +252,8 @@ class EncDecModel(nn.Module):
             out = ops.decode_attention(q[:, 0], cache["xk"][layer], cache["xv"][layer],
                                        enc_len, softcap=getattr(cfg, "attn_logit_softcap", None),
                                        scale=_scale(cfg, q.shape[-1]))
-            x = x + out.reshape(B, 1, -1) @ p.cross_attn["wo"].to(x.dtype)
+            x = x + shard(merge_heads(out[:, None]) @ at_use(p.cross_attn["wo"], x.dtype),
+                          "batch", "seq", "embed")
             x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps), cfg.mlp_act)
         x = rms_norm(x, self.dec_norm, cfg.norm_eps)
         return self.logits(x), cache

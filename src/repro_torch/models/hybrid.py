@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
-from .partitioning import batch_local, shard
+from .partitioning import at_use, batch_local, shard, write_slots, zeros
 from .layers import (
     activation_dtype,
     embed_apply,
@@ -137,7 +137,7 @@ class HybridModel(nn.Module):
         return self._shared_apply(x, positions)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+        return embed_apply(at_use(self.embed, self.dtype), tokens, False, self.cfg.d_model)
 
     # --------------------------------------------------------------- forward
     def hidden_states(self, batch) -> torch.Tensor:
@@ -157,7 +157,7 @@ class HybridModel(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.head
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        out = hidden.reshape(-1, hidden.shape[-1]) @ self._head().to(hidden.dtype).T
+        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self._head(), hidden.dtype).T
         return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
                      "batch", "seq", "vocab")
 
@@ -167,7 +167,7 @@ class HybridModel(nn.Module):
         "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
         hidden = self.hidden_states(batch)
         labels = batch["labels"].to(hidden.device, torch.long)
-        return whole_chunks_loss(hidden, labels, self._head().to(hidden.dtype),
+        return whole_chunks_loss(hidden, labels, at_use(self._head(), hidden.dtype),
                                  self.cfg.loss_chunk)
 
     def forward(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -188,19 +188,24 @@ class HybridModel(nn.Module):
     # --------------------------------------------------------------- serving
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Dict[str, torch.Tensor]:
-        """Zero states and KV caches on ``device`` (default: the model's)."""
+        """Zero states and KV caches on ``device`` (default: the model's);
+        under a mesh, DTensors placed as ``launch/shardings.py::
+        cache_shardings`` places them."""
         d = attn_dims(self.cfg)
         dev = self.device if device is None else device
         st, cb = mamba2_state_shapes(self.cfg, batch)
         gp = (self.n_groups, self.period)
         f32 = {"dtype": torch.float32, "device": dev}
         kv = (self.n_groups, batch, max_len, d.n_kv, d.head_dim)
-        cache = {"ssm": torch.zeros(gp + st, **f32), "conv": torch.zeros(gp + cb, **f32),
-                 "k": torch.zeros(kv, dtype=dtype, device=dev),
-                 "v": torch.zeros(kv, dtype=dtype, device=dev)}
+        ssm_axes, conv_axes = ("batch", "heads", None, None), ("batch", None, "ff")
+        kv_axes = ("batch", "kv_seq", "kv", "head_dim")
+        cache = {"ssm": zeros(gp + st, *ssm_axes, **f32),
+                 "conv": zeros(gp + cb, *conv_axes, **f32),
+                 "k": zeros(kv, *kv_axes, dtype=dtype, device=dev),
+                 "v": zeros(kv, *kv_axes, dtype=dtype, device=dev)}
         if self.n_tail:
-            cache["ssm_tail"] = torch.zeros((self.n_tail,) + st, **f32)
-            cache["conv_tail"] = torch.zeros((self.n_tail,) + cb, **f32)
+            cache["ssm_tail"] = zeros((self.n_tail,) + st, *ssm_axes, **f32)
+            cache["conv_tail"] = zeros((self.n_tail,) + cb, *conv_axes, **f32)
         return cache
 
     def cache_specs(self, batch: int, max_len: int,
@@ -213,10 +218,14 @@ class HybridModel(nn.Module):
         """One Mamba layer of the prompt; its final state goes to ``ssm`` and
         the pre-conv activations of the last W-1 positions to ``conv``."""
         cfg = self.cfg
-        xn = rms_norm(x, layer.ln, cfg.norm_eps)
-        y, hT = mamba2_apply(layer.mamba, xn, cfg, chunk=cfg.scan_chunk, return_state=True)
-        _, xbc_tail, _ = _split_in(layer.mamba, xn[:, x.shape[1] - (CONV_WIDTH - 1):],
-                                   ssm_dims(cfg))
+
+        def run(x_, p, ln):   # on the rank's batch shard under a mesh (batch_local)
+            xn = rms_norm(x_, ln, cfg.norm_eps)
+            y, hT = mamba2_apply(p, xn, cfg, chunk=cfg.scan_chunk, return_state=True)
+            _, tail, _ = _split_in(p, xn[:, x_.shape[1] - (CONV_WIDTH - 1):], ssm_dims(cfg))
+            return y, hT, tail
+
+        y, hT, xbc_tail = batch_local(run, x, dict(layer.mamba.items()), layer.ln)
         ssm.copy_(hT)
         conv.copy_(xbc_tail)
         return x + y
@@ -233,8 +242,8 @@ class HybridModel(nn.Module):
             for p, layer in enumerate(group):
                 x = self._mamba_prefill(layer, x, cache["ssm"][g, p], cache["conv"][g, p])
             x, (k, v) = self._shared_apply(x, positions, return_kv=True)
-            cache["k"][g, :, :S] = k
-            cache["v"][g, :, :S] = v
+            write_slots(cache["k"][g], k, 0)
+            write_slots(cache["v"][g], v, 0)
         for t, layer in enumerate(self.tail):
             x = self._mamba_prefill(layer, x, cache["ssm_tail"][t], cache["conv_tail"][t])
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -242,8 +251,13 @@ class HybridModel(nn.Module):
 
     def _mamba_step(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
                     conv: torch.Tensor) -> torch.Tensor:
-        y, st, cb = mamba2_decode(layer.mamba, rms_norm(x, layer.ln, self.cfg.norm_eps),
-                                  self.cfg, ssm, conv)
+        """One Mamba layer's decode step; under a mesh on the rank's batch
+        shard, its states gathered over their heads or conv channels and
+        written back to its own shard of them (``batch_local``)."""
+        cfg = self.cfg
+        y, st, cb = batch_local(
+            lambda x_, p, ln, s: mamba2_decode(p, rms_norm(x_, ln, cfg.norm_eps), cfg, *s),
+            x, dict(layer.mamba.items()), layer.ln, states=(ssm, conv))
         ssm.copy_(st)
         conv.copy_(cb)
         return x + y

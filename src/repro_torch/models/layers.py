@@ -14,7 +14,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .partitioning import shard
+from .partitioning import (
+    at_use,
+    is_dtensor,
+    local_shape_and_offset,
+    relayout,
+    replicated_placements,
+    shard,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -117,24 +124,68 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, *, device=None,
 
 
 def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Gated MLP: SwiGLU (act='silu') or GeGLU (act='gelu', gemma)."""
-    gate, up = (x @ params["wi"].to(x.dtype)).chunk(2, dim=-1)
+    """Gated MLP: SwiGLU (act='silu') or GeGLU (act='gelu', gemma).
+
+    On a mesh (x a DTensor, rows over the batch axes) wi's output dim is
+    sharded over "model", and its two halves, gate and up, lie on different
+    ranks: the product is gathered over "model" before the split, the
+    gated hidden goes back to its "ff" shards, and the row-parallel wo's
+    partial sums are reduced to the residual stream's layout.  Each of
+    these is a no-op for a plain tensor."""
+    lead = ("batch",) + ("seq",) * (x.ndim - 2)
+    gate, up = relayout(x @ at_use(params["wi"], x.dtype), *lead, None).chunk(2, dim=-1)
     if act == "silu":
         g = F.silu(gate)
     elif act == "gelu":
         g = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return (g * up) @ params["wo"].to(x.dtype)
+    h = shard(g * up, *lead, "ff")
+    return shard(h @ at_use(params["wo"], x.dtype), *lead, "embed")
 
 
 # ------------------------------------------------------------------ embedding
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor, scale: bool,
                 d_model: int) -> torch.Tensor:
-    x = table[tokens.to(table.device, torch.long)]
+    """The rows of ``table`` at ``tokens`` (a DTensor table sharded over its
+    vocabulary: ``vocab_rows``)."""
+    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+        x = vocab_rows(table, tokens)
+    else:
+        x = table[tokens.to(table.device, torch.long)]
     if scale:  # gemma scales embeddings by sqrt(d_model)
         x = x * torch.tensor(math.sqrt(d_model), dtype=x.dtype, device=x.device)
     return x
+
+
+def vocab_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` for a DTensor table whose rows (the vocabulary) are
+    sharded over some mesh axes, without gathering the table: each rank
+    takes the rows it holds (zeros for the others) for its tokens, whole
+    over the vocabulary's axes and split as the tokens are over the others,
+    and the partial rows are summed over the vocabulary's axes (an
+    all-reduce).  The table's gradient stays on its shards: partial over
+    the axes that split the tokens, as a gathered batch's is."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    vocab = {i for i, p in enumerate(table.placements) if isinstance(p, Shard) and p.dim == 0}
+    if isinstance(tokens, DTensor):
+        tp = tuple(Replicate() if i in vocab else p for i, p in enumerate(tokens.placements))
+        ids = tokens.redistribute(mesh, tp).to_local()
+    else:
+        tp, ids = replicated_placements(mesh), tokens
+    tw = tuple(p if i in vocab else Replicate() for i, p in enumerate(table.placements))
+    grad = tuple(p if i in vocab else Partial() if isinstance(tp[i], Shard) else Replicate()
+                 for i, p in enumerate(tw))
+    local = table.redistribute(mesh, tw).to_local(grad_placements=grad)
+    (rows, _), (v0, _) = local_shape_and_offset(table.shape, mesh, tw)
+    rel = ids.to(local.device, torch.long) - v0
+    held = (rel >= 0) & (rel < rows)
+    out = torch.where(held[..., None], local[rel.clamp(0, max(rows - 1, 0))], 0.0)
+    out = DTensor.from_local(out, mesh, tuple(Partial() if i in vocab else p
+                                              for i, p in enumerate(tp)))
+    return out.redistribute(mesh, tp)
 
 
 # ----------------------------------------------------------------------- loss
@@ -145,11 +196,53 @@ def ce_sum(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
     capped at ``cap``, as the reference's ``ce``."""
     logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
     logits = shard(softcap(logits.float(), cap), "batch", "seq", "vocab")
-    # the gathered column is reduced over "vocab" before the last axis drops
-    # (a vocab-sharded gather leaves a partial sum whose mask keeps the axis)
-    gold = shard(logits.gather(-1, labels.clamp_min(0)[..., None]), "batch", "seq", None)[..., 0]
+    lse, gold = lse_gold(logits, labels)
     valid = (labels >= 0).float()
-    return ((torch.logsumexp(logits, dim=-1) - gold) * valid).sum(), valid.sum()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
+def lse_gold(logits: torch.Tensor, labels: torch.Tensor):
+    """(logsumexp over the last dim, the logit at each label; 0 at a label
+    < 0) of logits (..., V), as JAX's ``logsumexp`` computes it: the max, a
+    constant shift without gradient, plus the log of the shifted exp-sum.
+    DTensor logits whose vocabulary is sharded over some mesh axes stay on
+    their shards: each rank takes its own columns, the max is maxed and the
+    exp-sums and the label's logit (on the rank that holds it) are summed
+    over those axes, and nothing of (..., V) is gathered.  On one rank the
+    numbers are the plain tensor's, bit for bit."""
+    def same(x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    local, lab, v0, all_max, all_sum, shift = logits, labels, 0, same, same, same
+    last = logits.ndim - 1
+    if is_dtensor(logits) and any(p.is_shard(last) for p in logits.placements):
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        mesh = logits.device_mesh
+        vocab = {i for i, p in enumerate(logits.placements)
+                 if isinstance(p, Shard) and p.dim == last}
+        rows = tuple(Replicate() if i in vocab else p for i, p in enumerate(logits.placements))
+        local = logits.to_local(grad_placements=logits.placements)
+        v0 = local_shape_and_offset(logits.shape, mesh, logits.placements)[1][last]
+        if is_dtensor(labels):
+            lab = labels.redistribute(mesh, rows).to_local()
+        else:
+            lead, off = local_shape_and_offset(labels.shape, mesh, rows)
+            lab = labels[tuple(slice(o, o + n) for o, n in zip(off, lead))]
+
+        def reduced(op: str):
+            part = tuple(Partial(op) if i in vocab else p for i, p in enumerate(rows))
+            return lambda x: DTensor.from_local(x, mesh, part).redistribute(mesh, rows)
+
+        all_max, all_sum, shift = reduced("max"), reduced("sum"), lambda m: m.to_local()
+    cols = local.shape[-1]
+    rel = lab.to(local.device, torch.long) - v0
+    held = (rel >= 0) & (rel < cols)
+    gold = torch.where(held, local.gather(-1, rel.clamp(0, max(cols - 1, 0))[..., None])[..., 0],
+                       0.0)
+    m = all_max(local.detach().amax(dim=-1))
+    sums = all_sum(torch.exp(local - shift(m)[..., None]).sum(dim=-1))
+    return m + torch.log(sums), all_sum(gold)
 
 
 def whole_chunks_loss(hidden: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..device import fp32_matmul
 from .layers import dense_init, frozen, mlp_apply, mlp_init, param_dict
-from .partitioning import like, shard, whole
+from .partitioning import at_use, like, relayout, shard, whole
 
 
 def expert_init(gen: torch.Generator, n: int, in_dim: int, out_dim: int, *, device,
@@ -82,6 +82,13 @@ def route(params: MoEParams, xf: torch.Tensor, cfg):
     return probs, gates, expert_ids
 
 
+def expert_counts(ids: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """How many of ``ids`` pick each expert, (E,) int64: ``bincount`` with
+    ``minlength=E``, whose output length would depend on the ids' values."""
+    return ids.new_zeros(n_experts, dtype=torch.long).index_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.long))
+
+
 def dispatch(expert_ids: torch.Tensor, n_experts: int, cap: int):
     """The sort-based dispatch of (N, k) expert ids -> (sort_idx, slot, keep),
     each over the N*k (token, pick) pairs in expert order: a pair's slot in
@@ -90,7 +97,7 @@ def dispatch(expert_ids: torch.Tensor, n_experts: int, cap: int):
     flat = expert_ids.reshape(-1)
     sort_idx = torch.argsort(flat, stable=True)
     sorted_expert = flat[sort_idx]
-    counts = torch.bincount(flat, minlength=n_experts)
+    counts = expert_counts(flat, n_experts)
     group_start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(flat.numel(), device=flat.device) - group_start[sorted_expert]
     keep = pos < cap
@@ -125,18 +132,23 @@ def _moe_dispatch(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor
     xf = whole(xs)
     probs, gates, expert_ids = route(SimpleNamespace(router=whole(params.router)), xf, cfg)
     # Switch-style load-balance aux loss: E * sum(mean prob * dispatch fraction)
-    density = torch.bincount(expert_ids[:, 0], minlength=E).float() / N
+    density = expert_counts(expert_ids[:, 0], E).float() / N
     aux = like(E * torch.sum(probs.mean(dim=0) * density), x)
 
     sort_idx, slot, keep = dispatch(expert_ids, E, C)
     token_idx = sort_idx // k
-    buf = xf.new_zeros((E * C, d))
-    buf[slot[keep]] = xf[token_idx[keep]]
-    buf = shard(like(buf.reshape(E, C, d), x), "experts", "expert_cap", "embed")
+    # every pair is written, the dropped ones to a spare row past the buffer
+    # (no data-dependent shape: a dry run's fake tensors have no values)
+    buf = xf.new_zeros((E * C + 1, d))
+    buf[slot] = xf[token_idx]
+    buf = shard(like(buf[:E * C].reshape(E, C, d), x), "experts", "expert_cap", "embed")
 
     # expert computation: fused gate+up, (E, C, *) batched products
-    gate, up = torch.bmm(buf, params.wi.to(x.dtype)).chunk(2, dim=-1)
-    eout = shard(torch.bmm(F.silu(gate) * up, params.wo.to(x.dtype)),
+    # the fused gate+up product whole over its output dim before the split
+    # (its halves lie on different ranks of the axis that shards it)
+    gate, up = relayout(torch.bmm(buf, at_use(params.wi, x.dtype, keep_dim=0)),
+                        "experts", "expert_cap", None).chunk(2, dim=-1)
+    eout = shard(torch.bmm(F.silu(gate) * up, at_use(params.wo, x.dtype, keep_dim=0)),
                  "experts", "expert_cap", "embed")
 
     # combine: each (token, pick) pair's gated output back in token order,

@@ -24,7 +24,8 @@ process does not have).
 """
 from __future__ import annotations
 
-import threading
+import math
+import types
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -32,7 +33,10 @@ import torch
 Rules = Dict[str, Union[None, str, Tuple[str, ...]]]
 Axes = Union[None, str, Tuple[str, ...]]
 
-_state = threading.local()
+# The active mesh and rules: process-wide, not thread-local, since autograd
+# runs the backward of CUDA tensors (and so a remat block's recompute) on
+# its own device threads, which must see the mesh the forward saw.
+_state = types.SimpleNamespace(mesh=None, rules=None)
 
 
 class PartitionSpec(tuple):
@@ -157,17 +161,51 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
-    """Redistribute ``x`` to the placements of its logical axes (a no-op
-    without a mesh and for a plain tensor)."""
+class _Constrain(torch.autograd.Function):
+    """Redistribute a DTensor to ``want``, and its gradient to ``want`` too:
+    the transpose of JAX's ``with_sharding_constraint`` constrains the
+    cotangent to the same sharding.  (DTensor's own redistribute would hand
+    back the gradient of a reduced partial sum as a partial sum, and leave
+    the next product to gather its weight instead.)"""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.want = want
+        return x.view_as(x) if tuple(x.placements) == want else \
+            x.redistribute(x.device_mesh, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if is_dtensor(grad) and tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(grad.device_mesh, ctx.want)
+        return grad, None
+
+
+def _wanted(x: torch.Tensor, logical_axes) -> Optional[Tuple[Any, ...]]:
+    """The placements of ``x``'s logical axes on the active mesh, or None
+    where ``x`` keeps its own (no mesh, a plain tensor, or already there)."""
     mesh = get_mesh()
     if mesh is None or not is_dtensor(x):
-        return x
+        return None
     assert len(logical_axes) == x.ndim, (logical_axes, tuple(x.shape))
     want = placements(fit(spec(*logical_axes), x.shape, mesh), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(x.device_mesh, want)
+    return None if tuple(x.placements) == want else want
+
+
+def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """Redistribute ``x`` to the placements of its logical axes, and its
+    gradient to the same placements (a no-op without a mesh and for a plain
+    tensor)."""
+    want = _wanted(x, logical_axes)
+    return x if want is None else _Constrain.apply(x, want)
+
+
+def relayout(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """``shard`` whose gradient comes back in ``x``'s own placements (DTensor's
+    redistribute): for a layout the forward needs for one op only (a split
+    along a sharded dim) and the backward should not keep."""
+    want = _wanted(x, logical_axes)
+    return x if want is None else x.redistribute(x.device_mesh, want)
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:
@@ -193,17 +231,23 @@ def _local(t, mesh, want, grad):
     return t.redistribute(mesh, want).to_local(grad_placements=grad) if is_dtensor(t) else t
 
 
-def batch_local(fn, x: torch.Tensor, *weights):
+def batch_local(fn, x: torch.Tensor, *weights, states=None):
     """``fn(x, *weights)`` run on this rank's shard of the batch, with the
     weights (dicts of tensors, or tensors) gathered whole, the counterpart
     of a ``shard_map`` over the batch axes: for the blocks whose ops have
     no DTensor sharding rules (xLSTM's and Mamba2's recurrences).  A plain
     ``x`` runs ``fn`` as it is.  The rank's weight gradients are partial
     sums over the batch axes (replicated over the others), and the output
-    keeps x's batch sharding (dim 0)."""
+    keeps x's batch sharding (dim 0), as does every tensor of a tuple
+    ``fn`` returns (a prefill's final states).  ``states``: a tuple of
+    recurrent states whose dim 0 is the batch (a decode step's), handed to
+    ``fn`` as one more argument, each as the rank's batch shard whole over
+    its other dims (a state sharded over another dim, Mamba2's heads over
+    "model", is gathered over it)."""
     if not is_dtensor(x):
-        return fn(x, *weights)
+        return fn(x, *weights) if states is None else fn(x, *weights, states)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.utils._pytree import tree_map
 
     mesh = x.device_mesh
     xp = placements(fit(spec("batch", *(None,) * (x.ndim - 1)), x.shape, mesh), mesh)
@@ -211,8 +255,139 @@ def batch_local(fn, x: torch.Tensor, *weights):
     rep = replicated_placements(mesh)
     local_w = [{k: _local(t, mesh, rep, grad) for k, t in w.items()} if isinstance(w, dict)
                else _local(w, mesh, rep, grad) for w in weights]
-    out = fn(_local(x, mesh, xp, xp), *local_w)
-    return DTensor.from_local(out, mesh, xp)
+    args = (_local(x, mesh, xp, xp), *local_w)
+    if states is not None:
+        args += (tuple(_local(t, mesh, xp, xp) for t in states),)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, xp)
+                    if isinstance(t, torch.Tensor) else t, fn(*args))
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(..., n, k) -> (..., n * k), the inverse of ``split_heads``.  On a
+    DTensor the merged dim keeps the heads' placement and so does its
+    gradient: a gradient sharded over the merged dim where the heads are
+    not (forty heads on a model axis of 16) could not be split back."""
+    flat = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    if get_mesh() is None or not is_dtensor(t):
+        return flat
+    return _Constrain.apply(flat, tuple(t.placements))
+
+
+def at_use(w: torch.Tensor, dtype: torch.dtype, keep_dim: Optional[int] = None) -> torch.Tensor:
+    """Weight ``w`` as a layer uses it: cast to ``dtype`` and, for a DTensor,
+    whole over the batch axes ("pod", "data"), which shard it only for
+    storage (FSDP), its tensor-parallel dims still sharded: an all-gather
+    at use, whose gradient is a reduce-scatter.  ``keep_dim`` stays sharded
+    over them (the experts dim of an expert-parallel weight).  Without this
+    DTensor may move the activations instead and compute a product whole
+    over the batch on every data rank."""
+    w = w.to(dtype)
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = axis_names(w.device_mesh)
+    want = tuple(Replicate() if isinstance(p, Shard) and names[i] in ("pod", "data")
+                 and p.dim % w.ndim != keep_dim else p for i, p in enumerate(w.placements))
+    return w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
+
+
+def split_heads(t: torch.Tensor, n: int, name: str, *lead: Optional[str]) -> torch.Tensor:
+    """(..., n * k) -> (..., n, k), the new dim ``n`` under the logical axis
+    ``name`` (``lead`` names the leading dims).  A DTensor is first
+    redistributed so that the split is even on every rank: the flat dim
+    sharded where the rule shards ``n`` and the mesh divides it, whole
+    otherwise (eight kv heads on a model axis of 16 stay whole)."""
+    shape = (*t.shape[:-1], n, t.shape[-1] // n)
+    mesh = get_mesh()
+    if mesh is not None and is_dtensor(t):
+        want = placements(fit(spec(*lead, name, None), shape, mesh), mesh)
+        if tuple(t.placements) != want:
+            t = t.redistribute(t.device_mesh, want)
+    return t.reshape(shape)
+
+
+def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def local_shape_and_offset(shape: Sequence[int], mesh, placements_: Sequence[Any]
+                           ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(the shape of this rank's shard of a ``shape`` tensor with
+    ``placements_`` on ``mesh``, its offset in each dim), as DTensor cuts
+    it: ``Shard(d)`` on mesh dim i splits dim d into ``mesh.size(i)``
+    chunks of ceil(n / k) (the last ones shorter or empty), mesh dims in
+    order.  Plain arithmetic on the rank's mesh coordinate: it reads no
+    tensor, so it also runs under ``FakeTensorMode``."""
+    from torch.distributed.tensor import Shard
+
+    local, offset = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements_):
+        if isinstance(p, Shard):
+            d = p.dim % len(local)
+            n, k = local[d], mesh.size(i)
+            chunk = -(-n // k)
+            start = min(coord[i] * chunk, n)
+            offset[d] += start
+            local[d] = min(chunk, n - start)
+    return tuple(local), tuple(offset)
+
+
+def zeros(shape: Sequence[int], *logical_axes: Optional[str], dtype: torch.dtype,
+          device) -> torch.Tensor:
+    """Zeros of ``shape``.  Under a mesh of more than one rank (a
+    ``DeviceMesh``), a DTensor placed by the logical axes' spec (fitted to
+    the shape) of which each rank allocates only its own shard: how the
+    models make a sharded cache.  A plain tensor otherwise."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = get_mesh()
+    if not isinstance(mesh, DeviceMesh) or mesh.size() == 1:
+        return torch.zeros(tuple(shape), dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    axes = (None,) * (len(shape) - len(logical_axes)) + tuple(logical_axes)
+    want = placements(fit(spec(*axes), shape, mesh), mesh)
+    local, _ = local_shape_and_offset(shape, mesh, want)
+    return DTensor.from_local(torch.zeros(local, dtype=dtype, device=device), mesh, want,
+                              shape=tuple(shape), stride=contiguous_strides(shape))
+
+
+def write_slots(cache: torch.Tensor, t: torch.Tensor, start: int) -> None:
+    """``cache[:, start:start + n] = t`` (n = t.shape[1]) in place, in the
+    cache's dtype.  On a DTensor cache (batch over dim 0, slots over dim 1,
+    as ``launch/shardings.py::cache_spec`` places KV caches) every rank
+    writes only into its own shard: ``t`` comes to the rank with the cache's
+    placements when it covers every slot (a prefill of the whole window:
+    the rank's slots arrive without a gather), else with the cache's batch
+    split and whole over the slots, and the rank writes the slots of [start,
+    start + n) that its shard holds, if any (a decode step's one slot, on
+    the rank that holds it).  The cache itself is never gathered, and no
+    DTensor setitem runs on its sharded dim."""
+    n = t.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = t.to(cache.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = cache.device_mesh
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, replicated_placements(mesh))
+    if start == 0 and n == cache.shape[1]:
+        want = tuple(cache.placements)
+    else:
+        want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in cache.placements)
+    tl = t.redistribute(mesh, want).to_local()
+    local = cache._local_tensor          # the rank's shard: writes reach the cache
+    if want == tuple(cache.placements):
+        local.copy_(tl)
+        return
+    t0 = local_shape_and_offset(cache.shape, mesh, cache.placements)[1][1]
+    lo, hi = max(start, t0), min(start + n, t0 + local.shape[1])
+    if lo < hi:
+        local[:, lo - t0:hi - t0] = tl[:, lo - start:hi - start].to(local.dtype)
 
 
 def named_sharding(*logical_axes: Optional[str]):

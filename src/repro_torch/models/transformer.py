@@ -54,7 +54,7 @@ from .layers import (
     zeros_init,
 )
 from .moe import MoEParams, moe_apply
-from .partitioning import shard
+from .partitioning import at_use, shard, write_slots, zeros
 
 AUX_LOSS_COEF = 0.01
 
@@ -176,7 +176,7 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         # the table cast first, as the reference casts it (a no-op for serving;
         # in training the gather's backward then sums in cfg.dtype, as there)
-        x = embed_apply(self.embed.to(self.dtype), batch["tokens"], cfg.scale_embeddings,
+        x = embed_apply(at_use(self.embed, self.dtype), batch["tokens"], cfg.scale_embeddings,
                         cfg.d_model)
         if cfg.frontend is not None and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(x), x], dim=1)   # early fusion
@@ -203,7 +203,7 @@ class DecoderLM(nn.Module):
         rows: a strided (B, 1, d) slice would make ``matmul`` a batched
         product that reads the whole (vocab, d) table once per row."""
         w = self.embed if self.cfg.tie_embeddings else self.head
-        out = hidden.reshape(-1, hidden.shape[-1]) @ w.to(hidden.dtype).T
+        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(w, hidden.dtype).T
         out = out.reshape(*hidden.shape[:-1], out.shape[-1])
         return shard(softcap(out.float(), self.cfg.final_logit_softcap), "batch", "seq", "vocab")
 
@@ -222,7 +222,7 @@ class DecoderLM(nn.Module):
             labels = torch.cat([pad, labels], dim=1)
         S = hidden.shape[1]
         chunk = min(cfg.loss_chunk, S)
-        w = (self.embed if cfg.tie_embeddings else self.head).to(hidden.dtype)
+        w = at_use(self.embed if cfg.tie_embeddings else self.head, hidden.dtype)
         tot = cnt = torch.zeros((), device=hidden.device)
         for lo in range(0, S, chunk):   # the whole chunks, then the remainder
             t, n = ce_sum(hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk], w,
@@ -259,15 +259,18 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16,
                    device=None) -> Dict[str, torch.Tensor]:
-        """Zero KV caches on ``device`` (default: the model's)."""
+        """Zero KV caches on ``device`` (default: the model's); under a mesh,
+        DTensors placed as ``launch/shardings.py::cache_shardings`` places
+        them (batch over the data axes, slots over "model")."""
         d = attn_dims(self.cfg)
         dev = self.device if device is None else device
         cache = {}
         for i, variant in enumerate(self.variants):
             shp = (self.n_groups, batch, self.cache_window(variant, max_len), d.n_kv,
                    d.head_dim)
-            cache[f"k{i}"] = torch.zeros(shp, dtype=dtype, device=dev)
-            cache[f"v{i}"] = torch.zeros(shp, dtype=dtype, device=dev)
+            for name in (f"k{i}", f"v{i}"):
+                cache[name] = zeros(shp, "batch", "kv_seq", "kv", "head_dim", dtype=dtype,
+                                    device=dev)
         return cache
 
     def cache_specs(self, batch: int, max_len: int,
@@ -289,10 +292,10 @@ class DecoderLM(nn.Module):
             i, g = layer % self.group, layer // self.group
             for name, t in ((f"k{i}", k), (f"v{i}", v)):
                 W = cache[name].shape[2]
-                if W >= S:
-                    cache[name][g, :, :S] = t
-                else:
-                    cache[name][g] = torch.roll(t[:, S - W:], S % W, dims=1)
+                if W < S:   # the last W positions, position p at slot p % W
+                    r = S % W
+                    t = torch.cat([t[:, S - r:], t[:, S - W:S - r]], dim=1)
+                write_slots(cache[name][g], t, 0)
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x[:, -1:, :]), cache
 
@@ -301,7 +304,7 @@ class DecoderLM(nn.Module):
         Updates ``cache`` in place and returns (logits (B, 1, V) f32,
         cache)."""
         pos = int(pos)
-        x = embed_apply(self.embed.to(self.dtype), tokens, self.cfg.scale_embeddings,
+        x = embed_apply(at_use(self.embed, self.dtype), tokens, self.cfg.scale_embeddings,
                         self.cfg.d_model)
         for layer, blk in enumerate(self.layers):
             i, g = layer % self.group, layer // self.group

@@ -295,7 +295,7 @@ def slstm_scan(params, x: torch.Tensor, cfg, state=None):
     xc = _causal_conv(x, params["conv_w"].to(x.dtype), params["conv_b"])
     gx = (xc @ params["wx"].to(x.dtype)).float() + params["b"]          # (B, L, 4 dm)
     gx = gx.reshape(B, L, d.n_heads, 4 * d.dh)
-    r = params["r"]
+    r = params["r"].float()   # (a bf16 working copy promotes to the f32 state, as in JAX)
     if state is None:
         z = torch.zeros((B, d.n_heads, d.dh), device=x.device)
         state = (z, z, z, torch.full((B, d.n_heads), -10.0, device=x.device))
@@ -332,7 +332,7 @@ def slstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor):
     hist = torch.cat([conv_buf.to(x.dtype), x[:, 0:1, :]], dim=1)
     xc = _conv_step(hist, params["conv_w"].to(x.dtype), params["conv_b"])
     gx = (xc @ params["wx"].to(x.dtype)).float() + params["b"]
-    rec = torch.einsum("bhd,hde->bhe", state[0], params["r"])
+    rec = torch.einsum("bhd,hde->bhe", state[0], params["r"].float())
     state = _slstm_cell(gx.reshape(B, d.n_heads, 4 * d.dh) + rec, state)
     hs = state[0].reshape(B, 1, d.d_model).to(x.dtype)
     return _slstm_out(params, hs, cfg), state, hist[:, 1:, :]

@@ -28,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
-from .partitioning import batch_local, shard
+from .partitioning import at_use, batch_local, shard, zeros
 from .layers import (
     activation_dtype,
     ce_sum,
@@ -108,7 +108,7 @@ class XLSTMModel(nn.Module):
         return rms_norm(x, b.ln if isinstance(b, XBlock) else b, self.cfg.norm_eps)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_apply(self.embed.to(self.dtype), tokens, False, self.cfg.d_model)
+        return embed_apply(at_use(self.embed, self.dtype), tokens, False, self.cfg.d_model)
 
     def _group(self, g: int, x: torch.Tensor) -> torch.Tensor:
         """Group ``g``: its mLSTM blocks, then its sLSTM block."""
@@ -135,7 +135,7 @@ class XLSTMModel(nn.Module):
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        out = hidden.reshape(-1, hidden.shape[-1]) @ self.embed.to(hidden.dtype).T
+        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self.embed, hidden.dtype).T
         return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
                      "batch", "seq", "vocab")
 
@@ -145,7 +145,7 @@ class XLSTMModel(nn.Module):
         "tokens"}); ``batch["labels"]`` the next-token ids, -1 a pad."""
         hidden = self.hidden_states(batch)
         labels = batch["labels"].to(hidden.device, torch.long)
-        tot, cnt = ce_sum(hidden, labels, self.embed.to(hidden.dtype))
+        tot, cnt = ce_sum(hidden, labels, at_use(self.embed, hidden.dtype))
         nll = tot / cnt.clamp_min(1.0)
         return nll, {"nll": nll, "tokens": cnt}
 
@@ -169,20 +169,21 @@ class XLSTMModel(nn.Module):
                    device=None) -> Dict[str, torch.Tensor]:
         """The recurrent state on ``device`` (default: the model's);
         ``max_len`` and ``dtype`` are ignored (the state is O(1) in context
-        and fp32)."""
+        and fp32); under a mesh, DTensors split over the batch."""
         g, nm = self.n_groups, self.n_mlstm
         f32 = {"dtype": torch.float32, "device": self.device if device is None else device}
+
+        def state(lead, own, fill=0.0):   # the batch is the first of the state's own dims
+            t = zeros(lead + own, "batch", *(None,) * (len(own) - 1), **f32)
+            return t.fill_(fill) if fill else t
+
         mC, mn, mm, mbuf = mlstm_state_shapes(self.cfg, batch)
-        cache = {"mC": torch.zeros((g, nm) + mC, **f32), "mn": torch.zeros((g, nm) + mn, **f32),
-                 "mm": torch.full((g, nm) + mm, -1e30, **f32),
-                 "mbuf": torch.zeros((g, nm) + mbuf, **f32)}
+        cache = {"mC": state((g, nm), mC), "mn": state((g, nm), mn),
+                 "mm": state((g, nm), mm, -1e30), "mbuf": state((g, nm), mbuf)}
         if self.cfg.slstm_every:
             sh, sc, sn, sm, sbuf = slstm_state_shapes(self.cfg, batch)
-            cache.update({"sh": torch.zeros((g,) + sh, **f32),
-                          "sc": torch.zeros((g,) + sc, **f32),
-                          "sn": torch.zeros((g,) + sn, **f32),
-                          "sm": torch.full((g,) + sm, -10.0, **f32),
-                          "sbuf": torch.zeros((g,) + sbuf, **f32)})
+            cache.update({"sh": state((g,), sh), "sc": state((g,), sc), "sn": state((g,), sn),
+                          "sm": state((g,), sm, -10.0), "sbuf": state((g,), sbuf)})
         return cache
 
     def cache_specs(self, batch: int, max_len: int = 0,
@@ -192,20 +193,25 @@ class XLSTMModel(nn.Module):
 
     def prefill(self, batch, max_len: int = 0, cache_dtype: torch.dtype = torch.bfloat16):
         """Parallel prefill with the exact final recurrent states ->
-        (last-position logits (B, 1, V) f32, cache)."""
+        (last-position logits (B, 1, V) f32, cache); under a mesh each block
+        on the rank's batch shard (``batch_local``)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(tokens)
         cache = self.init_cache(tokens.shape[0], max_len, cache_dtype)
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
-                y, state, buf = mlstm_prefill(b.blk, self._norm(x, b), cfg)
+                y, state, buf = batch_local(
+                    lambda x_, blk, ln: mlstm_prefill(blk, self._norm(x_, ln), cfg),
+                    x, dict(b.blk.items()), b.ln)
                 x = shard(x + y, "batch", "seq", "embed")
                 for key, t in zip(_M_KEYS + ("mbuf",), state + (buf,)):
                     cache[key][g, j] = t
             if cfg.slstm_every:
                 b = self.slstm[g]
-                y, state, buf = slstm_prefill(b.blk, self._norm(x, b), cfg)
+                y, state, buf = batch_local(
+                    lambda x_, blk, ln: slstm_prefill(blk, self._norm(x_, ln), cfg),
+                    x, dict(b.blk.items()), b.ln)
                 x = shard(x + y, "batch", "seq", "embed")
                 for key, t in zip(_S_KEYS + ("sbuf",), state + (buf,)):
                     cache[key][g] = t
@@ -214,22 +220,28 @@ class XLSTMModel(nn.Module):
 
     def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos=None):
         """tokens (B, 1); ``pos`` is ignored.  Updates ``cache`` in place ->
-        (logits (B, 1, V) f32, cache)."""
+        (logits (B, 1, V) f32, cache).  Under a mesh each block's step runs
+        on the rank's batch shard of x and of its states
+        (``partitioning.batch_local``)."""
         cfg = self.cfg
         x = self._embed(tokens)
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
-                state = tuple(cache[key][g, j] for key in _M_KEYS)
-                y, state, buf = mlstm_decode(b.blk, self._norm(x, b), cfg, state,
-                                             cache["mbuf"][g, j])
+                state = tuple(cache[key][g, j] for key in _M_KEYS + ("mbuf",))
+                y, state, buf = batch_local(
+                    lambda x_, blk, ln, s: mlstm_decode(blk, self._norm(x_, ln), cfg, s[:-1],
+                                                        s[-1]),
+                    x, dict(b.blk.items()), b.ln, states=state)
                 x = x + y
                 for key, t in zip(_M_KEYS + ("mbuf",), state + (buf,)):
                     cache[key][g, j] = t
             if cfg.slstm_every:
                 b = self.slstm[g]
-                state = tuple(cache[key][g] for key in _S_KEYS)
-                y, state, buf = slstm_decode(b.blk, self._norm(x, b), cfg, state,
-                                             cache["sbuf"][g])
+                state = tuple(cache[key][g] for key in _S_KEYS + ("sbuf",))
+                y, state, buf = batch_local(
+                    lambda x_, blk, ln, s: slstm_decode(blk, self._norm(x_, ln), cfg, s[:-1],
+                                                        s[-1]),
+                    x, dict(b.blk.items()), b.ln, states=state)
                 x = x + y
                 for key, t in zip(_S_KEYS + ("sbuf",), state + (buf,)):
                     cache[key][g] = t

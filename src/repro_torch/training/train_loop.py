@@ -29,9 +29,11 @@ and metrics come back as plain tensors, equal on every rank.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch import nn
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.func import functional_call
@@ -114,7 +116,18 @@ def make_train_step(model: nn.Module, ocfg: OptimizerConfig, microbatches: int =
                 if b % microbatches:
                     raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
                 n = b // microbatches
-                return x[i * n:(i + 1) * n]
+                if not is_dtensor(x):
+                    return x[i * n:(i + 1) * n]
+                # rows [i n, (i + 1) n), as the reference's reshape takes them,
+                # sharded as the batch was: the (small) inputs are gathered
+                # over the batch axes first, as a slice of a sharded dim would be
+                mesh, placed = x.device_mesh, tuple(x.placements)
+                whole_b = tuple(Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                                for p in placed)
+                part = x.redistribute(mesh, whole_b)[i * n:(i + 1) * n]
+                shards = math.prod(mesh.size(d) for d, p in enumerate(placed)
+                                   if isinstance(p, Shard) and p.dim == 0)
+                return part.redistribute(mesh, placed) if n % shards == 0 else part
 
             grads = {}
             loss = torch.zeros((), device=next(iter(master.values())).device)

@@ -1,0 +1,84 @@
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the CPU.
+
+The twin of tests/test_dryrun_cli.py::test_dryrun_cell_compiles: one cell
+through the CLI as a subprocess, with fake CPU tensors (``--device cpu``:
+this host's PyTorch has no CUDA, which DTensor's redistribute of fake CUDA
+tensors needs) in a fake world of 256 ranks.  Then parity with the
+reference: the reference's CLI (``repro.launch.dryrun``, XLA on 512 host
+devices) and the port's on the same cells, xlstm-125m decode_32k and
+qwen3-1.7b's four cells on the 16 x 16 mesh.  Both hold the same shards of
+the same leaves: argument and alias bytes within 1 %.  A decode cell's
+FLOPs are within 5 % of the reference's; a train or prefill cell's lie
+between the model's useful FLOPs a chip and 1.05 x the reference's (K6
+counts the causal pairs it computes, the reference's HLO the masked dots
+too).  Each subprocess has its own time limit.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = ("xlstm-125m:decode_32k", "qwen3-1.7b:train_4k", "qwen3-1.7b:prefill_32k",
+         "qwen3-1.7b:decode_32k", "qwen3-1.7b:long_500k")
+# the reference's artifact keys, less what XLA's compile alone gives
+KEYS = {"arch", "shape", "mesh", "chips", "mode", "moment_dtype", "kind", "lower_s",
+        "argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
+        "alias_size_in_bytes", "xla_flops_raw", "xla_bytes_raw", "analysis_s", "hlo_flops",
+        "hlo_bytes", "collectives", "collective_counts", "collective_bytes", "roofline"}
+
+
+def _cli(module: str, args, out: Path, timeout: int):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-m", module, *args, "--out", str(out)], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+
+
+def _artifact(out: Path, cell: str) -> dict:
+    arch, shape = cell.split(":")
+    return json.loads((out / f"{arch}__{shape}__16x16.json").read_text())
+
+
+def test_dryrun_cell_lowers(tmp_path):
+    _cli("repro_torch.launch.dryrun", ["--arch", "xlstm-125m", "--shape", "decode_32k",
+                                       "--device", "cpu"], tmp_path, 600)
+    res = _artifact(tmp_path, "xlstm-125m:decode_32k")
+    assert KEYS <= set(res) and "compile_s" not in res
+    assert res["chips"] == 256 and res["mesh"] == "16x16"
+    assert res["hlo_flops"] > 0 and res["hlo_bytes"] > 0
+    assert res["temp_size_in_bytes"] > 0
+    roof = res["roofline"]
+    assert roof["dominant"] in ("compute", "memory", "collective")
+    assert roof["hw"] == {"peak_flops_bf16": 989e12, "hbm_bw": 3.35e12, "nvlink_bw": 450e9}
+
+
+@pytest.fixture(scope="module")
+def both(tmp_path_factory):
+    """(the reference's artifacts dir, the port's), each CLI run once."""
+    ref, port = tmp_path_factory.mktemp("ref"), tmp_path_factory.mktemp("port")
+    _cli("repro.launch.dryrun", ["--cells", ",".join(CELLS)], ref, 600)
+    _cli("repro_torch.launch.dryrun", ["--cells", ",".join(CELLS), "--device", "cpu"], port,
+         1200)
+    return ref, port
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_dryrun_matches_the_reference(cell, both):
+    want, got = (_artifact(d, cell) for d in both)
+    assert KEYS <= set(got)
+    for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
+        assert abs(got[key] - want[key]) <= 0.01 * want[key], (key, got[key], want[key])
+    if got["kind"] == "decode":
+        assert abs(got["hlo_flops"] / want["hlo_flops"] - 1) <= 0.05, \
+            (got["hlo_flops"], want["hlo_flops"])
+    else:
+        useful = got["roofline"]["model_flops"] / got["chips"]
+        assert useful <= got["hlo_flops"] <= 1.05 * want["hlo_flops"], \
+            (useful, got["hlo_flops"], want["hlo_flops"])

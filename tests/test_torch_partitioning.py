@@ -157,9 +157,11 @@ def test_restore_places_leaves_with_their_shardings(tmp_path):
 
 
 def test_decode_attention_refuses_dtensors():
-    """K7 takes no DTensor: a cache sharded over its sequence dim (the
-    ``kv_seq`` rule) needs sharded serving's cross-rank combine, and the
-    cache is not gathered instead."""
+    """K7 refuses a mix of plain tensors and DTensors; on a DTensor cache
+    sharded over its sequence dim (the ``kv_seq`` rule) it runs on each
+    rank's shard and merges the shards' partial softmaxes
+    (``ops.sharded_decode_attention``; the cache is not gathered), and
+    equals the plain call."""
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.kernels import ops
@@ -171,10 +173,32 @@ def test_decode_attention_refuses_dtensors():
     with use_mesh(mesh):
         kc, vc = (shard(distribute_tensor(x, mesh, (Replicate(), Replicate())),
                         "batch", "kv_seq", "kv", "head_dim") for x in (k, v))
-        assert Shard(1) in kc.placements
-        with pytest.raises(NotImplementedError, match="sharded over its sequence dim"):
+        placed = tuple(kc.placements)
+        assert Shard(1) in placed
+        with pytest.raises(TypeError, match="all be DTensors"):
             ops.decode_attention(q, kc, vc, kv_len)
-        rep = distribute_tensor(k, mesh, (Replicate(), Replicate()))
-        with pytest.raises(NotImplementedError, match="K7 on DTensors"):
-            ops.decode_attention(q, rep, rep, kv_len)
+        qd = distribute_tensor(q, mesh, (Replicate(), Replicate()))
+        got = ops.decode_attention(qd, kc, vc, kv_len)
+        assert tuple(kc.placements) == placed                   # not gathered
+        torch.testing.assert_close(got.full_tensor(), ops.decode_attention(q, k, v, kv_len),
+                                   rtol=1e-6, atol=1e-6)
     assert ops.decode_attention(q, k, v, kv_len).shape == (2, 4, 16)
+
+
+def test_active_mesh_is_seen_by_other_threads():
+    """Autograd runs a CUDA backward (and a remat block's recompute) on its
+    own threads: the active mesh and rules are process-wide, so the
+    recompute shards as the forward did."""
+    import threading
+
+    from repro_torch.models import partitioning
+
+    mesh = partitioning.AbstractMesh((2, 2), ("data", "model"))
+    seen = []
+    with use_mesh(mesh, {"kv": "model"}):
+        t = threading.Thread(target=lambda: seen.append((partitioning.get_mesh(),
+                                                         partitioning.spec("kv"))))
+        t.start()
+        t.join()
+    assert seen == [(mesh, partitioning.P("model"))]
+    assert partitioning.get_mesh() is None

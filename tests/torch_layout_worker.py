@@ -1,4 +1,5 @@
-"""One rank of ``test_torch_layout_dist.py``'s sharded train steps.
+"""One rank of ``test_torch_layout_dist.py``'s sharded train steps (and of
+``test_torch_sharded_decode.py``'s sharded serving).
 
 ``python tests/torch_layout_worker.py CASE RANK WORLD STORE OUT`` (with
 ``src`` on ``PYTHONPATH``) joins a gloo group through a ``FileStore`` at
@@ -12,12 +13,18 @@ differ from ``state_shardings`` / ``grad_shardings`` (``ARCH:MODE:int8``:
 with int8 moments and int8 gradient compression).  CASE
 ``attention:gqa`` holds K6 on DTensors (``ops.flash_attention``: batch
 over "data", heads over "model") and its gradients against plain tensors
-at several head groupings instead.
+at several head groupings instead.  CASE ``decode:ARCH`` serves: it loads
+the parameters and inputs the test wrote beside STORE (``decode_in.pt``),
+places the parameters with ``state_shardings`` ("fsdp"), and under
+``use_mesh`` runs a prefill (whose cache comes out placed as
+``cache_shardings`` places it: slots over "model") and the decode steps,
+writing each step's logits and every cache leaf whose placements differ.
 """
 from __future__ import annotations
 
 import json
 import sys
+from pathlib import Path
 
 import torch.distributed as dist
 
@@ -78,6 +85,57 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
+def decode_case(arch: str, mesh, path) -> dict:
+    """A prefill and decode steps of ``arch`` on DTensors (see the module
+    docstring): the logits of each (whole), the cache leaves whose
+    placements differ from ``cache_shardings``, and the leaves whose slots
+    are sharded."""
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.func import functional_call
+
+    data = torch.load(path)
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg, "cpu")
+    tokens, S, steps = data["tokens"], data["S"], data["steps"]
+
+    class Call(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, fn, *args):
+            return getattr(self.model, fn)(*args)
+
+    call = Call()
+    with use_mesh(mesh), implicit_replication(), torch.no_grad():
+        params = shl.distribute(data["params"], shl.state_shardings(
+            data["params"], mesh, "fsdp", cfg.family), mesh)
+        named = {f"model.{n}": t for n, t in params.items()}
+        batch = {"tokens": tokens[:, :S], **data["extra"]}
+        batch = shl.distribute(batch, shl.batch_shardings(batch, mesh), mesh)
+        logits, cache = functional_call(call, named, ("prefill", batch, data["max_len"],
+                                                      torch.float32))
+        got = [logits.full_tensor().tolist()]
+        specs = {k: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
+                 for k, t in cache.items()}
+        want = shl.cache_shardings(specs, mesh, cfg.family)
+        bad = [f"{k}: {tuple(t.placements)} != {tuple(want[k])}" for k, t in cache.items()
+               if tuple(t.placements) != tuple(want[k])]
+        tok_shd = shl.batch_shardings({"tokens": tokens[:, :1]}, mesh)["tokens"]
+        for step in range(steps):
+            nxt = shl.distribute({"t": tokens[:, S + step:S + step + 1]}, {"t": tok_shd},
+                                 mesh)["t"]
+            logits, cache = functional_call(call, named, ("decode_step", nxt, cache, S + step))
+            got.append(logits.full_tensor().tolist())
+        bad += [f"{k} after decode: {tuple(t.placements)} != {tuple(want[k])}"
+                for k, t in cache.items() if tuple(t.placements) != tuple(want[k])]
+        sharded = sorted(k for k, t in cache.items()
+                         if any(p.is_shard() and p.dim == t.ndim - 3 for p in t.placements)
+                         and k[0] in "kvx")
+    return {"logits": got, "bad": bad, "seq_sharded": sharded}
+
+
 def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     arch, mode, *moments = case.split(":")
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
@@ -85,9 +143,11 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     from torch.distributed.device_mesh import init_device_mesh
 
     mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
-    if arch == "attention":
+    if arch in ("attention", "decode"):
+        res = attention_case(mesh) if arch == "attention" else \
+            decode_case(mode, mesh, Path(store).parent / "decode_in.pt")
         with open(out, "w") as f:
-            json.dump(attention_case(mesh), f)
+            json.dump(res, f)
         dist.destroy_process_group()
         return
     cfg = get_arch(arch).reduced()
