@@ -114,7 +114,15 @@ just before it and read just after:
   of the 1 x 1 mesh: the launcher's and the DTensors' losses and grad
   norms against the plain ones (bit-equal, or within 1e-6 relative), ms a
   step and a profiled step's idle share each way (what DTensor's dispatch
-  would cost on one card);
+  would cost on one card); (d) one qwen2-moe MoE block at full width (d =
+  2048, 60 experts, top-4, expert width 1408, 4 shared experts, bf16,
+  seeded weights) on 16 x 2048 tokens in 16 dispatch groups, in ``ep``
+  (experts over "data") on DTensors of the 1 x 1 mesh, through the expert
+  parallel route (each rank's own groups routed, the buffer moved to the
+  experts by all-to-all and back), against the same block on plain
+  tensors: output, aux loss and the gradients of the input and every
+  weight bit-equal; ms a call (forward and backward) and a profiled call's
+  idle share each way, and the collectives the DTensor call dispatched;
 * dryrun: (a) K7 with ``return_lse`` against its plain version at
   decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
   D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
@@ -127,8 +135,10 @@ just before it and read just after:
   of ``max_memory_allocated``, the roofline terms beside the step's time;
   (c) ``launch/dryrun.py``'s CLI on qwen3-1.7b's four cells on the 16 x 16
   mesh with fake CUDA tensors in a fake world of 256 ranks (the phase runs
-  last: the process group of phase layout is ended first), each cell ok,
-  no kernel launched.
+  last: the process group of phase layout is ended first), then on
+  qwen2-moe's ``prefill_32k`` and ``decode_32k`` in ``ep`` with 16
+  dispatch groups, each cell ok, no kernel launched, the MoE cells with an
+  all-to-all among their collectives.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -3440,12 +3450,106 @@ def chunk_row(gen, dev, dt, q_offset: int, **kw) -> dict:
         "gflop": flop / 1e9, "max_abs_err": err, **t, "bound_ms": bms, "bound_by": by}
 
 
+# phase layout (d): one qwen2-moe MoE block at full width on LAYOUT_MOE_B x
+# LAYOUT_MOE_S tokens in LAYOUT_MOE_G dispatch groups, DTensors of the 1 x 1
+# mesh in "ep" against plain tensors
+LAYOUT_MOE_ARCH, LAYOUT_MOE_B, LAYOUT_MOE_S, LAYOUT_MOE_G = "qwen2-moe-a2.7b", 16, 2048, 16
+LAYOUT_MOE_REPS = 5
+
+
+def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
+    """(d) ``moe.moe_apply`` of one full-width qwen2-moe block (bf16, seeded
+    weights) with LAYOUT_MOE_G dispatch groups, forward and backward of
+    sum(y * w) + aux, on plain tensors and on DTensors of the 1 x 1 mesh
+    placed as ``state_shardings`` places them in "ep" (experts over
+    "data"), the batch over "data": y, aux and the gradients of x and of
+    every weight must be bit-equal.  -> ms a call each way, the profiled
+    calls' device time and idle share, the collectives of one DTensor call
+    (``CommDebugMode``)."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_arch(LAYOUT_MOE_ARCH), moe_dispatch_groups=LAYOUT_MOE_G)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    blk = moe.MoEParams(gen, cfg, device=dev, dtype=torch.bfloat16)
+    weights = {n: p.detach() for n, p in blk.named_parameters()}
+    del blk
+    x = _randn(gen, LAYOUT_MOE_B, LAYOUT_MOE_S, cfg.d_model, dev=dev)
+    w = _randn(gen, LAYOUT_MOE_B, LAYOUT_MOE_S, cfg.d_model, dev=dev)
+
+    def call(ws: dict, xx, ww):
+        """y, aux and the gradients of x and each weight."""
+        leaves = [xx.requires_grad_(), *(t.requires_grad_() for t in ws.values())]
+        params = SimpleNamespace(router=ws["router"], wi=ws["wi"], wo=ws["wo"], shared={
+            "wi": ws["shared.wi"], "wo": ws["shared.wo"]})
+        y, aux = moe.moe_apply(params, xx, cfg)
+        loss = (y * ww).sum() + aux
+        loss = loss.full_tensor() if isinstance(loss, DTensor) else loss
+        grads = torch.autograd.grad(loss, leaves)
+        return y.detach(), aux.detach(), grads
+
+    rules = {"experts": "data"}
+    with use_mesh(mesh, rules):
+        shd = state_shardings({f"layers.0.moe.{n}": t for n, t in weights.items()}, mesh,
+                              "ep", cfg.family)
+        xshd = batch_shardings({"x": x}, mesh)["x"]
+        dt = {n: DTensor.from_local(t, mesh, shd[f"layers.0.moe.{n}"])
+              for n, t in weights.items()}
+        dx, dw = (DTensor.from_local(t, mesh, xshd) for t in (x, w))
+        ways = {"plain": lambda: call({n: t.detach() for n, t in weights.items()},
+                                      x.detach(), w),
+                "dtensor": lambda: call({n: t.detach() for n, t in dt.items()},
+                                        dx.detach(), dw)}
+        got = {way: fn() for way, fn in ways.items()}
+        comm = CommDebugMode()
+        with comm:
+            ways["dtensor"]()
+            sync()
+        t = {way: median_ms(fn, LAYOUT_MOE_REPS) for way, fn in ways.items()}
+        prof = {way: profile_call(f"qwen2-moe block, {way} tensors on the 1 x 1 mesh, "
+                                  f"forward and backward", fn, host=False)
+                for way, fn in ways.items()}
+
+    def local(v):
+        return v.full_tensor() if isinstance(v, DTensor) else v
+
+    (py, paux, pg), (dy, daux, dg) = got["plain"], got["dtensor"]
+    names = ["x", *weights]
+    same = {"y": torch.equal(local(dy), py), "aux": torch.equal(local(daux), paux),
+            **{f"grad {n}": torch.equal(local(a), b) for n, a, b in zip(names, dg, pg)}}
+    gaps = {k: float((local(a).float() - b.float()).abs().max())
+            for k, a, b in [("y", dy, py), ("aux", daux, paux),
+                            *((f"grad {n}", a, b) for n, a, b in zip(names, dg, pg))]}
+    counts = {str(op): n for op, n in comm.get_comm_counts().items()}
+    n_a2a = sum(n for op, n in counts.items() if "all_to_all" in op)
+    expect(all(same.values()), f"MoE block on DTensors vs plain differs: {gaps}")
+    expect(n_a2a >= 4, f"the MoE block's DTensor call ran no all-to-all: {counts}")
+    expect(bool(torch.isfinite(py.float()).all()), "MoE block: non-finite output")
+    idle = {way: 1 - p["device_ms"] / p["wall_ms"] if p["device_ms"] else None
+            for way, p in prof.items()}
+    log(f"  qwen2-moe block B={LAYOUT_MOE_B} S={LAYOUT_MOE_S} d={cfg.d_model} E={cfg.n_experts} "
+        f"top-{cfg.top_k} groups {LAYOUT_MOE_G} (capacity "
+        f"{moe.capacity(LAYOUT_MOE_B * LAYOUT_MOE_S // LAYOUT_MOE_G, cfg)} a group) bf16, ep on "
+        f"the 1 x 1 mesh: DTensors vs plain bit-equal {same}; ms a call (forward and "
+        f"backward) dtensor {t['dtensor']:.1f}, plain {t['plain']:.1f}; idle share dtensor "
+        f"{idle['dtensor']}, plain {idle['plain']}; collectives of the DTensor call {counts}")
+    return {"ms": t, "idle": idle, "bit_equal": all(same.values()), "collectives": counts,
+            **{f"{w}_profiled_{k}": prof[w][k] for w in prof
+               for k in ("wall_ms", "device_ms", "device_ops")}}
+
+
 def phase_layout(dev: torch.device, seed: int = 13):
     """(a) K6 with q_offset: chunks, a window with a softcap, the chunks of a
     prompt against one call, the backward; (b) qwen3-1.7b's prefill through
     attn_impl="blocked" against the default route; (c) launch/train.py's
-    main on a 1 x 1 nccl mesh against make_train_step on plain tensors ->
-    (K6 row fields, launches of (b) and (c))."""
+    main on a 1 x 1 nccl mesh against make_train_step on plain tensors; (d)
+    a full-width qwen2-moe MoE block through expert parallelism on DTensors
+    of that mesh against plain tensors -> (K6 row fields, launches of (b)
+    and (c))."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
     # --- (a) the chunks, each dtype; the window + softcap chunk
@@ -3557,6 +3661,10 @@ def phase_layout(dev: torch.device, seed: int = 13):
            for k in ("wall_ms", "device_ms", "device_ops")}}
     gc.collect()
     torch.cuda.empty_cache()
+    # --- (d) the MoE block through expert parallelism on DTensors of the mesh
+    rows["layout_moe"] = moe_ep_check(dev, mesh, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows, blocked_counts, train_counts
 
 
@@ -3570,6 +3678,11 @@ DRYRUN_SPLITS, DRYRUN_B, DRYRUN_T = 16, 8, 32768
 DRYRUN_LENS = (32768, 20000, 1500, 7, 2048, 16385, 30000, 1)
 DRYRUN_CELLS = ("qwen3-1.7b:train_4k", "qwen3-1.7b:prefill_32k", "qwen3-1.7b:decode_32k",
                 "qwen3-1.7b:long_500k")
+# MoE cells in "ep" with 16 dispatch groups, as the reference's optimized
+# settings run them (qwen2-moe's train and long_500k and llama4's cells run
+# on the CPU: see README)
+DRYRUN_MOE_CELLS = ("qwen2-moe-a2.7b:prefill_32k", "qwen2-moe-a2.7b:decode_32k")
+DRYRUN_MOE_ARGS = ("--mode", "ep", "--override", "moe_dispatch_groups=16")
 SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
 PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
 
@@ -3722,10 +3835,11 @@ def analysis_check(dev, seed: int) -> dict:
 
 def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
     """(a) K7's lse and the 16-way split, (b) the analysis against the card,
-    (c) ``launch/dryrun.py`` on qwen3-1.7b's four cells on the 16 x 16 mesh
-    with fake CUDA tensors, in a fake world of 256 ranks (the process's
-    group, if any, is ended first: the phase runs last), each cell ok and
-    no real kernel launched.  -> (K7's extra row keys, the real launches of
+    (c) ``launch/dryrun.py`` on qwen3-1.7b's four cells and DRYRUN_MOE_CELLS
+    (in "ep", 16 dispatch groups) on the 16 x 16 mesh with fake CUDA
+    tensors, in a fake world of 256 ranks (the process's group, if any, is
+    ended first: the phase runs last), each cell ok and no real kernel
+    launched, the MoE cells with an all-to-all.  -> (K7's extra row keys, the real launches of
     (a) and (b), the cells' figures)."""
     import torch.distributed as dist
 
@@ -3744,20 +3858,26 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
     t0 = time.perf_counter()
     try:
         dryrun.main(["--cells", ",".join(DRYRUN_CELLS), "--device", "cuda", "--out", str(out)])
+        dryrun.main(["--cells", ",".join(DRYRUN_MOE_CELLS), *DRYRUN_MOE_ARGS, "--device", "cuda",
+                     "--out", str(out)])
     except SystemExit as e:
         raise SmokeFailure(f"dryrun CLI failed ({e.code}): see {out}") from None
     cli_s = time.perf_counter() - t0
     real = ops.launch_counts()
     expect(not any(real.values()), f"the dry run launched kernels: {real}")
     cells = {}
-    for cell in DRYRUN_CELLS:
+    for cell in DRYRUN_CELLS + DRYRUN_MOE_CELLS:
         arch, shp = cell.split(":")
         res = json.loads((out / f"{arch}__{shp}__16x16.json").read_text())
         keys = ("lower_s", "argument_size_in_bytes", "temp_size_in_bytes",
                 "alias_size_in_bytes", "output_size_in_bytes", "hlo_flops", "hlo_bytes",
                 "collective_bytes")
-        cells[cell] = {**{k: res[k] for k in keys}, "dominant": res["roofline"]["dominant"]}
-        log(f"  dryrun {cell} 16x16 (fake cuda): ok, {res['lower_s']} s; per device: args "
+        cells[cell] = {**{k: res[k] for k in keys}, "dominant": res["roofline"]["dominant"],
+                       "all_to_all_bytes": res["collectives"].get("all-to-all", 0.0)}
+        if cell in DRYRUN_MOE_CELLS:
+            expect(cells[cell]["all_to_all_bytes"] > 0, f"dryrun {cell}: no all-to-all")
+        log(f"  dryrun {cell} 16x16 {res['mode']} (fake cuda): ok, {res['lower_s']} s; per "
+            f"device: all-to-all {cells[cell]['all_to_all_bytes']:.6e} bytes, args "
             f"{res['argument_size_in_bytes']}, temp {res['temp_size_in_bytes']}, alias "
             f"{res['alias_size_in_bytes']}, flops {res['hlo_flops']:.6e}, bytes "
             f"{res['hlo_bytes']:.6e}, collective {res['collective_bytes']:.6e} "

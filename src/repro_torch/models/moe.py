@@ -17,6 +17,11 @@ batched matmuls over (E, C, *) buffers.  The k outputs of a token are summed
 in a fixed order (gathered back by the inverse permutation), so the card's
 result does not depend on the order of atomics.  The Switch load-balancing
 auxiliary loss is returned.
+
+Under a mesh with ``moe_dispatch_groups`` > 1, each data rank routes its own
+groups and the tokens reach their experts by all-to-all, the reference's
+expert parallelism (``_expert_parallel``); experts that the mesh axis does
+not divide are split unevenly, as the reference's constraint splits them.
 """
 from __future__ import annotations
 
@@ -30,7 +35,9 @@ from torch import nn
 
 from ..device import fp32_matmul
 from .layers import dense_init, frozen, mlp_apply, mlp_init, param_dict
-from .partitioning import at_use, like, relayout, shard, whole
+from .partitioning import (UNCONSTRAINED, _Constrain, _local, at_use, contiguous_strides, fit,
+                           get_mesh, is_dtensor, like, placements, replicated_placements, shard,
+                           shard_uneven, spec, whole)
 
 
 def expert_init(gen: torch.Generator, n: int, in_dim: int, out_dim: int, *, device,
@@ -105,61 +112,215 @@ def dispatch(expert_ids: torch.Tensor, n_experts: int, cap: int):
     return sort_idx, slot, keep
 
 
+def _route_group(router: torch.Tensor, xf: torch.Tensor, cfg, cap: int):
+    """Route the (N, d) tokens ``xf`` and write them into an (E, C, d)
+    buffer -> (aux loss, buffer, (gates, sort_idx, slot, keep) for
+    ``_combine``)."""
+    E, d = cfg.n_experts, xf.shape[1]
+    probs, gates, expert_ids = route(SimpleNamespace(router=router), xf, cfg)
+    # Switch-style load-balance aux loss: E * sum(mean prob * dispatch fraction)
+    density = expert_counts(expert_ids[:, 0], E).float() / xf.shape[0]
+    aux = E * torch.sum(probs.mean(dim=0) * density)
+    sort_idx, slot, keep = dispatch(expert_ids, E, cap)
+    # every pair is written, the dropped ones to a spare row past the buffer
+    # (no data-dependent shape: a dry run's fake tensors have no values)
+    buf = xf.new_zeros((E * cap + 1, d))
+    buf[slot] = xf[sort_idx // cfg.top_k]
+    return aux, buf[:E * cap].reshape(E, cap, d), (gates, sort_idx, slot, keep)
+
+
+def _combine(eout: torch.Tensor, picks, dtype: torch.dtype) -> torch.Tensor:
+    """Each (token, pick) pair's gated output, from the whole (E, C, d)
+    expert output, back in token order, then the k picks of a token summed
+    in pick order -> (N, d)."""
+    gates, sort_idx, slot, keep = picks
+    (N, k), (E, C, d) = gates.shape, eout.shape
+    flat_out = torch.cat([eout.reshape(E * C, d), eout.new_zeros((1, d))])
+    g = torch.where(keep, gates.reshape(-1)[sort_idx].to(dtype), 0.0)
+    y_k = flat_out[slot] * g[:, None]
+    inv = torch.empty_like(sort_idx)
+    inv[sort_idx] = torch.arange(N * k, device=slot.device)
+    return y_k[inv].reshape(N, k, d).sum(dim=1)
+
+
 def moe_apply(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux loss).  With ``cfg.moe_dispatch_groups = G`` > 1
     (and B*S a multiple of G) the tokens are routed in G independent groups,
-    each with its own capacity, and aux is their mean."""
+    each with its own capacity, and aux is their mean.  Under a mesh, when
+    each group lies whole inside one rank's batch shard, each rank routes
+    its own groups and the tokens reach their experts by all-to-all
+    (``_expert_parallel``); a group that straddles two ranks' shards is
+    routed whole on every rank, as without groups."""
     groups = getattr(cfg, "moe_dispatch_groups", 0) or 0
     B, S, d = x.shape
     if groups > 1 and (B * S) % groups == 0:
-        xg = shard(x.reshape(groups, (B * S) // groups, 1, d), "batch", None, None, "embed")
+        xp = _group_placements(x, groups)
+        if xp is not None:
+            return _expert_parallel(params, x, cfg, groups, xp)
+        # a group across two ranks' shards: the batch gathered before the
+        # groups are cut (DTensor cannot cut a dim unevenly)
+        xg = shard(shard(x, None, "seq", "embed").reshape(groups, (B * S) // groups, 1, d),
+                   "batch", None, None, "embed")
         outs = [_moe_dispatch(params, xs, cfg) for xs in xg]
         y = shard(torch.stack([o[0] for o in outs]), "batch", None, None, "embed").reshape(B, S, d)
+        if is_dtensor(y):   # y's gradient gathered before it is cut into the groups
+            y = shard(_Constrain.apply(y, replicated_placements(y.device_mesh)),
+                      "batch", "seq", "embed")
         return y, torch.stack([o[1] for o in outs]).mean()
     return _moe_dispatch(params, x, cfg)
 
 
+def _group_placements(x: torch.Tensor, groups: int):
+    """Under a mesh, x's placements with its batch over the batch axes, if
+    each of the ``groups`` lies whole in one rank's batch shard; else None."""
+    mesh = get_mesh()
+    if mesh is None or not is_dtensor(x):
+        return None
+    xp = placements(fit(spec("batch", None, None), x.shape, mesh), mesh)
+    n = math.prod(mesh.size(i) for i, p in enumerate(xp) if p.is_shard())
+    return xp if groups % n == 0 else None
+
+
+class _GroupGrad(torch.autograd.Function):
+    """Identity on a weight that each rank applies to its own groups on the
+    mesh dims ``dims``, where the group's buffer is labelled replicated: its
+    gradient there is the rank's partial sum, and is labelled so."""
+
+    @staticmethod
+    def forward(ctx, w, dims):
+        ctx.dims = dims
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Partial
+
+        assert all(grad.placements[i].is_replicate() for i in ctx.dims), grad.placements
+        want = tuple(Partial() if i in ctx.dims else p for i, p in enumerate(grad.placements))
+        return DTensor.from_local(grad.to_local(), grad.device_mesh, want, shape=grad.shape,
+                                  stride=grad.stride()), None
+
+
+def _on_experts(w: torch.Tensor, q, kept) -> torch.Tensor:
+    """Expert weight ``w`` (E, in, out) gathered over its FSDP axes and split
+    over the experts as a group's (E, C, d) buffer is (``q``), unevenly where
+    the axes do not divide E; its other dims as they are (the hidden over
+    "model").  ``kept``: the mesh dims on which each rank holds its own
+    groups (``_GroupGrad``)."""
+    w = at_use(w, w.dtype, keep_dim=0)
+    if q is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = tuple(Shard(0) if qp.is_shard() else Replicate() if p.is_shard() and p.dim == 0
+                 else p for p, qp in zip(w.placements, q))
+    if want != tuple(w.placements):
+        w = w.redistribute(w.device_mesh, want)
+    return _GroupGrad.apply(w, kept) if kept else w
+
+
+def _experts(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The expert computation on an (E, C, d) buffer: the fused gate+up and
+    the down product, batched over the experts (on a DTensor, each rank's
+    experts: the weights placed by ``_on_experts``).  The fused product is
+    made whole over its output dim before the split (its halves lie on
+    different ranks of the axis that shards it); the output is reduced to
+    the buffer's placements."""
+    gate_up = torch.bmm(buf, wi.to(dtype))
+    if is_dtensor(buf):
+        gate_up = gate_up.redistribute(buf.device_mesh, tuple(buf.placements))
+    gate, up = gate_up.chunk(2, dim=-1)
+    h = F.silu(gate) * up
+    if is_dtensor(h):
+        from torch.distributed.tensor import Shard
+
+        # the hidden back on wo's shards of it before the product, and so
+        # its saved copy: wo's gradient is then each rank's shard alone
+        want = tuple(Shard(2) if w.is_shard() and w.dim == 1 else p
+                     for p, w in zip(buf.placements, wo.placements))
+        h = h if tuple(h.placements) == want else _Constrain.apply(h, want)
+    return shard_uneven(torch.bmm(h, wo.to(dtype)), "experts", "expert_cap", "embed")
+
+
+def _expert_parallel(params: MoEParams, x: torch.Tensor, cfg, G: int, xp
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The grouped MoE of a DTensor ``x`` whose batch shard on each rank
+    (placements ``xp``) holds whole groups, group for group the arithmetic
+    of ``_moe_dispatch``: each rank routes its own groups on local tensors
+    (the router gathered, its gradient a partial sum over the batch axes)
+    and stacks their buffers into a (G, E, C, d) DTensor with the groups
+    over the batch axes, which ``shard_uneven`` moves to the experts' axes
+    as the reference's constraint inside its vmap does (experts over "data":
+    an all-to-all; over "model": a local slice), 60 experts over 16 ranks 4
+    a rank.  Each rank runs every group it then holds through its experts'
+    slices of ``wi`` and ``wo``; the outputs move back by the inverse
+    all-to-all and each group is combined, and takes its shared experts, on
+    its own rank.  y keeps x's batch placements; aux is the mean over all G
+    groups."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    B, S, d = x.shape
+    E = cfg.n_experts
+    n = B * S // G
+    C = capacity(n, cfg)
+    batch = tuple(Partial() if p.is_shard() else Replicate() for p in xp)
+    router = _local(params.router, mesh, replicated_placements(mesh), batch)
+    xs = shard(x, "batch", "seq", "embed").to_local(grad_placements=xp).reshape(-1, n, d).unbind(0)
+    auxes, bufs, picks = zip(*(_route_group(router, xf, cfg, C) for xf in xs))
+
+    # the groups' buffers to the experts' axes; each group's (E, C, d) there
+    # placed ``q`` (the mesh dims that keep whole groups on each rank
+    # replicated: a rank's own groups, which only the weights' gradient sees)
+    shape, eshape = (G, E, C, d), (E, C, d)
+    buf = DTensor.from_local(torch.stack(bufs), mesh, xp, shape=shape,
+                             stride=contiguous_strides(shape))
+    buf = shard_uneven(buf, UNCONSTRAINED, "experts", "expert_cap", "embed")
+    pt = tuple(buf.placements)
+    q = tuple(Shard(p.dim - 1) if p.is_shard() and p.dim else Replicate() for p in pt)
+    kept = tuple(i for i, p in enumerate(pt) if p.is_shard() and p.dim == 0)
+    wi, wo = (_on_experts(w, q, kept) for w in (params.wi, params.wo))
+    outs = []
+    for b in buf.to_local(grad_placements=pt).unbind(0):
+        b = DTensor.from_local(b, mesh, q, shape=eshape, stride=contiguous_strides(eshape))
+        outs.append(_experts(b, wi, wo, x.dtype).to_local(grad_placements=q))
+    eout = DTensor.from_local(torch.stack(outs), mesh, pt, shape=shape,
+                              stride=contiguous_strides(shape))
+    eout = shard_uneven(eout, "batch", None, None, "embed").to_local(grad_placements=xp)
+
+    # combine each group on its rank, as _moe_dispatch does
+    ys = []
+    for xf, eo, pick in zip(xs, eout.unbind(0), picks):
+        y = _combine(eo, pick, x.dtype)
+        if params.shared is not None:
+            # the rank's group beside the other ranks' as one DTensor
+            shared = mlp_apply(params.shared, DTensor.from_local(xf, mesh, xp), act="silu")
+            y = y + shared.to_local(grad_placements=xp)
+        ys.append(y)
+    y = DTensor.from_local(torch.stack(ys).reshape(-1, S, d), mesh, xp, shape=x.shape,
+                           stride=contiguous_strides(x.shape))
+    aux = DTensor.from_local(torch.stack(auxes).mean(), mesh, batch)
+    # the mean of the ranks' means: each rank holds G / len(xs) groups
+    return y, aux.redistribute(mesh, replicated_placements(mesh)) / (G // len(xs))
+
+
 def _moe_dispatch(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
     N = B * S
     C = capacity(N, cfg)
     xs = x.reshape(N, d)
     # Under a mesh every rank routes all N tokens (whole, replicated): the
     # capacity couples them, and the sort and count ops have no DTensor
     # rules.  The expert products run on the (E, C, d) buffer sharded as
-    # "experts" says.
+    # "experts" says, unevenly where the axes do not divide E.
     xf = whole(xs)
-    probs, gates, expert_ids = route(SimpleNamespace(router=whole(params.router)), xf, cfg)
-    # Switch-style load-balance aux loss: E * sum(mean prob * dispatch fraction)
-    density = expert_counts(expert_ids[:, 0], E).float() / N
-    aux = like(E * torch.sum(probs.mean(dim=0) * density), x)
-
-    sort_idx, slot, keep = dispatch(expert_ids, E, C)
-    token_idx = sort_idx // k
-    # every pair is written, the dropped ones to a spare row past the buffer
-    # (no data-dependent shape: a dry run's fake tensors have no values)
-    buf = xf.new_zeros((E * C + 1, d))
-    buf[slot] = xf[token_idx]
-    buf = shard(like(buf[:E * C].reshape(E, C, d), x), "experts", "expert_cap", "embed")
-
-    # expert computation: fused gate+up, (E, C, *) batched products
-    # the fused gate+up product whole over its output dim before the split
-    # (its halves lie on different ranks of the axis that shards it)
-    gate, up = relayout(torch.bmm(buf, at_use(params.wi, x.dtype, keep_dim=0)),
-                        "experts", "expert_cap", None).chunk(2, dim=-1)
-    eout = shard(torch.bmm(F.silu(gate) * up, at_use(params.wo, x.dtype, keep_dim=0)),
-                 "experts", "expert_cap", "embed")
-
-    # combine: each (token, pick) pair's gated output back in token order,
-    # then the k picks of a token summed in pick order
-    flat_out = torch.cat([whole(eout).reshape(E * C, d), xf.new_zeros((1, d))])
-    g = torch.where(keep, gates.reshape(-1)[sort_idx].to(x.dtype), 0.0)
-    y_k = flat_out[slot] * g[:, None]
-    inv = torch.empty_like(sort_idx)
-    inv[sort_idx] = torch.arange(N * k, device=xf.device)
-    y = like(y_k[inv].reshape(N, k, d).sum(dim=1), x)
+    aux, buf, picks = _route_group(whole(params.router), xf, cfg, C)
+    buf = shard_uneven(like(buf, x), "experts", "expert_cap", "embed")
+    q = tuple(buf.placements) if is_dtensor(buf) else None
+    eout = _experts(buf, *(_on_experts(w, q, ()) for w in (params.wi, params.wo)), x.dtype)
+    y = like(_combine(whole(eout), picks, x.dtype), x)
 
     if params.shared is not None:
         y = y + mlp_apply(params.shared, xs, act="silu")
-    return y.reshape(B, S, d), aux
+    return y.reshape(B, S, d), like(aux, x)

@@ -200,6 +200,100 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     return x if want is None else _Constrain.apply(x, want)
 
 
+# a dim of ``shard_uneven`` that keeps its own sharding: JAX's
+# ``PartitionSpec.UNCONSTRAINED``, which ``vmap`` gives a constraint's
+# batched dim
+UNCONSTRAINED = "unconstrained"
+
+
+def _chunks(n: int, k: int) -> list:
+    """DTensor's chunks of a dim of ``n`` over ``k`` ranks: ceil(n / k) a
+    rank, the last ones shorter or empty."""
+    c = -(-n // k)
+    return [max(0, min(c, n - r * c)) for r in range(k)]
+
+
+def _all_to_all(t: torch.Tensor, mesh, i: int, gather: int, split: int,
+                gathered: int) -> torch.Tensor:
+    """A rank's shard ``t`` whose dim ``gather`` is its chunk of ``gathered``
+    over mesh dim ``i`` and whose dim ``split`` is whole there, turned into
+    the shard with ``gather`` whole and ``split`` chunked: one all-to-all
+    over mesh dim ``i`` of flat pieces (chunks may be uneven or empty)."""
+    import torch.distributed._functional_collectives as funcol
+
+    k, me = mesh.size(i), mesh.get_local_rank(i)
+    send, recv = _chunks(t.shape[split], k), _chunks(gathered, k)
+    rest = math.prod(n for d, n in enumerate(t.shape) if d not in (gather, split))
+    x = t.movedim(split, 0)
+    g = gather + 1 if gather < split else gather      # gather's dim in x
+    out = funcol.all_to_all_single(
+        x.contiguous().reshape(-1), [send[me] * r * rest for r in recv],
+        [s * recv[me] * rest for s in send], (mesh, i))
+    shapes = [(send[me], *x.shape[1:g], r, *x.shape[g + 1:]) for r in recv]
+    parts = torch.split(out, [math.prod(s) for s in shapes])
+    # one copy into the rank's contiguous shard
+    return torch.cat([p.reshape(s).movedim(0, split) for p, s in zip(parts, shapes)], dim=gather)
+
+
+def _move(x: torch.Tensor, want: Tuple[Any, ...]) -> torch.Tensor:
+    """DTensor ``x`` redistributed to ``want``: a mesh dim that moves the
+    sharding from one tensor dim to another by an all-to-all of our own (on
+    every backend: DTensor's own would all-gather on gloo), the others by
+    DTensor's redistribute."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, cur, local = x.device_mesh, list(x.placements), x.to_local()
+    for i, (p, w) in enumerate(zip(x.placements, want)):
+        if p.is_shard() and w.is_shard() and p.dim != w.dim:
+            cur[i] = w
+            gathered = local_shape_and_offset(x.shape, mesh, cur)[0][p.dim]
+            local = _all_to_all(local, mesh, i, p.dim, w.dim, gathered)
+    out = DTensor.from_local(local, mesh, tuple(cur), shape=x.shape,
+                             stride=contiguous_strides(x.shape))
+    return out if tuple(cur) == want else out.redistribute(mesh, want)
+
+
+class _Move(torch.autograd.Function):
+    """``_move`` to ``want``, and its gradient to ``want`` (as ``_Constrain``)
+    and back to the input's placements by the inverse moves (a partial sum's
+    gradient is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        from torch.distributed.tensor import Replicate
+
+        ctx.want = want
+        ctx.src = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        return _move(x, want)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != ctx.want:
+            grad = grad.redistribute(grad.device_mesh, ctx.want)
+        return _move(grad, ctx.src), None
+
+
+def shard_uneven(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
+    """``shard`` without ``fit``: a dim that its mesh axes do not divide is
+    split unevenly, in DTensor's chunks, as the reference's
+    ``with_sharding_constraint`` keeps it (60 experts over 16 ranks: 4 a rank,
+    the last none).  A dim named ``UNCONSTRAINED`` keeps x's sharding on the
+    mesh dims that no named dim takes.  A move of a mesh dim's sharding from
+    one tensor dim to another is an all-to-all, and so is its gradient's.  A
+    no-op without a mesh and for a plain tensor."""
+    mesh = get_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    assert len(logical_axes) == x.ndim, (logical_axes, tuple(x.shape))
+    named = spec(*(None if a == UNCONSTRAINED else a for a in logical_axes))
+    want = list(placements(named, mesh))
+    for i, p in enumerate(x.placements):
+        if want[i].is_replicate() and p.is_shard() and logical_axes[p.dim] == UNCONSTRAINED:
+            want[i] = p
+    want = tuple(want)
+    return x if tuple(x.placements) == want else _Move.apply(x, want)
+
+
 def relayout(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """``shard`` whose gradient comes back in ``x``'s own placements (DTensor's
     redistribute): for a layout the forward needs for one op only (a split

@@ -11,7 +11,12 @@ the same leaves: argument and alias bytes within 1 %.  A decode cell's
 FLOPs are within 5 % of the reference's; a train or prefill cell's lie
 between the model's useful FLOPs a chip and 1.05 x the reference's (K6
 counts the causal pairs it computes, the reference's HLO the masked dots
-too).  Each subprocess has its own time limit.
+too).  Each subprocess has its own time limit.  An MoE cell of its own,
+qwen2-moe decode_32k in ``ep`` with 16 dispatch groups (the reference's
+optimized layout: each data rank routes its own groups, tokens reach their
+experts by all-to-all), through both CLIs: arguments and aliases within
+1 %, FLOPs between the model's useful FLOPs a chip and 1.5 x the
+reference's, an all-to-all among the port's collectives.
 """
 from __future__ import annotations
 
@@ -82,3 +87,28 @@ def test_dryrun_matches_the_reference(cell, both):
         useful = got["roofline"]["model_flops"] / got["chips"]
         assert useful <= got["hlo_flops"] <= 1.05 * want["hlo_flops"], \
             (useful, got["hlo_flops"], want["hlo_flops"])
+
+
+MOE_CELL = "qwen2-moe-a2.7b:decode_32k"
+MOE_ARGS = ["--mode", "ep", "--override", "moe_dispatch_groups=16"]
+
+
+@pytest.fixture(scope="module")
+def moe_both(tmp_path_factory):
+    """(the reference's artifact, the port's) of MOE_CELL."""
+    ref, port = tmp_path_factory.mktemp("moe_ref"), tmp_path_factory.mktemp("moe_port")
+    _cli("repro.launch.dryrun", ["--cells", MOE_CELL, *MOE_ARGS], ref, 600)
+    _cli("repro_torch.launch.dryrun", ["--cells", MOE_CELL, *MOE_ARGS, "--device", "cpu"],
+         port, 600)
+    return _artifact(ref, MOE_CELL), _artifact(port, MOE_CELL)
+
+
+def test_moe_dryrun_matches_the_reference(moe_both):
+    want, got = moe_both
+    assert got["mode"] == want["mode"] == "ep"
+    for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
+        assert abs(got[key] - want[key]) <= 0.01 * want[key], (key, got[key], want[key])
+    useful = got["roofline"]["model_flops"] / got["chips"]
+    assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
+        (useful, got["hlo_flops"], want["hlo_flops"])
+    assert got["collectives"].get("all-to-all", 0) > 0, got["collectives"]

@@ -10,18 +10,23 @@ the state distributed by ``state_shardings`` and the batches by
 ``batch_shardings``.  It writes OUT (JSON): the two runs' losses, the
 largest parameter gap, and every state leaf or gradient whose placements
 differ from ``state_shardings`` / ``grad_shardings`` (``ARCH:MODE:int8``:
-with int8 moments and int8 gradient compression).  CASE
+with int8 moments and int8 gradient compression; a part ``KEY=INT``
+overrides a field of the reduced config, ``moe_dispatch_groups=2``).  The
+JSON also holds the token count of each ``moe.route`` call of the two runs
+(``routes_plain``, ``routes_mesh``): a rank's own groups only.  CASE
 ``attention:gqa`` holds K6 on DTensors (``ops.flash_attention``: batch
 over "data", heads over "model") and its gradients against plain tensors
 at several head groupings instead.  CASE ``decode:ARCH`` serves: it loads
 the parameters and inputs the test wrote beside STORE (``decode_in.pt``),
-places the parameters with ``state_shardings`` ("fsdp"), and under
+places the parameters with ``state_shardings`` ("fsdp"; ``decode:ARCH:KEY=INT``
+overrides the reduced config as above), and under
 ``use_mesh`` runs a prefill (whose cache comes out placed as
 ``cache_shardings`` places it: slots over "model") and the decode steps,
 writing each step's logits and every cache leaf whose placements differ.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -31,12 +36,34 @@ import torch.distributed as dist
 from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.launch import shardings as shl
 from repro_torch.launch.train import synthetic_batch
-from repro_torch.models import build_model, use_mesh
+from repro_torch.models import build_model, moe, use_mesh
 from repro_torch.training import OptimizerConfig, init_state, make_train_step
 from repro_torch.training import train_loop
 
 STEPS = 2
 SHAPE = ShapeSpec("layout", 32, 4, "train")
+
+
+def _config(arch: str, parts) -> tuple:
+    """(the reduced config of ``arch`` with the ``KEY=INT`` parts applied, the
+    train shape (``seq=INT`` sets its length), the other parts)."""
+    over = {k: int(v) for k, v in (p.split("=") for p in parts if "=" in p)}
+    shape = dataclasses.replace(SHAPE, seq_len=over.pop("seq", SHAPE.seq_len))
+    return (dataclasses.replace(get_arch(arch).reduced(), **over), shape,
+            [p for p in parts if "=" not in p])
+
+
+def _record_routes(log: list):
+    """Wrap ``moe.route`` to append each call's token count to ``log``;
+    returns the original."""
+    route = moe.route
+
+    def recording(params, xf, cfg):
+        log.append(int(xf.shape[0]))
+        return route(params, xf, cfg)
+
+    moe.route = recording
+    return route
 
 
 def _copy(tree):
@@ -85,7 +112,7 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
-def decode_case(arch: str, mesh, path) -> dict:
+def decode_case(arch: str, mesh, path, parts=()) -> dict:
     """A prefill and decode steps of ``arch`` on DTensors (see the module
     docstring): the logits of each (whole), the cache leaves whose
     placements differ from ``cache_shardings``, and the leaves whose slots
@@ -95,9 +122,10 @@ def decode_case(arch: str, mesh, path) -> dict:
     from torch.func import functional_call
 
     data = torch.load(path)
-    cfg = get_arch(arch).reduced()
+    cfg = _config(arch, parts)[0]
     model = build_model(cfg, "cpu")
     tokens, S, steps = data["tokens"], data["S"], data["steps"]
+    pos0 = data.get("pos0", S)        # past a vision prompt's patch tokens
 
     class Call(torch.nn.Module):
         def __init__(self):
@@ -126,7 +154,7 @@ def decode_case(arch: str, mesh, path) -> dict:
         for step in range(steps):
             nxt = shl.distribute({"t": tokens[:, S + step:S + step + 1]}, {"t": tok_shd},
                                  mesh)["t"]
-            logits, cache = functional_call(call, named, ("decode_step", nxt, cache, S + step))
+            logits, cache = functional_call(call, named, ("decode_step", nxt, cache, pos0 + step))
             got.append(logits.full_tensor().tolist())
         bad += [f"{k} after decode: {tuple(t.placements)} != {tuple(want[k])}"
                 for k, t in cache.items() if tuple(t.placements) != tuple(want[k])]
@@ -137,7 +165,7 @@ def decode_case(arch: str, mesh, path) -> dict:
 
 
 def main(case: str, rank: int, world: int, store: str, out: str) -> None:
-    arch, mode, *moments = case.split(":")
+    arch, mode, *parts = case.split(":")
     dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
                             world_size=world)
     from torch.distributed.device_mesh import init_device_mesh
@@ -145,18 +173,18 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     mesh = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("data", "model"))
     if arch in ("attention", "decode"):
         res = attention_case(mesh) if arch == "attention" else \
-            decode_case(mode, mesh, Path(store).parent / "decode_in.pt")
+            decode_case(mode, mesh, Path(store).parent / "decode_in.pt", parts)
         with open(out, "w") as f:
             json.dump(res, f)
         dist.destroy_process_group()
         return
-    cfg = get_arch(arch).reduced()
+    cfg, shape, moments = _config(arch, parts)
     model = build_model(cfg, "cpu", seed=0, trainable=True)
     # ARCH:MODE:int8 takes int8 moments and int8 gradient compression
     ocfg = OptimizerConfig(moment_dtype="int8", compress_grads=True) if moments else \
         OptimizerConfig()
     base = _copy(init_state(model, ocfg))
-    batches = [synthetic_batch(model, cfg, SHAPE, s, "cpu") for s in range(STEPS)]
+    batches = [synthetic_batch(model, cfg, shape, s, "cpu") for s in range(STEPS)]
 
     seen = []   # (name, gradient) as the optimizer receives them
     update = train_loop.adamw_update
@@ -168,17 +196,22 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     train_loop.adamw_update = recording
     plain = _copy(base)
     plain_step = make_train_step(model, ocfg)
+    routes_plain, routes_mesh = [], []
+    route = _record_routes(routes_plain)
     want = [float(plain_step(plain, b)[1]["loss"]) for b in batches]
     plain_grads, seen = seen, []
+    moe.route = route
+    _record_routes(routes_mesh)
 
     rules = {"experts": "data"} if mode == "ep" else None
     with use_mesh(mesh, rules):
         shd = shl.state_shardings(base, mesh, mode, cfg.family)
         state = shl.distribute(_copy(base), shd, mesh)
         step = make_train_step(model, ocfg, grad_shardings=shd["params"])
-        bshd = shl.batch_shardings(model.input_specs(SHAPE), mesh)
+        bshd = shl.batch_shardings(model.input_specs(shape), mesh)
         got = [float(step(state, shl.distribute(b, bshd, mesh))[1]["loss"]) for b in batches]
     train_loop.adamw_update = update
+    moe.route = route
 
     def wanted(path):
         node = shd
@@ -198,7 +231,8 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     sharded = sum(any(not p.is_replicate() for p in shd["params"][n]) for n in shd["params"])
     with open(out, "w") as f:
         json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap, "bad": bad,
-                   "n_grads": len(seen), "n_sharded": sharded}, f)
+                   "n_grads": len(seen), "n_sharded": sharded, "routes_plain": routes_plain,
+                   "routes_mesh": routes_mesh}, f)
     dist.destroy_process_group()
 
 
