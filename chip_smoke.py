@@ -123,6 +123,19 @@ just before it and read just after:
   tensors: output, aux loss and the gradients of the input and every
   weight bit-equal; ms a call (forward and backward) and a profiled call's
   idle share each way, and the collectives the DTensor call dispatched;
+  (e) llama4's attention at full width (B=1, S=2048, 40 q heads, 8 kv
+  heads, D=128, bf16, causal) in the q-head slices of a 16-way "model" axis
+  (3 heads on ranks 0-12, 1 on 13, none on 14-15), each through
+  ``ops.head_slice_attention`` as a rank of a mesh runs it: the slices
+  concatenated against one K6 call (bit-equal or not) and its plain
+  version, their backward (dQ concatenated, dK and dV summed) against the
+  whole call's, K6's launches counted from 0 (none for an empty slice), the
+  slices' ms against the one call's, one SDPA call's (``enable_gqa``,
+  forward, and forward with backward) and the plain version's; seamless's
+  cross entropy (d=1024, 256206 rows, 2048 bf16 tokens) in the
+  vocabulary's 16 chunks, each through the functions a rank runs
+  (``layers.vocab_chunk``, ``chunk_max``, ``chunk_sum_gold``), lse and
+  gold against ``layers.lse_gold`` of the whole logits;
 * dryrun: (a) K7 with ``return_lse`` against its plain version at
   decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
   D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
@@ -137,8 +150,11 @@ just before it and read just after:
   mesh with fake CUDA tensors in a fake world of 256 ranks (the phase runs
   last: the process group of phase layout is ended first), then on
   qwen2-moe's ``prefill_32k`` and ``decode_32k`` in ``ep`` with 16
-  dispatch groups, each cell ok, no kernel launched, the MoE cells with an
-  all-to-all among their collectives.
+  dispatch groups, then on llama4's (the same way) and gemma-2b's
+  ``prefill_32k`` (40 and 8 q heads, which 16 does not divide), each cell
+  ok, no kernel launched, the MoE cells with an all-to-all among their
+  collectives, the head cells' FLOPs between the useful FLOPs a chip and
+  1.5 x the reference's.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -172,8 +188,11 @@ graph does not capture autograd's backward; also the dK/dV and dQ rows'
 ``library_ms`` and ``library_device_ms``), and ``family_backward``: the
 same whole-backward times, bound and SDPA times at each family's training
 shape (phase train (f)), with its calls a step.  ``train_families_launches``
-counts each kernel's launches in (f), ``layout_blocked_launches`` and
-``layout_train_launches`` in phase layout (b) and (c); K6's row adds
+counts each kernel's launches in (f), ``layout_blocked_launches``,
+``layout_train_launches`` and ``layout_heads_launches`` in phase layout
+(b), (c) and (e); K6's row adds ``head_split`` ((e): the slices' heads,
+errors, times, bound and launches, SDPA's and the plain version's times
+beside them (``library_*``, ``plain_ms``), and ``vocab_split``),
 ``q_offset_chunks`` (each chunk of (a): its offset, dtype, visible pairs,
 times, bound and error), ``q_offset_concat_max_err``,
 ``q_offset_bwd_max_err`` and ``layout_train`` ((c): ms a step and
@@ -258,7 +277,7 @@ from repro_torch.launch.shardings import batch_shardings  # noqa: E402
 from repro_torch.launch.shardings import state_shardings  # noqa: E402
 from repro_torch.launch.train import main as train_main  # noqa: E402
 from repro_torch.launch.train import synthetic_batch  # noqa: E402
-from repro_torch.models import use_mesh  # noqa: E402
+from repro_torch.models import layers, partitioning, use_mesh  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import hlo_analysis  # noqa: E402
 from repro_torch.training import (  # noqa: E402
@@ -340,7 +359,8 @@ FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
 FAMILIES_PATH = ("flash_attention", "decode_attention")
 TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                        "flash_attention_bwd_dq")
-LAYOUT_PATH = {"layout-blocked": ("flash_attention",), "layout-train": TRAIN_FAMILIES_PATH}
+LAYOUT_PATH = {"layout-blocked": ("flash_attention",), "layout-train": TRAIN_FAMILIES_PATH,
+               "layout-heads": TRAIN_FAMILIES_PATH}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -2818,11 +2838,14 @@ def bwd_check(gen, dev, B, S, T, H, KV, D, dt, kw) -> dict:
     return errs
 
 
-def profiled_device_ms(fn, reps: int) -> float:
+def profiled_device_ms(fn, reps: int, required: bool = True):
     """Device time per call in ms from torch.profiler's kernel times over
     ``reps`` calls (after a warm-up call), for a call a CUDA graph cannot
     hold: autograd runs a backward on its forward's stream, so a capture on
-    another stream does not see it."""
+    another stream does not see it.  Not ``required``: None where the
+    profiler saw no device time (it has seen none for a call of K6's
+    forward and backward alone after the script's earlier phases), so the
+    caller reports that time as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2833,6 +2856,8 @@ def profiled_device_ms(fn, reps: int) -> float:
         sync()
     dev_ms = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
                  if str(e.device_type).endswith("CUDA")) / 1e3
+    if not required and dev_ms <= 0:
+        return None
     expect(dev_ms > 0, "the profiler saw no device time")
     return dev_ms / reps
 
@@ -3542,14 +3567,198 @@ def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
                for k in ("wall_ms", "device_ms", "device_ops")}}
 
 
+# phase layout (e): llama4's attention at full width (B=1, S=2048, 40 q heads,
+# 8 kv heads, D=128, bf16, causal) cut into the q-head slices of a 16-way
+# "model" axis (DTensor's chunks: 3 heads on ranks 0-12, 1 on 13, none on
+# 14-15), each through ``ops.head_slice_attention`` as a rank runs it; and
+# seamless's cross entropy (d=1024, 256206 rows, 2048 bf16 tokens) cut into
+# the same axis' 16 vocabulary chunks, each rank's logits h @ w[v0:v1].T
+HEAD_SPLIT_ARCH, HEAD_SPLIT_M, HEAD_SPLIT_B, HEAD_SPLIT_S = "llama4-maverick-400b-a17b", 16, 1, 2048
+VOCAB_SPLIT_ARCH, VOCAB_SPLIT_TOKENS = "seamless-m4t-large-v2", 2048
+# lse of the chunks vs the whole logits: 1e-5 absolute (an element that a
+# chunk's bf16 product rounds otherwise by one ulp moves lse by its softmax
+# share of that ulp); gold: 1e-5 plus one bf16 ulp of the gold logit, the
+# one element it reads
+VOCAB_SPLIT_TOL = 1e-5
+
+
+def head_split_check(dev: torch.device, gen) -> tuple:
+    """Phase layout (e): the 16 head slices forward (no grad) and forward
+    and backward against one whole K6 call on the same inputs (output
+    concatenated; dQ concatenated, dK and dV summed over the slices), the
+    whole call against its plain version, the slices' total ms against the
+    whole call's, one SDPA call's (enable_gqa, forward and forward with
+    backward) and the plain version's; then seamless's vocabulary chunks
+    -> (row, K6 launches of the slices' run, counted from 0)."""
+    cfg = get_arch(HEAD_SPLIT_ARCH)
+    B, S, H, KV, D = HEAD_SPLIT_B, HEAD_SPLIT_S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    spans = partitioning._spans(H, HEAD_SPLIT_M)   # each rank's heads [h0, h1)
+    q, dout = (_randn(gen, B, S, H, D, dev=dev) for _ in range(2))
+    k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
+    name = f"head split B={B} S={S} H={H} KV={KV} D={D} bf16 over {HEAD_SPLIT_M}"
+
+    def slices():
+        return torch.cat([ops.head_slice_attention(q[:, :, h0:h1], k, v, h0, H)
+                          for h0, h1 in spans], dim=2)
+
+    def slices_fwd_bwd():
+        """-> (out, dq, each slice's dk, each slice's dv)"""
+        outs, dq, dk, dv = [], [], [], []
+        for h0, h1 in spans:
+            ql = q[:, :, h0:h1].detach().requires_grad_()
+            kl, vl = k.detach().requires_grad_(), v.detach().requires_grad_()
+            out = ops.head_slice_attention(ql, kl, vl, h0, H)
+            out.backward(dout[:, :, h0:h1])
+            outs.append(out.detach())
+            dq.append(ql.grad)
+            dk.append(kl.grad)
+            dv.append(vl.grad)
+        return torch.cat(outs, dim=2), torch.cat(dq, dim=2), dk, dv
+
+    def whole_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = flash_k.flash_attention(*leaves)
+        out.backward(dout)
+        return (out.detach(), *(x.grad for x in leaves))
+
+    ops.reset_launch_counts()
+    parts = slices()
+    got = slices_fwd_bwd()
+    sync()
+    counts = ops.launch_counts()
+    calls = sum(len(ops.head_slice_calls(h0, h1, H // KV)) for h0, h1 in spans)
+    expect(counts["flash_attention"] == 2 * calls and all(
+        counts[f"flash_attention_bwd_{e}"] == calls for e in BWD_ENTRIES),
+        f"{name}: launches {counts}, want {2 * calls} forward and {calls} of each backward "
+        f"kernel (a call per run of heads in one kv head; none for an empty slice)")
+    whole = flash_k.flash_attention(q, k, v)
+    plain = ref.flash_attention_ref(q, k, v)
+    row = {"slices": [h1 - h0 for h0, h1 in spans],
+           "max_abs_err": attn_err(f"{name}: slices vs one call", parts, whole),
+           "bit_equal": bool(torch.equal(parts, whole)),
+           "plain_max_abs_err": attn_err(f"{name}: slices vs plain", parts, plain)}
+    want = whole_fwd_bwd()
+    row["fwd_bwd_out_max_abs_err"] = attn_err(f"{name}: out with grad", got[0], want[0])
+    row["dq_max_abs_err"] = grad_err(f"{name}: dq", got[1], want[1])
+    row["dq_bit_equal"] = bool(torch.equal(got[1], want[1]))
+    # dK and dV summed over the slices (in f32, as the mesh's partial sums
+    # are reduced): each slice's partial and the whole call's sum are each
+    # rounded to bf16 once, so the limit is the backward's stated share plus
+    # half a bf16 ulp of the whole value and of each partial
+    for i, key in ((2, "dk"), (3, "dv")):
+        total = sum(x.float() for x in got[i])
+        err = (total - want[i].float()).abs()
+        lim = BWD_REL_TOL * float(want[i].float().abs().max()) + 2.0 ** -8 * (
+            want[i].float().abs() + sum(x.float().abs() for x in got[i]))
+        bad = int((err > lim).sum())
+        expect(bool(torch.isfinite(total).all()) and bad == 0,
+               f"{name}: {key} summed over the slices: {bad} values off, max |error| "
+               f"{float(err.max()):.3g}")
+        row[f"{key}_max_abs_err"] = float(err.max())
+    fwd = {"ms": median_ms(slices, REPS), "whole_ms": median_ms(lambda: flash_k.flash_attention(
+        q, k, v), REPS), "device_ms": graph_ms(slices, REPS),
+        "whole_device_ms": graph_ms(lambda: flash_k.flash_attention(q, k, v), REPS)}
+    # one SDPA call (enable_gqa) computes the same function: its forward
+    # held to the plain version as flash_row holds it, timed beside the
+    # slices; forward and backward as one autograd pass, its device time
+    # from torch.profiler (a graph does not capture autograd's backward)
+    qt, kt, vt, dt = (x.transpose(1, 2).contiguous() for x in (q, k, v, dout))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    row["library_max_abs_err"] = attn_err(f"{name}: sdpa vs plain", lib().transpose(1, 2),
+                                          plain, ATTN_BF16_TOL)
+
+    def lib_fwd_bwd():
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True).backward(dt)
+        return [x.grad for x in leaves]
+
+    fwd.update(plain_ms=median_ms(lambda: ref.flash_attention_ref(q, k, v), PLAIN_REPS),
+               library_ms=median_ms(lib, REPS), library_device_ms=graph_ms(lib, REPS))
+    both = {"fwd_bwd_ms": median_ms(slices_fwd_bwd, PLAIN_REPS),
+            "whole_fwd_bwd_ms": median_ms(whole_fwd_bwd, PLAIN_REPS),
+            "library_fwd_bwd_ms": median_ms(lib_fwd_bwd, REPS),
+            "fwd_bwd_device_ms": profiled_device_ms(slices_fwd_bwd, PLAIN_REPS, False),
+            "whole_fwd_bwd_device_ms": profiled_device_ms(whole_fwd_bwd, PLAIN_REPS, False),
+            "library_fwd_bwd_device_ms": profiled_device_ms(lib_fwd_bwd, REPS, False)}
+
+    def dev_text(key: str) -> str:
+        return "not measured" if both[key] is None else f"{both[key]:.4f}"
+
+    pairs = B * H * flash_k.visible_pairs(S, S)
+    bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), 4.0 * D * pairs,
+                    BF16_FLOP_PER_S)
+    row.update(fwd, **both, bound_ms=bms, bound_by=by,
+               launches={n: c for n, c in counts.items() if c})
+    log(f"  {name} (slices {row['slices']}): launches {row['launches']}; vs one call max err "
+        f"{row['max_abs_err']:.3g} (bit-equal {row['bit_equal']}), vs plain "
+        f"{row['plain_max_abs_err']:.3g}; backward: dq {row['dq_max_abs_err']:.3g} (bit-equal "
+        f"{row['dq_bit_equal']}), dk {row['dk_max_abs_err']:.3g}, dv {row['dv_max_abs_err']:.3g}; "
+        f"forward: slices {fwd['ms']:.4f} ms ({fwd['device_ms']:.4f} device), one call "
+        f"{fwd['whole_ms']:.4f} ms ({fwd['whole_device_ms']:.4f} device), sdpa "
+        f"{fwd['library_ms']:.4f} ms ({fwd['library_device_ms']:.4f} device), plain "
+        f"{fwd['plain_ms']:.4f} ms; forward and backward: slices {both['fwd_bwd_ms']:.4f} ms "
+        f"(device {dev_text('fwd_bwd_device_ms')}), one call {both['whole_fwd_bwd_ms']:.4f} ms "
+        f"(device {dev_text('whole_fwd_bwd_device_ms')}), sdpa {both['library_fwd_bwd_ms']:.4f} "
+        f"ms (device {dev_text('library_fwd_bwd_device_ms')}); bound {bms:.5f} ms by {by}")
+    row["vocab_split"] = vocab_split_check(dev, gen)
+    return row, counts
+
+
+def vocab_split_check(dev: torch.device, gen) -> dict:
+    """seamless's cross entropy with its vocabulary cut into the 16 chunks
+    of a "model" axis, each through the functions a rank of a mesh runs:
+    the chunk's logits ``layers.vocab_chunk(h, w[v0:v1])`` (what
+    ``layers.vocab_logits`` computes on a rank), the chunk's max
+    (``layers.chunk_max``), maxed over the chunks, then its exp-sum and
+    gold logit (``layers.chunk_sum_gold``), summed over the chunks (what
+    ``layers.lse_gold`` reduces over the axis); against ``lse_gold`` of the
+    whole logits ``vocab_logits(h, w)`` on plain tensors, and that against
+    ``torch.logsumexp``: lse within VOCAB_SPLIT_TOL, gold within it plus
+    one bf16 ulp of the gold logit (see there)."""
+    cfg = get_arch(VOCAB_SPLIT_ARCH)
+    V, d, N = cfg.vocab_size, cfg.d_model, VOCAB_SPLIT_TOKENS
+    h = _randn(gen, N, d, dev=dev)
+    w = (_randn(gen, V, d, dev=dev).float() * 0.02).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev)
+    whole = layers.vocab_logits(h, w)
+    lse, gold = layers.lse_gold(whole, labels)
+    spans = partitioning._spans(V, HEAD_SPLIT_M)
+    chunks = [layers.vocab_chunk(h, w[v0:v1]) for v0, v1 in spans]
+    m = torch.stack([layers.chunk_max(c) for c in chunks]).amax(dim=0)
+    parts = [layers.chunk_sum_gold(c, labels, v0, m) for c, (v0, _) in zip(chunks, spans)]
+    got_lse = m + torch.log(sum(s for s, _ in parts))
+    got_gold = sum(g for _, g in parts)
+    errs = {"lse_max_abs_err": float((got_lse - lse).abs().max()),
+            "gold_max_abs_err": float((got_gold - gold).abs().max()),
+            "whole_vs_logsumexp_max_abs_err": float(
+                (lse - torch.logsumexp(whole, dim=-1)).abs().max()),
+            "logits_bit_equal": all(torch.equal(c, whole[:, v0:v1])
+                                    for c, (v0, v1) in zip(chunks, spans))}
+    gold_ok = bool(((got_gold - gold).abs() <= VOCAB_SPLIT_TOL + 2.0 ** -7 * gold.abs()).all())
+    expect(errs["lse_max_abs_err"] <= VOCAB_SPLIT_TOL and gold_ok
+           and errs["whole_vs_logsumexp_max_abs_err"] <= VOCAB_SPLIT_TOL
+           and bool(torch.isfinite(got_lse).all()),
+           f"seamless's cross entropy over {HEAD_SPLIT_M} vocabulary chunks: {errs}")
+    cols = [v1 - v0 for v0, v1 in spans]
+    log(f"  seamless cross entropy, {N} tokens, d={d}, V={V} in {HEAD_SPLIT_M} chunks "
+        f"({cols[0]} columns a rank, {cols[-1]} on the last) vs the whole logits: lse max err "
+        f"{errs['lse_max_abs_err']:.3g}, gold {errs['gold_max_abs_err']:.3g}; whole lse vs "
+        f"logsumexp {errs['whole_vs_logsumexp_max_abs_err']:.3g}; chunk logits bit-equal to "
+        f"the whole's {errs['logits_bit_equal']}")
+    return {"chunk_columns": cols, **errs}
+
+
 def phase_layout(dev: torch.device, seed: int = 13):
     """(a) K6 with q_offset: chunks, a window with a softcap, the chunks of a
     prompt against one call, the backward; (b) qwen3-1.7b's prefill through
     attn_impl="blocked" against the default route; (c) launch/train.py's
     main on a 1 x 1 nccl mesh against make_train_step on plain tensors; (d)
     a full-width qwen2-moe MoE block through expert parallelism on DTensors
-    of that mesh against plain tensors -> (K6 row fields, launches of (b)
-    and (c))."""
+    of that mesh against plain tensors; (e) llama4's attention in the q-head
+    slices of a 16-way model axis against one call, seamless's cross
+    entropy in 16 vocabulary chunks -> (K6 row fields, launches of (b),
+    (c) and (e))."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
     # --- (a) the chunks, each dtype; the window + softcap chunk
@@ -3665,7 +3874,12 @@ def phase_layout(dev: torch.device, seed: int = 13):
     rows["layout_moe"] = moe_ep_check(dev, mesh, seed)
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, blocked_counts, train_counts
+    # --- (e) llama4's attention split over 16 ranks' q heads; seamless's
+    # vocabulary over 16 chunks
+    rows["head_split"], head_counts = head_split_check(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, blocked_counts, train_counts, head_counts
 
 
 # ------------------------------------------------------------------ phase 13
@@ -3683,6 +3897,18 @@ DRYRUN_CELLS = ("qwen3-1.7b:train_4k", "qwen3-1.7b:prefill_32k", "qwen3-1.7b:dec
 # on the CPU: see README)
 DRYRUN_MOE_CELLS = ("qwen2-moe-a2.7b:prefill_32k", "qwen2-moe-a2.7b:decode_32k")
 DRYRUN_MOE_ARGS = ("--mode", "ep", "--override", "moe_dispatch_groups=16")
+# cells whose q heads 16 does not divide (llama4's 40, gemma-2b's 8), each
+# rank computing only its own heads, with the CLI's arguments (llama4 in
+# "ep" with 16 dispatch groups, as the MoE cells; without them its MoE
+# routes every token on every rank): the port's FLOPs lie between the
+# model's useful FLOPs a chip and DRYRUN_HEAD_LIMIT x the reference's (its
+# dry run's per-device FLOPs with the same arguments on a CPU host,
+# ``python -m repro.launch.dryrun``)
+DRYRUN_HEAD_CELLS = {"llama4-maverick-400b-a17b:prefill_32k": DRYRUN_MOE_ARGS,
+                     "gemma-2b:prefill_32k": ()}
+DRYRUN_HEAD_REF_FLOPS = {"llama4-maverick-400b-a17b:prefill_32k": 2.94652194996224e14,
+                         "gemma-2b:prefill_32k": 5.5817526050816e13}
+DRYRUN_HEAD_LIMIT = 1.5
 SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
 PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
 
@@ -3836,11 +4062,12 @@ def analysis_check(dev, seed: int) -> dict:
 def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
     """(a) K7's lse and the 16-way split, (b) the analysis against the card,
     (c) ``launch/dryrun.py`` on qwen3-1.7b's four cells and DRYRUN_MOE_CELLS
-    (in "ep", 16 dispatch groups) on the 16 x 16 mesh with fake CUDA
-    tensors, in a fake world of 256 ranks (the process's group, if any, is
-    ended first: the phase runs last), each cell ok and no real kernel
-    launched, the MoE cells with an all-to-all.  -> (K7's extra row keys, the real launches of
-    (a) and (b), the cells' figures)."""
+    (in "ep", 16 dispatch groups) and DRYRUN_HEAD_CELLS on the 16 x 16 mesh
+    with fake CUDA tensors, in a fake world of 256 ranks (the process's
+    group, if any, is ended first: the phase runs last), each cell ok and
+    no real kernel launched, the MoE cells with an all-to-all, the head
+    cells' FLOPs within DRYRUN_HEAD_LIMIT x the reference's.  -> (K7's
+    extra row keys, the real launches of (a) and (b), the cells' figures)."""
     import torch.distributed as dist
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3860,13 +4087,15 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
         dryrun.main(["--cells", ",".join(DRYRUN_CELLS), "--device", "cuda", "--out", str(out)])
         dryrun.main(["--cells", ",".join(DRYRUN_MOE_CELLS), *DRYRUN_MOE_ARGS, "--device", "cuda",
                      "--out", str(out)])
+        for cell, args in DRYRUN_HEAD_CELLS.items():
+            dryrun.main(["--cells", cell, *args, "--device", "cuda", "--out", str(out)])
     except SystemExit as e:
         raise SmokeFailure(f"dryrun CLI failed ({e.code}): see {out}") from None
     cli_s = time.perf_counter() - t0
     real = ops.launch_counts()
     expect(not any(real.values()), f"the dry run launched kernels: {real}")
     cells = {}
-    for cell in DRYRUN_CELLS + DRYRUN_MOE_CELLS:
+    for cell in DRYRUN_CELLS + DRYRUN_MOE_CELLS + tuple(DRYRUN_HEAD_CELLS):
         arch, shp = cell.split(":")
         res = json.loads((out / f"{arch}__{shp}__16x16.json").read_text())
         keys = ("lower_s", "argument_size_in_bytes", "temp_size_in_bytes",
@@ -3876,6 +4105,15 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
                        "all_to_all_bytes": res["collectives"].get("all-to-all", 0.0)}
         if cell in DRYRUN_MOE_CELLS:
             expect(cells[cell]["all_to_all_bytes"] > 0, f"dryrun {cell}: no all-to-all")
+        if cell in DRYRUN_HEAD_CELLS:
+            useful = res["roofline"]["model_flops"] / res["chips"]
+            limit = DRYRUN_HEAD_LIMIT * DRYRUN_HEAD_REF_FLOPS[cell]
+            cells[cell]["flops_over_reference"] = res["hlo_flops"] / DRYRUN_HEAD_REF_FLOPS[cell]
+            expect(useful <= res["hlo_flops"] <= limit,
+                   f"dryrun {cell}: {res['hlo_flops']:.6e} FLOPs, not between the useful "
+                   f"{useful:.6e} and {limit:.6e} ({DRYRUN_HEAD_LIMIT} x the reference's)")
+            log(f"  dryrun {cell}: FLOPs {cells[cell]['flops_over_reference']:.3f} x the "
+                f"reference's {DRYRUN_HEAD_REF_FLOPS[cell]:.6e}")
         log(f"  dryrun {cell} 16x16 {res['mode']} (fake cuda): ok, {res['lower_s']} s; per "
             f"device: all-to-all {cells[cell]['all_to_all_bytes']:.6e} bytes, args "
             f"{res['argument_size_in_bytes']}, temp {res['temp_size_in_bytes']}, alias "
@@ -3998,7 +4236,8 @@ def main() -> int:
         rows, paths["train"], paths["train-families"] = phase_train(dev)
         kern.update(rows)
     with timed("layout"):
-        rows, paths["layout-blocked"], paths["layout-train"] = phase_layout(dev)
+        rows, paths["layout-blocked"], paths["layout-train"], paths["layout-heads"] = \
+            phase_layout(dev)
         kern["flash_attention"].update(rows)
     with timed("dryrun"):
         rows, paths["dryrun"], dryrun_cells = phase_dryrun(dev)
@@ -4033,6 +4272,7 @@ def main() -> int:
               "train_families_launches": paths["train-families"].get(name, 0),
               "layout_blocked_launches": paths["layout-blocked"][name],
               "layout_train_launches": paths["layout-train"][name],
+              "layout_heads_launches": paths["layout-heads"][name],
               "dryrun_launches": paths["dryrun"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))

@@ -240,9 +240,10 @@ def check_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}")
     B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
     KV = k.shape[2]
-    if k.shape[0] != B or k.shape[3] != D or KV == 0 or H % KV:
+    if k.shape[0] != B or k.shape[3] != D or (KV == 0) != (H == 0) or (KV and H % KV):
         raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)} "
-                         "(same batch and head width, H a multiple of KV)")
+                         "(same batch and head width, H a multiple of KV; no kv head "
+                         "for no q head)")
     if q.dtype not in DTYPES or k.dtype not in DTYPES or v.dtype != k.dtype:
         raise TypeError("q, k, v must be float32 or bfloat16 (k and v alike)")
     if not (q.device == k.device == v.device):
@@ -281,9 +282,14 @@ def forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             window: Optional[int], softcap: Optional[float], scale: float,
             with_lse: bool = False, q_offset: int = 0):
     """The checked call: out, and with ``with_lse`` (out, lse (B, H, S) fp32,
-    +inf for a row that sees no key).  CPU tensors run the plain version."""
+    +inf for a row that sees no key).  CPU tensors run the plain version.
+    No q head (H = 0, a rank of "model" without heads): empty results,
+    nothing launched or recorded."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
+    if H == 0:
+        out = q.new_empty((B, S, 0, D))
+        return (out, q.new_empty((B, 0, S), dtype=torch.float32)) if with_lse else out
     if build.is_fake(q, k, v):
         launch_plan(q.dtype, B, S, T, H, KV, D)      # the dtype and width checks
         out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
@@ -334,7 +340,10 @@ def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tenso
     row block), each counted in ``LAUNCHES``.  Deterministic: the same
     inputs give the same bits.  FakeTensors allocate what the CUDA route
     does (contiguous copies of the inputs that are not, delta, the three
-    gradients) and record ``backward_work``."""
+    gradients) and record ``backward_work``.  No q head (H = 0): empty
+    gradients, no launch, no work."""
+    if q.shape[2] == 0:
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if build.is_fake(q, k, v, out, lse, dout):
         B, S, H, D = q.shape
         T, KV = k.shape[1], k.shape[2]

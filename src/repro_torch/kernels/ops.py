@@ -150,59 +150,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash.flash_attention(q, k, v, **kw)
 
 
-def _head_split(mesh, H: int, G: int) -> int:
-    """Ranks of the "model" axis that q's H heads split over (1: replicated):
-    each rank's heads must cover whole kv heads, or lie within one."""
-    names = mesh.mesh_dim_names or ()
-    if "model" not in names:
-        return 1
-    m = mesh.size(names.index("model"))
-    hl = H // m if H % m == 0 else 0
-    return m if hl and (hl % G == 0 or G % hl == 0) else 1
+def head_slice_calls(h0: int, h1: int, G: int) -> list:
+    """K6's calls for q heads [h0, h1) of groups of G (head h reads kv head
+    h // G): (first kv head, kv heads, q heads) of each.  Whole groups are
+    one call; a slice that cuts a group is one call per run of heads inside
+    one kv head (at most ceil(hl / G) + 1); no head, no call."""
+    if h0 == h1:
+        return []
+    if h0 % G == 0 and h1 % G == 0:
+        return [(h0 // G, h1 // G - h0 // G, h1 - h0)]
+    return [(j, 1, min(h1, (j + 1) * G) - max(h0, j * G)) for j in range(h0 // G, -(-h1 // G))]
+
+
+def head_slice_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h0: int,
+                         n_heads: int, **kw) -> torch.Tensor:
+    """K6 on a slice of q's heads, the rank-local work of a model axis that
+    splits the heads: q (B, S, hl, D) holds heads [h0, h0 + hl) of
+    ``n_heads``, k and v (B, T, KV, D) all the kv heads; head h reads kv
+    head h // G (G = n_heads // KV).  -> (B, S, hl, D), K6 on exactly these
+    heads and the kv heads they read, with ``flash_attention``'s keywords.
+
+    A slice of whole kv groups is one call on its kv heads.  A slice that
+    cuts a group (llama4's heads 3, 4, 5 read kv heads 0, 0, 1) makes one
+    call per run of heads inside one kv head (``head_slice_calls``), each
+    against a view of that kv head: no copy of K or V, and each run's dK
+    and dV summed over its heads in the kernel.  An empty slice (hl = 0)
+    launches nothing and gives (B, S, 0, D), with a zero gradient for k and
+    v."""
+    calls = head_slice_calls(h0, h0 + q.shape[2], n_heads // k.shape[2])
+    if not calls:
+        return _flash.flash_attention(q, k[:, :, :0], v[:, :, :0], **kw)
+    outs, at = [], 0
+    for j, nk, n in calls:
+        outs.append(_flash.flash_attention(q[:, :, at:at + n], k[:, :, j:j + nk],
+                                           v[:, :, j:j + nk], **kw))
+        at += n
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
 
 
 def sharded_flash_attention(q, k, v, **kw):
     """K6 on DTensors, the counterpart of running the kernel under
     ``shard_map``: q, k, v are redistributed so that the batch splits over
     the batch axes ("pod", "data"; where they divide it) and q's heads over
-    "model" (where each rank's heads cover whole kv heads or lie within
-    one), k and v replicated over "model".  Each rank hands K6 its q heads
-    [h0, h1) and the kv heads h0 // G .. (h1 - 1) // G they read (not all
-    KV heads: K6 derives G from the shapes), and the output carries q's
+    "model" in DTensor's chunks (ceil(H / m) a rank, the last ranks fewer
+    or none, as the reference's constraint splits them), k and v replicated
+    over "model".  Each rank runs ``head_slice_attention`` on its heads
+    [h0, h1) and the kv heads they read, and the output carries q's
     placements.  Gradients flow through ``to_local``: a rank's dK and dV
     cover its kv heads only, so over "model" they are partial sums."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..models.partitioning import contiguous_strides, local_shape_and_offset
 
     if not all(isinstance(x, DTensor) for x in (q, k, v)):
         raise TypeError("q, k and v must all be DTensors, or none")
     mesh = q.device_mesh
     names = mesh.mesh_dim_names or ()
-    B, S, H, D = q.shape
-    KV = k.shape[2]
+    B, H = q.shape[0], q.shape[2]
     batch = [a for a in ("pod", "data") if a in names]
     nb = 1
     for a in batch:
         nb *= mesh.size(names.index(a))
     split_b = B % nb == 0
-    m = _head_split(mesh, H, H // KV)
     qp, kp, kgrad = [], [], []
     for a in names:
         if a in batch and split_b:
             qp.append(Shard(0)), kp.append(Shard(0)), kgrad.append(Shard(0))
-        elif a == "model" and m > 1:
+        elif a == "model" and mesh.size(names.index(a)) > 1:
             qp.append(Shard(2)), kp.append(Replicate()), kgrad.append(Partial())
         else:
             qp.append(Replicate()), kp.append(Replicate()), kgrad.append(Replicate())
+    qp = tuple(qp)
     ql = q.redistribute(mesh, qp).to_local(grad_placements=qp)
     kl = k.redistribute(mesh, kp).to_local(grad_placements=kgrad)
     vl = v.redistribute(mesh, kp).to_local(grad_placements=kgrad)
-    if m > 1:
-        G, hl = H // KV, H // m
-        h0 = mesh.get_local_rank("model") * hl
-        kv0, kv1 = h0 // G, (h0 + hl - 1) // G + 1
-        kl, vl = kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
-    out = _flash.flash_attention(ql, kl, vl, **kw)
-    return DTensor.from_local(out, mesh, qp)   # even shards: q's global shape
+    h0 = local_shape_and_offset(q.shape, mesh, qp)[1][2]
+    out = head_slice_attention(ql, kl, vl, h0, H, **kw)
+    return DTensor.from_local(out, mesh, qp, shape=q.shape, stride=contiguous_strides(q.shape))
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

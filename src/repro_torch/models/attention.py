@@ -6,10 +6,10 @@ the kernel layer: self- and cross-attention through ``ops.flash_attention``
 ``blocked_attention`` (the reference's flash-style route, which is K6's
 contract: it calls the same kernel), and one decode step through
 ``ops.decode_attention`` (K7).  q and k take the reference's logical
-sharding (``partitioning.shard``; a no-op without a mesh).  On the CUDA
-card these launch the hand-written kernels; on the CPU they run the
-kernels' plain versions, so the CPU tests drive the same arguments (scale,
-softcap, window, kv_len) that the card receives.  ``attn_core`` keeps the
+sharding (``partitioning.split_heads`` and ``shard``; no-ops without a
+mesh).  On the CUDA card these launch the hand-written kernels; on the
+CPU they run the kernels' plain versions, so the CPU tests drive the same
+arguments (scale, softcap, window, kv_len) that the card receives.  ``attn_core`` keeps the
 reference's plain math as a test reference.
 
 Numerics: the kernels take fp32 logits from the inputs' values; the
@@ -63,12 +63,16 @@ def attention_init(gen: torch.Generator, cfg, *, device=None,
 
 
 # ----------------------------------------------------------------- projection
-def project_q(params, x: torch.Tensor, cfg, positions: torch.Tensor) -> torch.Tensor:
+def project_q(params, x: torch.Tensor, cfg, positions: torch.Tensor,
+              uneven: bool = False) -> torch.Tensor:
+    """q (..., S, n_heads, head_dim), normed and rotated; with ``uneven``
+    its heads split over the model axis where it does not divide them
+    (``split_heads``)."""
     d = attn_dims(cfg)
     q = x @ at_use(params["wq"], x.dtype)
     if "bq" in params:
         q = q + params["bq"].to(x.dtype)
-    q = split_heads(q, d.n_heads, "heads", "batch", "seq")
+    q = split_heads(q, d.n_heads, "heads", "batch", "seq", uneven=uneven)
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], getattr(cfg, "norm_eps", 1e-6))
     return apply_rope(q, positions, cfg.rope_theta)
@@ -135,16 +139,22 @@ def attention_apply(params, x: torch.Tensor, cfg, *,
     """Self-attention over x (B, S, d_model), or cross-attention over
     ``memory`` (B, T, d_model) without a causal mask.  ``positions`` (default
     0..S-1) rotate q and k; the causal and window masks compare sequence
-    indices, as the kernel does, so they equal positions only for 0..S-1."""
+    indices, as the kernel does, so they equal positions only for 0..S-1.
+    Under a mesh each rank of "model" holds and computes only its own q
+    heads, split unevenly where the axis does not divide them, as the
+    reference's constraint splits them: q's columns move from wq's shards
+    to the rank's heads, K6 runs on those heads
+    (``ops.sharded_flash_attention``), and the output moves back to wo's
+    rows (``split_heads``, ``merge_heads``)."""
     B, S, _ = x.shape
     pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
-    q = project_q(params, x, cfg, pos)
+    q = project_q(params, x, cfg, pos, uneven=True)
     if memory is None:
         k, v = project_kv(params, x, cfg, pos)
     else:
         k, v = project_kv(params, memory, cfg, None)
         causal = False
-    q = shard(q, "batch", "seq", "heads", "head_dim")
+    # q is placed by split_heads (the reference's "heads" constraint)
     k = shard(k, "batch", "seq", "kv", "head_dim")
     kw = {"causal": causal, "window": window,
           "softcap": getattr(cfg, "attn_logit_softcap", None), "scale": _scale(cfg, q.shape[-1])}
@@ -177,6 +187,11 @@ def attention_decode(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
     B = x.shape[0]
     W = k_cache.shape[1]
     pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    # q stays on split_heads' even path: K7's route gathers q whole over
+    # "model" (the reference constrains no q here), so an uneven split would
+    # only add an all-to-all a layer and token (gemma-2b's and qwen2.5-14b's
+    # decode_32k dry runs on 16 x 16: the same FLOPs, and 18 and 48 more
+    # all-to-alls a step, one in each layer)
     q = project_q(params, x, cfg, pos_b)
     k_new, v_new = project_kv(params, x, cfg, pos_b)
     write_slots(k_cache, k_new, pos % W)

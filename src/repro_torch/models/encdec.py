@@ -55,6 +55,7 @@ from .layers import (
     remat_on,
     rms_norm,
     trainable_masters,
+    vocab_logits,
     whole_chunks_loss,
     zeros_init,
 )
@@ -165,9 +166,7 @@ class EncDecModel(nn.Module):
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied head -> f32 logits."""
-        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self.embed, hidden.dtype).T
-        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
-                     "batch", "seq", "vocab")
+        return vocab_logits(hidden, at_use(self.embed, hidden.dtype))
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

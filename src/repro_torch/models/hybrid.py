@@ -45,6 +45,7 @@ from .layers import (
     remat_on,
     rms_norm,
     trainable_masters,
+    vocab_logits,
     whole_chunks_loss,
     zeros_init,
 )
@@ -157,9 +158,7 @@ class HybridModel(nn.Module):
         return self.embed if self.cfg.tie_embeddings else self.head
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self._head(), hidden.dtype).T
-        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
-                     "batch", "seq", "vocab")
+        return vocab_logits(hidden, at_use(self._head(), hidden.dtype))
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -16,11 +16,15 @@ from torch import nn
 
 from .partitioning import (
     at_use,
+    contiguous_strides,
+    get_mesh,
     is_dtensor,
     local_shape_and_offset,
+    placements,
     relayout,
     replicated_placements,
     shard,
+    spec,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -188,15 +192,63 @@ def vocab_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return out.redistribute(mesh, tp)
 
 
+# --------------------------------------------------------------------- logits
+def vocab_logits(h: torch.Tensor, w: torch.Tensor, cap: Optional[float] = None
+                 ) -> torch.Tensor:
+    """f32 logits (..., V) of ``h`` (..., d) against the table ``w`` (V, d):
+    ``h @ w.T`` on 2-D rows in h's dtype (a strided (B, 1, d) slice would
+    make ``matmul`` a batched product that reads the table once per row),
+    then f32, soft-capped at ``cap``, placed as (batch, seq.., vocab).
+
+    Under a mesh, with the vocabulary's axes not splitting the table (a
+    table replicated because 16 does not divide seamless's 256206 rows),
+    each rank computes only its own chunk of the vocabulary, ``h @ w[v0:
+    v1].T``, in DTensor's chunks (16013 rows a rank, 16011 on the last), so
+    the logits stay split over the vocabulary as the reference's constraint
+    splits them.  h's gradient is then a partial sum over those axes and
+    the table's a partial sum of the ranks' rows.  A table split over its
+    rows gives the split logits through DTensor's own product."""
+    lead = ("batch",) + ("seq",) * (h.ndim - 2)
+    mesh = get_mesh()
+    vocab = () if mesh is None or not (is_dtensor(h) and is_dtensor(w)) else \
+        [i for i, p in enumerate(placements(spec("vocab"), mesh))
+         if p.is_shard() and mesh.size(i) > 1]
+    if not vocab or any(w.placements[i].is_shard(0) for i in vocab):
+        return shard(vocab_chunk(h, w, cap), *lead, "vocab")
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = h.device_mesh
+    hp = tuple(Replicate() if i in vocab else p for i, p in enumerate(h.placements))
+    hl = h.redistribute(mesh, hp).to_local(
+        grad_placements=tuple(Partial() if i in vocab else p for i, p in enumerate(hp)))
+    rep = replicated_placements(mesh)
+    wl = w.redistribute(mesh, rep).to_local(grad_placements=tuple(
+        Partial() if i in vocab or p.is_shard() else Replicate() for i, p in enumerate(hp)))
+    V = w.shape[0]
+    op = tuple(Shard(h.ndim - 1) if i in vocab else p for i, p in enumerate(hp))
+    (_, rows), (_, v0) = local_shape_and_offset((1, V), mesh, tuple(
+        Shard(1) if i in vocab else Replicate() for i in range(len(hp))))
+    shape = (*h.shape[:-1], V)
+    return DTensor.from_local(vocab_chunk(hl, wl[v0:v0 + rows], cap), mesh, op, shape=shape,
+                              stride=contiguous_strides(shape))
+
+
+def vocab_chunk(h: torch.Tensor, w: torch.Tensor, cap: Optional[float] = None
+                ) -> torch.Tensor:
+    """f32 logits (..., n) of ``h`` (..., d) against ``w`` (n, d), rows of
+    a table: ``vocab_logits``'s product on one rank (the whole table, or
+    the rank's own chunk of the vocabulary under a mesh)."""
+    out = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
+    return softcap(out.float(), cap)
+
+
 # ----------------------------------------------------------------------- loss
 def ce_sum(h: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,
            cap: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(summed cross entropy of the positions labelled >= 0, their count):
     logits ``h @ w.T`` in h's dtype (on 2-D rows), then in fp32 and soft-
-    capped at ``cap``, as the reference's ``ce``."""
-    logits = (h.reshape(-1, h.shape[-1]) @ w.T).reshape(*h.shape[:-1], w.shape[0])
-    logits = shard(softcap(logits.float(), cap), "batch", "seq", "vocab")
-    lse, gold = lse_gold(logits, labels)
+    capped at ``cap``, as the reference's ``ce`` (``vocab_logits``)."""
+    lse, gold = lse_gold(vocab_logits(h, w, cap), labels)
     valid = (labels >= 0).float()
     return ((lse - gold) * valid).sum(), valid.sum()
 
@@ -235,14 +287,28 @@ def lse_gold(logits: torch.Tensor, labels: torch.Tensor):
             return lambda x: DTensor.from_local(x, mesh, part).redistribute(mesh, rows)
 
         all_max, all_sum, shift = reduced("max"), reduced("sum"), lambda m: m.to_local()
-    cols = local.shape[-1]
-    rel = lab.to(local.device, torch.long) - v0
+    m = all_max(chunk_max(local))
+    sums, gold = chunk_sum_gold(local, lab, v0, shift(m))
+    return m + torch.log(all_sum(sums)), all_sum(gold)
+
+
+def chunk_max(logits: torch.Tensor) -> torch.Tensor:
+    """The max over the last dim of one rank's logits (..., n), without
+    gradient: ``lse_gold``'s first local reduction, maxed over the ranks."""
+    return logits.detach().amax(dim=-1)
+
+
+def chunk_sum_gold(logits: torch.Tensor, labels: torch.Tensor, v0: int, m: torch.Tensor):
+    """(the exp-sum of one rank's logits (..., n), columns v0..v0+n of the
+    vocabulary, shifted by the max ``m`` over all ranks; the logit at each
+    label that falls in those columns, 0 at the others): ``lse_gold``'s
+    local reductions, each summed over the ranks."""
+    cols = logits.shape[-1]
+    rel = labels.to(logits.device, torch.long) - v0
     held = (rel >= 0) & (rel < cols)
-    gold = torch.where(held, local.gather(-1, rel.clamp(0, max(cols - 1, 0))[..., None])[..., 0],
+    gold = torch.where(held, logits.gather(-1, rel.clamp(0, max(cols - 1, 0))[..., None])[..., 0],
                        0.0)
-    m = all_max(local.detach().amax(dim=-1))
-    sums = all_sum(torch.exp(local - shift(m)[..., None]).sum(dim=-1))
-    return m + torch.log(sums), all_sum(gold)
+    return torch.exp(logits - m[..., None]).sum(dim=-1), gold
 
 
 def whole_chunks_loss(hidden: torch.Tensor, labels: torch.Tensor, w: torch.Tensor,

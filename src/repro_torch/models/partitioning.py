@@ -294,6 +294,56 @@ def shard_uneven(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     return x if tuple(x.placements) == want else _Move.apply(x, want)
 
 
+def _spans(n: int, k: int, unit: int = 1) -> list:
+    """(start, stop) of each rank's chunk (``_chunks``) of a dim of ``n``
+    units over ``k`` ranks, in elements of ``unit`` each."""
+    out, at = [], 0
+    for c in _chunks(n, k):
+        out.append((at * unit, (at + c) * unit))
+        at += c
+    return out
+
+
+def _rechunk(t: torch.Tensor, mesh, i: int, dim: int, src: list, dst: list) -> torch.Tensor:
+    """A rank's piece ``t`` of a dim cut over mesh dim ``i`` at ``src`` (each
+    rank's (start, stop), a partition of the dim), as its piece of the same
+    dim cut at ``dst``: one all-to-all over mesh dim ``i`` of the overlaps
+    (uneven or empty pieces; none where the two cuts are the same)."""
+    if src == dst:
+        return t
+    import torch.distributed._functional_collectives as funcol
+
+    k, me = mesh.size(i), mesh.get_local_rank(i)
+
+    def overlap(a, b) -> int:
+        return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+    send = [overlap(src[me], dst[r]) for r in range(k)]
+    recv = [overlap(src[r], dst[me]) for r in range(k)]
+    x = t.movedim(dim, 0)
+    rest = math.prod(x.shape[1:])
+    out = funcol.all_to_all_single(x.contiguous().reshape(-1), [n * rest for n in recv],
+                                   [n * rest for n in send], (mesh, i))
+    if isinstance(out, funcol.AsyncCollectiveTensor):
+        out = out.wait()
+    return out.reshape(sum(recv), *x.shape[1:]).movedim(0, dim).contiguous()
+
+
+class _Rechunk(torch.autograd.Function):
+    """``_rechunk`` from ``src`` to ``dst``; its gradient goes back from
+    ``dst`` to ``src``."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, i, dim, src, dst):
+        ctx.args = (mesh, i, dim, src, dst)
+        return _rechunk(t, mesh, i, dim, src, dst)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, i, dim, src, dst = ctx.args
+        return _rechunk(grad, mesh, i, dim, dst, src), None, None, None, None, None
+
+
 def relayout(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     """``shard`` whose gradient comes back in ``x``'s own placements (DTensor's
     redistribute): for a layout the forward needs for one op only (a split
@@ -359,11 +409,35 @@ def batch_local(fn, x: torch.Tensor, *weights, states=None):
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
     """(..., n, k) -> (..., n * k), the inverse of ``split_heads``.  On a
     DTensor the merged dim keeps the heads' placement and so does its
-    gradient: a gradient sharded over the merged dim where the heads are
-    not (forty heads on a model axis of 16) could not be split back."""
-    flat = t.reshape(*t.shape[:-2], t.shape[-2] * t.shape[-1])
+    gradient.  Heads split unevenly over a mesh dim (forty over 16: 3 a
+    rank, 384 columns, and none on the last two) go back to that dim's even
+    chunks of the merged dim (320 columns, as a row-parallel ``wo`` is split)
+    by an all-to-all, and their gradient by the inverse one; where those
+    chunks are uneven too the heads are gathered."""
+    n, k = t.shape[-2], t.shape[-1]
+    flat_shape = (*t.shape[:-2], n * k)
     if get_mesh() is None or not is_dtensor(t):
-        return flat
+        return t.reshape(flat_shape)
+    mesh = t.device_mesh
+    i = next((i for i, p in enumerate(t.placements)
+              if p.is_shard(t.ndim - 2) and n % mesh.size(i)), None)
+    if i is not None:
+        m = mesh.size(i)
+        if (n * k) % m:
+            from torch.distributed.tensor import Replicate
+
+            want = tuple(Replicate() if j == i else p for j, p in enumerate(t.placements))
+            t = _Constrain.apply(t, want)
+        else:
+            from torch.distributed.tensor import DTensor
+
+            local = t.to_local(grad_placements=t.placements)
+            local = local.reshape(*local.shape[:-2], local.shape[-2] * k)
+            local = _Rechunk.apply(local, mesh, i, t.ndim - 2,
+                                   _spans(n, m, k), _spans(n * k, m))
+            return DTensor.from_local(local, mesh, t.placements, shape=flat_shape,
+                                      stride=contiguous_strides(flat_shape))
+    flat = t.reshape(flat_shape)
     return _Constrain.apply(flat, tuple(t.placements))
 
 
@@ -386,19 +460,49 @@ def at_use(w: torch.Tensor, dtype: torch.dtype, keep_dim: Optional[int] = None) 
     return w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
 
 
-def split_heads(t: torch.Tensor, n: int, name: str, *lead: Optional[str]) -> torch.Tensor:
+def split_heads(t: torch.Tensor, n: int, name: str, *lead: Optional[str],
+                uneven: bool = False) -> torch.Tensor:
     """(..., n * k) -> (..., n, k), the new dim ``n`` under the logical axis
     ``name`` (``lead`` names the leading dims).  A DTensor is first
     redistributed so that the split is even on every rank: the flat dim
     sharded where the rule shards ``n`` and the mesh divides it, whole
-    otherwise (eight kv heads on a model axis of 16 stay whole)."""
+    otherwise (one kv head on a model axis of 16 stays whole).  With
+    ``uneven``, ``n`` heads that the rule's one mesh axis does not divide
+    are split over it in DTensor's chunks instead, as the reference's
+    constraint splits them (forty over 16: 3 a rank, none on the last two):
+    the flat dim's even chunks (320 of 5120 columns) move to the ranks'
+    heads (384, 128 or 0) by an all-to-all, and the gradient comes back to
+    the flat dim's chunks (where those are uneven too, the heads stay
+    whole)."""
     shape = (*t.shape[:-1], n, t.shape[-1] // n)
     mesh = get_mesh()
-    if mesh is not None and is_dtensor(t):
-        want = placements(fit(spec(*lead, name, None), shape, mesh), mesh)
-        if tuple(t.placements) != want:
-            t = t.redistribute(t.device_mesh, want)
+    if mesh is None or not is_dtensor(t):
+        return t.reshape(shape)
+    axes = spec(name)[0]
+    i = axis_names(mesh).index(axes) if isinstance(axes, str) else None
+    if uneven and i is not None and n % mesh.size(i) and t.shape[-1] % mesh.size(i) == 0:
+        return _split_uneven(t, shape, lead, i)
+    want = placements(fit(spec(*lead, name, None), shape, mesh), mesh)
+    if tuple(t.placements) != want:
+        t = t.redistribute(t.device_mesh, want)
     return t.reshape(shape)
+
+
+def _split_uneven(t: torch.Tensor, shape: tuple, lead, i: int) -> torch.Tensor:
+    """``split_heads``'s uneven split of ``t``'s last dim into ``shape``'s
+    heads over mesh dim ``i`` (see there)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh, m, d = t.device_mesh, t.device_mesh.size(i), t.ndim - 1
+    want = list(placements(fit(spec(*lead, None), t.shape, mesh), mesh))
+    want[i] = Shard(d)
+    want = tuple(want)
+    if tuple(t.placements) != want:
+        t = _Constrain.apply(t, want)
+    local = _Rechunk.apply(t.to_local(grad_placements=want), mesh, i, d, _spans(t.shape[-1], m),
+                           _spans(shape[-2], m, shape[-1]))
+    local = local.reshape(*local.shape[:-1], local.shape[-1] // shape[-1], shape[-1])
+    return DTensor.from_local(local, mesh, want, shape=shape, stride=contiguous_strides(shape))
 
 
 def contiguous_strides(shape: Sequence[int]) -> Tuple[int, ...]:

@@ -49,8 +49,8 @@ from .layers import (
     param_dict,
     remat_on,
     rms_norm,
-    softcap,
     trainable_masters,
+    vocab_logits,
     zeros_init,
 )
 from .moe import MoEParams, moe_apply
@@ -203,9 +203,7 @@ class DecoderLM(nn.Module):
         rows: a strided (B, 1, d) slice would make ``matmul`` a batched
         product that reads the whole (vocab, d) table once per row."""
         w = self.embed if self.cfg.tie_embeddings else self.head
-        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(w, hidden.dtype).T
-        out = out.reshape(*hidden.shape[:-1], out.shape[-1])
-        return shard(softcap(out.float(), self.cfg.final_logit_softcap), "batch", "seq", "vocab")
+        return vocab_logits(hidden, at_use(w, hidden.dtype), self.cfg.final_logit_softcap)
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

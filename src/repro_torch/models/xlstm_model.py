@@ -39,6 +39,7 @@ from .layers import (
     remat_on,
     rms_norm,
     trainable_masters,
+    vocab_logits,
     zeros_init,
 )
 from .xlstm import (
@@ -135,9 +136,7 @@ class XLSTMModel(nn.Module):
         return rms_norm(x, self.final_norm, self.cfg.norm_eps)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        out = hidden.reshape(-1, hidden.shape[-1]) @ at_use(self.embed, hidden.dtype).T
-        return shard(out.reshape(*hidden.shape[:-1], out.shape[-1]).float(),
-                     "batch", "seq", "vocab")
+        return vocab_logits(hidden, at_use(self.embed, hidden.dtype))
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -16,7 +16,11 @@ qwen2-moe decode_32k in ``ep`` with 16 dispatch groups (the reference's
 optimized layout: each data rank routes its own groups, tokens reach their
 experts by all-to-all), through both CLIs: arguments and aliases within
 1 %, FLOPs between the model's useful FLOPs a chip and 1.5 x the
-reference's, an all-to-all among the port's collectives.
+reference's, an all-to-all among the port's collectives.  A cell whose q
+heads 16 does not divide, gemma-2b prefill_32k (8 heads, 1 kv head: one
+head on ranks 0-7 of "model", none on 8-15), through both CLIs: arguments
+and aliases within 1 %, FLOPs between the model's useful FLOPs a chip and
+1.5 x the reference's.
 """
 from __future__ import annotations
 
@@ -112,3 +116,24 @@ def test_moe_dryrun_matches_the_reference(moe_both):
     assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
         (useful, got["hlo_flops"], want["hlo_flops"])
     assert got["collectives"].get("all-to-all", 0) > 0, got["collectives"]
+
+
+HEAD_CELL = "gemma-2b:prefill_32k"
+
+
+@pytest.fixture(scope="module")
+def head_both(tmp_path_factory):
+    """(the reference's artifact, the port's) of HEAD_CELL."""
+    ref, port = tmp_path_factory.mktemp("head_ref"), tmp_path_factory.mktemp("head_port")
+    _cli("repro.launch.dryrun", ["--cells", HEAD_CELL], ref, 600)
+    _cli("repro_torch.launch.dryrun", ["--cells", HEAD_CELL, "--device", "cpu"], port, 600)
+    return _artifact(ref, HEAD_CELL), _artifact(port, HEAD_CELL)
+
+
+def test_uneven_heads_dryrun_matches_the_reference(head_both):
+    want, got = head_both
+    for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
+        assert abs(got[key] - want[key]) <= 0.01 * max(want[key], 1), (key, got[key], want[key])
+    useful = got["roofline"]["model_flops"] / got["chips"]
+    assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
+        (useful, got["hlo_flops"], want["hlo_flops"])

@@ -15,7 +15,11 @@ leaf of the state (parameters, moments, residuals, the step) keeps its
 reaches the optimizer with its ``grad_shardings`` placements.  A rank that
 hangs fails its case at the time limit; the case's processes are then
 killed.  One more case holds K6 on DTensors (the GQA head split) and its
-gradients against plain tensors.
+gradients against plain tensors.  Three cases split unevenly over "model",
+as the reference's constraints do: q heads that 2 ranks do not divide (3
+heads over 1 kv head in "tp", 9 over 3 in "fsdp", whose rank 0 straddles
+kv groups) and seamless's vocabulary at 257 rows; each rank's K6 calls and
+logits hold only its own share.
 """
 from __future__ import annotations
 
@@ -73,11 +77,37 @@ def test_sharded_steps_match_one_device(case, tmp_path):
         assert res["n_sharded"] > 0
 
 
+# each rank's share of the work where "model" (2 ranks) does not divide it,
+# by model rank: q heads of its K6 calls (3 heads over 1 kv head: 2 and 1; 9
+# over 3: heads 0-4, runs of 3 and 2 in kv heads 0 and 1, and heads 5-8, of
+# 1 and 3 in kv heads 1 and 2), vocabulary columns a logits shard (257: 129
+# and 128)
+LOCAL_WORK = {"qwen3-1.7b:tp:n_heads=3:n_kv_heads=1": ("k6_heads", [[2], [1]]),
+              "qwen3-1.7b:fsdp:n_heads=9:n_kv_heads=3": ("k6_heads", [[2, 3], [1, 3]]),
+              "seamless-m4t-large-v2:fsdp:vocab_size=257": ("logit_cols", [[129], [128]])}
+
+
+@pytest.mark.parametrize("case", sorted(LOCAL_WORK))
+def test_uneven_split_is_rank_local(case, tmp_path):
+    """The uneven cases above: each rank's K6 calls take only its own q heads
+    (ceil(H / 2) on model rank 0, the rest on rank 1), and each rank's
+    logits only its own chunk of the vocabulary; losses, parameters and
+    gradients within 1e-5 of one device."""
+    key, want = LOCAL_WORK[case]
+    for r, res in enumerate(_run(case, tmp_path)):
+        assert res["bad"] == [], res["bad"][:5]
+        for got, one in zip(res["got"], res["want"]):
+            assert abs(got - one) <= TOL, (r, res["got"], res["want"])
+        assert res["param_gap"] <= TOL and res["grad_gap"] <= TOL, res
+        assert res[key] == want[r % 2], (r, key, res[key])   # rank r: model rank r % 2
+
+
 def test_sharded_attention_matches_one_device(tmp_path):
     """K6 on DTensors over the (2, 2) mesh, forward and gradients, within 1e-5
     (relative to the largest value) of plain tensors; heads split over
-    "model" where each rank's heads cover whole kv heads or lie within one,
-    replicated over it where they do not (6 heads over 3 kv heads)."""
+    "model" in every case: heads that cover whole kv heads, lie within one,
+    straddle two (6 heads over 3 kv heads), split unevenly (9 over 3: 5
+    and 4) or leave a rank without heads (1 over 1: 1 and 0)."""
     for res in _run("attention:gqa", tmp_path):
         assert res["gap"] <= TOL, res["gap"]
-        assert res["placements"] == [[0, 2]] * 3 + [[0, None]]   # Shard(d) as d
+        assert res["placements"] == [[0, 2]] * 6   # Shard(d) as d

@@ -13,7 +13,9 @@ differ from ``state_shardings`` / ``grad_shardings`` (``ARCH:MODE:int8``:
 with int8 moments and int8 gradient compression; a part ``KEY=INT``
 overrides a field of the reduced config, ``moe_dispatch_groups=2``).  The
 JSON also holds the token count of each ``moe.route`` call of the two runs
-(``routes_plain``, ``routes_mesh``): a rank's own groups only.  CASE
+(``routes_plain``, ``routes_mesh``): a rank's own groups only; and, of the
+mesh run on this rank, the q heads of K6's calls (``k6_heads``) and the
+vocabulary columns of the loss's logits shards (``logit_cols``).  CASE
 ``attention:gqa`` holds K6 on DTensors (``ops.flash_attention``: batch
 over "data", heads over "model") and its gradients against plain tensors
 at several head groupings instead.  CASE ``decode:ARCH`` serves: it loads
@@ -34,9 +36,10 @@ from pathlib import Path
 import torch.distributed as dist
 
 from repro_torch.configs import ShapeSpec, get_arch
+from repro_torch.kernels import flash_attention
 from repro_torch.launch import shardings as shl
 from repro_torch.launch.train import synthetic_batch
-from repro_torch.models import build_model, moe, use_mesh
+from repro_torch.models import build_model, layers, moe, use_mesh
 from repro_torch.training import OptimizerConfig, init_state, make_train_step
 from repro_torch.training import train_loop
 
@@ -66,6 +69,28 @@ def _record_routes(log: list):
     return route
 
 
+_FORWARD, _LSE_GOLD = flash_attention.forward, layers.lse_gold
+
+
+def _record_local_work():
+    """Wrap K6's forward and ``layers.lse_gold`` to log, on this rank, the q
+    heads of each K6 call and the vocabulary columns of each logits shard
+    the loss takes; returns the two logs (``main`` restores both)."""
+    heads, cols = [], []
+
+    def forward(q, *args, **kw):
+        heads.append(int(q.shape[2]))
+        return _FORWARD(q, *args, **kw)
+
+    def lse_gold(logits, labels):
+        local = logits.to_local() if hasattr(logits, "to_local") else logits
+        cols.append(int(local.shape[-1]))
+        return _LSE_GOLD(logits, labels)
+
+    flash_attention.forward, layers.lse_gold = forward, lse_gold
+    return heads, cols
+
+
 def _copy(tree):
     return {k: _copy(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
@@ -73,8 +98,10 @@ def _copy(tree):
 def attention_case(mesh) -> dict:
     """K6 on DTensors against plain tensors, forward and gradients: (H, KV)
     with each rank's two heads covering a kv head (8, 4), lying within one
-    (4, 1), one head a kv head (8, 8), and heads that do not split into
-    whole groups on 2 ranks (6, 3: replicated over "model")."""
+    (4, 1), one head a kv head (8, 8), heads that straddle kv groups on 2
+    ranks (6, 3: rank 0's heads 0-2 read kv heads 0, 0, 1), straddling and
+    split unevenly (9, 3: 5 heads and 4), and a rank without heads (1, 1:
+    1 and 0).  Every case splits q's heads over "model"."""
     import torch
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
@@ -83,7 +110,7 @@ def attention_case(mesh) -> dict:
     gen = torch.Generator().manual_seed(0)
     gap, placed = 0.0, []
     for H, KV, kw in ((8, 4, {}), (4, 1, {"window": 5}), (8, 8, {"q_offset": 4}),
-                      (6, 3, {"softcap": 20.0})):
+                      (6, 3, {"softcap": 20.0}), (9, 3, {}), (1, 1, {"q_offset": 2})):
         B, S, D = 4, 12, 16
         T = S + kw.get("q_offset", 0)
         q, w = (torch.randn(B, S, H, D, generator=gen) for _ in range(2))
@@ -204,6 +231,7 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     _record_routes(routes_mesh)
 
     rules = {"experts": "data"} if mode == "ep" else None
+    heads, cols = _record_local_work()
     with use_mesh(mesh, rules):
         shd = shl.state_shardings(base, mesh, mode, cfg.family)
         state = shl.distribute(_copy(base), shd, mesh)
@@ -212,6 +240,7 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
         got = [float(step(state, shl.distribute(b, bshd, mesh))[1]["loss"]) for b in batches]
     train_loop.adamw_update = update
     moe.route = route
+    flash_attention.forward, layers.lse_gold = _FORWARD, _LSE_GOLD
 
     def wanted(path):
         node = shd
@@ -232,7 +261,8 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     with open(out, "w") as f:
         json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap, "bad": bad,
                    "n_grads": len(seen), "n_sharded": sharded, "routes_plain": routes_plain,
-                   "routes_mesh": routes_mesh}, f)
+                   "routes_mesh": routes_mesh, "k6_heads": sorted(set(heads)),
+                   "logit_cols": sorted(set(cols))}, f)
     dist.destroy_process_group()
 
 
