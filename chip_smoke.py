@@ -135,7 +135,20 @@ just before it and read just after:
   cross entropy (d=1024, 256206 rows, 2048 bf16 tokens) in the
   vocabulary's 16 chunks, each through the functions a rank runs
   (``layers.vocab_chunk``, ``chunk_max``, ``chunk_sum_gold``), lse and
-  gold against ``layers.lse_gold`` of the whole logits;
+  gold against ``layers.lse_gold`` of the whole logits; (f) one of
+  zamba2-7b's Mamba2 layers at full width (B=1, S=2048, 112 heads of 64)
+  in the head slices of a 16-way "model" axis (7 heads each, as a rank of
+  a mesh computes them: its in_proj columns and conv channels, the gated
+  norm's sum of squares summed over the slices, the partial outputs
+  summed; ``ssm.mamba2_slices``) against the whole layer, in f32 and bf16,
+  its f32 gradients, a decode step whose conv buffer moves from the
+  cache's 456-channel chunks to the slices and back, a group (6 Mamba2
+  layers and the shared block, its 32 q heads through K6 in 16 slices of
+  2, K6's launches counted from 0 around the sliced bf16 group) against
+  the whole group, one layer through ``ssm.mamba2_sharded`` on DTensors
+  of the 1 x 1 mesh bit-equal to plain tensors (output and every
+  gradient), and the slices' ms against the whole layer's, with launches
+  and on the device;
 * dryrun: (a) K7 with ``return_lse`` against its plain version at
   decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
   D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
@@ -151,7 +164,9 @@ just before it and read just after:
   last: the process group of phase layout is ended first), then on
   qwen2-moe's ``prefill_32k`` and ``decode_32k`` in ``ep`` with 16
   dispatch groups, then on llama4's (the same way) and gemma-2b's
-  ``prefill_32k`` (40 and 8 q heads, which 16 does not divide), each cell
+  ``prefill_32k`` (40 and 8 q heads, which 16 does not divide) and
+  zamba2-7b's ``prefill_32k`` and ``decode_32k`` (Mamba2's heads split
+  over "model"), each cell
   ok, no kernel launched, the MoE cells with an all-to-all among their
   collectives, the head cells' FLOPs between the useful FLOPs a chip and
   1.5 x the reference's.
@@ -189,8 +204,11 @@ graph does not capture autograd's backward; also the dK/dV and dQ rows'
 same whole-backward times, bound and SDPA times at each family's training
 shape (phase train (f)), with its calls a step.  ``train_families_launches``
 counts each kernel's launches in (f), ``layout_blocked_launches``,
-``layout_train_launches`` and ``layout_heads_launches`` in phase layout
-(b), (c) and (e); K6's row adds ``head_split`` ((e): the slices' heads,
+``layout_train_launches``, ``layout_heads_launches`` and
+``layout_mamba_launches`` in phase layout (b), (c), (e) and (f); K6's row
+adds ``mamba_split`` ((f): the slices' errors, gradients, decode step,
+group, K6 launches, the 1 x 1 mesh's bit-equality and the times),
+``head_split`` ((e): the slices' heads,
 errors, times, bound and launches, SDPA's and the plain version's times
 beside them (``library_*``, ``plain_ms``), and ``vocab_split``),
 ``q_offset_chunks`` (each chunk of (a): its offset, dtype, visible pairs,
@@ -360,7 +378,7 @@ FAMILIES_PATH = ("flash_attention", "decode_attention")
 TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                        "flash_attention_bwd_dq")
 LAYOUT_PATH = {"layout-blocked": ("flash_attention",), "layout-train": TRAIN_FAMILIES_PATH,
-               "layout-heads": TRAIN_FAMILIES_PATH}
+               "layout-heads": TRAIN_FAMILIES_PATH, "layout-mamba": ("flash_attention",)}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -3749,6 +3767,270 @@ def vocab_split_check(dev: torch.device, gen) -> dict:
     return {"chunk_columns": cols, **errs}
 
 
+# phase layout (f): zamba2-7b's Mamba2 layer at published width in the head
+# slices of a 16-way "model" axis (7 of 112 heads a rank), B x S tokens;
+# one group (6 Mamba2 layers, then the shared block, its 32 q heads in 16
+# slices of 2 through K6)
+MAMBA_SPLIT_ARCH, MAMBA_SPLIT_M, MAMBA_SPLIT_B, MAMBA_SPLIT_S = "zamba2-7b", 16, 1, 2048
+MAMBA_SPLIT_REPS = 5
+# limits, relative to the largest |value| of the whole computation's
+# result: f32 forward (only the order of fp32 sums differs, and the gated
+# norm's mean is a sum of 16 slices' sums divided by d_inner); bf16 (each
+# slice's out_proj product and the sum of 16 partials rounded to bf16, as
+# an all-reduce in bf16 rounds them); f32 gradients (the CPU tests' limit
+# against the reference), A_log's apart: it sums cancelling terms over
+# every position (a 1e-7 relative perturbation upstream moves it by more
+# than 1e-5 of its largest value at the reduced width:
+# tests/test_torch_mamba_split.py::test_alog_gradient_amplifies_a_tiny_perturbation)
+MAMBA_SPLIT_F32_TOL = 1e-5
+MAMBA_SPLIT_BF16_TOL = 2e-2
+# the f32 final state: a sum over the 2048 positions' decayed updates whose
+# inputs (each slice's in_proj product, another shape than the whole's)
+# differ in the last bits (1.05e-5 of its largest value on the H100)
+MAMBA_SPLIT_STATE_TOL = 1e-4
+MAMBA_SPLIT_GRAD_TOL = 1e-4
+MAMBA_SPLIT_ALOG_TOL = 1e-3
+# the group: f32 through 7 blocks (fp32 sums in other orders, K6's f32
+# route), bf16 as DECODE_LOGIT_REL_TOL holds a bf16 model's logits
+MAMBA_GROUP_F32_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def sliced_attention(m: int):
+    """``ops.flash_attention`` as the ranks of an m-way "model" axis run it:
+    q's heads in DTensor's chunks, each through ``ops.head_slice_attention``
+    (the rank's K6 calls), concatenated."""
+    whole = ops.flash_attention
+
+    def sliced(q, k, v, **kw):
+        H = q.shape[2]
+        return torch.cat([ops.head_slice_attention(q[:, :, h0:h1], k, v, h0, H, **kw)
+                          for h0, h1 in partitioning._spans(H, m)], dim=2)
+
+    ops.flash_attention = sliced
+    try:
+        yield
+    finally:
+        ops.flash_attention = whole
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def mamba_split_check(dev: torch.device, mesh, gen) -> tuple:
+    """Phase layout (f): one Mamba2 layer of zamba2-7b at published width, B x
+    S tokens, in the head slices of a MAMBA_SPLIT_M-way "model" axis, each
+    slice's work as a rank runs it (``ssm.mamba2_slices``: its in_proj
+    columns, conv channels, state and out_proj rows, the gated norm's sum
+    of squares summed over the slices, the partial outputs summed) against
+    the whole layer (``mamba2_apply``): forward in f32 and bf16, the f32
+    backward (the input's and every weight's gradient), and one decode step
+    whose conv buffer moves from the 16 even channel chunks of a cache to
+    the slices' layouts and back (``partitioning.regather_local``) against
+    ``mamba2_decode``; then one group (6 Mamba2 layers and the shared block,
+    its attention through K6 in the 16 q-head slices) against the whole
+    group, f32 and bf16, K6's launches counted from 0 around the sliced
+    bf16 group; one layer through ``mamba2_sharded`` on DTensors of the 1 x
+    1 mesh against plain tensors, forward and backward, bit-equal; times of
+    the slices and of one slice (a rank's share) against the whole layer,
+    with launches and on the device.
+    -> (row, K6 launches of the sliced group)."""
+    from repro_torch.models import hybrid, ssm
+
+    cfg = get_arch(MAMBA_SPLIT_ARCH)
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    d = ssm.ssm_dims(cfg)
+    B, S, M = MAMBA_SPLIT_B, MAMBA_SPLIT_S, MAMBA_SPLIT_M
+    spans = partitioning._spans(d.n_heads, M)
+    name = f"mamba2 {d.n_heads} heads over {M} (x {spans[0][1]}) B={B} S={S}"
+    w32 = ssm.mamba2_init(gen, cfg, device=dev)
+    for k in ("norm", "dt_bias"):   # off their zero init, so that slicing them shows
+        w32[k] = 0.1 * torch.randn(w32[k].shape, generator=gen, device=dev)
+    x32 = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    row = {"slices": [h1 - h0 for h0, h1 in spans]}
+
+    def pair(w, x, c):
+        return (lambda: ssm.mamba2_slices(w, x, c, spans, chunk=c.scan_chunk)[0],
+                lambda: ssm.mamba2_apply(w, x, c, chunk=c.scan_chunk))
+
+    bad = []     # every check's failure, raised together at the end
+
+    def check(ok: bool, what: str) -> None:
+        if not ok:
+            bad.append(what)
+
+    with torch.no_grad():
+        for key, c, tol, st_tol, cast in (
+                ("f32", f32cfg, MAMBA_SPLIT_F32_TOL, MAMBA_SPLIT_STATE_TOL, torch.float32),
+                ("bf16", cfg, MAMBA_SPLIT_BF16_TOL, MAMBA_SPLIT_BF16_TOL, torch.bfloat16)):
+            w = {k: (t.to(cast) if t.dim() == 2 else t) for k, t in w32.items()}
+            sliced, whole = pair(w, x32.to(cast), c)
+            got, want = sliced(), whole()
+            _, st = ssm.mamba2_slices(w, x32.to(cast), c, spans, chunk=c.scan_chunk)
+            _, wst = ssm.mamba2_apply(w, x32.to(cast), c, chunk=c.scan_chunk, return_state=True)
+            row[f"{key}_max_rel_err"] = _rel_err(got, want)
+            row[f"{key}_state_max_rel_err"] = _rel_err(st, wst)
+            check(bool(torch.isfinite(got).all()) and row[f"{key}_max_rel_err"] <= tol
+                  and row[f"{key}_state_max_rel_err"] <= st_tol,
+                  f"{key}: slices vs whole {row[f'{key}_max_rel_err']:.3g} (limit {tol}), "
+                  f"state {row[f'{key}_state_max_rel_err']:.3g} (limit {st_tol})")
+            if key == "bf16":
+                # one rank's share: slice 0 (its gate and partial output; the
+                # sum of squares and the output's all-reduce left out)
+                p0, x0 = ssm.head_slice(w, c, *spans[0]), x32.to(cast)
+
+                def one():
+                    g, _ = ssm.mamba2_gate(p0, x0, c, c.scan_chunk)
+                    return ssm.gated_out(p0, g, c, ssm.sum_squares(g))
+
+                row.update(ms=median_ms(sliced, MAMBA_SPLIT_REPS),
+                           whole_ms=median_ms(whole, MAMBA_SPLIT_REPS),
+                           slice_ms=median_ms(one, MAMBA_SPLIT_REPS),
+                           device_ms=graph_ms(sliced, MAMBA_SPLIT_REPS),
+                           whole_device_ms=graph_ms(whole, MAMBA_SPLIT_REPS),
+                           slice_device_ms=graph_ms(one, MAMBA_SPLIT_REPS))
+            del w, got, want
+    # --- the f32 backward: every gradient of the slices against the whole's
+    grads = {}
+    dout = torch.randn(B, S, cfg.d_model, generator=gen, device=dev)
+    for way in ("slices", "whole"):
+        leaves = {k: t.clone().requires_grad_() for k, t in w32.items()}
+        x = x32.clone().requires_grad_()
+        out = (ssm.mamba2_slices(leaves, x, f32cfg, spans, chunk=cfg.scan_chunk)[0]
+               if way == "slices" else ssm.mamba2_apply(leaves, x, f32cfg, chunk=cfg.scan_chunk))
+        out.backward(dout)
+        grads[way] = {"x": x.grad, **{k: t.grad for k, t in leaves.items()}}
+        del out, leaves, x
+    row["grad_max_rel_err"] = {k: _rel_err(grads["slices"][k], g)
+                               for k, g in grads["whole"].items()}
+    off = {k: e for k, e in row["grad_max_rel_err"].items()
+           if not e <= (MAMBA_SPLIT_ALOG_TOL if k == "A_log" else MAMBA_SPLIT_GRAD_TOL)}
+    check(not off, f"f32 gradients of the slices vs the whole layer: {off}")
+    del grads
+    # --- one decode step: the conv buffer from the cache's even chunks to
+    # each slice's channels and back
+    state = 0.1 * torch.randn(B, d.n_heads, d.head_dim, d.d_state, generator=gen, device=dev)
+    buf = torch.randn(B, ssm.CONV_WIDTH - 1, d.conv_dim, generator=gen, device=dev)
+    tok = x32[:, :1]
+    chunks = [[c] for c in partitioning._spans(d.conv_dim, M)]
+    layouts = [ssm.conv_channels(d, h0, h1) for h0, h1 in spans]
+    with torch.no_grad():
+        bufs = partitioning.regather_local([buf[..., a:b] for (a, b), in chunks], 2, chunks,
+                                           layouts)
+        out, st, new = ssm.mamba2_decode_slices(w32, tok, f32cfg, spans, state, bufs)
+        back = partitioning.regather_local(new, 2, layouts, chunks)
+        want = ssm.mamba2_decode(w32, tok, f32cfg, state, buf)
+    got = (out, st, torch.cat(back, dim=2))
+    row["decode_max_rel_err"] = {k: _rel_err(g, w) for k, g, w in zip(("out", "state", "conv"),
+                                                                     got, want)}
+    row["decode_conv_bit_equal"] = bool(torch.equal(got[2], want[2]))
+    row["conv_chunk_channels"] = chunks[0][0][1] - chunks[0][0][0]
+    check(all(e <= MAMBA_SPLIT_F32_TOL for e in row["decode_max_rel_err"].values()),
+          f"decode step of the slices vs mamba2_decode {row['decode_max_rel_err']}")
+    # --- one group: 6 Mamba2 layers and the shared block, K6 in 16 q-head slices
+    counts = {}
+    for key, c, tol in (("f32", f32cfg, MAMBA_GROUP_F32_TOL), ("bf16", cfg, DECODE_LOGIT_REL_TOL)):
+        model = build_model(dataclasses.replace(c, n_layers=c.attn_every), dev, seed=27)
+        x = torch.randn(B, S, c.d_model, generator=gen, device=dev).to(model.dtype)
+        positions = torch.arange(S, device=dev)[None, :]
+        with torch.no_grad():
+            want = model._group(model.main[0], x, positions)
+            ops.reset_launch_counts()
+            with sliced_attention(M), mamba_layers_sliced(hybrid, spans):
+                got = model._group(model.main[0], x, positions)
+            sync()
+            counts[key] = ops.launch_counts()
+        row[f"group_{key}_max_rel_err"] = _rel_err(got, want)
+        calls = sum(len(ops.head_slice_calls(h0, h1, 1)) for h0, h1 in
+                    partitioning._spans(c.n_heads, M))
+        check(counts[key]["flash_attention"] == calls and row[f"group_{key}_max_rel_err"] <= tol
+              and bool(torch.isfinite(got).all()),
+              f"the {key} group in slices: {counts[key]['flash_attention']} K6 launches "
+              f"(want {calls}), vs whole {row[f'group_{key}_max_rel_err']:.3g} (limit {tol})")
+        del model, x, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+    row["group_k6_launches"] = counts["bf16"]["flash_attention"]
+    # --- one layer on DTensors of the 1 x 1 mesh against plain tensors
+    same = mamba_dtensor_check(dev, mesh, cfg, w32, x32, dout)
+    row["dtensor_bit_equal"] = all(same.values())
+    check(row["dtensor_bit_equal"], f"the layer on DTensors of the 1 x 1 mesh vs plain "
+                                    f"tensors, bit-equal: {same}")
+    log(f"  {name}: slices vs whole layer f32 {row['f32_max_rel_err']:.3g} (state "
+        f"{row['f32_state_max_rel_err']:.3g}), bf16 {row['bf16_max_rel_err']:.3g} (state "
+        f"{row['bf16_state_max_rel_err']:.3g}); f32 gradients "
+        + ", ".join(f"{k} {e:.3g}" for k, e in row["grad_max_rel_err"].items())
+        + f"; decode step {row['decode_max_rel_err']} (conv buffer through the "
+        f"{row['conv_chunk_channels']}-channel chunks, bit-equal {row['decode_conv_bit_equal']}); "
+        f"group of {cfg.attn_every} layers and the shared block: f32 "
+        f"{row['group_f32_max_rel_err']:.3g}, bf16 {row['group_bf16_max_rel_err']:.3g}, K6 "
+        f"launches {row['group_k6_launches']}; 1 x 1 mesh DTensors vs plain bit-equal "
+        f"{row['dtensor_bit_equal']}; bf16 forward: slices {row['ms']:.4f} ms "
+        f"({row['device_ms']:.4f} device), whole {row['whole_ms']:.4f} ms "
+        f"({row['whole_device_ms']:.4f} device), one slice {row['slice_ms']:.4f} ms "
+        f"({row['slice_device_ms']:.4f} device)")
+    expect(not bad, f"{name}: " + "; ".join(bad))
+    return row, counts["bf16"]
+
+
+@contextlib.contextmanager
+def mamba_layers_sliced(hybrid, spans):
+    """``HybridModel``'s Mamba2 layers in ``spans``' head slices on one device
+    (``ssm.mamba2_slices``), as the ranks of a "model" axis compute them."""
+    from repro_torch.models import ssm
+
+    whole = hybrid.mamba2_apply
+
+    def sliced(p, x, cfg, chunk=256, initial_state=None, return_state=False):
+        out, h = ssm.mamba2_slices(p, x, cfg, spans, chunk, initial_state)
+        return (out, h) if return_state else out
+
+    hybrid.mamba2_apply = sliced
+    try:
+        yield
+    finally:
+        hybrid.mamba2_apply = whole
+
+
+def mamba_dtensor_check(dev, mesh, cfg, w32, x32, dout) -> dict:
+    """One Mamba2 layer (f32) through ``ssm.mamba2_sharded`` on DTensors of
+    the 1 x 1 mesh, the weights placed as ``state_shardings`` ("fsdp")
+    places them, against ``mamba2_apply`` of the layer-normed input on
+    plain tensors -> {output, and each gradient (the input's, the layer
+    norm's, each weight's): bit-equal}."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import ssm
+
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    ln32 = torch.linspace(-0.1, 0.1, cfg.d_model, device=dev)
+    names = {k: f"main.0.0.mamba.{k}" for k in w32}
+    shd = state_shardings({**{names[k]: t for k, t in w32.items()}, "main.0.0.ln": ln32}, mesh,
+                          "fsdp", cfg.family)
+    xshd = batch_shardings({"x": (tuple(x32.shape), x32.dtype)}, mesh)["x"]
+    got = {}
+    for way in ("plain", "dtensor"):
+        leaves = {k: t.clone().requires_grad_() for k, t in w32.items()}
+        ln, x = ln32.clone().requires_grad_(), x32.clone().requires_grad_()
+        if way == "plain":
+            y = ssm.mamba2_apply(leaves, layers.rms_norm(x, ln, cfg.norm_eps), f32cfg,
+                                 chunk=cfg.scan_chunk)
+            y.backward(dout)
+        else:
+            with use_mesh(mesh):
+                dy = ssm.mamba2_sharded(
+                    {k: DTensor.from_local(t, mesh, tuple(shd[names[k]]))
+                     for k, t in leaves.items()},
+                    DTensor.from_local(ln, mesh, tuple(shd["main.0.0.ln"])),
+                    DTensor.from_local(x, mesh, tuple(xshd)), f32cfg, chunk=cfg.scan_chunk)
+                dy.backward(DTensor.from_local(dout, mesh, dy.placements))
+            y = dy.to_local()
+        got[way] = {"out": y.detach(), "x": x.grad, "ln": ln.grad,
+                    **{k: t.grad for k, t in leaves.items()}}
+    return {k: bool(torch.equal(got["dtensor"][k], g)) for k, g in got["plain"].items()}
+
+
 def phase_layout(dev: torch.device, seed: int = 13):
     """(a) K6 with q_offset: chunks, a window with a softcap, the chunks of a
     prompt against one call, the backward; (b) qwen3-1.7b's prefill through
@@ -3757,8 +4039,10 @@ def phase_layout(dev: torch.device, seed: int = 13):
     a full-width qwen2-moe MoE block through expert parallelism on DTensors
     of that mesh against plain tensors; (e) llama4's attention in the q-head
     slices of a 16-way model axis against one call, seamless's cross
-    entropy in 16 vocabulary chunks -> (K6 row fields, launches of (b),
-    (c) and (e))."""
+    entropy in 16 vocabulary chunks; (f) zamba2's Mamba2 layer and a group
+    in the head slices of a 16-way model axis against the whole, and a
+    layer on DTensors of the 1 x 1 mesh -> (K6 row fields, launches of (b),
+    (c), (e) and (f))."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
     # --- (a) the chunks, each dtype; the window + softcap chunk
@@ -3879,7 +4163,11 @@ def phase_layout(dev: torch.device, seed: int = 13):
     rows["head_split"], head_counts = head_split_check(dev, gen)
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, blocked_counts, train_counts, head_counts
+    # --- (f) zamba2's Mamba2 heads split over 16 ranks; a group of layers
+    rows["mamba_split"], mamba_counts = mamba_split_check(dev, mesh, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, blocked_counts, train_counts, head_counts, mamba_counts
 
 
 # ------------------------------------------------------------------ phase 13
@@ -3903,11 +4191,15 @@ DRYRUN_MOE_ARGS = ("--mode", "ep", "--override", "moe_dispatch_groups=16")
 # routes every token on every rank): the port's FLOPs lie between the
 # model's useful FLOPs a chip and DRYRUN_HEAD_LIMIT x the reference's (its
 # dry run's per-device FLOPs with the same arguments on a CPU host,
-# ``python -m repro.launch.dryrun``)
+# ``python -m repro.launch.dryrun``); and zamba2's prefill and decode cells,
+# its Mamba2 layers split over the ranks' 7 of 112 heads
 DRYRUN_HEAD_CELLS = {"llama4-maverick-400b-a17b:prefill_32k": DRYRUN_MOE_ARGS,
-                     "gemma-2b:prefill_32k": ()}
+                     "gemma-2b:prefill_32k": (), "zamba2-7b:prefill_32k": (),
+                     "zamba2-7b:decode_32k": ()}
 DRYRUN_HEAD_REF_FLOPS = {"llama4-maverick-400b-a17b:prefill_32k": 2.94652194996224e14,
-                         "gemma-2b:prefill_32k": 5.5817526050816e13}
+                         "gemma-2b:prefill_32k": 5.5817526050816e13,
+                         "zamba2-7b:prefill_32k": 1.28012085286912e14,
+                         "zamba2-7b:decode_32k": 1.2189442048e10}
 DRYRUN_HEAD_LIMIT = 1.5
 SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
 PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
@@ -4236,8 +4528,8 @@ def main() -> int:
         rows, paths["train"], paths["train-families"] = phase_train(dev)
         kern.update(rows)
     with timed("layout"):
-        rows, paths["layout-blocked"], paths["layout-train"], paths["layout-heads"] = \
-            phase_layout(dev)
+        rows, paths["layout-blocked"], paths["layout-train"], paths["layout-heads"], \
+            paths["layout-mamba"] = phase_layout(dev)
         kern["flash_attention"].update(rows)
     with timed("dryrun"):
         rows, paths["dryrun"], dryrun_cells = phase_dryrun(dev)
@@ -4273,6 +4565,7 @@ def main() -> int:
               "layout_blocked_launches": paths["layout-blocked"][name],
               "layout_train_launches": paths["layout-train"][name],
               "layout_heads_launches": paths["layout-heads"][name],
+              "layout_mamba_launches": paths["layout-mamba"][name],
               "dryrun_launches": paths["dryrun"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
-from .partitioning import at_use, batch_local, shard, write_slots, zeros
+from .partitioning import at_use, is_dtensor, shard, write_slots, zeros
 from .layers import (
     activation_dtype,
     embed_apply,
@@ -55,6 +55,7 @@ from .ssm import (
     mamba2_apply,
     mamba2_decode,
     mamba2_init,
+    mamba2_sharded,
     mamba2_state_shapes,
     ssm_dims,
 )
@@ -124,10 +125,11 @@ class HybridModel(nn.Module):
         return (x, kv) if return_kv else x
 
     def _mamba(self, layer: MambaLayer, x: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        y = batch_local(lambda x_, p, ln: mamba2_apply(p, rms_norm(x_, ln, cfg.norm_eps), cfg,
-                                                       chunk=cfg.scan_chunk),
-                        x, dict(layer.mamba.items()), layer.ln)
+        """One Mamba2 layer and its residual; on a mesh each rank computes
+        its heads (``mamba2_sharded``)."""
+        cfg, p = self.cfg, dict(layer.mamba.items())
+        y = (mamba2_sharded(p, layer.ln, x, cfg, chunk=cfg.scan_chunk) if is_dtensor(x) else
+             mamba2_apply(p, rms_norm(x, layer.ln, cfg.norm_eps), cfg, chunk=cfg.scan_chunk))
         return shard(x + y, "batch", "seq", "embed")
 
     def _group(self, group: nn.ModuleList, x: torch.Tensor,
@@ -215,18 +217,17 @@ class HybridModel(nn.Module):
     def _mamba_prefill(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
                        conv: torch.Tensor) -> torch.Tensor:
         """One Mamba layer of the prompt; its final state goes to ``ssm`` and
-        the pre-conv activations of the last W-1 positions to ``conv``."""
-        cfg = self.cfg
-
-        def run(x_, p, ln):   # on the rank's batch shard under a mesh (batch_local)
-            xn = rms_norm(x_, ln, cfg.norm_eps)
-            y, hT = mamba2_apply(p, xn, cfg, chunk=cfg.scan_chunk, return_state=True)
-            _, tail, _ = _split_in(p, xn[:, x_.shape[1] - (CONV_WIDTH - 1):], ssm_dims(cfg))
-            return y, hT, tail
-
-        y, hT, xbc_tail = batch_local(run, x, dict(layer.mamba.items()), layer.ln)
+        the pre-conv activations of the last W-1 positions to ``conv``; on a
+        mesh each rank computes its heads and writes its own chunks of both
+        (``mamba2_sharded``)."""
+        cfg, p = self.cfg, dict(layer.mamba.items())
+        if is_dtensor(x):
+            return x + mamba2_sharded(p, layer.ln, x, cfg, chunk=cfg.scan_chunk, ssm=ssm,
+                                      conv=conv)
+        xn = rms_norm(x, layer.ln, cfg.norm_eps)
+        y, hT = mamba2_apply(p, xn, cfg, chunk=cfg.scan_chunk, return_state=True)
         ssm.copy_(hT)
-        conv.copy_(xbc_tail)
+        conv.copy_(_split_in(p, xn[:, x.shape[1] - (CONV_WIDTH - 1):], ssm_dims(cfg))[1])
         return x + y
 
     def prefill(self, batch, max_len: int, cache_dtype: torch.dtype = torch.bfloat16):
@@ -250,13 +251,13 @@ class HybridModel(nn.Module):
 
     def _mamba_step(self, layer: MambaLayer, x: torch.Tensor, ssm: torch.Tensor,
                     conv: torch.Tensor) -> torch.Tensor:
-        """One Mamba layer's decode step; under a mesh on the rank's batch
-        shard, its states gathered over their heads or conv channels and
-        written back to its own shard of them (``batch_local``)."""
-        cfg = self.cfg
-        y, st, cb = batch_local(
-            lambda x_, p, ln, s: mamba2_decode(p, rms_norm(x_, ln, cfg.norm_eps), cfg, *s),
-            x, dict(layer.mamba.items()), layer.ln, states=(ssm, conv))
+        """One Mamba layer's decode step; on a mesh each rank computes its
+        heads from its state and its conv channels and writes its own chunks
+        of both (``mamba2_sharded``)."""
+        cfg, p = self.cfg, dict(layer.mamba.items())
+        if is_dtensor(x):
+            return x + mamba2_sharded(p, layer.ln, x, cfg, ssm=ssm, conv=conv, step=True)
+        y, st, cb = mamba2_decode(p, rms_norm(x, layer.ln, cfg.norm_eps), cfg, ssm, conv)
         ssm.copy_(st)
         conv.copy_(cb)
         return x + y

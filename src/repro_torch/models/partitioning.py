@@ -304,44 +304,189 @@ def _spans(n: int, k: int, unit: int = 1) -> list:
     return out
 
 
-def _rechunk(t: torch.Tensor, mesh, i: int, dim: int, src: list, dst: list) -> torch.Tensor:
-    """A rank's piece ``t`` of a dim cut over mesh dim ``i`` at ``src`` (each
-    rank's (start, stop), a partition of the dim), as its piece of the same
-    dim cut at ``dst``: one all-to-all over mesh dim ``i`` of the overlaps
-    (uneven or empty pieces; none where the two cuts are the same)."""
-    if src == dst:
+Ranges = Sequence[Tuple[int, int]]
+
+
+def _position(ranges: Ranges, at: int) -> int:
+    """Where index ``at`` of a dim lies in a tensor that holds the dim's
+    ``ranges`` concatenated in order."""
+    pos = 0
+    for a, b in ranges:
+        if a <= at < b:
+            return pos + at - a
+        pos += b - a
+    raise ValueError(f"index {at} is not in {list(ranges)}")
+
+
+def regather_plan(have: Sequence[Ranges], want: Sequence[Ranges], r: int) -> list:
+    """Rank ``r``'s ``want[r]`` ranges of a dim, in order, as pieces (source
+    rank, start, stop) of the ranks' ``have``: an index comes from rank r
+    itself where it holds it, else from the lowest rank that does (B and C
+    columns, which every rank holds).  Plain arithmetic, the same on every
+    rank."""
+    cuts = sorted({e for h in have for rng in h for e in rng})
+    out: list = []
+    for a, b in want[r]:
+        edges = [a] + [c for c in cuts if a < c < b] + [b]
+        for u, v in zip(edges, edges[1:]):
+            if u == v:
+                continue
+            held = [s for s, h in enumerate(have) if any(x <= u and v <= y for x, y in h)]
+            if not held:
+                raise ValueError(f"no rank holds [{u}, {v}) of {list(map(list, have))}")
+            s = r if r in held else held[0]
+            if out and out[-1][0] == s and out[-1][2] == u:
+                out[-1] = (s, out[-1][1], v)
+            else:
+                out.append((s, u, v))
+    return out
+
+
+def _narrow_cat(t: torch.Tensor, dim: int, pieces: Ranges) -> torch.Tensor:
+    """``t``'s (start, stop) pieces of ``dim``, concatenated (``t`` itself
+    where they are all of it, in order)."""
+    merged: list = []
+    for a, b in pieces:
+        if merged and merged[-1][1] == a:
+            merged[-1] = (merged[-1][0], b)
+        elif b > a:
+            merged.append((a, b))
+    if merged == [(0, t.shape[dim])]:
         return t
+    parts = [t.narrow(dim, a, b - a) for a, b in merged] or [t.narrow(dim, 0, 0)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def regather_local(ts: Sequence[torch.Tensor], dim: int, have: Sequence[Ranges],
+                   want: Sequence[Ranges]) -> list:
+    """``regather`` on one device: ``ts[r]`` is rank r's tensor of its ``have[r]``
+    ranges; -> each rank's tensor of its ``want[r]`` ranges, taken where
+    ``regather_plan`` takes them (what the collective computes)."""
+    return [torch.cat([ts[s].narrow(dim, _position(have[s], u), v - u)
+                       for s, u, v in regather_plan(have, want, r)] or [ts[r].narrow(dim, 0, 0)],
+                      dim=dim)
+            for r in range(len(want))]
+
+
+def _sent(have: Sequence[Ranges], plans: list, me: int) -> list:
+    """The pieces of rank ``me``'s tensor that each rank's plan takes from
+    it: a list, a rank, of (position in ``me``'s tensor, length)."""
+    return [[(_position(have[me], u), v - u) for s, u, v in plan if s == me] for plan in plans]
+
+
+def _exchange(x: torch.Tensor, send: list, recv: list, mesh, i: int) -> torch.Tensor:
+    """One all-to-all over mesh dim ``i`` of ``x``'s rows (dim 0): ``send[r]``
+    rows to rank r, ``recv[s]`` from rank s."""
     import torch.distributed._functional_collectives as funcol
 
-    k, me = mesh.size(i), mesh.get_local_rank(i)
-
-    def overlap(a, b) -> int:
-        return max(0, min(a[1], b[1]) - max(a[0], b[0]))
-
-    send = [overlap(src[me], dst[r]) for r in range(k)]
-    recv = [overlap(src[r], dst[me]) for r in range(k)]
-    x = t.movedim(dim, 0)
     rest = math.prod(x.shape[1:])
     out = funcol.all_to_all_single(x.contiguous().reshape(-1), [n * rest for n in recv],
                                    [n * rest for n in send], (mesh, i))
     if isinstance(out, funcol.AsyncCollectiveTensor):
         out = out.wait()
-    return out.reshape(sum(recv), *x.shape[1:]).movedim(0, dim).contiguous()
+    return out.reshape(sum(recv), *x.shape[1:])
 
 
-class _Rechunk(torch.autograd.Function):
-    """``_rechunk`` from ``src`` to ``dst``; its gradient goes back from
-    ``dst`` to ``src``."""
+def _cat_rows(parts: list, like: torch.Tensor) -> torch.Tensor:
+    return torch.cat(parts) if parts else like[:0]
+
+
+class _Regather(torch.autograd.Function):
+    """``regather``'s all-to-all; the gradient goes back to the pieces'
+    sources, summed where several ranks took the same index."""
 
     @staticmethod
-    def forward(ctx, t, mesh, i, dim, src, dst):
-        ctx.args = (mesh, i, dim, src, dst)
-        return _rechunk(t, mesh, i, dim, src, dst)
+    def forward(ctx, t, mesh, i, dim, have, plans):
+        k, me = len(plans), mesh.get_local_rank(i)
+        ctx.args, ctx.n = (mesh, i, dim, have, plans), t.shape[dim]
+        x = t.movedim(dim, 0)
+        sent = _sent(have, plans, me)
+        recv = [sum(v - u for s_, u, v in plans[me] if s_ == s) for s in range(k)]
+        buf = _exchange(_cat_rows([x.narrow(0, p, n) for pieces in sent for p, n in pieces], x),
+                        [sum(n for _, n in pieces) for pieces in sent], recv, mesh, i)
+        got, taken, parts = torch.split(buf, recv), [0] * k, []
+        for s, u, v in plans[me]:       # each source's rows arrive in plan order
+            parts.append(got[s].narrow(0, taken[s], v - u))
+            taken[s] += v - u
+        return _cat_rows(parts, buf).movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, grad):
-        mesh, i, dim, src, dst = ctx.args
-        return _rechunk(grad, mesh, i, dim, dst, src), None, None, None, None, None
+        mesh, i, dim, have, plans = ctx.args
+        k, me = len(plans), mesh.get_local_rank(i)
+        g = grad.movedim(dim, 0)
+        rows, at = [[] for _ in range(k)], 0
+        for s, u, v in plans[me]:       # back to each source, in plan order
+            rows[s].append(g.narrow(0, at, v - u))
+            at += v - u
+        sent = _sent(have, plans, me)
+        back = _exchange(_cat_rows([p for r in rows for p in r], g),
+                         [sum(p.shape[0] for p in r) for r in rows],
+                         [sum(n for _, n in pieces) for pieces in sent], mesh, i)
+        idx = [torch.arange(p, p + n, device=back.device) for pieces in sent for p, n in pieces]
+        out = back.new_zeros((ctx.n, *back.shape[1:]))
+        if idx:
+            out.index_add_(0, torch.cat(idx), back)
+        return out.movedim(0, dim), None, None, None, None, None
+
+
+def regather(t: torch.Tensor, mesh, i: Optional[int], dim: int, have: Optional[Sequence[Ranges]],
+             want: Sequence[Ranges]) -> torch.Tensor:
+    """This rank's ``want[me]`` ranges of a dim (``dim`` of ``t``), in order,
+    where rank r's ``t`` holds the ``have[r]`` ranges (``have`` None: ``t``
+    is the whole dim on every rank, and the ranges are sliced locally, their
+    gradient zero elsewhere).  Ranks may want overlapping ranges (every
+    rank takes the B and C columns) and may hold overlapping ones (a
+    write-back of them): ``regather_plan`` picks each index's source.  One
+    all-to-all over mesh dim ``i`` of uneven or empty pieces, none where
+    every rank holds what it wants; the gradient goes back to the sources,
+    summed over the ranks that took an index."""
+    me = 0 if i is None else mesh.get_local_rank(i)
+    if have is None:
+        return _narrow_cat(t, dim, want[me])
+    plans = [regather_plan(have, want, r) for r in range(len(want))]
+    if all(s == r for r, plan in enumerate(plans) for s, _, _ in plan):
+        return _narrow_cat(t, dim, [(_position(have[me], u), _position(have[me], u) + v - u)
+                                    for _, u, v in plans[me]])
+    return _Regather.apply(t, mesh, i, dim, [list(h) for h in have], plans)
+
+
+class _AllSum(torch.autograd.Function):
+    """The sum of ``t`` over mesh dim ``i`` on every rank (an all-reduce);
+    its gradient is the sum of the ranks' gradients, another all-reduce."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, i):
+        ctx.group = (mesh, i)
+        return _all_reduce(t, mesh, i)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, *ctx.group), None, None
+
+
+def _all_reduce(t: torch.Tensor, mesh, i: int) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    out = funcol.all_reduce(t.contiguous(), "sum", (mesh, i))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
+
+
+def all_sum(t: torch.Tensor, mesh, i: Optional[int]) -> torch.Tensor:
+    """A plain tensor summed over mesh dim ``i`` (as it is for ``i`` None)."""
+    return t if i is None else _AllSum.apply(t, mesh, i)
+
+
+def axis_rank(mesh, name: str) -> Tuple[Optional[int], int, int]:
+    """(the mesh dim that the logical axis ``name`` maps to, its size, this
+    rank's coordinate on it), or (None, 1, 0) where the rules map it to no
+    mesh axis or to one of size 1."""
+    axes = spec(name)[0]
+    if axes is None:
+        return None, 1, 0
+    assert isinstance(axes, str), (name, axes)
+    i = axis_names(mesh).index(axes)
+    return (None, 1, 0) if mesh.size(i) == 1 else (i, mesh.size(i), mesh.get_local_rank(i))
 
 
 def relayout(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
@@ -378,16 +523,16 @@ def _local(t, mesh, want, grad):
 def batch_local(fn, x: torch.Tensor, *weights, states=None):
     """``fn(x, *weights)`` run on this rank's shard of the batch, with the
     weights (dicts of tensors, or tensors) gathered whole, the counterpart
-    of a ``shard_map`` over the batch axes: for the blocks whose ops have
-    no DTensor sharding rules (xLSTM's and Mamba2's recurrences).  A plain
-    ``x`` runs ``fn`` as it is.  The rank's weight gradients are partial
-    sums over the batch axes (replicated over the others), and the output
-    keeps x's batch sharding (dim 0), as does every tensor of a tuple
-    ``fn`` returns (a prefill's final states).  ``states``: a tuple of
-    recurrent states whose dim 0 is the batch (a decode step's), handed to
-    ``fn`` as one more argument, each as the rank's batch shard whole over
-    its other dims (a state sharded over another dim, Mamba2's heads over
-    "model", is gathered over it)."""
+    of a ``shard_map`` over the batch axes: for the blocks that the
+    reference replicates and whose ops have no DTensor sharding rules
+    (xLSTM's recurrences; Mamba2's layers split their heads instead,
+    ``ssm.mamba2_sharded``).  A plain ``x`` runs ``fn`` as it is.  The
+    rank's weight gradients are partial sums over the batch axes
+    (replicated over the others), and the output keeps x's batch sharding
+    (dim 0), as does every tensor of a tuple ``fn`` returns (a prefill's
+    final states).  ``states``: a tuple of recurrent states whose dim 0 is
+    the batch (a decode step's), handed to ``fn`` as one more argument,
+    each as the rank's batch shard whole over its other dims."""
     if not is_dtensor(x):
         return fn(x, *weights) if states is None else fn(x, *weights, states)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -433,8 +578,8 @@ def merge_heads(t: torch.Tensor) -> torch.Tensor:
 
             local = t.to_local(grad_placements=t.placements)
             local = local.reshape(*local.shape[:-2], local.shape[-2] * k)
-            local = _Rechunk.apply(local, mesh, i, t.ndim - 2,
-                                   _spans(n, m, k), _spans(n * k, m))
+            local = regather(local, mesh, i, t.ndim - 2, [[c] for c in _spans(n, m, k)],
+                             [[c] for c in _spans(n * k, m)])
             return DTensor.from_local(local, mesh, t.placements, shape=flat_shape,
                                       stride=contiguous_strides(flat_shape))
     flat = t.reshape(flat_shape)
@@ -499,8 +644,9 @@ def _split_uneven(t: torch.Tensor, shape: tuple, lead, i: int) -> torch.Tensor:
     want = tuple(want)
     if tuple(t.placements) != want:
         t = _Constrain.apply(t, want)
-    local = _Rechunk.apply(t.to_local(grad_placements=want), mesh, i, d, _spans(t.shape[-1], m),
-                           _spans(shape[-2], m, shape[-1]))
+    local = regather(t.to_local(grad_placements=want), mesh, i, d,
+                     [[c] for c in _spans(t.shape[-1], m)],
+                     [[c] for c in _spans(shape[-2], m, shape[-1])])
     local = local.reshape(*local.shape[:-1], local.shape[-1] // shape[-1], shape[-1])
     return DTensor.from_local(local, mesh, want, shape=shape, stride=contiguous_strides(shape))
 

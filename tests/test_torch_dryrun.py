@@ -20,7 +20,10 @@ reference's, an all-to-all among the port's collectives.  A cell whose q
 heads 16 does not divide, gemma-2b prefill_32k (8 heads, 1 kv head: one
 head on ranks 0-7 of "model", none on 8-15), through both CLIs: arguments
 and aliases within 1 %, FLOPs between the model's useful FLOPs a chip and
-1.5 x the reference's.
+1.5 x the reference's.  A cell of zamba2, whose Mamba2 layers split their
+112 heads over "model" (7 a rank), decode_32k through both CLIs: the same
+limits (the reference's CLI takes ~6 s here, the port's ~12 s, each held
+to 600).
 """
 from __future__ import annotations
 
@@ -132,6 +135,27 @@ def head_both(tmp_path_factory):
 
 def test_uneven_heads_dryrun_matches_the_reference(head_both):
     want, got = head_both
+    for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
+        assert abs(got[key] - want[key]) <= 0.01 * max(want[key], 1), (key, got[key], want[key])
+    useful = got["roofline"]["model_flops"] / got["chips"]
+    assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
+        (useful, got["hlo_flops"], want["hlo_flops"])
+
+
+MAMBA_CELL = "zamba2-7b:decode_32k"
+
+
+@pytest.fixture(scope="module")
+def mamba_both(tmp_path_factory):
+    """(the reference's artifact, the port's) of MAMBA_CELL."""
+    ref, port = tmp_path_factory.mktemp("mamba_ref"), tmp_path_factory.mktemp("mamba_port")
+    _cli("repro.launch.dryrun", ["--cells", MAMBA_CELL], ref, 600)
+    _cli("repro_torch.launch.dryrun", ["--cells", MAMBA_CELL, "--device", "cpu"], port, 600)
+    return _artifact(ref, MAMBA_CELL), _artifact(port, MAMBA_CELL)
+
+
+def test_mamba_heads_dryrun_matches_the_reference(mamba_both):
+    want, got = mamba_both
     for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
         assert abs(got[key] - want[key]) <= 0.01 * max(want[key], 1), (key, got[key], want[key])
     useful = got["roofline"]["model_flops"] / got["chips"]

@@ -16,7 +16,10 @@
   ("fsdp"), the cache as ``cache_shardings`` places it (slots over "model",
   so that some steps find a shard with no valid slot); each step's logits
   within 1e-5 of one device's and of the reference's ``decode_step``, the
-  cache's placements kept.
+  cache's placements kept; zamba2's Mamba2 layers split their heads over
+  "model", and after the prefill and each step every rank's chunk of each
+  conv buffer (its batch rows, its 80 of 160 channels) within 1e-5 of one
+  device's.
 """
 from __future__ import annotations
 
@@ -124,22 +127,24 @@ def _reference(arch: str):
     jl, jc = jm.prefill(params, jb, max_len, cache_dtype=jnp.float32)
     tl, tc = tm.prefill(tb, max_len, cache_dtype=torch.float32)
     want, one = [np.asarray(jl)], [tl.numpy()]
+    convs = [{k: t.numpy().copy() for k, t in tc.items() if k.startswith("conv")}]
     for step in range(3):
         nxt = tok[:, S + step:S + step + 1]
         jl, jc = jm.decode_step(params, jnp.asarray(nxt), jc, jnp.int32(S + step))
         tl, tc = tm.decode_step(torch.from_numpy(nxt), tc, S + step)
         want.append(np.asarray(jl))
         one.append(tl.numpy())
+        convs.append({k: t.numpy().copy() for k, t in tc.items() if k.startswith("conv")})
     extra = {k: v for k, v in tb.items() if k != "tokens"}
     data = {"params": {n: p.detach().clone() for n, p in tm.named_parameters()},
             "tokens": torch.from_numpy(tok), "S": S, "steps": 3, "max_len": max_len,
             "extra": extra}
-    return want, one, data
+    return want, one, convs, data
 
 
 @pytest.mark.parametrize("arch", sorted(CASES))
 def test_sharded_decode_matches_one_device(arch, tmp_path):
-    want, one, data = _reference(arch)
+    want, one, convs, data = _reference(arch)
     torch.save(data, tmp_path / "decode_in.pt")
     for r, res in enumerate(_run(f"decode:{arch}", tmp_path)):
         assert res["bad"] == [], (r, res["bad"][:5])
@@ -148,3 +153,12 @@ def test_sharded_decode_matches_one_device(arch, tmp_path):
             got = np.asarray(got, np.float32)
             np.testing.assert_allclose(got, o, atol=TOL, rtol=TOL, err_msg=f"rank {r} {step}")
             np.testing.assert_allclose(got, w, atol=TOL, rtol=TOL, err_msg=f"rank {r} {step}")
+        assert len(res["conv_chunks"]) == len(convs)
+        for step, (chunks, whole) in enumerate(zip(res["conv_chunks"], convs)):
+            assert sorted(chunks) == sorted(whole)
+            for k, c in chunks.items():
+                local = np.asarray(c["local"], np.float32)
+                assert local.shape[-1] < whole[k].shape[-1], (k, local.shape)   # split channels
+                at = tuple(slice(o, o + n) for o, n in zip(c["offset"], local.shape))
+                np.testing.assert_allclose(local, whole[k][at], atol=TOL, rtol=TOL,
+                                           err_msg=f"rank {r} {k} {step}")

@@ -8,14 +8,16 @@ STORE, builds a (2, WORLD / 2) ("data", "model") CPU mesh and, for CASE
 seeded state: on one device with plain tensors, and under ``use_mesh`` with
 the state distributed by ``state_shardings`` and the batches by
 ``batch_shardings``.  It writes OUT (JSON): the two runs' losses, the
-largest parameter gap, and every state leaf or gradient whose placements
-differ from ``state_shardings`` / ``grad_shardings`` (``ARCH:MODE:int8``:
-with int8 moments and int8 gradient compression; a part ``KEY=INT``
-overrides a field of the reduced config, ``moe_dispatch_groups=2``).  The
+largest parameter gap, the largest gap of each gradient, and every state
+leaf or gradient whose placements differ from ``state_shardings`` /
+``grad_shardings`` (``ARCH:MODE:int8``: with int8 moments and int8
+gradient compression; a part ``KEY=INT`` overrides a field of the reduced
+config, ``moe_dispatch_groups=2``).  The
 JSON also holds the token count of each ``moe.route`` call of the two runs
 (``routes_plain``, ``routes_mesh``): a rank's own groups only; and, of the
-mesh run on this rank, the q heads of K6's calls (``k6_heads``) and the
-vocabulary columns of the loss's logits shards (``logit_cols``).  CASE
+mesh run on this rank, the q heads of K6's calls (``k6_heads``), the
+vocabulary columns of the loss's logits shards (``logit_cols``) and the
+heads of each Mamba2 scan (``mamba_heads``).  CASE
 ``attention:gqa`` holds K6 on DTensors (``ops.flash_attention``: batch
 over "data", heads over "model") and its gradients against plain tensors
 at several head groupings instead.  CASE ``decode:ARCH`` serves: it loads
@@ -39,7 +41,7 @@ from repro_torch.configs import ShapeSpec, get_arch
 from repro_torch.kernels import flash_attention
 from repro_torch.launch import shardings as shl
 from repro_torch.launch.train import synthetic_batch
-from repro_torch.models import build_model, layers, moe, use_mesh
+from repro_torch.models import build_model, layers, moe, ssm, use_mesh
 from repro_torch.training import OptimizerConfig, init_state, make_train_step
 from repro_torch.training import train_loop
 
@@ -69,14 +71,15 @@ def _record_routes(log: list):
     return route
 
 
-_FORWARD, _LSE_GOLD = flash_attention.forward, layers.lse_gold
+_FORWARD, _LSE_GOLD, _GATE = flash_attention.forward, layers.lse_gold, ssm.mamba2_gate
 
 
 def _record_local_work():
-    """Wrap K6's forward and ``layers.lse_gold`` to log, on this rank, the q
-    heads of each K6 call and the vocabulary columns of each logits shard
-    the loss takes; returns the two logs (``main`` restores both)."""
-    heads, cols = [], []
+    """Wrap K6's forward, ``layers.lse_gold`` and ``ssm.mamba2_gate`` to log,
+    on this rank, the q heads of each K6 call, the vocabulary columns of
+    each logits shard the loss takes and the heads of each Mamba2 scan;
+    returns the three logs (``main`` restores all three)."""
+    heads, cols, scans = [], [], []
 
     def forward(q, *args, **kw):
         heads.append(int(q.shape[2]))
@@ -87,8 +90,12 @@ def _record_local_work():
         cols.append(int(local.shape[-1]))
         return _LSE_GOLD(logits, labels)
 
-    flash_attention.forward, layers.lse_gold = forward, lse_gold
-    return heads, cols
+    def gate(params, *args, **kw):
+        scans.append(int(params["A_log"].shape[0]))
+        return _GATE(params, *args, **kw)
+
+    flash_attention.forward, layers.lse_gold, ssm.mamba2_gate = forward, lse_gold, gate
+    return heads, cols, scans
 
 
 def _copy(tree):
@@ -139,11 +146,21 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
+def _conv_chunks(cache) -> dict:
+    """This rank's shard of each conv buffer of a hybrid cache (``conv``,
+    ``conv_tail``), as (its offset in each dim, its values)."""
+    from repro_torch.models.partitioning import local_shape_and_offset
+
+    return {k: {"offset": list(local_shape_and_offset(t.shape, t.device_mesh, t.placements)[1]),
+                "local": t._local_tensor.tolist()}
+            for k, t in cache.items() if k.startswith("conv")}
+
+
 def decode_case(arch: str, mesh, path, parts=()) -> dict:
     """A prefill and decode steps of ``arch`` on DTensors (see the module
     docstring): the logits of each (whole), the cache leaves whose
-    placements differ from ``cache_shardings``, and the leaves whose slots
-    are sharded."""
+    placements differ from ``cache_shardings``, the leaves whose slots are
+    sharded, and after each the rank's shards of the conv buffers."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.func import functional_call
@@ -171,7 +188,7 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
         batch = shl.distribute(batch, shl.batch_shardings(batch, mesh), mesh)
         logits, cache = functional_call(call, named, ("prefill", batch, data["max_len"],
                                                       torch.float32))
-        got = [logits.full_tensor().tolist()]
+        got, conv = [logits.full_tensor().tolist()], [_conv_chunks(cache)]
         specs = {k: torch.empty(tuple(t.shape), dtype=t.dtype, device="meta")
                  for k, t in cache.items()}
         want = shl.cache_shardings(specs, mesh, cfg.family)
@@ -183,12 +200,13 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
                                  mesh)["t"]
             logits, cache = functional_call(call, named, ("decode_step", nxt, cache, pos0 + step))
             got.append(logits.full_tensor().tolist())
+            conv.append(_conv_chunks(cache))
         bad += [f"{k} after decode: {tuple(t.placements)} != {tuple(want[k])}"
                 for k, t in cache.items() if tuple(t.placements) != tuple(want[k])]
         sharded = sorted(k for k, t in cache.items()
                          if any(p.is_shard() and p.dim == t.ndim - 3 for p in t.placements)
                          and k[0] in "kvx")
-    return {"logits": got, "bad": bad, "seq_sharded": sharded}
+    return {"logits": got, "bad": bad, "seq_sharded": sharded, "conv_chunks": conv}
 
 
 def main(case: str, rank: int, world: int, store: str, out: str) -> None:
@@ -231,7 +249,7 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     _record_routes(routes_mesh)
 
     rules = {"experts": "data"} if mode == "ep" else None
-    heads, cols = _record_local_work()
+    heads, cols, scans = _record_local_work()
     with use_mesh(mesh, rules):
         shd = shl.state_shardings(base, mesh, mode, cfg.family)
         state = shl.distribute(_copy(base), shd, mesh)
@@ -240,7 +258,7 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
         got = [float(step(state, shl.distribute(b, bshd, mesh))[1]["loss"]) for b in batches]
     train_loop.adamw_update = update
     moe.route = route
-    flash_attention.forward, layers.lse_gold = _FORWARD, _LSE_GOLD
+    flash_attention.forward, layers.lse_gold, ssm.mamba2_gate = _FORWARD, _LSE_GOLD, _GATE
 
     def wanted(path):
         node = shd
@@ -252,17 +270,22 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
            for path, t in _leaves(state) if tuple(t.placements) != wanted(path)]
     bad += [f"grad {n}: {tuple(g.placements)} != {tuple(shd['params'][n])}"
             for n, g in seen if tuple(g.placements) != tuple(shd["params"][n])]
-    # each gradient against the one-device run's, relative to its largest value
-    grad_gap = max(float((g.full_tensor() - w).abs().max() / w.abs().max().clamp_min(1e-30))
-                   for (n, g), (_, w) in zip(seen, plain_grads))
+    # each gradient against the one-device run's, relative to its largest
+    # value: the largest gap, and each parameter's over the steps
+    grad_gaps = {}
+    for (n, g), (_, w) in zip(seen, plain_grads):
+        gap = float((g.full_tensor() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        grad_gaps[n] = max(gap, grad_gaps.get(n, 0.0))
+    grad_gap = max(grad_gaps.values())
     gap = max(float((t.full_tensor() - plain["params"][n]).abs().max())
               for n, t in state["params"].items())
     sharded = sum(any(not p.is_replicate() for p in shd["params"][n]) for n in shd["params"])
     with open(out, "w") as f:
-        json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap, "bad": bad,
+        json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap,
+                   "grad_gaps": grad_gaps, "bad": bad,
                    "n_grads": len(seen), "n_sharded": sharded, "routes_plain": routes_plain,
                    "routes_mesh": routes_mesh, "k6_heads": sorted(set(heads)),
-                   "logit_cols": sorted(set(cols))}, f)
+                   "logit_cols": sorted(set(cols)), "mamba_heads": sorted(set(scans))}, f)
     dist.destroy_process_group()
 
 
