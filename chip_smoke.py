@@ -148,7 +148,11 @@ just before it and read just after:
   the whole group, one layer through ``ssm.mamba2_sharded`` on DTensors
   of the 1 x 1 mesh bit-equal to plain tensors (output and every
   gradient), and the slices' ms against the whole layer's, with launches
-  and on the device;
+  and on the device; (g) the MoE block of (d) without dispatch groups, in
+  ``fsdp`` on DTensors of the 1 x 1 mesh (every token routed on every
+  rank, each rank's experts over its chunk of their hidden,
+  ``moe._split_hidden``, once a call) against plain tensors: bit-equal as
+  in (d), ms a call and idle share each way;
 * dryrun: (a) K7 with ``return_lse`` against its plain version at
   decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
   D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
@@ -166,10 +170,12 @@ just before it and read just after:
   dispatch groups, then on llama4's (the same way) and gemma-2b's
   ``prefill_32k`` (40 and 8 q heads, which 16 does not divide) and
   zamba2-7b's ``prefill_32k`` and ``decode_32k`` (Mamba2's heads split
-  over "model"), each cell
-  ok, no kernel launched, the MoE cells with an all-to-all among their
-  collectives, the head cells' FLOPs between the useful FLOPs a chip and
-  1.5 x the reference's.
+  over "model"), and qwen2-moe's and llama4's ``decode_32k`` in ``fsdp``
+  without dispatch groups (each rank's experts over its chunk of their
+  hidden, the shared MLP's contraction split over "model"), each cell
+  ok, no kernel launched, the ``ep`` MoE cells with an all-to-all among
+  their collectives, the head cells' and the ``fsdp`` MoE cells' FLOPs
+  between the useful FLOPs a chip and 1.5 x the reference's.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -3495,20 +3501,23 @@ def chunk_row(gen, dev, dt, q_offset: int, **kw) -> dict:
 
 # phase layout (d): one qwen2-moe MoE block at full width on LAYOUT_MOE_B x
 # LAYOUT_MOE_S tokens in LAYOUT_MOE_G dispatch groups, DTensors of the 1 x 1
-# mesh in "ep" against plain tensors
+# mesh in "ep" against plain tensors; (g) the same block without dispatch
+# groups in "fsdp" (each rank's experts over its chunk of their hidden,
+# ``moe._split_hidden``)
 LAYOUT_MOE_ARCH, LAYOUT_MOE_B, LAYOUT_MOE_S, LAYOUT_MOE_G = "qwen2-moe-a2.7b", 16, 2048, 16
 LAYOUT_MOE_REPS = 5
 
 
-def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
-    """(d) ``moe.moe_apply`` of one full-width qwen2-moe block (bf16, seeded
-    weights) with LAYOUT_MOE_G dispatch groups, forward and backward of
-    sum(y * w) + aux, on plain tensors and on DTensors of the 1 x 1 mesh
-    placed as ``state_shardings`` places them in "ep" (experts over
-    "data"), the batch over "data": y, aux and the gradients of x and of
-    every weight must be bit-equal.  -> ms a call each way, the profiled
-    calls' device time and idle share, the collectives of one DTensor call
-    (``CommDebugMode``)."""
+def moe_block_check(dev: torch.device, mesh, seed: int, groups: int, mode: str) -> dict:
+    """(d), (g) ``moe.moe_apply`` of one full-width qwen2-moe block (bf16,
+    seeded weights) with ``groups`` dispatch groups (0: none), forward and
+    backward of sum(y * w) + aux, on plain tensors and on DTensors of the
+    1 x 1 mesh placed as ``state_shardings`` places them in ``mode`` ("ep":
+    experts over "data"), the batch over "data": y, aux and the gradients
+    of x and of every weight must be bit-equal; in "ep" the DTensor call
+    runs all-to-alls, without groups it splits the experts' hidden.  -> ms
+    a call each way, the profiled calls' device time and idle share, the
+    collectives of one DTensor call (``CommDebugMode``)."""
     from types import SimpleNamespace
 
     from torch.distributed.tensor import DTensor
@@ -3516,7 +3525,7 @@ def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
 
     from repro_torch.models import moe
 
-    cfg = dataclasses.replace(get_arch(LAYOUT_MOE_ARCH), moe_dispatch_groups=LAYOUT_MOE_G)
+    cfg = dataclasses.replace(get_arch(LAYOUT_MOE_ARCH), moe_dispatch_groups=groups)
     gen = torch.Generator(device=dev).manual_seed(seed)
     blk = moe.MoEParams(gen, cfg, device=dev, dtype=torch.bfloat16)
     weights = {n: p.detach() for n, p in blk.named_parameters()}
@@ -3535,10 +3544,10 @@ def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
         grads = torch.autograd.grad(loss, leaves)
         return y.detach(), aux.detach(), grads
 
-    rules = {"experts": "data"}
+    rules = {"experts": "data"} if mode == "ep" else None
     with use_mesh(mesh, rules):
         shd = state_shardings({f"layers.0.moe.{n}": t for n, t in weights.items()}, mesh,
-                              "ep", cfg.family)
+                              mode, cfg.family)
         xshd = batch_shardings({"x": x}, mesh)["x"]
         dt = {n: DTensor.from_local(t, mesh, shd[f"layers.0.moe.{n}"])
               for n, t in weights.items()}
@@ -3548,10 +3557,19 @@ def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
                 "dtensor": lambda: call({n: t.detach() for n, t in dt.items()},
                                         dx.detach(), dw)}
         got = {way: fn() for way, fn in ways.items()}
-        comm = CommDebugMode()
-        with comm:
-            ways["dtensor"]()
-            sync()
+        comm, split, split_calls = CommDebugMode(), moe._split_hidden, []
+
+        def counted(*args):
+            split_calls.append(1)
+            return split(*args)
+
+        moe._split_hidden = counted
+        try:
+            with comm:
+                ways["dtensor"]()
+                sync()
+        finally:
+            moe._split_hidden = split
         t = {way: median_ms(fn, LAYOUT_MOE_REPS) for way, fn in ways.items()}
         prof = {way: profile_call(f"qwen2-moe block, {way} tensors on the 1 x 1 mesh, "
                                   f"forward and backward", fn, host=False)
@@ -3570,17 +3588,23 @@ def moe_ep_check(dev: torch.device, mesh, seed: int) -> dict:
     counts = {str(op): n for op, n in comm.get_comm_counts().items()}
     n_a2a = sum(n for op, n in counts.items() if "all_to_all" in op)
     expect(all(same.values()), f"MoE block on DTensors vs plain differs: {gaps}")
-    expect(n_a2a >= 4, f"the MoE block's DTensor call ran no all-to-all: {counts}")
+    if mode == "ep":
+        expect(n_a2a >= 4, f"the MoE block's DTensor call ran no all-to-all: {counts}")
+    else:
+        expect(len(split_calls) == 1, f"the MoE block's DTensor call split the experts' "
+               f"hidden {len(split_calls)} times, not once")
     expect(bool(torch.isfinite(py.float()).all()), "MoE block: non-finite output")
     idle = {way: 1 - p["device_ms"] / p["wall_ms"] if p["device_ms"] else None
             for way, p in prof.items()}
+    n_group = LAYOUT_MOE_B * LAYOUT_MOE_S // max(groups, 1)
     log(f"  qwen2-moe block B={LAYOUT_MOE_B} S={LAYOUT_MOE_S} d={cfg.d_model} E={cfg.n_experts} "
-        f"top-{cfg.top_k} groups {LAYOUT_MOE_G} (capacity "
-        f"{moe.capacity(LAYOUT_MOE_B * LAYOUT_MOE_S // LAYOUT_MOE_G, cfg)} a group) bf16, ep on "
-        f"the 1 x 1 mesh: DTensors vs plain bit-equal {same}; ms a call (forward and "
-        f"backward) dtensor {t['dtensor']:.1f}, plain {t['plain']:.1f}; idle share dtensor "
-        f"{idle['dtensor']}, plain {idle['plain']}; collectives of the DTensor call {counts}")
+        f"top-{cfg.top_k} groups {groups} (capacity {moe.capacity(n_group, cfg)} a group) "
+        f"bf16, {mode} on the 1 x 1 mesh: DTensors vs plain bit-equal {same}; ms a call "
+        f"(forward and backward) dtensor {t['dtensor']:.1f}, plain {t['plain']:.1f}; idle "
+        f"share dtensor {idle['dtensor']}, plain {idle['plain']}; collectives of the DTensor "
+        f"call {counts}")
     return {"ms": t, "idle": idle, "bit_equal": all(same.values()), "collectives": counts,
+            "mode": mode, "groups": groups,
             **{f"{w}_profiled_{k}": prof[w][k] for w in prof
                for k in ("wall_ms", "device_ms", "device_ops")}}
 
@@ -4041,8 +4065,9 @@ def phase_layout(dev: torch.device, seed: int = 13):
     slices of a 16-way model axis against one call, seamless's cross
     entropy in 16 vocabulary chunks; (f) zamba2's Mamba2 layer and a group
     in the head slices of a 16-way model axis against the whole, and a
-    layer on DTensors of the 1 x 1 mesh -> (K6 row fields, launches of (b),
-    (c), (e) and (f))."""
+    layer on DTensors of the 1 x 1 mesh; (g) the MoE block of (d) without
+    dispatch groups in "fsdp" on DTensors of that mesh against plain
+    tensors -> (K6 row fields, launches of (b), (c), (e) and (f))."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
     # --- (a) the chunks, each dtype; the window + softcap chunk
@@ -4155,7 +4180,7 @@ def phase_layout(dev: torch.device, seed: int = 13):
     gc.collect()
     torch.cuda.empty_cache()
     # --- (d) the MoE block through expert parallelism on DTensors of the mesh
-    rows["layout_moe"] = moe_ep_check(dev, mesh, seed)
+    rows["layout_moe"] = moe_block_check(dev, mesh, seed, LAYOUT_MOE_G, "ep")
     gc.collect()
     torch.cuda.empty_cache()
     # --- (e) llama4's attention split over 16 ranks' q heads; seamless's
@@ -4165,6 +4190,10 @@ def phase_layout(dev: torch.device, seed: int = 13):
     torch.cuda.empty_cache()
     # --- (f) zamba2's Mamba2 heads split over 16 ranks; a group of layers
     rows["mamba_split"], mamba_counts = mamba_split_check(dev, mesh, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # --- (g) the MoE block without dispatch groups in "fsdp" on DTensors
+    rows["layout_moe_fsdp"] = moe_block_check(dev, mesh, seed, 0, "fsdp")
     gc.collect()
     torch.cuda.empty_cache()
     return rows, blocked_counts, train_counts, head_counts, mamba_counts
@@ -4201,6 +4230,13 @@ DRYRUN_HEAD_REF_FLOPS = {"llama4-maverick-400b-a17b:prefill_32k": 2.946521949962
                          "zamba2-7b:prefill_32k": 1.28012085286912e14,
                          "zamba2-7b:decode_32k": 1.2189442048e10}
 DRYRUN_HEAD_LIMIT = 1.5
+# MoE cells without dispatch groups ("fsdp", --all's default): each rank's
+# experts over its chunk of their hidden, the shared MLP's contraction split
+# over "model" in a decode step; held as the head cells are, to the
+# reference's FLOPs with the same arguments (their own folder: qwen2-moe's
+# decode_32k is an "ep" cell above too)
+DRYRUN_FSDP_MOE_REF_FLOPS = {"qwen2-moe-a2.7b:decode_32k": 5.806555136e9,
+                             "llama4-maverick-400b-a17b:decode_32k": 7.455014912e10}
 SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
 PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
 
@@ -4354,12 +4390,14 @@ def analysis_check(dev, seed: int) -> dict:
 def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
     """(a) K7's lse and the 16-way split, (b) the analysis against the card,
     (c) ``launch/dryrun.py`` on qwen3-1.7b's four cells and DRYRUN_MOE_CELLS
-    (in "ep", 16 dispatch groups) and DRYRUN_HEAD_CELLS on the 16 x 16 mesh
+    (in "ep", 16 dispatch groups), DRYRUN_HEAD_CELLS and the MoE cells of
+    DRYRUN_FSDP_MOE_REF_FLOPS ("fsdp", no groups) on the 16 x 16 mesh
     with fake CUDA tensors, in a fake world of 256 ranks (the process's
     group, if any, is ended first: the phase runs last), each cell ok and
-    no real kernel launched, the MoE cells with an all-to-all, the head
-    cells' FLOPs within DRYRUN_HEAD_LIMIT x the reference's.  -> (K7's
-    extra row keys, the real launches of (a) and (b), the cells' figures)."""
+    no real kernel launched, the "ep" MoE cells with an all-to-all, the
+    head cells' and the "fsdp" MoE cells' FLOPs within DRYRUN_HEAD_LIMIT x
+    the reference's.  -> (K7's extra row keys, the real launches of (a)
+    and (b), the cells' figures)."""
     import torch.distributed as dist
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4374,6 +4412,7 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
         dist.destroy_process_group()
     ops.reset_launch_counts()
     out = ROOT / "build" / "dryrun_torch"    # beside the built kernels (not tracked)
+    out_fsdp = ROOT / "build" / "dryrun_torch_fsdp_moe"
     t0 = time.perf_counter()
     try:
         dryrun.main(["--cells", ",".join(DRYRUN_CELLS), "--device", "cuda", "--out", str(out)])
@@ -4381,33 +4420,39 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
                      "--out", str(out)])
         for cell, args in DRYRUN_HEAD_CELLS.items():
             dryrun.main(["--cells", cell, *args, "--device", "cuda", "--out", str(out)])
+        dryrun.main(["--cells", ",".join(DRYRUN_FSDP_MOE_REF_FLOPS), "--device", "cuda",
+                     "--out", str(out_fsdp)])
     except SystemExit as e:
         raise SmokeFailure(f"dryrun CLI failed ({e.code}): see {out}") from None
     cli_s = time.perf_counter() - t0
     real = ops.launch_counts()
     expect(not any(real.values()), f"the dry run launched kernels: {real}")
     cells = {}
-    for cell in DRYRUN_CELLS + DRYRUN_MOE_CELLS + tuple(DRYRUN_HEAD_CELLS):
+    # (key, cell, folder, the reference's FLOPs where they are held)
+    runs = [(c, c, out, DRYRUN_HEAD_REF_FLOPS.get(c))
+            for c in DRYRUN_CELLS + DRYRUN_MOE_CELLS + tuple(DRYRUN_HEAD_CELLS)]
+    runs += [(f"{c}:fsdp", c, out_fsdp, f) for c, f in DRYRUN_FSDP_MOE_REF_FLOPS.items()]
+    for key, cell, folder, ref_flops in runs:
         arch, shp = cell.split(":")
-        res = json.loads((out / f"{arch}__{shp}__16x16.json").read_text())
+        res = json.loads((folder / f"{arch}__{shp}__16x16.json").read_text())
         keys = ("lower_s", "argument_size_in_bytes", "temp_size_in_bytes",
                 "alias_size_in_bytes", "output_size_in_bytes", "hlo_flops", "hlo_bytes",
                 "collective_bytes")
-        cells[cell] = {**{k: res[k] for k in keys}, "dominant": res["roofline"]["dominant"],
-                       "all_to_all_bytes": res["collectives"].get("all-to-all", 0.0)}
-        if cell in DRYRUN_MOE_CELLS:
-            expect(cells[cell]["all_to_all_bytes"] > 0, f"dryrun {cell}: no all-to-all")
-        if cell in DRYRUN_HEAD_CELLS:
+        cells[key] = {**{k: res[k] for k in keys}, "dominant": res["roofline"]["dominant"],
+                      "all_to_all_bytes": res["collectives"].get("all-to-all", 0.0)}
+        if key in DRYRUN_MOE_CELLS:
+            expect(cells[key]["all_to_all_bytes"] > 0, f"dryrun {key}: no all-to-all")
+        if ref_flops is not None:
             useful = res["roofline"]["model_flops"] / res["chips"]
-            limit = DRYRUN_HEAD_LIMIT * DRYRUN_HEAD_REF_FLOPS[cell]
-            cells[cell]["flops_over_reference"] = res["hlo_flops"] / DRYRUN_HEAD_REF_FLOPS[cell]
+            limit = DRYRUN_HEAD_LIMIT * ref_flops
+            cells[key]["flops_over_reference"] = res["hlo_flops"] / ref_flops
             expect(useful <= res["hlo_flops"] <= limit,
-                   f"dryrun {cell}: {res['hlo_flops']:.6e} FLOPs, not between the useful "
+                   f"dryrun {key}: {res['hlo_flops']:.6e} FLOPs, not between the useful "
                    f"{useful:.6e} and {limit:.6e} ({DRYRUN_HEAD_LIMIT} x the reference's)")
-            log(f"  dryrun {cell}: FLOPs {cells[cell]['flops_over_reference']:.3f} x the "
-                f"reference's {DRYRUN_HEAD_REF_FLOPS[cell]:.6e}")
-        log(f"  dryrun {cell} 16x16 {res['mode']} (fake cuda): ok, {res['lower_s']} s; per "
-            f"device: all-to-all {cells[cell]['all_to_all_bytes']:.6e} bytes, args "
+            log(f"  dryrun {key}: FLOPs {cells[key]['flops_over_reference']:.3f} x the "
+                f"reference's {ref_flops:.6e}")
+        log(f"  dryrun {key} 16x16 {res['mode']} (fake cuda): ok, {res['lower_s']} s; per "
+            f"device: all-to-all {cells[key]['all_to_all_bytes']:.6e} bytes, args "
             f"{res['argument_size_in_bytes']}, temp {res['temp_size_in_bytes']}, alias "
             f"{res['alias_size_in_bytes']}, flops {res['hlo_flops']:.6e}, bytes "
             f"{res['hlo_bytes']:.6e}, collective {res['collective_bytes']:.6e} "

@@ -1,1 +1,2 @@
-"""Runtime sanitizer hooks of the port (own copy of ``repro.analysis``)."""
+"""Runtime sanitizer hooks and the static linter of the port (own copies of
+``repro.analysis``: ``sanitizer.py``, ``lint.py``)."""

@@ -244,6 +244,7 @@ def launch_probed(q: torch.Tensor, pages: torch.Tensor, slots_flat: torch.Tensor
     build.launch("reuse_probed", "reuse_probed_launch", q.device, q.data_ptr(),
                  pages.data_ptr(), slots_flat.data_ptr(), offsets.data_ptr(),
                  probers.data_ptr(), keys.data_ptr(), val.data_ptr(), idx.data_ptr(), b, d,
+                 # torch-lint: waive=T002(probed_plan's entries are Python values)
                  rows, cap, n_pages, page_size, int(plan["sparse"]), plan["smem_bytes"])
     LAUNCHES["reuse_top1_probed"] += 1
     return val, idx
@@ -326,6 +327,7 @@ def sim_top1(q: torch.Tensor, store: torch.Tensor,
         raise TypeError("q and store must both be float32 or both bfloat16")
     if q.device != store.device:
         raise ValueError("q and store must share one device")
+    # torch-lint: waive=T002(a tensor n_valid is read on the host by design; callers pass an int)
     n = store.shape[0] if n_valid is None else max(0, min(int(n_valid), store.shape[0]))
     if q.device.type == "cpu":
         return ref.sim_top1_ref(q, store, n)

@@ -22,6 +22,11 @@ Under a mesh with ``moe_dispatch_groups`` > 1, each data rank routes its own
 groups and the tokens reach their experts by all-to-all, the reference's
 expert parallelism (``_expert_parallel``); experts that the mesh axis does
 not divide are split unevenly, as the reference's constraint splits them.
+Without groups every rank routes every token (the capacity couples them),
+and each rank computes its experts over its chunk of their hidden where
+"fsdp" places the weights (``_split_hidden``), and a decode step's shared
+MLP over its chunk of d (``_shared_mlp``): the products the reference's
+compiled dry run splits.
 """
 from __future__ import annotations
 
@@ -35,9 +40,10 @@ from torch import nn
 
 from ..device import fp32_matmul
 from .layers import dense_init, frozen, mlp_apply, mlp_init, param_dict
-from .partitioning import (UNCONSTRAINED, _Constrain, _local, at_use, contiguous_strides, fit,
-                           get_mesh, is_dtensor, like, placements, replicated_placements, shard,
-                           shard_uneven, spec, whole)
+from .partitioning import (UNCONSTRAINED, _Constrain, _local, _narrow_cat, at_use,
+                           contiguous_strides, fit, get_mesh, is_dtensor, like,
+                           local_shape_and_offset, placements, relayout, replicated_placements,
+                           shard, shard_uneven, spec, whole)
 
 
 def expert_init(gen: torch.Generator, n: int, in_dim: int, out_dim: int, *, device,
@@ -117,6 +123,11 @@ def _route_group(router: torch.Tensor, xf: torch.Tensor, cfg, cap: int):
     buffer -> (aux loss, buffer, (gates, sort_idx, slot, keep) for
     ``_combine``)."""
     E, d = cfg.n_experts, xf.shape[1]
+    # the router's and the buffer's gradients meet at a node of their own
+    # before the shared MLP's joins them, whatever the caller's layout: plain
+    # tensors and DTensors of one rank then sum them in one order (bf16
+    # addition does not associate)
+    xf = xf.view_as(xf)
     probs, gates, expert_ids = route(SimpleNamespace(router=router), xf, cfg)
     # Switch-style load-balance aux loss: E * sum(mean prob * dispatch fraction)
     density = expert_counts(expert_ids[:, 0], E).float() / xf.shape[0]
@@ -305,6 +316,93 @@ def _expert_parallel(params: MoEParams, x: torch.Tensor, cfg, G: int, xp
     return y, aux.redistribute(mesh, replicated_placements(mesh)) / (G // len(xs))
 
 
+def _hidden_placements(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor):
+    """The mesh dims that split the experts' hidden, where the weights are
+    placed as "fsdp" places them: ``wi`` (at use) on ``buf``'s placements
+    (experts over the experts' axes, whole elsewhere) and ``wo``'s hidden
+    rows (dim 1) sharded on mesh dims where ``buf`` is whole, its experts
+    as ``buf``'s or whole (60 experts, which 16 ranks do not divide, are
+    stored whole).  -> those dims (maybe none), or None where the weights
+    are placed otherwise ("ep": wi's columns over "model")."""
+    if tuple(wi.placements) != tuple(buf.placements):
+        return None
+    hidden = []
+    for j, (p, b) in enumerate(zip(wo.placements, buf.placements)):
+        if p.is_shard(1) and b.is_replicate():
+            hidden.append(j)
+        elif p != b and not (p.is_replicate() and b.is_shard(0)):
+            return None
+    return tuple(hidden)
+
+
+def _split_hidden(buf: torch.Tensor, wi: torch.Tensor, wo: torch.Tensor, hidden,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The expert products of a DTensor buffer (E, C, d) on local tensors,
+    each rank's experts (``buf``'s chunk) over its chunk of the hidden, the
+    reference's compiled layout under "fsdp": wo's rows stay where they are
+    stored (its hidden over the ``hidden`` mesh dims, the batch axes; a
+    rank's experts sliced where they are stored whole), wi's gate and up
+    columns for those rows are sliced from the gathered weight, and each
+    rank's output is a partial sum over ``hidden``, reduced and scattered
+    there over the capacity.  -> (E, C, d), a DTensor with the experts as
+    ``buf``'s and the capacity over ``hidden``; the gradients come back as
+    partial sums (buf's and wi's over ``hidden``, wo's over the dims where
+    its experts were sliced)."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    mesh, bp = buf.device_mesh, tuple(buf.placements)
+    part = tuple(Partial() if j in hidden else p for j, p in enumerate(bp))
+    (er, _, _), (e0, _, _) = local_shape_and_offset(buf.shape, mesh, bp)
+    shape, offset = local_shape_and_offset(wo.shape, mesh, wo.placements)
+    ff, f0, fr = wo.shape[1], offset[1], shape[1]
+    w_in = _narrow_cat(wi.to_local(grad_placements=part), 2,
+                       [(f0, f0 + fr), (ff + f0, ff + f0 + fr)])
+    gate_up = torch.bmm(buf.to_local(grad_placements=part), w_in)
+    gate, up = gate_up.chunk(2, dim=-1)
+    h = F.silu(gate) * up
+    sliced = tuple(Partial() if p.is_replicate() and b.is_shard() else p
+                   for p, b in zip(wo.placements, bp))
+    w_out = wo.to(dtype).to_local(grad_placements=sliced)
+    if shape[0] != er:
+        w_out = w_out.narrow(0, e0, er)
+    out = DTensor.from_local(torch.bmm(h, w_out), mesh, part, shape=buf.shape,
+                             stride=contiguous_strides(buf.shape))
+    # the partial sums reduced and scattered over the capacity (the caller
+    # gathers the whole output: no second whole-size buffer meanwhile)
+    return out.redistribute(mesh, tuple(Shard(1) if j in hidden else p
+                                        for j, p in enumerate(bp)))
+
+
+def _dispatch_experts(params: MoEParams, buf: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The expert products of ``_moe_dispatch``'s (E, C, d) buffer: over each
+    rank's chunk of the experts' hidden where the weights are placed as
+    "fsdp" places them (``_split_hidden``), else through ``_experts`` with
+    the weights split as the buffer's experts are."""
+    q = tuple(buf.placements) if is_dtensor(buf) else None
+    wi = _on_experts(params.wi, q, ())
+    hidden = None if q is None else _hidden_placements(buf, wi, params.wo)
+    if hidden is None:
+        return _experts(buf, wi, _on_experts(params.wo, q, ()), dtype)
+    return _split_hidden(buf, wi, params.wo, hidden, dtype)
+
+
+def _shared_mlp(shared, xs: torch.Tensor) -> torch.Tensor:
+    """The shared experts' MLP on the (N, d) tokens ``xs``.  Under a mesh, a
+    rank with fewer tokens than d_model (a decode step) splits the gate and
+    up product's contraction over "ff" (d over "model", where the tokens
+    are whole), and the partial products are summed there, as the
+    reference's compiled decode splits it; with more (a prefill, a train
+    step) each rank computes its tokens over the whole hidden, as the
+    reference does."""
+    mesh = get_mesh()
+    if mesh is not None and is_dtensor(xs) and \
+            local_shape_and_offset(xs.shape, mesh, xs.placements)[0][0] < xs.shape[-1]:
+        shared = {"wi": relayout(at_use(shared["wi"], xs.dtype), "ff", None),
+                  "wo": shared["wo"]}
+        xs = relayout(xs, "batch", "ff")
+    return mlp_apply(shared, xs, act="silu")
+
+
 def _moe_dispatch(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, d = x.shape
     N = B * S
@@ -313,14 +411,14 @@ def _moe_dispatch(params: MoEParams, x: torch.Tensor, cfg) -> Tuple[torch.Tensor
     # Under a mesh every rank routes all N tokens (whole, replicated): the
     # capacity couples them, and the sort and count ops have no DTensor
     # rules.  The expert products run on the (E, C, d) buffer sharded as
-    # "experts" says, unevenly where the axes do not divide E.
+    # "experts" says, unevenly where the axes do not divide E, and over the
+    # experts' hidden where "fsdp" shards it (``_split_hidden``).
     xf = whole(xs)
     aux, buf, picks = _route_group(whole(params.router), xf, cfg, C)
     buf = shard_uneven(like(buf, x), "experts", "expert_cap", "embed")
-    q = tuple(buf.placements) if is_dtensor(buf) else None
-    eout = _experts(buf, *(_on_experts(w, q, ()) for w in (params.wi, params.wo)), x.dtype)
+    eout = _dispatch_experts(params, buf, x.dtype)
     y = like(_combine(whole(eout), picks, x.dtype), x)
 
     if params.shared is not None:
-        y = y + mlp_apply(params.shared, xs, act="silu")
+        y = y + _shared_mlp(params.shared, xs)
     return y.reshape(B, S, d), like(aux, x)

@@ -16,7 +16,10 @@ qwen2-moe decode_32k in ``ep`` with 16 dispatch groups (the reference's
 optimized layout: each data rank routes its own groups, tokens reach their
 experts by all-to-all), through both CLIs: arguments and aliases within
 1 %, FLOPs between the model's useful FLOPs a chip and 1.5 x the
-reference's, an all-to-all among the port's collectives.  A cell whose q
+reference's, an all-to-all among the port's collectives; and qwen2-moe's
+prefill_32k and decode_32k in ``fsdp`` without dispatch groups (every
+token routed on every rank, each rank's experts over its chunk of their
+hidden), held to the same limits.  A cell whose q
 heads 16 does not divide, gemma-2b prefill_32k (8 heads, 1 kv head: one
 head on ranks 0-7 of "model", none on 8-15), through both CLIs: arguments
 and aliases within 1 %, FLOPs between the model's useful FLOPs a chip and
@@ -119,6 +122,31 @@ def test_moe_dryrun_matches_the_reference(moe_both):
     assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
         (useful, got["hlo_flops"], want["hlo_flops"])
     assert got["collectives"].get("all-to-all", 0) > 0, got["collectives"]
+
+
+FSDP_MOE_CELLS = ("qwen2-moe-a2.7b:prefill_32k", "qwen2-moe-a2.7b:decode_32k")
+
+
+@pytest.fixture(scope="module")
+def fsdp_moe_both(tmp_path_factory):
+    """(the reference's artifacts, the port's) of FSDP_MOE_CELLS, no overrides."""
+    ref, port = tmp_path_factory.mktemp("fsdp_moe_ref"), tmp_path_factory.mktemp("fsdp_moe_port")
+    _cli("repro.launch.dryrun", ["--cells", ",".join(FSDP_MOE_CELLS)], ref, 600)
+    _cli("repro_torch.launch.dryrun", ["--cells", ",".join(FSDP_MOE_CELLS), "--device", "cpu"],
+         port, 600)
+    return ({c: _artifact(ref, c) for c in FSDP_MOE_CELLS},
+            {c: _artifact(port, c) for c in FSDP_MOE_CELLS})
+
+
+@pytest.mark.parametrize("cell", FSDP_MOE_CELLS)
+def test_fsdp_moe_dryrun_matches_the_reference(fsdp_moe_both, cell):
+    want, got = (d[cell] for d in fsdp_moe_both)
+    assert got["mode"] == want["mode"] == "fsdp"
+    for key in ("argument_size_in_bytes", "alias_size_in_bytes"):
+        assert abs(got[key] - want[key]) <= 0.01 * max(want[key], 1), (key, got[key], want[key])
+    useful = got["roofline"]["model_flops"] / got["chips"]
+    assert useful <= got["hlo_flops"] <= 1.5 * want["hlo_flops"], \
+        (useful, got["hlo_flops"], want["hlo_flops"])
 
 
 HEAD_CELL = "gemma-2b:prefill_32k"

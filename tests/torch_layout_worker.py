@@ -14,7 +14,9 @@ leaf or gradient whose placements differ from ``state_shardings`` /
 gradient compression; a part ``KEY=INT`` overrides a field of the reduced
 config, ``moe_dispatch_groups=2``).  The
 JSON also holds the token count of each ``moe.route`` call of the two runs
-(``routes_plain``, ``routes_mesh``): a rank's own groups only; and, of the
+(``routes_plain``, ``routes_mesh``): a rank's own groups only; the dropped
+(token, pick) pairs of each ``moe.dispatch`` call (``drops_plain``,
+``drops_mesh``); and, of the
 mesh run on this rank, the q heads of K6's calls (``k6_heads``), the
 vocabulary columns of the loss's logits shards (``logit_cols``) and the
 heads of each Mamba2 scan (``mamba_heads``).  CASE
@@ -26,7 +28,8 @@ places the parameters with ``state_shardings`` ("fsdp"; ``decode:ARCH:KEY=INT``
 overrides the reduced config as above), and under
 ``use_mesh`` runs a prefill (whose cache comes out placed as
 ``cache_shardings`` places it: slots over "model") and the decode steps,
-writing each step's logits and every cache leaf whose placements differ.
+writing each step's logits, every cache leaf whose placements differ and
+the dropped pairs of each ``moe.dispatch`` call.
 """
 from __future__ import annotations
 
@@ -69,6 +72,20 @@ def _record_routes(log: list):
 
     moe.route = recording
     return route
+
+
+def _record_drops(log: list):
+    """Wrap ``moe.dispatch`` to append each call's dropped (token, pick)
+    pairs to ``log``; returns the original."""
+    dispatch = moe.dispatch
+
+    def recording(expert_ids, n_experts, cap):
+        out = dispatch(expert_ids, n_experts, cap)
+        log.append(int((~out[2]).sum()))
+        return out
+
+    moe.dispatch = recording
+    return dispatch
 
 
 _FORWARD, _LSE_GOLD, _GATE = flash_attention.forward, layers.lse_gold, ssm.mamba2_gate
@@ -180,6 +197,8 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
             return getattr(self.model, fn)(*args)
 
     call = Call()
+    drops = []
+    dispatch = _record_drops(drops)
     with use_mesh(mesh), implicit_replication(), torch.no_grad():
         params = shl.distribute(data["params"], shl.state_shardings(
             data["params"], mesh, "fsdp", cfg.family), mesh)
@@ -206,7 +225,9 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
         sharded = sorted(k for k, t in cache.items()
                          if any(p.is_shard() and p.dim == t.ndim - 3 for p in t.placements)
                          and k[0] in "kvx")
-    return {"logits": got, "bad": bad, "seq_sharded": sharded, "conv_chunks": conv}
+    moe.dispatch = dispatch
+    return {"logits": got, "bad": bad, "seq_sharded": sharded, "conv_chunks": conv,
+            "drops": drops}
 
 
 def main(case: str, rank: int, world: int, store: str, out: str) -> None:
@@ -241,12 +262,13 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
     train_loop.adamw_update = recording
     plain = _copy(base)
     plain_step = make_train_step(model, ocfg)
-    routes_plain, routes_mesh = [], []
-    route = _record_routes(routes_plain)
+    routes_plain, routes_mesh, drops_plain, drops_mesh = [], [], [], []
+    route, dispatch = _record_routes(routes_plain), _record_drops(drops_plain)
     want = [float(plain_step(plain, b)[1]["loss"]) for b in batches]
     plain_grads, seen = seen, []
-    moe.route = route
+    moe.route, moe.dispatch = route, dispatch
     _record_routes(routes_mesh)
+    _record_drops(drops_mesh)
 
     rules = {"experts": "data"} if mode == "ep" else None
     heads, cols, scans = _record_local_work()
@@ -257,7 +279,7 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
         bshd = shl.batch_shardings(model.input_specs(shape), mesh)
         got = [float(step(state, shl.distribute(b, bshd, mesh))[1]["loss"]) for b in batches]
     train_loop.adamw_update = update
-    moe.route = route
+    moe.route, moe.dispatch = route, dispatch
     flash_attention.forward, layers.lse_gold, ssm.mamba2_gate = _FORWARD, _LSE_GOLD, _GATE
 
     def wanted(path):
@@ -284,7 +306,8 @@ def main(case: str, rank: int, world: int, store: str, out: str) -> None:
         json.dump({"want": want, "got": got, "param_gap": gap, "grad_gap": grad_gap,
                    "grad_gaps": grad_gaps, "bad": bad,
                    "n_grads": len(seen), "n_sharded": sharded, "routes_plain": routes_plain,
-                   "routes_mesh": routes_mesh, "k6_heads": sorted(set(heads)),
+                   "routes_mesh": routes_mesh, "drops_plain": drops_plain,
+                   "drops_mesh": drops_mesh, "k6_heads": sorted(set(heads)),
                    "logit_cols": sorted(set(cols)), "mamba_heads": sorted(set(scans))}, f)
     dist.destroy_process_group()
 

@@ -1,18 +1,23 @@
-"""Rank 0's accounting of an expert-parallel MoE block in a fake world.
+"""Rank 0's accounting of an MoE block in a fake world.
 
-``python tests/torch_moe_fake_world.py`` (with ``src`` on ``PYTHONPATH``)
-starts a fake world of 16 ranks (``mesh.start_fake_world``), builds a (4,
-4) ("data", "model") CPU mesh, places a reduced MoE block's weights as
-``state_shardings`` places them in ``ep`` (experts over "data") and a
-bf16 batch over "data" as FakeTensor shards, and runs ``moe_apply`` once
-under ``hlo_analysis.analyze``.  It prints one JSON line: the analysis's
-FLOPs and collectives, the FLOPs of the expert products (the ``bmm`` ops:
-the shared MLP and the router are 2-D products) and the result bytes of
-every all-gather.  ``tests/test_torch_moe_parallel.py`` runs it.
+``python tests/torch_moe_fake_world.py [ep|fsdp]`` (with ``src`` on
+``PYTHONPATH``) starts a fake world of 16 ranks (``mesh.start_fake_world``),
+builds a (4, 4) ("data", "model") CPU mesh, places a reduced MoE block's
+weights as ``state_shardings`` places them and a bf16 batch over "data" as
+FakeTensor shards, and runs ``moe_apply`` under ``hlo_analysis.analyze``:
+``ep`` (the default) with 8 dispatch groups and the experts over "data",
+once; ``fsdp`` without groups, once on a (8, 32) batch (a rank's 64
+tokens, as many as d_model) and once on a (8, 1) decode step (2).  It
+prints one JSON line: for each run the analysis's FLOPs and collectives,
+the FLOPs of the expert products (the ``bmm`` ops: the shared MLP and the
+router are 2-D products), the operand shapes of each ``bmm`` and ``mm``,
+and the result bytes of every all-gather.
+``tests/test_torch_moe_parallel.py`` runs it.
 """
 from __future__ import annotations
 
 import json
+import sys
 from types import SimpleNamespace
 
 import torch
@@ -33,7 +38,7 @@ CFG = SimpleNamespace(d_model=64, n_experts=6, top_k=2, d_ff=128, moe_d_ff=32,
 B, S = 8, 32
 
 
-def main() -> None:
+def main(mode: str) -> None:
     start_fake_world(16)
     mesh = DeviceMesh("cpu", torch.arange(16).reshape(4, 4), mesh_dim_names=("data", "model"))
     d, e, f = CFG.d_model, CFG.n_experts, CFG.moe_d_ff
@@ -41,38 +46,46 @@ def main() -> None:
               "shared.wi": (d, 2 * f * CFG.n_shared_experts),
               "shared.wo": (f * CFG.n_shared_experts, d)}
     metas = {f"layers.0.moe.{n}": torch.empty(s, device="meta") for n, s in shapes.items()}
-    shd = state_shardings(metas, mesh, "ep", "moe")
+    shd = state_shardings(metas, mesh, mode, "moe")
 
     def fake(shape, placed, dtype):
         local, _ = local_shape_and_offset(shape, mesh, placed)
         return DTensor.from_local(torch.empty(local, dtype=dtype), mesh, tuple(placed),
                                   shape=shape, stride=contiguous_strides(shape))
 
-    expert_flops, gathers = [], []
+    log = {}
     dispatch = hlo_analysis._Profile.__torch_dispatch__
 
     def watching(self, func, types, args=(), kwargs=None):
         out = dispatch(self, func, types, args, kwargs)
         if out is NotImplemented or self.skip:
             return out
-        if func is torch.ops.aten.bmm.default:
-            expert_flops.append(flop_registry[func._overloadpacket](*args, out_val=out))
+        if func in (torch.ops.aten.bmm.default, torch.ops.aten.mm.default):
+            name = func._overloadpacket.__name__
+            log[name].append([list(a.shape) for a in args[:2]])
+            if name == "bmm":
+                log["expert_flops"] += flop_registry[func._overloadpacket](*args, out_val=out)
         elif func._overloadpacket.__name__ == "all_gather_into_tensor":
-            gathers.append(out.numel() * out.element_size())
+            log["all_gather_sizes"].append(out.numel() * out.element_size())
         return out
 
     hlo_analysis._Profile.__torch_dispatch__ = watching
-    with FakeTensorMode(), use_mesh(mesh, {"experts": "data"}):
+    cfg = CFG if mode == "ep" else SimpleNamespace(**{**vars(CFG), "moe_dispatch_groups": 0})
+    runs = []
+    with FakeTensorMode(), use_mesh(mesh, {"experts": "data"} if mode == "ep" else None):
         p = {n: fake(s, shd[f"layers.0.moe.{n}"],
                      torch.float32 if n == "router" else torch.bfloat16)
              for n, s in shapes.items()}
         params = SimpleNamespace(router=p["router"], wi=p["wi"], wo=p["wo"],
                                  shared={"wi": p["shared.wi"], "wo": p["shared.wo"]})
-        x = fake((B, S, d), (Shard(0), Replicate()), torch.bfloat16)
-        prof = hlo_analysis.analyze(moe.moe_apply, params, x, CFG)
-    print(json.dumps({"flops": prof["flops"], "collectives": prof["collectives"],
-                      "expert_flops": float(sum(expert_flops)), "all_gather_sizes": gathers}))
+        for seq in (S,) if mode == "ep" else (S, 1):
+            log.update(bmm=[], mm=[], expert_flops=0.0, all_gather_sizes=[])
+            x = fake((B, seq, d), (Shard(0), Replicate()), torch.bfloat16)
+            prof = hlo_analysis.analyze(moe.moe_apply, params, x, cfg)
+            runs.append({"seq": seq, "flops": prof["flops"], "collectives": prof["collectives"],
+                         **log})
+    print(json.dumps(runs))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else "ep")
