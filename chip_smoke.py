@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
-                          [--layout] [--dryrun] [--src DIR]
+                          [--layout] [--dryrun] [--hash] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -152,7 +152,20 @@ just before it and read just after:
   ``fsdp`` on DTensors of the 1 x 1 mesh (every token routed on every
   rank, each rank's experts over its chunk of their hidden,
   ``moe._split_hidden``, once a call) against plain tensors: bit-equal as
-  in (d), ms a call and idle share each way;
+  in (d), ms a call and idle share each way; (h) zamba2-7b's decode at
+  batch 1 as its ``long_500k`` cell splits it: K7 on one rank's share of
+  the shared attention's cache (B=1, 32768 bf16 slots, H=KV=32, D=112,
+  f32 q, kv_len 30001) in 16 head slices of 2, each through
+  ``ops.decode_head_slice`` on strided views with lse (as a rank of a
+  16-way "data" axis runs it), concatenated: bit-equal to one call at the
+  slices' split, within 1e-5 of one call at its own plan and of the plain
+  version, one slice's device ms against the whole call's (K7's launches
+  counted from 0 around the 16 slices); then a full-width zamba2-7b decode
+  step (bf16, seeded weights, a seeded 32768-slot cache at position 30000,
+  3 steps) on DTensors of the 1 x 1 mesh (parameters placed in ``fsdp``,
+  the cache as ``cache_shardings``) against plain tensors: logits and the
+  cache bit-equal, ms a step and a profiled step's idle share each way, 13
+  K7 launches a step;
 * dryrun: (a) K7 with ``return_lse`` against its plain version at
   decode_row's shape, then qwen3-1.7b's decode cache (B=8, H=16, KV=8,
   D=128, a bf16 cache of 32768 slots, ragged kv_len) cut into 16 shards,
@@ -175,7 +188,11 @@ just before it and read just after:
   hidden, the shared MLP's contraction split over "model"), each cell
   ok, no kernel launched, the ``ep`` MoE cells with an all-to-all among
   their collectives, the head cells' and the ``fsdp`` MoE cells' FLOPs
-  between the useful FLOPs a chip and 1.5 x the reference's.
+  between the useful FLOPs a chip and 1.5 x the reference's; then
+  zamba2-7b's, seamless's and xlstm-125m's ``long_500k`` (a batch of 1,
+  decoded under ``embed_split``), each cell's FLOPs equal to the CLI's with
+  fake CPU tensors on a CPU host and its FLOPs and collective bytes within
+  the limits of ``DRYRUN_B1_LIMITS``.
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
@@ -210,8 +227,9 @@ graph does not capture autograd's backward; also the dK/dV and dQ rows'
 same whole-backward times, bound and SDPA times at each family's training
 shape (phase train (f)), with its calls a step.  ``train_families_launches``
 counts each kernel's launches in (f), ``layout_blocked_launches``,
-``layout_train_launches``, ``layout_heads_launches`` and
-``layout_mamba_launches`` in phase layout (b), (c), (e) and (f); K6's row
+``layout_train_launches``, ``layout_heads_launches``,
+``layout_mamba_launches`` and ``layout_batch1_launches`` in phase layout
+(b), (c), (e), (f) and (h) (the head slices and the DTensor steps); K6's row
 adds ``mamba_split`` ((f): the slices' errors, gradients, decode step,
 group, K6 launches, the 1 x 1 mesh's bit-equality and the times),
 ``head_split`` ((e): the slices' heads,
@@ -225,18 +243,20 @@ kernel's real launches in phase dryrun (a) and (b); K7's row adds
 ``lse_max_abs_err``, ``split`` ((a): the split's errors, K7's times with
 and without lse, the combine's, bounds), ``analysis`` ((b)) and
 ``dryrun_cells`` ((c): each cell's seconds, per-device bytes, FLOPs and
-dominant term).
+dominant term), ``batch1_slices`` and ``batch1_step`` (phase layout (h):
+errors, bit-equality, grids, times and bounds).
 Any failure exits non-zero before the last line.
 Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
 ``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
-``--layout`` and ``--dryrun`` run only the env and build phases and the
-named ones (the
+``--layout``, ``--dryrun`` and ``--hash`` run only the env and build phases
+and the named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
 comma-separated list of names after the flag; phase train; phase layout;
-phase dryrun)
+phase dryrun; ``phase_hash_repeat``: K4a, K4b and their plain versions
+each held to the float64 vertex ids over many calls and seeds)
 and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
@@ -384,7 +404,8 @@ FAMILIES_PATH = ("flash_attention", "decode_attention")
 TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                        "flash_attention_bwd_dq")
 LAYOUT_PATH = {"layout-blocked": ("flash_attention",), "layout-train": TRAIN_FAMILIES_PATH,
-               "layout-heads": TRAIN_FAMILIES_PATH, "layout-mamba": ("flash_attention",)}
+               "layout-heads": TRAIN_FAMILIES_PATH, "layout-mamba": ("flash_attention",),
+               "layout-batch1": ("decode_attention",)}
 
 # sizes: phase 3 (kernels), phase 4 (serve), phase 5 (store)
 HASH_B = 4096
@@ -586,17 +607,32 @@ def _cp_margins(x: np.ndarray, rot: np.ndarray) -> np.ndarray:
 
 
 def check_hash(name: str, got: torch.Tensor, want: torch.Tensor,
-               margins: np.ndarray) -> tuple:
+               margins: np.ndarray, again=None) -> tuple:
     """Equal ids, except where a vertex of that hash is a float64 near-tie;
-    returns (max |id difference|, ids that differ)."""
+    returns (max |id difference|, ids that differ).  On a failure the
+    message names the rows and tables that differ and, where ``again``
+    (a call giving a new (kernel ids, plain ids)) is given, whether each
+    side repeats its ids, so that a fault that does not repeat shows as
+    one; it fails either way."""
     g, w = got.cpu().numpy(), want.cpu().numpy()
     bad = g != w
     if g.ndim == 2:                        # mixed (B, T): any of its K rotations
         near = (margins < TIE_MARGIN).any(axis=-1)
     else:
         near = margins < TIE_MARGIN
-    expect(not (bad & ~near).any(),
-           f"{name}: {int((bad & ~near).sum())} ids differ away from a near-tie")
+    far = bad & ~near
+    if far.any():
+        rows, tables = np.nonzero(far.reshape(far.shape[0], far.shape[1], -1).any(-1))
+        msg = (f"{name}: {int(far.sum())} ids differ away from a near-tie, in "
+               f"{np.unique(rows).size} rows ({np.unique(rows // 64).size} tiles of 64) "
+               f"and tables {np.unique(tables).tolist()}")
+        if again is not None:
+            g2, w2 = (t.cpu().numpy() for t in again())
+            same = {True: "the same", False: "other"}
+            msg += (f"; called again, the kernel gives {same[np.array_equal(g, g2)]} ids, "
+                    f"the plain version {same[np.array_equal(w, w2)]} ids, and "
+                    f"{int(((g2 != w2) & ~near).sum())} differ away from a near-tie")
+        raise SmokeFailure(msg)
     return float(np.abs(g.astype(np.int64) - w).max()), int(bad.sum())
 
 
@@ -636,7 +672,8 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
                  lambda x=x, rot=rot: ref.lsh_hash_mix_ref(x, rot, nb)),
                 ("lsh_hash", lambda x=x, rot=rot: lsh_hash.lsh_hash(x, rot),
                  lambda x=x, rot=rot: ref.lsh_hash_ref(x, rot))):
-            err, ties = check_hash(f"{name} D={d} K={k}", fn(), plain(), margins)
+            err, ties = check_hash(f"{name} D={d} K={k}", fn(), plain(), margins,
+                                   again=lambda fn=fn, plain=plain: (fn(), plain()))
             ms, plain_ms = median_ms(fn, REPS), median_ms(plain, PLAIN_REPS)
             dev_ms = graph_ms(fn, REPS)
             n_out = x_np.shape[0] * p.num_tables * (1 if name == "lsh_hash_mix" else k)
@@ -676,6 +713,53 @@ def phase_kernels(dev: torch.device, seed: int = 0) -> dict:
                         for r, t in tiles.items())
             + f"; the plan takes {chosen['tile_rows']}")
         out["lsh_hash_mix"][f"b{ROUTED_B}_d{d}_k{k}_tile_device_ms"] = tiles
+    return out
+
+
+def phase_hash_repeat(dev: torch.device, reps: int = 400, seeds: int = 20) -> dict:
+    """K4a and K4b and their plain versions, each held to the float64 vertex
+    ids (mixed for K4a) at phase kernels' shapes (and its D=64 inputs): the
+    first calls, then ``reps`` calls at D=64, K=1 and ``reps // 4`` at D=128, K=2,
+    then 5 calls at each of ``seeds`` other seeds (D=64).  Counts, per side,
+    the calls with an id off the float64 one away from a near-tie, and fails
+    if there is one."""
+    out = {}
+
+    def run(seed, d, k, n):
+        rng = np.random.default_rng(seed)
+        p = LSHParams(dim=d, num_tables=5, rotations_per_table=k, seed=seed)
+        rot_np, _ = sample_params(p)
+        x_np = _unit(rng, HASH_B, d)
+        x, rot = torch.from_numpy(x_np).to(dev), torch.from_numpy(rot_np).to(dev)
+        proj = np.einsum("tkde,be->btkd", rot_np.astype(np.float64), x_np.astype(np.float64))
+        vids = np.argmax(np.concatenate([proj, -proj], axis=-1), axis=-1)
+        mixed = np.zeros(vids.shape[:2], np.int64)
+        for kk in range(k):
+            mixed = (mixed * 2 * d + vids[..., kk]) % p.num_buckets
+        near = _cp_margins(x_np, rot_np) < TIE_MARGIN
+        sides = {"lsh_hash_mix": (lambda: lsh_hash.lsh_hash_mix(x, rot, p.num_buckets),
+                                  mixed, near.any(axis=-1)),
+                 "lsh_hash_mix plain": (lambda: ref.lsh_hash_mix_ref(x, rot, p.num_buckets),
+                                        mixed, near.any(axis=-1)),
+                 "lsh_hash": (lambda: lsh_hash.lsh_hash(x, rot), vids, near),
+                 "lsh_hash plain": (lambda: ref.lsh_hash_ref(x, rot), vids, near)}
+        bad = dict.fromkeys(sides, 0)
+        for _ in range(n):
+            for side, (fn, want, tie) in sides.items():
+                bad[side] += int(((fn().cpu().numpy() != want) & ~tie).any())
+        return bad
+
+    runs = {"first_calls_d64_k1": [(0, 64, 1, 1)], "d128_k2": [(0, 128, 2, reps // 4)],
+            "d64_k1": [(0, 64, 1, reps)],
+            f"{seeds}_seeds_d64_k1": [(s, 64, 1, 5) for s in range(1, seeds + 1)]}
+    for key, cases in runs.items():
+        counts = [run(*case) for case in cases]
+        out[key] = {"calls": sum(case[3] for case in cases),
+                    "calls_off": {side: sum(c[side] for c in counts) for side in counts[0]}}
+        log(f"  hash repeat {key}: {out[key]['calls']} calls a side; calls with an id off the "
+            f"float64 one away from a near-tie: {out[key]['calls_off']}")
+    expect(not any(v for o in out.values() for v in o["calls_off"].values()),
+           "hash repeat: an id off the float64 one away from a near-tie")
     return out
 
 
@@ -4055,6 +4139,199 @@ def mamba_dtensor_check(dev, mesh, cfg, w32, x32, dout) -> dict:
     return {k: bool(torch.equal(got["dtensor"][k], g)) for k, g in got["plain"].items()}
 
 
+# phase layout (h): zamba2-7b's decode at batch 1, as its long_500k cell runs
+# it on 16 x 16: one rank's share of the shared attention's cache (B = 1,
+# 524288 slots over a 16-way "model" axis: 32768, bf16, a ragged kv_len),
+# its 32 heads over a 16-way "data" axis (2 a rank); then one full-width
+# decode step against a 32768-slot cache on DTensors of the 1 x 1 mesh
+BATCH1_ARCH, BATCH1_T, BATCH1_LEN, BATCH1_SPLIT = "zamba2-7b", 32768, 30001, 16
+BATCH1_STEPS = 3
+
+
+def batch1_slices_check(dev: torch.device, gen) -> tuple:
+    """(h), K7's head slices: q (1, 32, 112) f32 against the bf16 cache
+    shard, in BATCH1_SPLIT slices of 2 heads, each through
+    ``ops.decode_head_slice`` on strided views of its kv heads with lse (as
+    a rank of "data" runs it), concatenated: bit-equal (out and lse) to one
+    call on all heads at the slices' split (``n_split``: a head's result
+    depends on the split alone), and within SPLIT_REL_TOL of one call at
+    its own plan and of the plain version; one slice's device ms against
+    the whole call's, beside the slice's bound -> (row, K7 launches of the
+    sliced call)."""
+    cfg = get_arch(BATCH1_ARCH)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((1, H, D), generator=gen, device=dev)
+    k, v = (_randn(gen, 1, BATCH1_T, KV, D, dev=dev) for _ in range(2))
+    lens = torch.tensor([BATCH1_LEN], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(D)
+    spans = partitioning._spans(H, BATCH1_SPLIT)
+    hl = spans[0][1] - spans[0][0]
+
+    def one(a: int, b: int):
+        return ops.decode_head_slice(q[:, a:b], k, v, lens, a, H, scale=scale, return_lse=True)
+
+    def sliced():
+        outs = [one(a, b) for a, b in spans]
+        return torch.cat([o for o, _ in outs], dim=1), torch.cat([s_ for _, s_ in outs], dim=1)
+
+    ops.reset_launch_counts()
+    s_out, s_lse = sliced()
+    sync()
+    counts = ops.launch_counts()
+    n_calls = sum(b > a for a, b in spans)
+    expect(counts["decode_attention"] == n_calls,
+           f"K7 head slices: {counts['decode_attention']} launches, not {n_calls}")
+    slice_kv = max(1, hl * KV // H)
+    slice_plan = decode_k.split_plan(1, slice_kv, BATCH1_T, H // KV, D)
+    whole_plan = decode_k.split_plan(1, KV, BATCH1_T, H // KV, D)
+    at_out, at_lse = decode_k.decode_attention(q, k, v, lens, scale=scale, return_lse=True,
+                                               n_split=slice_plan["n_split"])
+    w_out, w_lse = decode_k.decode_attention(q, k, v, lens, scale=scale, return_lse=True)
+    p_out, p_lse = ref.decode_attention_ref(q, k, v, lens, scale=scale, return_lse=True)
+    bit = bool(torch.equal(s_out, at_out)) and bool(torch.equal(s_lse, at_lse))
+    expect(bit, "K7 head slices differ from one call at their split")
+    rel = float((s_out - w_out).abs().max() / w_out.abs().max())
+    lse_e = float((s_lse - w_lse).abs().max())
+    expect(rel <= SPLIT_REL_TOL and lse_e <= SPLIT_REL_TOL,
+           f"K7 head slices vs one call: out {rel:.3g} of max |out|, lse {lse_e:.3g}")
+    err = attn_err("K7 head slices vs plain", s_out, p_out)
+    plain_lse = float((s_lse - p_lse).abs().max())
+    expect(plain_lse <= SPLIT_REL_TOL * max(1.0, float(p_lse.abs().max())),
+           f"K7 head slices: lse off the plain version's by {plain_lse:.3g}")
+    whole = lambda: decode_k.decode_attention(q, k, v, lens, scale=scale,  # noqa: E731
+                                              return_lse=True)
+    first = lambda: one(*spans[0])  # noqa: E731
+    work = decode_k.work(1, hl, slice_kv, D, BATCH1_LEN, 4, 2, True)
+    bms, by = bound(work["bytes"], work["flops"], BF16_FLOP_PER_S)
+    w_work = decode_k.work(1, H, KV, D, BATCH1_LEN, 4, 2, True)
+    w_bms, w_by = bound(w_work["bytes"], w_work["flops"], BF16_FLOP_PER_S)
+    row = {"shape": [1, BATCH1_T, H, KV, D], "kv_len": BATCH1_LEN, "slices": len(spans),
+           "slice_heads": hl, "slice_grid": list(slice_plan["grid"]),
+           "whole_grid": list(whole_plan["grid"]), "bit_equal_at_split": bit,
+           "bit_equal_whole": bool(torch.equal(s_out, w_out)), "max_rel_err_whole": rel,
+           "lse_max_abs_err_whole": lse_e, "max_abs_err": err, "plain_lse_max_abs_err": plain_lse,
+           "slice_ms": median_ms(first, REPS), "slice_device_ms": graph_ms(first, REPS),
+           "whole_ms": median_ms(whole, REPS), "whole_device_ms": graph_ms(whole, REPS),
+           "slices_device_ms": graph_ms(sliced, REPS), "plain_ms": median_ms(
+               lambda: ref.decode_attention_ref(q, k, v, lens, scale=scale, return_lse=True),
+               PLAIN_REPS),
+           "slice_bound_ms": bms, "slice_bound_by": by, "whole_bound_ms": w_bms,
+           "whole_bound_by": w_by}
+    log(f"  decode_attention head slices B=1 T={BATCH1_T} kv_len={BATCH1_LEN} H={H} KV={KV} "
+        f"D={D} (f32 q, bf16 cache), {len(spans)} slices of {hl} heads on strided views: "
+        f"bit-equal to one call at their split ({slice_plan['n_split']} a kv head, grid "
+        f"{tuple(slice_plan['grid'])}) {bit}; against one call at its own plan (grid "
+        f"{tuple(whole_plan['grid'])}) out {rel:.3g} of max |out|, lse {lse_e:.3g} (bit-equal "
+        f"{row['bit_equal_whole']}); vs plain {err:.3g}; one slice {row['slice_ms']:.4f} ms "
+        f"({row['slice_device_ms']:.4f} device, bound {bms:.5f} ms by {by}), the whole call "
+        f"{row['whole_ms']:.4f} ms ({row['whole_device_ms']:.4f} device, bound {w_bms:.5f} "
+        f"ms by {w_by}), the {len(spans)} slices {row['slices_device_ms']:.4f} ms device; "
+        f"plain {row['plain_ms']:.3f} ms")
+    return row, counts
+
+
+def batch1_step_check(dev: torch.device, mesh, seed: int) -> tuple:
+    """(h), a full-width zamba2-7b decode step at B = 1 (bf16, seeded weights)
+    against a BATCH1_T-slot cache filled with seeded values, at position
+    BATCH1_LEN - 1, BATCH1_STEPS steps from one token each way: on plain
+    tensors, and on DTensors of the 1 x 1 mesh (parameters as
+    ``state_shardings`` places them in "fsdp", the cache as
+    ``cache_shardings``): logits of every step and the cache after the last
+    bit-equal; ms a step and a profiled step's idle share each way; K7's
+    launches (13 a step) -> (row, launches of the DTensor steps)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.shardings import cache_shardings
+
+    cfg = get_arch(BATCH1_ARCH)
+    model = build_model(cfg, dev, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cache0 = model.init_cache(1, BATCH1_T)
+    for t in cache0.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device=dev) * 0.5)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH1_STEPS + 2, 1, 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    pos0 = BATCH1_LEN - 1
+    params = dict(model.named_parameters())
+    shd = state_shardings(params, mesh, "fsdp", cfg.family)
+    tshd = batch_shardings({"t": ((1, 1), torch.int32)}, mesh)["t"]
+
+    class Call(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, *args):
+            return self.model.decode_step(*args)
+
+    call = Call()
+    runs, prof, counts = {}, {}, {}
+    for way in ("plain", "dtensor"):
+        cache = {k: t.clone() for k, t in cache0.items()}
+        with use_mesh(mesh), implicit_replication(), torch.no_grad():
+            if way == "dtensor":
+                named = {f"model.{n}": t for n, t in as_dtensors(params, shd, mesh).items()}
+                cache = as_dtensors(cache, cache_shardings(cache, mesh, cfg.family), mesh)
+                put = lambda t: as_dtensors({"t": t}, {"t": tshd}, mesh)["t"]  # noqa: E731
+            else:
+                named = {f"model.{n}": t for n, t in params.items()}
+                put = lambda t: t  # noqa: E731
+
+            def step(i: int):
+                logits, _ = torch.func.functional_call(call, named,
+                                                       (put(tokens[i]), cache, pos0 + i))
+                return logits
+
+            ops.reset_launch_counts()
+            logits, ms = [], []
+            for i in range(BATCH1_STEPS):
+                t0 = time.perf_counter()
+                out = step(i)
+                sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(out.to_local() if partitioning.is_dtensor(out) else out)
+            counts[way] = ops.launch_counts()
+            final = {k: (t.to_local() if partitioning.is_dtensor(t) else t).clone()
+                     for k, t in cache.items()}
+            prof[way] = profile_call(f"zamba2-7b decode step B=1, {way} tensors on the 1 x 1 "
+                                     f"mesh", lambda: step(BATCH1_STEPS), host=False)
+        runs[way] = {"logits": logits, "ms": ms, "cache": final}
+        del cache, named
+        gc.collect()
+        torch.cuda.empty_cache()
+    del model, params, cache0
+    gc.collect()
+    torch.cuda.empty_cache()
+    p, d = runs["plain"], runs["dtensor"]
+    same_logits = all(torch.equal(a, b) for a, b in zip(p["logits"], d["logits"]))
+    same_cache = all(torch.equal(p["cache"][k], d["cache"][k]) for k in p["cache"])
+    rel = max(_rel_err(b, a) for a, b in zip(p["logits"], d["logits"]))
+    expect(all(bool(torch.isfinite(t).all()) for t in p["logits"]),
+           "zamba2 decode step B=1: non-finite logits")
+    expect(same_logits and same_cache,
+           f"zamba2 decode step B=1: DTensors vs plain differ (logits {same_logits}, "
+           f"cache {same_cache}, logits off by {rel:.3g} of their max)")
+    want = cfg.n_layers // cfg.attn_every * BATCH1_STEPS
+    for way, c in counts.items():
+        expect(c["decode_attention"] == want,
+               f"zamba2 decode step B=1 ({way}): {c['decode_attention']} K7 launches, not "
+               f"{want}")
+    row = {"steps": BATCH1_STEPS, "T": BATCH1_T, "pos0": pos0, "bit_equal": same_logits,
+           "cache_bit_equal": same_cache, "logits_max_rel_err": rel,
+           **{f"{w}_ms": runs[w]["ms"] for w in runs},
+           **{f"{w}_profiled_{k}": prof[w][k] for w in prof
+              for k in ("wall_ms", "device_ms", "device_ops")}}
+    log(f"  zamba2-7b decode step B=1 against a {BATCH1_T}-slot cache at position {pos0}, "
+        f"{BATCH1_STEPS} steps: DTensors of the 1 x 1 mesh vs plain tensors, logits bit-equal "
+        f"{same_logits}, cache bit-equal {same_cache}; ms a step plain "
+        f"{', '.join(f'{x:.1f}' for x in p['ms'])}, dtensor "
+        f"{', '.join(f'{x:.1f}' for x in d['ms'])}; profiled step idle share plain "
+        f"{1 - prof['plain']['device_ms'] / prof['plain']['wall_ms']:.3f}, dtensor "
+        f"{1 - prof['dtensor']['device_ms'] / prof['dtensor']['wall_ms']:.3f}; K7 launches "
+        f"{counts['dtensor']['decode_attention']}")
+    return row, counts["dtensor"]
+
+
 def phase_layout(dev: torch.device, seed: int = 13):
     """(a) K6 with q_offset: chunks, a window with a softcap, the chunks of a
     prompt against one call, the backward; (b) qwen3-1.7b's prefill through
@@ -4067,7 +4344,10 @@ def phase_layout(dev: torch.device, seed: int = 13):
     in the head slices of a 16-way model axis against the whole, and a
     layer on DTensors of the 1 x 1 mesh; (g) the MoE block of (d) without
     dispatch groups in "fsdp" on DTensors of that mesh against plain
-    tensors -> (K6 row fields, launches of (b), (c), (e) and (f))."""
+    tensors; (h) zamba2-7b's decode at batch 1: K7 in the head slices of a
+    16-way "data" axis against one call, and a full-width decode step on
+    DTensors of that mesh against plain tensors -> (K6 row fields, launches
+    of (b), (c), (e), (f) and (h))."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     B, H, KV, D = ATTN_B, ATTN_H, ATTN_KV, ATTN_D
     # --- (a) the chunks, each dtype; the window + softcap chunk
@@ -4196,7 +4476,13 @@ def phase_layout(dev: torch.device, seed: int = 13):
     rows["layout_moe_fsdp"] = moe_block_check(dev, mesh, seed, 0, "fsdp")
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, blocked_counts, train_counts, head_counts, mamba_counts
+    # --- (h) zamba2's decode at batch 1: K7's head slices, a full step
+    rows["batch1_slices"], slice_counts = batch1_slices_check(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["batch1_step"], step_counts = batch1_step_check(dev, mesh, seed)
+    batch1_counts = {n: slice_counts[n] + step_counts[n] for n in slice_counts}
+    return rows, blocked_counts, train_counts, head_counts, mamba_counts, batch1_counts
 
 
 # ------------------------------------------------------------------ phase 13
@@ -4237,6 +4523,17 @@ DRYRUN_HEAD_LIMIT = 1.5
 # decode_32k is an "ep" cell above too)
 DRYRUN_FSDP_MOE_REF_FLOPS = {"qwen2-moe-a2.7b:decode_32k": 5.806555136e9,
                              "llama4-maverick-400b-a17b:decode_32k": 7.455014912e10}
+# long_500k cells, whose batch of 1 the 16 data ranks do not divide: the
+# decode under ``embed_split`` (weights kept in place, d and K7's heads split
+# over "data"), held to (FLOPs, collective bytes) limits, and their FLOPs
+# with fake CUDA tensors equal to the same CLI's with fake CPU tensors on a
+# CPU host (``--device cpu``)
+DRYRUN_B1_LIMITS = {"zamba2-7b:long_500k": (3.65e9, 2.3e7),
+                    "seamless-m4t-large-v2:long_500k": (1.91e9, 1.5e7),
+                    "xlstm-125m:long_500k": (1.72e8, 2.0e6)}
+DRYRUN_B1_HOST_FLOPS = {"zamba2-7b:long_500k": 457411136.0,
+                        "seamless-m4t-large-v2:long_500k": 210847360.0,
+                        "xlstm-125m:long_500k": 147859200.0}
 SPLIT_REL_TOL = 1e-5     # split-and-combine vs one call: out (of max |out|), lse
 PEAK_REL_TOL = 0.10      # the analysis's peak bytes vs max_memory_allocated
 
@@ -4422,6 +4719,8 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
             dryrun.main(["--cells", cell, *args, "--device", "cuda", "--out", str(out)])
         dryrun.main(["--cells", ",".join(DRYRUN_FSDP_MOE_REF_FLOPS), "--device", "cuda",
                      "--out", str(out_fsdp)])
+        dryrun.main(["--cells", ",".join(DRYRUN_B1_LIMITS), "--device", "cuda", "--out",
+                     str(out)])
     except SystemExit as e:
         raise SmokeFailure(f"dryrun CLI failed ({e.code}): see {out}") from None
     cli_s = time.perf_counter() - t0
@@ -4432,6 +4731,7 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
     runs = [(c, c, out, DRYRUN_HEAD_REF_FLOPS.get(c))
             for c in DRYRUN_CELLS + DRYRUN_MOE_CELLS + tuple(DRYRUN_HEAD_CELLS)]
     runs += [(f"{c}:fsdp", c, out_fsdp, f) for c, f in DRYRUN_FSDP_MOE_REF_FLOPS.items()]
+    runs += [(c, c, out, None) for c in DRYRUN_B1_LIMITS]
     for key, cell, folder, ref_flops in runs:
         arch, shp = cell.split(":")
         res = json.loads((folder / f"{arch}__{shp}__16x16.json").read_text())
@@ -4442,6 +4742,16 @@ def phase_dryrun(dev: torch.device, seed: int = 14) -> tuple:
                       "all_to_all_bytes": res["collectives"].get("all-to-all", 0.0)}
         if key in DRYRUN_MOE_CELLS:
             expect(cells[key]["all_to_all_bytes"] > 0, f"dryrun {key}: no all-to-all")
+        if key in DRYRUN_B1_LIMITS:
+            f_lim, c_lim = DRYRUN_B1_LIMITS[key]
+            useful = res["roofline"]["model_flops"] / res["chips"]
+            expect(res["hlo_flops"] == DRYRUN_B1_HOST_FLOPS[key],
+                   f"dryrun {key}: {res['hlo_flops']!r} FLOPs with fake CUDA tensors, "
+                   f"{DRYRUN_B1_HOST_FLOPS[key]!r} with fake CPU tensors")
+            expect(useful <= res["hlo_flops"] <= f_lim and res["collective_bytes"] <= c_lim,
+                   f"dryrun {key}: {res['hlo_flops']:.6e} FLOPs (useful {useful:.6e}, limit "
+                   f"{f_lim:.6e}), {res['collective_bytes']:.6e} collective bytes (limit "
+                   f"{c_lim:.6e})")
         if ref_flops is not None:
             useful = res["roofline"]["model_flops"] / res["chips"]
             limit = DRYRUN_HEAD_LIMIT * ref_flops
@@ -4502,7 +4812,7 @@ def main() -> int:
         phase_env()
     log(f"port: {SRC}")
     only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
-                        "--dryrun") if m in sys.argv[1:]]
+                        "--dryrun", "--hash") if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
@@ -4511,7 +4821,7 @@ def main() -> int:
                 {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
                  "--families": lambda d: phase_families(d, family_names()),
                  "--train": phase_train, "--layout": phase_layout,
-                 "--dryrun": phase_dryrun}[mode](dev)
+                 "--dryrun": phase_dryrun, "--hash": phase_hash_repeat}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -4574,7 +4884,9 @@ def main() -> int:
         kern.update(rows)
     with timed("layout"):
         rows, paths["layout-blocked"], paths["layout-train"], paths["layout-heads"], \
-            paths["layout-mamba"] = phase_layout(dev)
+            paths["layout-mamba"], paths["layout-batch1"] = phase_layout(dev)
+        kern["decode_attention"].update(
+            {k: rows.pop(k) for k in ("batch1_slices", "batch1_step")})
         kern["flash_attention"].update(rows)
     with timed("dryrun"):
         rows, paths["dryrun"], dryrun_cells = phase_dryrun(dev)
@@ -4611,6 +4923,7 @@ def main() -> int:
               "layout_train_launches": paths["layout-train"][name],
               "layout_heads_launches": paths["layout-heads"][name],
               "layout_mamba_launches": paths["layout-mamba"][name],
+              "layout_batch1_launches": paths["layout-batch1"][name],
               "dryrun_launches": paths["dryrun"][name],
               "library_ms": None, **kern[name]} for name in SOURCES]
     print(json.dumps({"kernels": lines}))

@@ -99,14 +99,18 @@ def combine(out: torch.Tensor, lse: torch.Tensor, all_max, all_sum) -> torch.Ten
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_len: torch.Tensor, *, softcap: Optional[float] = None,
-                     scale: Optional[float] = None, return_lse: bool = False):
+                     scale: Optional[float] = None, return_lse: bool = False,
+                     n_split: Optional[int] = None):
     """One query per row against a (ring) cache: q (B, H, D), k/v (B, T,
     KV, D), kv_len (B,) valid slots per row -> (B, H, D) in q's dtype, fp32
     inside.  The cache may be in another dtype than q.  ``return_lse``:
     (out, lse (B, H) f32), lse = -inf for a row with no valid slot (its out
-    is 0).  A fake kv_len has no values: the recorded work takes every row
-    as full (kv_len = T), which is what the dry run's decode at the cache's
-    last position gives."""
+    is 0).  ``n_split`` forces the split kernel's blocks per (row, kv head,
+    head group) in place of ``split_plan``'s (a head's result depends on it
+    alone: a check holds a call on some heads bit-equal to a call on all at
+    one split).  A fake kv_len has no values: the recorded work takes every
+    row as full (kv_len = T), which is what the dry run's decode at the
+    cache's last position gives."""
     check_attention(q, k, v, 3)
     if softcap is not None and softcap <= 0:
         raise ValueError("softcap must be positive")
@@ -128,7 +132,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_len = kv_len.to(torch.int32).contiguous()
     G = H // KV
     plan = split_plan(B, KV, T, G, D, k.element_size())
-    n_split = plan["n_split"]
+    n_split = plan["n_split"] if n_split is None else int(n_split)
+    if n_split < 1:
+        raise ValueError(f"n_split must be positive, not {n_split}")
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     n_part = B * KV * n_split * G          # one scratch buffer: m, l, then acc

@@ -7,6 +7,7 @@ the caller passes.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Union
 
 import numpy as np
@@ -240,6 +241,33 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _decode.decode_attention(q, k, v, kv_len, softcap=softcap, scale=scale)
 
 
+def decode_head_slice(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len: torch.Tensor, h0: int, n_heads: int, **kw):
+    """K7 on a slice of q's heads, the rank-local work of batch axes that
+    split the heads: q (B, hl, D) holds heads [h0, h0 + hl) of ``n_heads``,
+    k and v (B, T, KV, D) every kv head; head h reads kv head h // G (G =
+    n_heads // KV).  One call per ``head_slice_calls`` entry (one for a slice
+    of whole kv groups), each against a strided view of its kv heads (no
+    copy of the cache), with ``decode_attention``'s keywords; outputs (and
+    with ``return_lse`` the lse) concatenated over the heads.  An empty
+    slice launches nothing and gives (B, 0, D) (and (B, 0))."""
+    calls = head_slice_calls(h0, h0 + q.shape[1], n_heads // k.shape[2])
+    lse = kw.get("return_lse", False)
+    if not calls:
+        out = q.new_zeros((q.shape[0], 0, q.shape[2]))
+        return (out, out.new_zeros((q.shape[0], 0), dtype=torch.float32)) if lse else out
+    outs, at = [], 0
+    for j, nk, n in calls:
+        outs.append(_decode.decode_attention(q[:, at:at + n], k[:, :, j:j + nk],
+                                             v[:, :, j:j + nk], kv_len, **kw))
+        at += n
+    if len(outs) == 1:
+        return outs[0]
+    if lse:
+        return torch.cat([o for o, _ in outs], dim=1), torch.cat([s_ for _, s_ in outs], dim=1)
+    return torch.cat(outs, dim=1)
+
+
 def sharded_decode_attention(q, k, v, kv_len, *, softcap: Optional[float] = None,
                              scale: Optional[float] = None):
     """K7 on a DTensor cache sharded over its batch (dim 0) and, for context
@@ -257,30 +285,48 @@ def sharded_decode_attention(q, k, v, kv_len, *, softcap: Optional[float] = None
     (``decode_attention.combine``): M = max_r lse_r (an all-reduce), w_r =
     exp(lse_r - M) (0 where lse_r is -inf: a shard with no valid slot), out
     = sum_r w_r out_r / sum_r w_r (the two sums in one all-reduce); a row
-    whose shards are all empty gives 0, as K7 does.  The output is q's
-    dtype with the cache's batch placement.  ``kv_len`` is a plain (B,)
-    tensor (the same on every rank) or a DTensor."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    whose shards are all empty gives 0, as K7 does.
+
+    Where the batch axes ("pod", "data") leave the cache's batch whole (a
+    batch of 1 on 16 data ranks) and their n ranks divide the kv heads, they
+    split the heads instead, as the reference's compiled decode does
+    (zamba2's 32 kv heads, seamless's 16): each rank takes KV / n whole kv
+    groups and their q heads (DTensor's chunks over those axes) and runs K7
+    on them (``decode_head_slice``: strided views of its cache shard),
+    merges over the sequence axes on its heads only, and the heads are
+    gathered over the batch axes (B x H x D values).  Where "pod" and
+    "data" together do not divide the kv heads, "data" alone splits them;
+    fewer kv heads than data ranks (qwen3's 8, gemma-2b's 1 over 16) keep
+    every head on every rank, as the reference does: a cut group would make
+    several ranks read one kv head's slots.  The output is q's dtype with the cache's batch
+    placement.  ``kv_len`` is a plain (B,) tensor (the same on every rank)
+    or a DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from ..models.partitioning import contiguous_strides, local_shape_and_offset
 
     if not all(isinstance(x, DTensor) for x in (q, k, v)):
         raise TypeError("q, k and v must all be DTensors, or none")
     mesh = k.device_mesh
+    names = mesh.mesh_dim_names or ()
     if tuple(v.placements) != tuple(k.placements):
         raise ValueError(f"k and v are placed differently: {k.placements}, {v.placements}")
-    qp, seq_dims = [], []
+    qp, seq_dims, head_dims = [], [], []
     for i, p in enumerate(k.placements):
         if isinstance(p, Shard) and p.dim in (1, -3):
             seq_dims.append(i)
             qp.append(Replicate())
         elif isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim in (0, -4)):
             qp.append(Shard(0) if isinstance(p, Shard) else Replicate())
+            if isinstance(p, Replicate) and names[i] in ("pod", "data") and mesh.size(i) > 1:
+                head_dims.append(i)
         else:
             raise ValueError(f"K7 takes a cache sharded over its batch or sequence dim, "
                              f"not {tuple(k.placements)}")
     qp = tuple(qp)
-    B = q.shape[0]
+    while head_dims and k.shape[2] % math.prod(mesh.size(i) for i in head_dims):
+        head_dims = head_dims[1:]       # "pod" first: split over "data" alone
+    B, H = q.shape[0], q.shape[1]
     (Bl, Tl, _, _), (b0, t0, _, _) = local_shape_and_offset(k.shape, mesh, k.placements)
     ql = q.redistribute(mesh, qp).to_local()
     kl, vl = k.to_local(), v.to_local()
@@ -288,23 +334,43 @@ def sharded_decode_attention(q, k, v, kv_len, *, softcap: Optional[float] = None
         lens = kv_len.redistribute(mesh, qp).to_local()
     else:
         lens = kv_len[b0:b0 + Bl]
+    # the rank's heads: all, or its chunk over the batch axes that split them
+    hp = tuple(Shard(1) if i in head_dims else p for i, p in enumerate(qp))
+    (_, hl, _), (_, h0, _) = local_shape_and_offset(q.shape, mesh, hp)
+    ql = ql[:, h0:h0 + hl]
 
     def global_(x: torch.Tensor, placed) -> torch.Tensor:
-        shape = (B,) + tuple(x.shape[1:])
+        shape = (B, H) + tuple(x.shape[2:])
         return DTensor.from_local(x, mesh, placed, shape=shape,
                                   stride=contiguous_strides(shape))
 
+    def attend(*args, **kw):
+        return decode_head_slice(*args, h0, H, softcap=softcap, scale=scale, **kw)
+
     if not seq_dims:
-        out = _decode.decode_attention(ql, kl, vl, lens, softcap=softcap, scale=scale)
-        return global_(out, qp)
-    lens = (lens - t0).clamp(0, Tl).to(torch.int32)
-    out_r, lse_r = _decode.decode_attention(ql.float(), kl, vl, lens, softcap=softcap,
-                                            scale=scale, return_lse=True)
+        out = attend(ql, kl, vl, lens)
+    else:
+        lens = (lens - t0).clamp(0, Tl).to(torch.int32)
+        out_r, lse_r = attend(ql.float(), kl, vl, lens, return_lse=True)
+        if hl:   # a rank without heads: so are the others of its sequence group
+            out = _decode.combine(out_r, lse_r, lambda x: _seq_reduce(x, "max", mesh, seq_dims),
+                                  lambda x: _seq_reduce(x, "sum", mesh, seq_dims))
+        else:
+            out = out_r
+        out = out.to(q.dtype)
+    if head_dims:
+        return global_(out, hp).redistribute(mesh, qp)
+    return global_(out, qp)
 
-    def reduced(x: torch.Tensor, op: str) -> torch.Tensor:
-        part = tuple(Partial(op) if i in seq_dims else p for i, p in enumerate(qp))
-        return global_(x, part).redistribute(mesh, qp).to_local()
 
-    out = _decode.combine(out_r, lse_r, lambda x: reduced(x, "max"),
-                          lambda x: reduced(x, "sum"))
-    return global_(out.to(q.dtype), qp)
+def _seq_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``x`` reduced by ``op`` ("sum" or "max") over the mesh dims ``dims``
+    (all-reduces over each)."""
+    import torch.distributed._functional_collectives as funcol
+
+    for i in dims:
+        if mesh.size(i) > 1:
+            x = funcol.all_reduce(x.contiguous(), op, (mesh, i))
+            if isinstance(x, funcol.AsyncCollectiveTensor):
+                x = x.wait()
+    return x

@@ -182,7 +182,11 @@ def attention_decode(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
     its slots (``cache_spec``'s context parallelism) takes the new k/v on
     the rank whose shard holds the slot, in that shard
     (``partitioning.write_slots``), and K7 runs on every rank's shard
-    (``ops.sharded_decode_attention``).  Returns (y, k_cache, v_cache).
+    (``ops.sharded_decode_attention``).  Under ``embed_split`` (a batch of 1
+    on a mesh) x is split over "data" on d: the q, k and v products give
+    partial sums that ``split_heads`` reduces, K7 takes the rank's share of
+    the heads, and ``wo`` gives each rank its chunk of d, reduced over
+    "model" into x's layout.  Returns (y, k_cache, v_cache).
     """
     B = x.shape[0]
     W = k_cache.shape[1]

@@ -35,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
 from ..kernels import ops
-from .partitioning import at_use, merge_heads, shard, write_slots, zeros
+from .partitioning import at_use, merge_heads, shard, split_decode, write_slots, zeros
 from .attention import (
     _scale,
     attention_apply,
@@ -235,11 +235,14 @@ class EncDecModel(nn.Module):
         x = rms_norm(x, self.dec_norm, self.cfg.norm_eps)
         return self.logits(x[:, -1:, :]), cache
 
+    @split_decode
     def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
         """tokens (B, 1) at position ``pos`` (an int); updates the self-
-        attention cache in place -> (logits (B, 1, V) f32, cache)."""
+        attention cache in place -> (logits (B, 1, V) f32, cache).  Under a
+        mesh whose batch axes do not divide the batch, the step runs under
+        ``embed_split`` (the reference's layout at batch 1)."""
         cfg, pos = self.cfg, int(pos)
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
         B = x.shape[0]
         pos_b = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
         enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32, device=x.device)

@@ -33,7 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
-from .partitioning import at_use, is_dtensor, shard, write_slots, zeros
+from .partitioning import at_use, is_dtensor, shard, split_decode, write_slots, zeros
 from .layers import (
     activation_dtype,
     embed_apply,
@@ -262,11 +262,14 @@ class HybridModel(nn.Module):
         conv.copy_(cb)
         return x + y
 
+    @split_decode
     def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
         """tokens (B, 1) at position ``pos`` (an int); updates ``cache`` in
-        place -> (logits (B, 1, V) f32, cache)."""
+        place -> (logits (B, 1, V) f32, cache).  Under a mesh whose batch
+        axes do not divide the batch, the step runs under ``embed_split``
+        (the reference's layout at batch 1)."""
         cfg, pos = self.cfg, int(pos)
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
         p = self.shared
         for g, group in enumerate(self.main):
             for j, layer in enumerate(group):

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .partitioning import (
+    EmbedSplit,
     at_use,
     contiguous_strides,
     get_mesh,
@@ -25,6 +26,7 @@ from .partitioning import (
     replicated_placements,
     shard,
     spec,
+    split_axes,
 )
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,7 +137,10 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     ranks: the product is gathered over "model" before the split, the
     gated hidden goes back to its "ff" shards, and the row-parallel wo's
     partial sums are reduced to the residual stream's layout.  Each of
-    these is a no-op for a plain tensor."""
+    these is a no-op for a plain tensor.  Under ``embed_split`` x's d is
+    split over "data" as wi's rows and wo's columns are stored: wi's
+    partial sums are reduced with the gather over "model", and wo gives
+    each rank its chunk of d."""
     lead = ("batch",) + ("seq",) * (x.ndim - 2)
     gate, up = relayout(x @ at_use(params["wi"], x.dtype), *lead, None).chunk(2, dim=-1)
     if act == "silu":
@@ -152,8 +157,8 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor, scale: bool,
                 d_model: int) -> torch.Tensor:
     """The rows of ``table`` at ``tokens`` (a DTensor table sharded over its
-    vocabulary: ``vocab_rows``)."""
-    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+    vocabulary, or any DTensor table under ``embed_split``: ``vocab_rows``)."""
+    if is_dtensor(table) and (any(p.is_shard(0) for p in table.placements) or split_axes()):
         x = vocab_rows(table, tokens)
     else:
         x = table[tokens.to(table.device, torch.long)]
@@ -169,17 +174,23 @@ def vocab_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     over the vocabulary's axes and split as the tokens are over the others,
     and the partial rows are summed over the vocabulary's axes (an
     all-reduce).  The table's gradient stays on its shards: partial over
-    the axes that split the tokens, as a gathered batch's is."""
+    the axes that split the tokens, as a gathered batch's is.  Under
+    ``embed_split`` the table's embed dim stays split over "data" too (no
+    gather of the table), and so do the rows: each rank takes its chunk of
+    d of its vocabulary's rows."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
     vocab = {i for i, p in enumerate(table.placements) if isinstance(p, Shard) and p.dim == 0}
+    split = {i for i in (EmbedSplit(mesh).dims if split_axes() else ())
+             if table.placements[i].is_shard(1)}
     if isinstance(tokens, DTensor):
         tp = tuple(Replicate() if i in vocab else p for i, p in enumerate(tokens.placements))
         ids = tokens.redistribute(mesh, tp).to_local()
     else:
         tp, ids = replicated_placements(mesh), tokens
-    tw = tuple(p if i in vocab else Replicate() for i, p in enumerate(table.placements))
+    tw = tuple(p if i in vocab or i in split else Replicate()
+               for i, p in enumerate(table.placements))
     grad = tuple(p if i in vocab else Partial() if isinstance(tp[i], Shard) else Replicate()
                  for i, p in enumerate(tw))
     local = table.redistribute(mesh, tw).to_local(grad_placements=grad)
@@ -187,8 +198,11 @@ def vocab_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rel = ids.to(local.device, torch.long) - v0
     held = (rel >= 0) & (rel < rows)
     out = torch.where(held[..., None], local[rel.clamp(0, max(rows - 1, 0))], 0.0)
+    tp = tuple(Shard(out.ndim - 1) if i in split else p for i, p in enumerate(tp))
     out = DTensor.from_local(out, mesh, tuple(Partial() if i in vocab else p
-                                              for i, p in enumerate(tp)))
+                                              for i, p in enumerate(tp)),
+                             shape=(*tokens.shape, table.shape[1]),
+                             stride=contiguous_strides((*tokens.shape, table.shape[1])))
     return out.redistribute(mesh, tp)
 
 
@@ -207,12 +221,15 @@ def vocab_logits(h: torch.Tensor, w: torch.Tensor, cap: Optional[float] = None
     the logits stay split over the vocabulary as the reference's constraint
     splits them.  h's gradient is then a partial sum over those axes and
     the table's a partial sum of the ranks' rows.  A table split over its
-    rows gives the split logits through DTensor's own product."""
+    rows gives the split logits through DTensor's own product.  Under
+    ``embed_split`` each rank contracts its chunk of d (``_split_logits``)."""
     lead = ("batch",) + ("seq",) * (h.ndim - 2)
     mesh = get_mesh()
-    vocab = () if mesh is None or not (is_dtensor(h) and is_dtensor(w)) else \
-        [i for i, p in enumerate(placements(spec("vocab"), mesh))
-         if p.is_shard() and mesh.size(i) > 1]
+    on_mesh = mesh is not None and is_dtensor(h) and is_dtensor(w)
+    vocab = [i for i, p in enumerate(placements(spec("vocab"), mesh))
+             if p.is_shard() and mesh.size(i) > 1] if on_mesh else ()
+    if on_mesh and split_axes():
+        return _split_logits(h, w, cap, vocab)
     if not vocab or any(w.placements[i].is_shard(0) for i in vocab):
         return shard(vocab_chunk(h, w, cap), *lead, "vocab")
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -231,6 +248,37 @@ def vocab_logits(h: torch.Tensor, w: torch.Tensor, cap: Optional[float] = None
     shape = (*h.shape[:-1], V)
     return DTensor.from_local(vocab_chunk(hl, wl[v0:v0 + rows], cap), mesh, op, shape=shape,
                               stride=contiguous_strides(shape))
+
+
+def _split_logits(h: torch.Tensor, w: torch.Tensor, cap: Optional[float], vocab
+                  ) -> torch.Tensor:
+    """``vocab_logits`` under ``embed_split``, with the table left as stored:
+    each rank takes its own chunk of the vocabulary (the table's rows where
+    the vocabulary's axes ``vocab`` split it, else ``w[v0:v1]`` as there),
+    contracts its chunk of d against h's, and the f32 partial logits are
+    summed over the batch axes before the soft cap.  The logits are split
+    over the vocabulary as ``vocab_logits`` places them, whole over the
+    batch axes.  (A decode step: no gradient.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = h.device_mesh
+    sp = EmbedSplit(mesh)
+    rep = replicated_placements(mesh)
+    rows_split = any(w.placements[i].is_shard(0) for i in vocab)
+    hl = h.redistribute(mesh, sp.placements(h.ndim - 1, rep)).to_local()
+    wl = w.redistribute(mesh, sp.placements(1, tuple(
+        p if i in vocab and rows_split else Replicate() for i, p in enumerate(w.placements))))
+    wl = wl.to_local()
+    V = w.shape[0]
+    (_, rows), (_, v0) = local_shape_and_offset((1, V), mesh, tuple(
+        Shard(1) if i in vocab else Replicate() for i in range(len(rep))))
+    if not rows_split:
+        wl = wl[v0:v0 + rows]
+    out = softcap(sp.sum(vocab_chunk(hl, wl)), cap)
+    shape = (*h.shape[:-1], V)
+    return DTensor.from_local(out, mesh, tuple(Shard(h.ndim - 1) if i in vocab else Replicate()
+                                               for i in range(len(rep))),
+                              shape=shape, stride=contiguous_strides(shape))
 
 
 def vocab_chunk(h: torch.Tensor, w: torch.Tensor, cap: Optional[float] = None

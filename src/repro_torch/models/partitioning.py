@@ -24,6 +24,8 @@ process does not have).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 import types
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -520,7 +522,7 @@ def _local(t, mesh, want, grad):
     return t.redistribute(mesh, want).to_local(grad_placements=grad) if is_dtensor(t) else t
 
 
-def batch_local(fn, x: torch.Tensor, *weights, states=None):
+def batch_local(fn, x: torch.Tensor, *weights, states=None, split=None):
     """``fn(x, *weights)`` run on this rank's shard of the batch, with the
     weights (dicts of tensors, or tensors) gathered whole, the counterpart
     of a ``shard_map`` over the batch axes: for the blocks that the
@@ -532,7 +534,10 @@ def batch_local(fn, x: torch.Tensor, *weights, states=None):
     (dim 0), as does every tensor of a tuple ``fn`` returns (a prefill's
     final states).  ``states``: a tuple of recurrent states whose dim 0 is
     the batch (a decode step's), handed to ``fn`` as one more argument,
-    each as the rank's batch shard whole over its other dims."""
+    each as the rank's batch shard whole over its other dims.  ``split``:
+    the ``EmbedSplit`` of a decode step under ``embed_split``, whose ``fn``
+    returns only its chunk of the last dim of its first output (the
+    residual stream's d): that output is placed split over the batch axes."""
     if not is_dtensor(x):
         return fn(x, *weights) if states is None else fn(x, *weights, states)
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -547,8 +552,15 @@ def batch_local(fn, x: torch.Tensor, *weights, states=None):
     args = (_local(x, mesh, xp, xp), *local_w)
     if states is not None:
         args += (tuple(_local(t, mesh, xp, xp) for t in states),)
-    return tree_map(lambda t: DTensor.from_local(t, mesh, xp)
-                    if isinstance(t, torch.Tensor) else t, fn(*args))
+    out = fn(*args)
+    first = None
+    if split is not None:
+        first, out = out[0], out[1:]
+        first = DTensor.from_local(first, mesh, split.placements(first.ndim - 1, xp),
+                                   shape=x.shape, stride=contiguous_strides(x.shape))
+    out = tree_map(lambda t: DTensor.from_local(t, mesh, xp)
+                   if isinstance(t, torch.Tensor) else t, out)
+    return out if first is None else (first, *out)
 
 
 def merge_heads(t: torch.Tensor) -> torch.Tensor:
@@ -593,9 +605,12 @@ def at_use(w: torch.Tensor, dtype: torch.dtype, keep_dim: Optional[int] = None) 
     at use, whose gradient is a reduce-scatter.  ``keep_dim`` stays sharded
     over them (the experts dim of an expert-parallel weight).  Without this
     DTensor may move the activations instead and compute a product whole
-    over the batch on every data rank."""
+    over the batch on every data rank.  Under ``embed_split`` the weight
+    stays as stored: "data" shards its embed dim, as it shards the
+    activations', and each rank contracts (or produces) its own chunk of
+    it."""
     w = w.to(dtype)
-    if not is_dtensor(w):
+    if not is_dtensor(w) or split_axes():
         return w
     from torch.distributed.tensor import Replicate, Shard
 
@@ -603,6 +618,114 @@ def at_use(w: torch.Tensor, dtype: torch.dtype, keep_dim: Optional[int] = None) 
     want = tuple(Replicate() if isinstance(p, Shard) and names[i] in ("pod", "data")
                  and p.dim % w.ndim != keep_dim else p for i, p in enumerate(w.placements))
     return w if want == tuple(w.placements) else w.redistribute(w.device_mesh, want)
+
+
+# ------------------------------------------------------- a decode step at batch 1
+def split_axes() -> Tuple[str, ...]:
+    """The batch axes that "embed" maps to (``embed_split``: "data"), ()
+    when it maps to none."""
+    axes = get_rules().get("embed")
+    axes = () if axes is None else (axes,) if isinstance(axes, str) else tuple(axes)
+    return axes if axes and set(axes) <= {"pod", "data"} else ()
+
+
+@contextlib.contextmanager
+def _embed_rule(axes: Axes):
+    """The active rules with "embed" mapped to ``axes`` inside the block."""
+    prev = getattr(_state, "rules", None)
+    if axes != get_rules().get("embed"):
+        _state.rules = dict(get_rules(), embed=axes)
+    try:
+        yield
+    finally:
+        _state.rules = prev
+
+
+def embed_split(batch: int):
+    """Context manager: the scoped rule of a decode step whose batch the
+    batch axes ("pod", "data") do not divide (B = 1 on 16 data ranks, where
+    ``fit`` drops the batch split and the axes would idle), as the
+    reference's compiled step lays it out: "embed" maps to "data", the
+    axis over which FSDP shards the weights' embed dim ("pod" replicates
+    them), so the residual stream's d is split over it where the batch
+    cannot be.  Weights stay where they are stored (``at_use`` gathers
+    nothing), a product that contracts d gives partial sums over "data",
+    reduced where the next op needs the vector, and a product that makes d
+    gives each rank its own chunk.  K7 splits its heads over the batch
+    axes (``ops.sharded_decode_attention``).  A no-op without a mesh or a
+    "data" batch axis, under a rule that maps "embed" already, or where the
+    batch axes split the batch."""
+    mesh, rules = get_mesh(), get_rules()
+    axes = rules.get("batch")
+    fire = (mesh is not None and "data" in ((axes,) if isinstance(axes, str) else axes or ())
+            and rules.get("embed") is None and batch % axis_size(mesh, axes))
+    return _embed_rule("data" if fire else rules.get("embed"))
+
+
+def split_decode(decode_step):
+    """Decorator of a model's ``decode_step(self, tokens, ...)``: the step
+    runs under ``embed_split(tokens.shape[0])``."""
+    @functools.wraps(decode_step)
+    def step(self, tokens, *args, **kwargs):
+        with embed_split(tokens.shape[0]):
+            return decode_step(self, tokens, *args, **kwargs)
+
+    return step
+
+
+def embed_whole():
+    """Context manager: ``embed_split`` suspended, for a block that keeps its
+    own layout (an MoE block, whose routes take x whole over its embed dim
+    and gather their weights over the batch axes)."""
+    return _embed_rule(None if split_axes() else get_rules().get("embed"))
+
+
+class EmbedSplit:
+    """This rank's part of a step under ``embed_split``, for code on local
+    tensors: the mesh dims of the split axes, and the rank's chunk of a dim
+    split over them (DTensor's chunks over the mesh dims in order, major
+    first, as a DTensor sharded over them holds it)."""
+
+    def __init__(self, mesh):
+        names = axis_names(mesh)
+        self.mesh = mesh
+        self.dims = tuple(names.index(a) for a in split_axes())
+
+    def placements(self, dim: int, others: Sequence[Any]) -> Tuple[Any, ...]:
+        """``others`` with ``Shard(dim)`` on the split's mesh dims."""
+        from torch.distributed.tensor import Shard
+
+        return tuple(Shard(dim) if i in self.dims else p for i, p in enumerate(others))
+
+    def span(self, n: int) -> Tuple[int, int]:
+        """(start, stop) of this rank's chunk of a dim of ``n``."""
+        (size,), (start,) = local_shape_and_offset(
+            (n,), self.mesh, self.placements(0, replicated_placements(self.mesh)))
+        return start, start + size
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A partial sum over the split's ranks, summed (an all-reduce)."""
+        for i in self.dims:
+            if self.mesh.size(i) > 1:
+                t = _all_reduce(t, self.mesh, i)
+        return t
+
+    def contract(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``x @ w`` (x whole over its last dim, d) from this rank's rows of
+        ``w`` against its chunk of x, the partial sums reduced."""
+        a, b = self.span(w.shape[0])
+        return self.sum(x[..., a:b] @ w[a:b].to(x.dtype))
+
+    def produce(self, h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of ``h @ w`` (its chunk of the output d)."""
+        a, b = self.span(w.shape[1])
+        return h @ w[:, a:b].to(h.dtype)
+
+
+def local_split() -> Optional[EmbedSplit]:
+    """The active ``embed_split`` as an ``EmbedSplit`` of the mesh, or None."""
+    mesh = get_mesh()
+    return EmbedSplit(mesh) if mesh is not None and split_axes() else None
 
 
 def split_heads(t: torch.Tensor, n: int, name: str, *lead: Optional[str],

@@ -346,14 +346,25 @@ def mamba2_sharded(params, ln: torch.Tensor, x: torch.Tensor, cfg, *, chunk: int
     with channels over "model"), the rank reads its heads' state in place
     and its conv channels (x and B/C, moved from the even chunks), and
     writes its new state and conv tail back to its own chunks; the caches
-    are never gathered.  -> the output, a DTensor of x's placements."""
+    are never gathered.
+
+    A decode step under ``partitioning.embed_split`` (a batch the batch axes
+    do not divide) keeps ``in_proj`` and ``out_proj`` as stored, their embed
+    dim split over the batch axes as x's is: the rank contracts its chunk
+    of the normed x against its rows of ``in_proj``'s columns, the partial
+    products are summed over the batch axes before the regather to the
+    heads, and ``out_proj``'s columns give the rank its chunk of the
+    output's d.  -> the output, a DTensor of x's placements."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
     mesh = x.device_mesh
     d = ssm_dims(cfg)
     i, m, me = pt.axis_rank(mesh, "heads")
     spans = pt._spans(d.n_heads, m)
+    sp = pt.local_split() if step else None
     xp = pt.placements(pt.fit(pt.spec("batch", None, None), x.shape, mesh), mesh)
+    if sp is not None:   # x and the output: their chunk of d over the batch axes
+        xp = sp.placements(x.ndim - 1, xp)
     # a replicated weight's gradient: partial over the batch shards and the
     # ranks' heads
     grad = [Partial() if p.is_shard() or j == i else Replicate() for j, p in enumerate(xp)]
@@ -363,7 +374,8 @@ def mamba2_sharded(params, ln: torch.Tensor, x: torch.Tensor, cfg, *, chunk: int
         """(w as this rank's tensor, whole but over "model", each rank's
         ranges of ``dim``: None where it is whole)."""
         sharded = i is not None and w.placements[i].is_shard(dim)
-        keep = tuple(p if j == i and sharded else Replicate() for j, p in enumerate(w.placements))
+        keep = tuple(p if (j == i and sharded) or (sp is not None and j in sp.dims)
+                     else Replicate() for j, p in enumerate(w.placements))
         g = tuple(keep[j] if j == i and sharded else grad[j] for j in range(len(grad)))
         have = [[s] for s in pt._spans(w.shape[dim], m)] if sharded else None
         return w.redistribute(mesh, keep).to_local(grad_placements=g), have
@@ -371,15 +383,21 @@ def mamba2_sharded(params, ln: torch.Tensor, x: torch.Tensor, cfg, *, chunk: int
     def heads_of(name: str) -> list:
         return [head_ranges(name, d, *s)[1] for s in spans]
 
-    xn = rms_norm(x.redistribute(mesh, xp).to_local(grad_placements=xg),
-                  local(ln, 0)[0], cfg.norm_eps)
+    if sp is None:
+        xn = rms_norm(x.redistribute(mesh, xp).to_local(grad_placements=xg),
+                      local(ln, 0)[0], cfg.norm_eps)
+    else:   # normed over the whole d: its mean square summed over the batch axes
+        xn = rms_norm(x, ln, cfg.norm_eps).redistribute(mesh, xp).to_local()
     p, proj = {}, None
     for name, w in params.items():
         if name in ("in_proj", "out_proj"):
             w = pt.at_use(w, x.dtype)
         dim = head_ranges(name, d, 0, 0)[0]
         t, have = local(w, dim)
-        if name == "in_proj" and xn.numel() < xn.shape[-1] ** 2:   # fewer tokens than d_model
+        if name == "in_proj" and sp is not None:
+            proj = pt.regather(sp.sum(xn @ t), mesh, i, xn.ndim - 1, have, heads_of(name))
+            p[name] = None
+        elif name == "in_proj" and xn.numel() < xn.shape[-1] ** 2:   # fewer tokens than d_model
             proj = pt.regather(xn @ t, mesh, i, xn.ndim - 1, have, heads_of(name))
             p[name] = None
         else:

@@ -54,7 +54,15 @@ from .layers import (
     zeros_init,
 )
 from .moe import MoEParams, moe_apply
-from .partitioning import at_use, shard, write_slots, zeros
+from .partitioning import (
+    at_use,
+    embed_whole,
+    shard,
+    split_axes,
+    split_decode,
+    write_slots,
+    zeros,
+)
 
 AUX_LOSS_COEF = 0.01
 
@@ -111,7 +119,13 @@ def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tens
 
 def _ffn(blk: Block, x: torch.Tensor, cfg, variant):
     if variant["moe"]:
-        return moe_apply(blk.moe, x, cfg)
+        if not split_axes():
+            return moe_apply(blk.moe, x, cfg)
+        # an MoE block keeps its own layout under embed_split: x whole over
+        # its embed dim in, the output back to the split
+        with embed_whole():
+            y, aux = moe_apply(blk.moe, shard(x, "batch", "seq", "embed"), cfg)
+        return shard(y, "batch", "seq", "embed"), aux
     return mlp_apply(blk.mlp, x, cfg.mlp_act), 0.0
 
 
@@ -297,13 +311,16 @@ class DecoderLM(nn.Module):
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         return self.logits(x[:, -1:, :]), cache
 
+    @split_decode
     def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos):
         """tokens (B, 1); ``pos`` the position being written (an int).
         Updates ``cache`` in place and returns (logits (B, 1, V) f32,
-        cache)."""
+        cache).  Under a mesh whose batch axes do not divide the batch, the
+        step runs under ``embed_split`` (the reference's layout at batch 1)."""
         pos = int(pos)
         x = embed_apply(at_use(self.embed, self.dtype), tokens, self.cfg.scale_embeddings,
                         self.cfg.d_model)
+        x = shard(x, "batch", "seq", "embed")
         for layer, blk in enumerate(self.layers):
             i, g = layer % self.group, layer // self.group
             kc = shard(cache[f"k{i}"][g], "batch", "kv_seq", "kv", "head_dim")

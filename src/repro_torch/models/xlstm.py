@@ -182,9 +182,23 @@ def _chunked(cfg) -> bool:
     return getattr(cfg, "mlstm_impl", "quadratic") == "chunked"
 
 
-def _mlstm_out(params, h: torch.Tensor, z: torch.Tensor, cfg, d: XLSTMDims) -> torch.Tensor:
+def _contract(x: torch.Tensor, w: torch.Tensor, split=None) -> torch.Tensor:
+    """``x @ w`` of a product that contracts d_model; under ``split`` (a
+    ``partitioning.EmbedSplit``: a decode step at batch 1) from this rank's
+    rows of ``w``, the partial sums reduced over the batch axes."""
+    return x @ w.to(x.dtype) if split is None else split.contract(x, w)
+
+
+def _produce(h: torch.Tensor, w: torch.Tensor, split=None) -> torch.Tensor:
+    """``h @ w`` of a product that makes d_model; under ``split`` only this
+    rank's chunk of its columns."""
+    return h @ w.to(h.dtype) if split is None else split.produce(h, w)
+
+
+def _mlstm_out(params, h: torch.Tensor, z: torch.Tensor, cfg, d: XLSTMDims,
+               split=None) -> torch.Tensor:
     h = rms_norm(h.reshape(*z.shape[:-1], d.d_inner), params["norm"], _eps(cfg))
-    return (h * F.silu(z)) @ params["down"].to(z.dtype)
+    return _produce(h * F.silu(z), params["down"], split)
 
 
 def mlstm_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -222,12 +236,14 @@ def mlstm_prefill(params, x: torch.Tensor, cfg):
     return out, (C, n, m_state), buf
 
 
-def mlstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor):
+def mlstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor, split=None):
     """x: (B, 1, d_model); state (C (B, H, D, D), n (B, H, D), m (B, H)).
-    Returns (out (B, 1, d_model), state, new conv buffer)."""
+    Returns (out (B, 1, d_model), state, new conv buffer).  ``split``: the
+    rank's part under ``embed_split`` (``_contract`` / ``_produce``): out is
+    then its chunk of d_model; the 1536 x 1536 products stay whole."""
     d = xlstm_dims(cfg)
     B = x.shape[0]
-    xb, z = (x[:, 0, :] @ params["up"].to(x.dtype)).chunk(2, dim=-1)
+    xb, z = _contract(x[:, 0, :], params["up"], split).chunk(2, dim=-1)
     hist = torch.cat([conv_buf.to(x.dtype), xb[:, None, :]], dim=1)
     xc = _conv_step(hist, params["conv_w"].to(x.dtype), params["conv_b"])
     q = (xc @ params["wq"].to(x.dtype)).reshape(B, d.n_heads, d.dk)
@@ -235,7 +251,7 @@ def mlstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor):
     v = (xb @ params["wv"].to(x.dtype)).reshape(B, d.n_heads, d.dk)
     logi, logf = _gates(params, xb)
     h, state = mlstm_step(q, k, v, logi, logf, state)
-    return _mlstm_out(params, h, z, cfg, d)[:, None, :], state, hist[:, 1:, :]
+    return _mlstm_out(params, h, z, cfg, d, split)[:, None, :], state, hist[:, 1:, :]
 
 
 def mlstm_state_shapes(cfg, batch: int):
@@ -308,10 +324,10 @@ def slstm_scan(params, x: torch.Tensor, cfg, state=None):
     return hs, state
 
 
-def _slstm_out(params, hs: torch.Tensor, cfg) -> torch.Tensor:
+def _slstm_out(params, hs: torch.Tensor, cfg, split=None) -> torch.Tensor:
     hs = rms_norm(hs, params["norm"], _eps(cfg))
-    g, u = (hs @ params["ff_wi"].to(hs.dtype)).chunk(2, dim=-1)
-    return (F.gelu(g, approximate="tanh") * u) @ params["ff_wo"].to(hs.dtype)
+    g, u = _contract(hs, params["ff_wi"], split).chunk(2, dim=-1)
+    return _produce(F.gelu(g, approximate="tanh") * u, params["ff_wo"], split)
 
 
 def slstm_apply(params, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -326,16 +342,18 @@ def slstm_prefill(params, x: torch.Tensor, cfg):
     return _slstm_out(params, hs, cfg), final, buf
 
 
-def slstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor):
+def slstm_decode(params, x: torch.Tensor, cfg, state, conv_buf: torch.Tensor, split=None):
+    """x: (B, 1, d_model) -> (out (B, 1, d_model), state, new conv buffer);
+    ``split`` as in ``mlstm_decode`` (the recurrent product stays whole)."""
     d = xlstm_dims(cfg)
     B = x.shape[0]
     hist = torch.cat([conv_buf.to(x.dtype), x[:, 0:1, :]], dim=1)
     xc = _conv_step(hist, params["conv_w"].to(x.dtype), params["conv_b"])
-    gx = (xc @ params["wx"].to(x.dtype)).float() + params["b"]
+    gx = _contract(xc, params["wx"], split).float() + params["b"]
     rec = torch.einsum("bhd,hde->bhe", state[0], params["r"].float())
     state = _slstm_cell(gx.reshape(B, d.n_heads, 4 * d.dh) + rec, state)
     hs = state[0].reshape(B, 1, d.d_model).to(x.dtype)
-    return _slstm_out(params, hs, cfg), state, hist[:, 1:, :]
+    return _slstm_out(params, hs, cfg, split), state, hist[:, 1:, :]
 
 
 def slstm_state_shapes(cfg, batch: int):

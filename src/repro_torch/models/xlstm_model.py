@@ -28,7 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, generator, resolve_device
-from .partitioning import at_use, batch_local, shard, zeros
+from .partitioning import at_use, batch_local, local_split, shard, split_decode, zeros
 from .layers import (
     activation_dtype,
     ce_sum,
@@ -217,20 +217,27 @@ class XLSTMModel(nn.Module):
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return self.logits(x[:, -1:, :]), cache
 
+    @split_decode
     def decode_step(self, tokens: torch.Tensor, cache: Dict[str, torch.Tensor], pos=None):
         """tokens (B, 1); ``pos`` is ignored.  Updates ``cache`` in place ->
         (logits (B, 1, V) f32, cache).  Under a mesh each block's step runs
         on the rank's batch shard of x and of its states
-        (``partitioning.batch_local``)."""
+        (``partitioning.batch_local``).  Where the batch axes do not divide
+        the batch (B = 1), the step runs under ``embed_split``: each rank
+        takes x whole (its blocks' conv buffers and the recurrent products
+        need it), contracts d over its rows of the weights that read it and
+        makes its own chunk of d (``xlstm.mlstm_decode``'s ``split``), the
+        weights only sliced (xLSTM's are replicated)."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = shard(self._embed(tokens), "batch", "seq", "embed")
+        sp = local_split()
         for g in range(self.n_groups):
             for j, b in enumerate(self.mlstm[g]):
                 state = tuple(cache[key][g, j] for key in _M_KEYS + ("mbuf",))
                 y, state, buf = batch_local(
                     lambda x_, blk, ln, s: mlstm_decode(blk, self._norm(x_, ln), cfg, s[:-1],
-                                                        s[-1]),
-                    x, dict(b.blk.items()), b.ln, states=state)
+                                                        s[-1], sp),
+                    x, dict(b.blk.items()), b.ln, states=state, split=sp)
                 x = x + y
                 for key, t in zip(_M_KEYS + ("mbuf",), state + (buf,)):
                     cache[key][g, j] = t
@@ -239,8 +246,8 @@ class XLSTMModel(nn.Module):
                 state = tuple(cache[key][g] for key in _S_KEYS + ("sbuf",))
                 y, state, buf = batch_local(
                     lambda x_, blk, ln, s: slstm_decode(blk, self._norm(x_, ln), cfg, s[:-1],
-                                                        s[-1]),
-                    x, dict(b.blk.items()), b.ln, states=state)
+                                                        s[-1], sp),
+                    x, dict(b.blk.items()), b.ln, states=state, split=sp)
                 x = x + y
                 for key, t in zip(_S_KEYS + ("sbuf",), state + (buf,)):
                     cache[key][g] = t

@@ -117,12 +117,13 @@ CASES = {"qwen3-1.7b": (4, 12, 0), "zamba2-7b": (16, 20, 0),
          "seamless-m4t-large-v2": (4, 12, 8)}
 
 
-def _reference(arch: str):
+def _reference(arch: str, batch: int = 2, case=None):
     """(jax logits of the prefill and each step, the port's on one device,
-    what the ranks load): prompt S, a cache of max_len slots, 3 steps."""
-    S, max_len, n_frames = CASES[arch]
+    what the ranks load): ``batch`` rows, prompt S, a cache of max_len
+    slots, 3 steps ((S, max_len, frames) from ``case``, else CASES)."""
+    S, max_len, n_frames = case or CASES[arch]
     jcfg, jm, params, tm = fam.pair(arch)
-    tok = fam.tokens(2, S + 3, jcfg.vocab_size, 5)
+    tok = fam.tokens(batch, S + 3, jcfg.vocab_size, 5)
     jb, tb = fam.batches(jcfg, tok[:, :S], seed=6, n_frames=n_frames)
     jl, jc = jm.prefill(params, jb, max_len, cache_dtype=jnp.float32)
     tl, tc = tm.prefill(tb, max_len, cache_dtype=torch.float32)

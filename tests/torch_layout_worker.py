@@ -29,7 +29,11 @@ overrides the reduced config as above), and under
 ``use_mesh`` runs a prefill (whose cache comes out placed as
 ``cache_shardings`` places it: slots over "model") and the decode steps,
 writing each step's logits, every cache leaf whose placements differ and
-the dropped pairs of each ``moe.dispatch`` call.
+the dropped pairs of each ``moe.dispatch`` call; and, of the decode steps,
+each collective the rank runs (kind, mesh axis, input shape), the q and kv
+heads of each K7 call, and the local shapes of the parameters that "data"
+shards.  The batch is the test's (2, or 1: a batch that "data" does not
+divide, decoded under ``embed_split``).
 """
 from __future__ import annotations
 
@@ -173,14 +177,48 @@ def _conv_chunks(cache) -> dict:
             for k, t in cache.items() if k.startswith("conv")}
 
 
+_COLLECTIVES = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+                "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+
+
+def _collective_log(mesh):
+    """A dispatch mode that logs each functional collective this rank runs:
+    [kind, the mesh axis of its group, its input's shape]."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    axes = {mesh.get_group(i).group_name: name for i, name in enumerate(mesh.mesh_dim_names)}
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.log = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            name = func._overloadpacket.__name__
+            if func.namespace == "_c10d_functional" and name in _COLLECTIVES:
+                self.log.append([_COLLECTIVES[name], axes.get(args[-1], str(args[-1])),
+                                 list(args[0].shape)])
+            return func(*args, **(kwargs or {}))
+
+    return Log()
+
+
 def decode_case(arch: str, mesh, path, parts=()) -> dict:
     """A prefill and decode steps of ``arch`` on DTensors (see the module
     docstring): the logits of each (whole), the cache leaves whose
     placements differ from ``cache_shardings``, the leaves whose slots are
-    sharded, and after each the rank's shards of the conv buffers."""
+    sharded, and after each the rank's shards of the conv buffers; of the
+    decode steps, the collectives this rank runs (``_collective_log``) and
+    the (q heads, kv heads) of each K7 call, and the local shapes of the
+    parameters sharded over "data"."""
     import torch
     from torch.distributed.tensor.experimental import implicit_replication
     from torch.func import functional_call
+
+    from repro_torch.kernels import decode_attention as decode_k
 
     data = torch.load(path)
     cfg = _config(arch, parts)[0]
@@ -214,12 +252,26 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
         bad = [f"{k}: {tuple(t.placements)} != {tuple(want[k])}" for k, t in cache.items()
                if tuple(t.placements) != tuple(want[k])]
         tok_shd = shl.batch_shardings({"tokens": tokens[:, :1]}, mesh)["tokens"]
+        k7, decode = [], decode_k.decode_attention
+
+        def k7_logged(q, k, *args, **kw):
+            k7.append([int(q.shape[1]), int(k.shape[2])])
+            return decode(q, k, *args, **kw)
+
+        decode_k.decode_attention = k7_logged
+        collectives = _collective_log(mesh)
         for step in range(steps):
             nxt = shl.distribute({"t": tokens[:, S + step:S + step + 1]}, {"t": tok_shd},
                                  mesh)["t"]
-            logits, cache = functional_call(call, named, ("decode_step", nxt, cache, pos0 + step))
+            with collectives:
+                logits, cache = functional_call(call, named,
+                                                ("decode_step", nxt, cache, pos0 + step))
             got.append(logits.full_tensor().tolist())
             conv.append(_conv_chunks(cache))
+        decode_k.decode_attention = decode
+        data = mesh.mesh_dim_names.index("data")
+        data_params = sorted({tuple(t.to_local().shape) for t in params.values()
+                              if t.placements[data].is_shard()})
         bad += [f"{k} after decode: {tuple(t.placements)} != {tuple(want[k])}"
                 for k, t in cache.items() if tuple(t.placements) != tuple(want[k])]
         sharded = sorted(k for k, t in cache.items()
@@ -227,7 +279,8 @@ def decode_case(arch: str, mesh, path, parts=()) -> dict:
                          and k[0] in "kvx")
     moe.dispatch = dispatch
     return {"logits": got, "bad": bad, "seq_sharded": sharded, "conv_chunks": conv,
-            "drops": drops}
+            "drops": drops, "collectives": collectives.log, "k7_calls": k7,
+            "data_params": data_params}
 
 
 def main(case: str, rank: int, world: int, store: str, out: str) -> None:
