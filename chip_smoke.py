@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
-                          [--layout] [--dryrun] [--hash] [--src DIR]
+                          [--layout] [--dryrun] [--hash] [--near-tie] [--examples]
+                          [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -26,29 +27,58 @@ just before it and read just after:
   stream, 32-token prompts, threshold 0.9, Poisson arrivals at 200 req/s on
   the virtual clock, batches of up to 8 within 5 ms, wall-time execution) on
   two fresh replicas of that model, through ``AsyncServingEngine`` and
-  through ``ServingFleet.submit`` (K4a once a request, K3, K6 28 times a
-  miss group); then the async benchmark's two straggler configurations
-  (``load200/batch8``, ``load1000/batch32``) on the card with a stub
-  executor, held equal to ``BENCH_async_serving.json``; then
-  ``launch/serve.py``'s ``main`` with ``--engine async`` and ``sync``;
+  through ``ServingFleet.submit`` (K4a once a request, K6 28 times a miss
+  group; a staged store query scores with K3 where its gather work reaches
+  ``use_kernel_threshold``, else on the host, as the reference routes it:
+  K3's launches equal those queries); then the async benchmark's two
+  straggler configurations (``load200/batch8``, ``load1000/batch32``) on
+  the card with a stub executor, held equal to
+  ``BENCH_async_serving.json`` and, where every query scored on the host,
+  request by request to a CPU run; then ``launch/serve.py``'s ``main``
+  with ``--engine async`` and ``sync``;
 * cosim: the network simulator with its reuse stores on the card — the
   seeded traces of tests/test_cosim.py (stub services) held to their pinned
-  summaries and task by task to a CPU run, ``BENCH_cosim.json``'s rows at
+  summaries and task by task to a CPU run (a record scored on the host bit
+  for bit, one scored by K3 or K1 within ``COSIM_SIM_TOL``),
+  ``BENCH_cosim.json``'s rows at
   200 req/s, then ``launch/serve.py``'s co-simulation (``build_cosim``: the
   testbed's two ENs, each with two replicas of that model behind an
   ``EngineBackend``, 200 ``cctv1`` tasks at 200 req/s, an 8 ms EN window;
-  K4a per client hash, admission and insert, K3 per staged store query, K6
-  28 times a model execution), and its ``main --engine cosim --trace-out``;
+  K4a per client hash, admission and insert, K3 per staged store query
+  whose gather work reaches ``use_kernel_threshold``, K6 28 times a model
+  execution), and its ``main --engine cosim --trace-out``;
 * federation: federation and faults with the stores on the card — the arms
   of the federation, migration and fault-recovery benchmarks (stub services:
   6 ENs under the three offload policies and load-driven rebalance, store
   migration on re-partition and under the autoscaler, link loss, an EN
-  crash, an empty fault plan), each held task by task to its CPU run and to
-  the reference's row; then ``build_cosim`` with a federator
-  (``--offload-policy least-loaded`` and ``reuse-affinity``: an EN's miss
-  may run on, or be answered by, the other EN; K3 also per peek, K6 28 times
-  a model execution on either EN), and ``main --engine cosim
-  --offload-policy reuse-affinity``;
+  crash, an empty fault plan), each held task by task to its CPU run (as
+  phase cosim holds its records) and to the reference's row; then
+  ``build_cosim`` with a federator (``--offload-policy least-loaded`` and
+  ``reuse-affinity``: an EN's miss may run on, or be answered by, the other
+  EN; peeks scored as every staged query, K6 28 times a model execution on
+  either EN), and ``main --engine cosim --offload-policy reuse-affinity``;
+* near-tie: the store's scoring route at near-ties: 1000 groups of 8 unit
+  rows at dim 64, 1e-6 around a common base (a numpy seed; the count of
+  groups whose best row differs between a plain dot and the cosine is
+  printed and must be at least 10), inserted into a store on the card and
+  one on the CPU (``LSHParams(dim=64, num_tables=5, num_probes=8)``);
+  scalar ``query`` and staged ``query_batch`` at B = 1 (gather work below
+  ``use_kernel_threshold``: host cosine, bit-equal to the CPU) and B = 8,
+  32 (above it: K3, one launch a batch, similarities within
+  ``SCORE_TOL``; ids may differ within a group, whose rows are ties for
+  any dot, so this half shows the route and not K3's choice of row, which
+  phases top1 and serve hold); then K3 on the scalar queries' candidates
+  against the plain ``gather_top1`` on the same ids, and how many of those
+  queries K3's dot would have answered with another row than the cosine;
+* examples: the port's three examples (``examples/torch_*.py``) on the
+  card against their CPU runs: quickstart's summary equal, the cognitive
+  assistant's hits by kind, executions per replica and re-partition equal
+  (both from the same CPU-drawn weights, at a fixed virtual execution time
+  of 50 ms set through the fleet engine's ``exec_time_fn``; K6 once a
+  layer a prefill),
+  and train_lm's 5 steps at its default width 512 with finite losses, the
+  first step's loss, grad norm and lr within ``TRAIN_F32_REL_TOL`` of a
+  CPU step from the same weights (exact K6 launches);
 * families: the other model families at full width, one model at a time,
   each with its own seeded random weights (bf16): qwen2-moe-a2.7b (24
   layers), zamba2-7b (81), xlstm-125m (12), seamless-m4t-large-v2 (24 + 24,
@@ -196,8 +226,8 @@ just before it and read just after:
 
 It prints one line per phase with its seconds, the card's name and power
 limit, one JSON line ``{"kernels": [...]}`` with each kernel's launches on
-its path, its launches on the async-serve, cosim, federation and families
-paths, error against its plain
+its path, its launches on the async-serve, cosim, federation, near-tie,
+examples and families paths, error against its plain
 version, time, plain time, bound and the time of one PyTorch library call
 computing the same function (where there is one), and last
 ``{"ok": true, "device": {...}}``.  K4b's path is its caller
@@ -250,8 +280,8 @@ Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
 ``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
-``--layout``, ``--dryrun`` and ``--hash`` run only the env and build phases
-and the named ones (the
+``--layout``, ``--dryrun``, ``--hash``, ``--near-tie`` and ``--examples``
+run only the env and build phases and the named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
 comma-separated list of names after the flag; phase train; phase layout;
@@ -268,6 +298,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -293,10 +324,11 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.edge_node import Service  # noqa: E402
 from repro_torch.core.lsh import LSHParams, normalize, sample_params  # noqa: E402
 from repro_torch.core.network import PaperDelayModel, ReservoirNetwork  # noqa: E402
-from repro_torch.core.reuse_store import ReuseStore  # noqa: E402
+from repro_torch.core.reuse_store import ReuseStore, scores_on_device  # noqa: E402
 from repro_torch.core.sim_clock import EventLoop  # noqa: E402
 from repro_torch.core.topology import testbed_topology  # noqa: E402
 from repro_torch.data import DATASETS, dataset_service, make_stream  # noqa: E402
+from repro_torch.data import dot_cosine_disagree, near_tie_trace  # noqa: E402
 from repro_torch.faults import ChaosController, FaultPlan  # noqa: E402
 from repro_torch.federation.policy import AutoscalePolicy  # noqa: E402
 from repro_torch.kernels import build, lsh_hash, ops, ref, sim_topk  # noqa: E402
@@ -305,7 +337,7 @@ from repro_torch.kernels import flash_attention as flash_k  # noqa: E402
 from repro_torch.launch.serve import LSH_PARAMS, build_cosim, make_executor  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.launch.serve import make_request, make_service  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import DecoderLM, build_model  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     AsyncServingEngine,
     EngineBackend,
@@ -392,14 +424,24 @@ SOURCES = {
 }
 # kernel -> the path that must launch it (the id-matrix route of K1 is on
 # none: the serve path's count of it, 0, is reported); the async-serve path
-# must launch K3, K4a and K6 too (each row reports its async_serve_launches)
+# must launch K4a and K6 too (each row reports its async_serve_launches).
+# K3 is on a path only where its trace has a staged query whose gather work
+# reaches use_kernel_threshold (the reference's route): serve's routed
+# batches of 32 and the near-tie batches of 8 and 32; async-serve, cosim and
+# federation score every query on the host (small stores, small windows),
+# and their launch checks hold K3 to those queries' count
 MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
              "lsh_hash": "hash-ids", "sim_top1": "nearest", "flash_attention": "model",
              "decode_attention": "model", "flash_attention_bwd_delta": "train",
              "flash_attention_bwd_dkdv": "train", "flash_attention_bwd_dq": "train"}
-ASYNC_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
-COSIM_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
-FEDERATION_PATH = ("gather_top1", "lsh_hash_mix", "flash_attention")
+ASYNC_PATH = ("lsh_hash_mix", "flash_attention")
+COSIM_PATH = ("lsh_hash_mix", "flash_attention")
+FEDERATION_PATH = ("lsh_hash_mix", "flash_attention")
+NEAR_TIE_PATH = ("gather_top1",)
+EXAMPLES_PATH = {"examples-quickstart": ("lsh_hash_mix",),
+                 "examples-cognitive": ("lsh_hash_mix", "flash_attention"),
+                 "examples-train": ("flash_attention", "flash_attention_bwd_delta",
+                                    "flash_attention_bwd_dkdv", "flash_attention_bwd_dq")}
 FAMILIES_PATH = ("flash_attention", "decode_attention")
 TRAIN_FAMILIES_PATH = ("flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkdv",
                        "flash_attention_bwd_dq")
@@ -2034,10 +2076,12 @@ def phase_async_serve(dev: torch.device, model) -> dict:
         groups = []
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        engine, res, makespan = _serve_run(kind, dev, model, reqs, arrivals, groups)
-        sync()
+        with store_query_log() as queries:
+            engine, res, makespan = _serve_run(kind, dev, model, reqs, arrivals, groups)
+            sync()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        calls = query_calls(queries)
         if kind == "async":
             expect(all(f.done for f in res), "async-serve: a future was not resolved")
         results = [f.result for f in res] if kind == "async" else res
@@ -2047,7 +2091,7 @@ def phase_async_serve(dev: torch.device, model) -> dict:
             f": {AS_REQUESTS} requests of {AS_DATASET} in {wall:.3f} s wall, virtual "
             f"makespan {makespan:.6f} s, virtual p99 latency {p99 * 1e3:.3f} ms; stats "
             f"{dict(sorted(stats.items()))}; {len(groups)} miss groups of "
-            f"{sum(groups)} requests; launches {counts}")
+            f"{sum(groups)} requests; store queries by route (calls) {calls}; launches {counts}")
         expect(engine.pending() == 0, f"async-serve {kind}: {engine.pending()} in flight")
         expect(stats["cs"] + stats["en"] + stats["executed"] + stats["aggregated"]
                == AS_REQUESTS, f"async-serve {kind}: stats {stats} do not add up")
@@ -2057,24 +2101,39 @@ def phase_async_serve(dev: torch.device, model) -> dict:
         expect(counts["flash_attention"] == cfg.n_layers * len(groups),
                f"async-serve {kind}: {counts['flash_attention']} flash_attention launches "
                f"for {len(groups)} miss groups")
-        expect(counts["gather_top1"] > 0, f"async-serve {kind}: gather_top1 never launched")
-        expect(counts["reuse_top1_probed"] == 0, f"async-serve {kind}: a batch took the "
-               "fused path")
+        # K3: one a staged store query whose gather work reaches
+        # use_kernel_threshold (replica handle_batch); smaller ones on the host
+        expect(counts["gather_top1"] == calls["k3"],
+               f"async-serve {kind}: {counts['gather_top1']} gather_top1 launches, "
+               f"{calls['k3']} staged queries at the kernel's threshold")
+        expect(counts["reuse_top1_probed"] == calls["k1"] == 0,
+               f"async-serve {kind}: a batch took the fused path")
         if kind == "async":
             out = counts
             log("  " + engine.loop.profiler.report(top=6).replace("\n", "\n  "))
         profile_call(f"{kind} serve of {AS_REQUESTS} requests", lambda kind=kind: _serve_run(
             kind, dev, model, reqs, arrivals, []))
     for (load, batch), want in PARITY_WANT.items():
-        got, res = _parity_run(dev, load, batch)
-        # the port on the CPU scores as the reference does (numpy cosine;
-        # held equal to the JAX package in tests/test_torch_async_serving.py):
-        # requests whose outcome differs on the card are winners K3 flipped
+        ops.reset_launch_counts()
+        with store_query_log() as queries:
+            got, res = _parity_run(dev, load, batch)
+        counts, calls = ops.launch_counts(), query_calls(queries)
+        # the port on the CPU scores as the reference does (held equal to the
+        # JAX package in tests/test_torch_async_serving.py), and so does the
+        # card: a query below use_kernel_threshold scores on the host, so
+        # where no query reached it every request equals the CPU run's
         _, res_cpu = _parity_run(torch.device("cpu"), load, batch)
         flipped = [i for i, (a, b) in enumerate(zip(res, res_cpu)) if a != b]
-        log(f"  virtual-clock parity load{load:.0f}/batch{batch}/strag0.1: {got}; requests "
+        log(f"  virtual-clock parity load{load:.0f}/batch{batch}/strag0.1: {got}; store "
+            f"queries by route (calls) {calls}; K3 launches {counts['gather_top1']}; requests "
             f"whose (reuse, replica, backup, result, latency) differ from the CPU run: "
             f"{len(flipped)} {flipped[:20]}")
+        expect(counts["gather_top1"] == calls["k3"] and counts["reuse_top1_probed"] == calls["k1"],
+               f"async-serve parity load{load:.0f}/batch{batch}: launches {counts}, store "
+               f"queries {calls}")
+        expect(calls["k3"] or calls["k1"] or not flipped,
+               f"async-serve parity load{load:.0f}/batch{batch}: every query scored on the "
+               f"host, yet requests {flipped} differ from the CPU run")
         expect(got == want, f"async-serve parity load{load:.0f}/batch{batch}: got {got}, "
                f"BENCH_async_serving.json has {want}; requests that differ from the CPU "
                f"run: {flipped}")
@@ -2113,7 +2172,9 @@ COSIM_GOLDEN = {
                      "reuse_pct": 83.2, "reuse_pct_cs": 22.400000000000002,
                      "reuse_pct_en": 60.8, "accuracy_pct": 100.0, "fwd_error_pct": 6.4},
 }
-COSIM_SIM_TOL = 1e-6    # a record's similarity, card (K3's fp32 chain) vs CPU (numpy)
+# a record's similarity that K3 or K1 scored on the card (a dot's fp32 chain)
+# vs the CPU run's; a similarity the host scored must be bit-equal
+COSIM_SIM_TOL = 1e-6
 # BENCH_cosim.json: benchmarks/cosim.py's sweep at load 200 req/s
 BENCH_COSIM = ROOT / "BENCH_cosim.json"
 BENCH_LOAD, BENCH_WINDOWS, BENCH_REPLICAS, BENCH_TASKS = 200.0, (0.0, 0.008, 0.024), (1, 2, 4), 400
@@ -2188,28 +2249,43 @@ def _bench_cosim_row(dev: torch.device, kind: str, window: float, replicas: int)
 
 @contextlib.contextmanager
 def store_query_log():
-    """Record what each ``ReuseStore`` query made inside launched: a scalar
-    ``query`` with a candidate, or a staged batch (``query_batch``, peeks
-    included) with a candidate, ``gather_top1`` (K3, on a CUDA store); a fused
-    batch, K1's bucket route; otherwise nothing.  Observes only: the wrapped
-    methods run unchanged.  Yields a list of (kind, queries) per call."""
+    """Record what each ``ReuseStore`` query made inside launched, by the
+    store's route (``scores_on_device``): a staged batch (``query_batch``,
+    peeks included) with a candidate whose gather work (queries x candidate
+    width) reaches ``use_kernel_threshold`` launches ``gather_top1`` (K3),
+    a smaller one scores on the host (``host``); a scalar ``query`` with a
+    candidate scores on the host below the threshold and with
+    ``similarity_scores`` (a plain product, no kernel: ``scores``) from it;
+    a fused batch launches K1's bucket route; otherwise nothing.  Observes
+    only: the wrapped methods run unchanged.  Yields a list of (kind,
+    queries, similarities a kernel scored or None) per call."""
     calls = []
     query, staged, fused = ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused
 
     def logged_query(self, embedding, threshold=0.0):
         n0 = len(self.candidate_counts)
         out = query(self, embedding, threshold)
-        calls.append(("k3" if self.candidate_counts[n0] > 0 else "none", 1))
+        c = self.candidate_counts[n0]
+        kind = ("none" if c == 0 else "scores"
+                if scores_on_device(self.similarity_name, c, self.use_kernel_threshold)
+                else "host")
+        calls.append((kind, 1, None))
         return out
 
     def logged_staged(self, embs):
         out = staged(self, embs)
-        calls.append(("k3" if out[2].max(initial=0) > 0 else "none", len(out[2])))
+        n, width = len(out[2]), int(out[2].max(initial=0))
+        if width == 0:
+            calls.append(("none", n, None))
+        elif scores_on_device(self.similarity_name, n * width, self.use_kernel_threshold):
+            calls.append(("k3", n, out[0].copy()))
+        else:
+            calls.append(("host", n, None))
         return out
 
     def logged_fused(self, embs, need_counts=True):
         out = fused(self, embs, need_counts)
-        calls.append(("k1", len(embs)))
+        calls.append(("k1", len(embs), out[0].copy()))
         return out
 
     ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused = (
@@ -2219,6 +2295,30 @@ def store_query_log():
     finally:
         ReuseStore.query, ReuseStore._query_staged, ReuseStore._query_fused = (
             query, staged, fused)
+
+
+QUERY_KINDS = ("k1", "k3", "host", "scores", "none")
+
+
+def query_calls(queries) -> dict:
+    """store_query_log's calls by kind."""
+    return {k: sum(1 for kk, _, _ in queries if kk == k) for k in QUERY_KINDS}
+
+
+def kernel_sims(queries) -> set:
+    """The similarities K3 or K1 returned in store_query_log's calls."""
+    return {float(v) for kind, _, vals in queries if vals is not None for v in vals}
+
+
+def sims_match(name: str, pairs, scored: set) -> float:
+    """Card records against their CPU run's (card, CPU similarity pairs): a
+    similarity scored on the host (not among ``scored``, what K3 or K1
+    returned on the card) must be bit-equal, one a kernel scored within
+    COSIM_SIM_TOL.  Returns the largest gap."""
+    off = [(a, b) for a, b in pairs if a != b and (a not in scored or abs(a - b) > COSIM_SIM_TOL)]
+    expect(not off, f"{name}: similarities off the CPU run's (card, CPU; exact unless a kernel "
+           f"scored them, else within {COSIM_SIM_TOL}): {off[:10]}")
+    return max((abs(a - b) for a, b in pairs), default=0.0)
 
 
 def _host_ms(fn, reps: int = COSIM_HOST_REPS) -> float:
@@ -2247,26 +2347,28 @@ def phase_cosim(dev: torch.device, model) -> dict:
         n_tasks = want["tasks"]
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        card = _golden_net(dev, protocol, window, n_tasks)
+        with store_query_log() as queries:
+            card = _golden_net(dev, protocol, window, n_tasks)
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts, calls = ops.launch_counts(), query_calls(queries)
         host = _golden_net(cpu, protocol, window, n_tasks)
         s = card.metrics.summary()
         bad = [k for k, v in want.items() if not math.isclose(s[k], v, rel_tol=1e-9)]
         pairs = list(zip(card.metrics.records, host.metrics.records))
         differ = [a.task_id for a, b in pairs if _record_key(a) != _record_key(b)]
-        gap = max(abs(a.similarity - b.similarity) for a, b in pairs)
+        name = f"cosim golden {protocol}/{window}"
+        gap = sims_match(name, [(a.similarity, b.similarity) for a, b in pairs],
+                         kernel_sims(queries))
         log(f"  golden {protocol} window {window * 1e3:g} ms, {n_tasks} tasks on the card: "
-            f"{wall:.3f} s wall; summary {s}; launches K4a {counts['lsh_hash_mix']} K3 "
-            f"{counts['gather_top1']} K1 {counts['reuse_top1_probed']}; largest similarity "
-            f"gap to the CPU run {gap:.3g}; tasks whose outcome differs: {len(differ)} "
-            f"{differ[:20]}")
-        expect(not bad, f"cosim golden {protocol}/{window}: {bad} differ from {want}: {s}")
-        expect(not differ and gap <= COSIM_SIM_TOL,
-               f"cosim golden {protocol}/{window}: tasks {differ} differ from the CPU run "
-               f"(largest similarity gap {gap})")
-        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] > 0,
-               f"cosim golden {protocol}/{window}: launches {counts}")
+            f"{wall:.3f} s wall; summary {s}; store queries by route (calls) {calls}; launches "
+            f"K4a {counts['lsh_hash_mix']} K3 {counts['gather_top1']} K1 "
+            f"{counts['reuse_top1_probed']}; largest similarity gap to the CPU run {gap:.3g}; "
+            f"tasks whose outcome differs: {len(differ)} {differ[:20]}")
+        expect(not bad, f"{name}: {bad} differ from {want}: {s}")
+        expect(not differ, f"{name}: tasks {differ} differ from the CPU run")
+        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] == calls["k3"]
+               and counts["reuse_top1_probed"] == calls["k1"],
+               f"{name}: launches {counts}, store queries by route {calls}")
     # (b) BENCH_cosim.json's rows at load 200 on the card
     rows = {r["name"]: r for r in json.loads(BENCH_COSIM.read_text())["rows"]}
     gaps = []
@@ -2325,8 +2427,8 @@ def phase_cosim(dev: torch.device, model) -> dict:
     kinds = {str(k): sum(r.reuse == k for r in recs) for k in ("user", "cs", "en", None)}
     en_executed = sum(en.stats["executed"] for en in net.edge_nodes.values())
     admitted = sum(stats[k] for k in ("cs", "en", "executed", "aggregated"))
-    by_kind = {k: sum(n for kk, n in queries if kk == k) for k in ("k1", "k3", "none")}
-    calls = {k: sum(1 for kk, _ in queries if kk == k) for k in ("k1", "k3", "none")}
+    by_kind = {k: sum(n for kk, n, _ in queries if kk == k) for k in QUERY_KINDS}
+    calls = query_calls(queries)
     log(f"  cosim {cfg.name} (full width, {cfg.n_layers} layers) behind 2 ENs x 2 replicas: "
         f"{AS_REQUESTS} tasks in {wall:.3f} s wall, virtual makespan {makespan:.6f} s (the "
         f"loop's last event), last completion {max(r.t_complete for r in recs):.6f} s; "
@@ -2334,7 +2436,7 @@ def phase_cosim(dev: torch.device, model) -> dict:
         f"{s['reuse_pct_en']:.1f}), accuracy_pct {s['accuracy_pct']:.1f} (reported: a "
         f"near-duplicate's prompt differs); records by reuse kind {kinds}; engines "
         f"{dict(sorted(stats.items()))}; model executions {len(executions)}, EN inserts "
-        f"{en_executed}; store queries by what they launched (calls/queries) "
+        f"{en_executed}; store queries by route (calls/queries) "
         f"{ {k: (calls[k], by_kind[k]) for k in calls} }; launches {counts}")
     log(f"  cosim phases {net.registry.phase_summary()}")
     log("  " + net.loop.profiler.report(top=8).replace("\n", "\n  "))
@@ -2353,11 +2455,12 @@ def phase_cosim(dev: torch.device, model) -> dict:
     expect(counts["lsh_hash_mix"] == want_k4,
            f"cosim: {counts['lsh_hash_mix']} lsh_hash_mix launches, want {AS_REQUESTS} "
            f"tasks + {admitted} admissions + {en_executed} inserts")
-    # K3: one per staged store query (EN window flush, engine dispatch) with a
-    # candidate; K1 one per fused query (a window or dispatch of 64 or more)
+    # K3: one per staged store query (EN window flush, engine dispatch) whose
+    # gather work reaches use_kernel_threshold; K1 one per fused query (a
+    # window or dispatch of 64 or more)
     expect(counts["gather_top1"] == calls["k3"],
            f"cosim: {counts['gather_top1']} gather_top1 launches, {calls['k3']} staged "
-           "queries with a candidate")
+           "queries at the kernel's threshold")
     expect(counts["reuse_top1_probed"] == calls["k1"],
            f"cosim: {counts['reuse_top1_probed']} fused launches, {calls['k1']} fused queries")
     for name in ("lsh_hash", "sim_top1", "decode_attention", "reuse_top1"):
@@ -2706,11 +2809,12 @@ def _net_state(net) -> dict:
             "rfib": [(e.en_prefix, e.ranges) for e in net.forwarders["core"].rfib.entries("svc")]}
 
 
-def _same_run(name: str, card: ReservoirNetwork, host: ReservoirNetwork) -> float:
+def _same_run(name: str, card: ReservoirNetwork, host: ReservoirNetwork, scored: set) -> float:
     """Hold a run with its stores on the card to the same run on the CPU:
-    every record field but the similarity equal (a flipped winner, a near
-    tie between K3's fp32 chain and numpy, fails here and is printed), the
-    similarities within ``COSIM_SIM_TOL``, every counter and store equal.
+    every record field but the similarity equal (a flipped winner fails
+    here and is printed), each similarity bit-equal where the host scored
+    it and within ``COSIM_SIM_TOL`` where K3 or K1 did (``scored``: what the
+    kernels returned, ``sims_match``), every counter and store equal.
     Returns the largest similarity gap."""
     pairs = list(zip(card.metrics.records, host.metrics.records))
     expect(len(pairs) == len(host.metrics.records) == len(card.metrics.records),
@@ -2719,12 +2823,11 @@ def _same_run(name: str, card: ReservoirNetwork, host: ReservoirNetwork) -> floa
     key = lambda r: dataclasses.astuple(dataclasses.replace(r, similarity=0.0))  # noqa: E731
     differ = [(a.task_id, a.reuse, b.reuse, a.reuse_node, b.reuse_node, a.similarity,
                b.similarity) for a, b in pairs if key(a) != key(b)]
-    gap = max((abs(a.similarity - b.similarity) for a, b in pairs), default=0.0)
     if differ:
         log(f"  {name}: {len(differ)} tasks differ from the CPU run (task, reuse card/cpu, "
             f"node card/cpu, similarity card/cpu): {differ[:10]}")
-    expect(not differ and gap <= COSIM_SIM_TOL,
-           f"{name}: {len(differ)} tasks differ from the CPU run, largest similarity gap {gap}")
+    expect(not differ, f"{name}: {len(differ)} tasks differ from the CPU run")
+    gap = sims_match(name, [(a.similarity, b.similarity) for a, b in pairs], scored)
     card_state, host_state = _net_state(card), _net_state(host)
     bad = [k for k in host_state if card_state[k] != host_state[k]]
     expect(not bad, f"{name}: {bad} differ from the CPU run")
@@ -2778,20 +2881,24 @@ def phase_federation(dev: torch.device, model) -> dict:
     for arm in arms:
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        nets, name, us, derived = arm(dev)
+        with store_query_log() as queries:
+            nets, name, us, derived = arm(dev)
         wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
+        counts, calls = ops.launch_counts(), query_calls(queries)
         host_nets, _, host_us, host_derived = arm(cpu)
-        gap = max(_same_run(name, a, b) for a, b in zip(nets, host_nets))
+        scored = kernel_sims(queries)
+        gap = max(_same_run(name, a, b, scored) for a, b in zip(nets, host_nets))
         want = FED_WANT[name]
         log(f"  {name} on the card in {wall:.3f} s: {us} {derived}; reference {want[0]} "
-            f"{want[1]}; K4a {counts['lsh_hash_mix']} K3 {counts['gather_top1']} K1 "
-            f"{counts['reuse_top1_probed']}; largest similarity gap to the CPU run {gap:.3g}")
+            f"{want[1]}; store queries by route (calls) {calls}; K4a {counts['lsh_hash_mix']} "
+            f"K3 {counts['gather_top1']} K1 {counts['reuse_top1_probed']}; largest similarity "
+            f"gap to the CPU run {gap:.3g}")
         expect((us, derived) == (host_us, host_derived),
                f"{name}: card {us} {derived}, CPU {host_us} {host_derived}")
         expect((us, derived) == want, f"{name}: {us} {derived}, the reference gives {want}")
-        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] > 0,
-               f"{name}: launches {counts}")
+        expect(counts["lsh_hash_mix"] > 0 and counts["gather_top1"] == calls["k3"]
+               and counts["reuse_top1_probed"] == calls["k1"],
+               f"{name}: launches {counts}, store queries by route {calls}")
     log(f"  stub arms on the card and the CPU in {time.perf_counter() - t_all:.3f} s")
 
     # (b) the launcher's co-simulation at full width, federated
@@ -2822,7 +2929,7 @@ def phase_federation(dev: torch.device, model) -> dict:
         kinds = {str(k): sum(r.reuse == k for r in recs) for k in ("user", "cs", "en", None)}
         en_executed = sum(en.stats["executed"] for en in net.edge_nodes.values())
         admitted = sum(stats[k] for k in ("cs", "en", "executed", "aggregated"))
-        calls = {k: sum(1 for kk, _ in queries if kk == k) for k in ("k1", "k3", "none")}
+        calls = query_calls(queries)
         remote = [k6 for fed, k6 in executions if fed]
         log(f"  cosim --offload-policy {policy} at {rate:g} req/s, {cfg.name} (full width, "
             f"{cfg.n_layers} layers) behind 2 ENs x 2 replicas: {AS_REQUESTS} tasks in "
@@ -2834,7 +2941,7 @@ def phase_federation(dev: torch.device, model) -> dict:
             f"rebalances {fs['rebalances']} decisions {fs['decisions']}; engines "
             f"{dict(sorted(stats.items()))}; model executions {len(executions)}, of them "
             f"for a federated task {len(remote)} (K6 launches {sum(remote)}); EN inserts "
-            f"{en_executed}; store queries by what they launched (calls) {calls}; launches "
+            f"{en_executed}; store queries by route (calls) {calls}; launches "
             f"{counts}")
         log("  " + net.loop.profiler.report(top=8).replace("\n", "\n  "))
         expect(all(r.t_complete >= 0 for r in recs), f"cosim {policy}: a task did not complete")
@@ -2853,11 +2960,12 @@ def phase_federation(dev: torch.device, model) -> dict:
         expect(counts["lsh_hash_mix"] == want_k4,
                f"cosim {policy}: {counts['lsh_hash_mix']} lsh_hash_mix launches, want "
                f"{AS_REQUESTS} tasks + {admitted} admissions + {en_executed} inserts")
-        # K3: one a staged store query with a candidate: EN window flushes,
-        # engine dispatches, the federator's peeks and remote queries
+        # K3: one a staged store query whose gather work reaches
+        # use_kernel_threshold: EN window flushes, engine dispatches, the
+        # federator's peeks and remote queries
         expect(counts["gather_top1"] == calls["k3"],
                f"cosim {policy}: {counts['gather_top1']} gather_top1 launches, "
-               f"{calls['k3']} staged queries with a candidate")
+               f"{calls['k3']} staged queries at the kernel's threshold")
         expect(counts["reuse_top1_probed"] == calls["k1"],
                f"cosim {policy}: {counts['reuse_top1_probed']} fused launches, "
                f"{calls['k1']} fused queries")
@@ -2885,6 +2993,213 @@ def phase_federation(dev: torch.device, model) -> dict:
            and "federation[reuse-affinity]: offloads=" in text,
            "cosim launcher: no federation line")
     return runs["reuse-affinity"][0]
+
+
+# ------------------------------------------------------------------ phase 10b
+# phase near-tie: the store's scoring route where a plain dot and the cosine
+# order rows differently (src/repro/core/reuse_store.py's query and
+# _score_batch: the host's cosine below use_kernel_threshold, the kernel from
+# it; the port takes that route on every device)
+NEAR_TIE_GROUPS, NEAR_TIE_GROUP, NEAR_TIE_EPS = 1000, 8, 1e-6
+NEAR_TIE_BATCHES = (1, 8, 32)   # gather work ~2000 (host), ~16k and ~70k (K3)
+NEAR_TIE_MIN_DISAGREE = 10
+
+
+def phase_near_tie(dev: torch.device, seed: int = 15) -> dict:
+    """The near-tie trace into a store on the card and one on the CPU:
+    scalar ``query`` and staged ``query_batch`` (``fused = False``) at
+    NEAR_TIE_BATCHES, each call's route read from the store's own rule;
+    below the threshold bit-equal to the CPU, above it K3 once a batch.
+
+    Above the threshold this phase shows the route and the launch count,
+    not which row K3 picks: the 8 rows of a group are ties for any dot
+    (float64 margins ~1e-12, under TIE_MARGIN), so ids may differ within a
+    group there and still pass.  K3's similarities are held against the
+    plain ``gather_top1_ref`` on the same candidate ids within SCORE_TOL;
+    its ids are held tightly in phases top1 and serve.  Returns the trace's
+    launches."""
+    cpu = torch.device("cpu")
+    rows, q = near_tie_trace(NEAR_TIE_GROUPS, seed, group=NEAR_TIE_GROUP, eps=NEAR_TIE_EPS)
+    disagree = dot_cosine_disagree(rows, q)
+    log(f"  near-tie trace: {NEAR_TIE_GROUPS} groups of {NEAR_TIE_GROUP} rows at dim 64, "
+        f"{NEAR_TIE_EPS:g} around a base (seed {seed}); groups whose best row by a plain dot "
+        f"is not their best by cosine: {disagree}")
+    expect(disagree >= NEAR_TIE_MIN_DISAGREE,
+           f"near-tie: only {disagree} groups where dot and cosine disagree")
+    n = NEAR_TIE_GROUPS * NEAR_TIE_GROUP
+    card, host = (ReuseStore(LSH_PARAMS, capacity=n, device=d, fused=False) for d in (dev, cpu))
+    for st in (card, host):
+        st.insert_batch(rows.reshape(-1, 64), list(range(n)))
+    sync()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with store_query_log() as queries:
+        got = {"scalar": [card.query(x, 0.9) for x in q]}
+        for b in NEAR_TIE_BATCHES:
+            got[b] = [card.query_batch(q[i:i + b], 0.9, peek=True) for i in range(0, len(q), b)]
+        sync()
+    wall = time.perf_counter() - t0
+    counts, calls = ops.launch_counts(), query_calls(queries)
+    want = {"scalar": [host.query(x, 0.9) for x in q]}
+    for b in NEAR_TIE_BATCHES:
+        want[b] = [host.query_batch(q[i:i + b], 0.9, peek=True) for i in range(0, len(q), b)]
+    kinds = iter(kind for kind, _, _ in queries)
+    below = above = ties = 0
+    for key in ("scalar", *NEAR_TIE_BATCHES):
+        outs = [[o] for o in got[key]] if key == "scalar" else got[key]
+        wants = [[o] for o in want[key]] if key == "scalar" else want[key]
+        for i, (a, b) in enumerate(zip(outs, wants)):
+            kind = next(kinds)
+            if kind in ("host", "none"):
+                below += len(a)
+                expect(a == b, f"near-tie {key} call {i} (scored on the host): {a} on the "
+                       f"card, {b} on the CPU")
+            else:
+                expect(kind == "k3", f"near-tie {key} call {i}: route {kind}")
+                above += len(a)
+                x = q[i:i + 1] if key == "scalar" else q[i * key:(i + 1) * key]
+                ties += compare_query(f"near-tie batch of {key} call {i}", host, x, a, b)
+    # what K3's dot, the route a CUDA store took for small work before, picks,
+    # against the plain version on the same candidate ids
+    card.sync_device(ensure=True)
+    cand = [host.candidates(x) for x in q]
+    ids = np.full((len(q), max(map(len, cand))), -1, np.int32)
+    for i, c in enumerate(cand):
+        ids[i, :len(c)] = c
+    q_dev, ids_dev = torch.from_numpy(q).to(dev), torch.from_numpy(ids).to(dev)
+    k3 = sim_topk.gather_top1(q_dev, card._emb_dev, ids_dev)
+    k3_err, k3_ties = check_top1("near-tie gather_top1", q, rows.reshape(-1, 64), k3,
+                                 ref.gather_top1_ref(q_dev, card._emb_dev, ids_dev))
+    k3_idx = k3[1].cpu().numpy()
+    flips = int(sum(k3_idx[i] != r[2] for i, r in enumerate(want["scalar"]) if r[2] is not None))
+    log(f"  near-tie on the card: {len(q)} scalar queries and staged batches of "
+        f"{NEAR_TIE_BATCHES} in {wall:.3f} s; store queries by route (calls) {calls}; "
+        f"{below} answers scored on the host, bit-equal to the CPU; "
+        f"{above} scored by K3, ids off the CPU's at float64 near-ties {ties}; launches "
+        f"{counts}; K3's dot on the {len(q)} scalar queries' candidates would answer "
+        f"{flips} of them with another row than the host's cosine (against the plain "
+        f"gather_top1 on the same ids: max |sim error| {k3_err:.3g}, ids off at float64 "
+        f"near-ties {k3_ties})")
+    expect(below > 0 and above > 0, f"near-tie: {below} answers below the threshold, {above} "
+           "above it")
+    expect(counts["gather_top1"] == calls["k3"] > 0 and counts["reuse_top1_probed"] == 0,
+           f"near-tie: launches {counts}, store queries by route {calls}")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 10c
+# phase examples: examples/torch_*.py on the card against their CPU runs
+EXAMPLES_DIR = ROOT / "examples"
+EXAMPLE_TRAIN_STEPS = 5
+EXAMPLE_EXEC_S = 0.05      # the cognitive assistant's virtual execution time
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    path = EXAMPLES_DIR / f"{name}.py"
+    expect(path.exists(), f"examples/{name}.py is missing")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(dev: torch.device) -> tuple:
+    """The three examples of the port on the card, each against its CPU run
+    (same seeds; the models' weights drawn on the CPU for both).  Returns
+    each example's launches."""
+    cpu = torch.device("cpu")
+    # quickstart: the two-EN testbed, 200 cctv1 tasks
+    qs = load_example("torch_quickstart")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with store_query_log() as queries:
+        card = qs.run(dev)
+        sync()
+    wall = time.perf_counter() - t0
+    quick, calls = ops.launch_counts(), query_calls(queries)
+    host = qs.run(cpu)
+    log(f"  torch_quickstart on the card in {wall:.3f} s: "
+        + " | ".join(qs.report(card)).replace("\n", "")
+        + f"; store queries by route (calls) {calls}; launches {quick}")
+    expect(card == host, f"quickstart: summary {card} on the card, {host} on the CPU")
+    expect(quick["gather_top1"] == calls["k3"] and quick["reuse_top1_probed"] == calls["k1"],
+           f"quickstart: launches {quick}, store queries by route {calls}")
+    # cognitive assistance: a reduced phi-3-vision behind 3 -> 2 replicas, at
+    # a fixed virtual execution time (in wall time the hits change with the
+    # host's speed, the reference's too)
+    ca = load_example("torch_cognitive_assistance")
+
+    class Fleet(ca.ServingFleet):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.engine.exec_time_fn = lambda rid, service, reqs: EXAMPLE_EXEC_S
+
+    ca.ServingFleet = Fleet
+    cfg = get_arch("phi-3-vision-4.2b").reduced()
+    params = {n: p.detach() for n, p in build_model(cfg, cpu, seed=0).named_parameters()}
+    prefills, prefill = [], DecoderLM.prefill
+
+    def counted(self, *a, **k):
+        prefills.append(1)
+        return prefill(self, *a, **k)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    DecoderLM.prefill = counted
+    try:
+        with store_query_log() as queries:
+            card = ca.run(dev, params=params)
+            sync()
+    finally:
+        DecoderLM.prefill = prefill
+    wall = time.perf_counter() - t0
+    cog, calls = ops.launch_counts(), query_calls(queries)
+    host = ca.run(cpu, params=params)
+    keys = ("events", "stats", "per_replica")
+    log(f"  torch_cognitive_assistance on the card in {wall:.3f} s: "
+        + " | ".join(ca.report(card)).replace("\n", "")
+        + f"; stats {card['stats']}; model prefills {len(prefills)}; store queries by route "
+        f"(calls) {calls}; launches {cog}")
+    expect({k: card[k] for k in keys} == {k: host[k] for k in keys},
+           f"cognitive assistance: {[card[k] for k in keys]} on the card, "
+           f"{[host[k] for k in keys]} on the CPU")
+    expect(cog["flash_attention"] == cfg.n_layers * len(prefills)
+           and len(prefills) >= card["stats"]["executed"] > 0,
+           f"cognitive assistance: {cog['flash_attention']} flash_attention launches for "
+           f"{len(prefills)} prefills of {cfg.n_layers} layers ({card['stats']['executed']} "
+           "executed)")
+    expect(cog["gather_top1"] == calls["k3"] and cog["reuse_top1_probed"] == calls["k1"],
+           f"cognitive assistance: launches {cog}, store queries by route {calls}")
+    # train_lm at its default width (~100M parameters), 5 steps; step 1 on the CPU
+    tl = load_example("torch_train_lm")
+    cfg = tl.lm_config(512)
+    params = {n: p.detach() for n, p in
+              build_model(cfg, cpu, seed=0, trainable=True).named_parameters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = tl.run(["--steps", str(EXAMPLE_TRAIN_STEPS), "--ckpt-dir", f"{tmp}/card"],
+                      device=dev, params=params)
+        sync()
+        wall = time.perf_counter() - t0
+        train = ops.launch_counts()
+        t0 = time.perf_counter()
+        host = tl.run(["--steps", "1", "--ckpt-dir", f"{tmp}/cpu"], device=cpu, params=params)
+        cpu_s = time.perf_counter() - t0
+    first, ref = card["logged"][0], host["logged"][0]
+    errs = [abs(a - b) / abs(b) for a, b in zip(first[1:], ref[1:])]
+    log(f"  torch_train_lm on the card, {EXAMPLE_TRAIN_STEPS} steps at width 512 in {wall:.3f} "
+        f"s: " + " | ".join(card["lines"]).replace("\n", "") + f"; step 1 (loss, grad norm, "
+        f"lr) card {first[1:]} vs CPU {ref[1:]} ({cpu_s:.3f} s), relative {errs}; launches "
+        f"{ {k: v for k, v in train.items() if v} }")
+    expect(all(np.isfinite(v) for _, *vals in card["logged"] for v in vals)
+           and np.isfinite(card["final"]), f"train_lm: {card['logged']} {card['final']}")
+    expect(first[0] == ref[0] == 0 and max(errs) <= TRAIN_F32_REL_TOL,
+           f"train_lm step 1: card {first}, CPU {ref}")
+    fwd, bwd = train_launches(cfg)
+    expect_launches("train_lm", train, 2 * EXAMPLE_TRAIN_STEPS * fwd, 2 * EXAMPLE_TRAIN_STEPS * bwd)
+    return quick, cog, train
 
 
 # ------------------------------------------------------------------ main
@@ -4812,7 +5127,7 @@ def main() -> int:
         phase_env()
     log(f"port: {SRC}")
     only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
-                        "--dryrun", "--hash") if m in sys.argv[1:]]
+                        "--dryrun", "--hash", "--near-tie", "--examples") if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
@@ -4821,7 +5136,8 @@ def main() -> int:
                 {"--model": phase_model, "--top1": phase_top1, "--nearest": phase_nearest,
                  "--families": lambda d: phase_families(d, family_names()),
                  "--train": phase_train, "--layout": phase_layout,
-                 "--dryrun": phase_dryrun, "--hash": phase_hash_repeat}[mode](dev)
+                 "--dryrun": phase_dryrun, "--hash": phase_hash_repeat,
+                 "--near-tie": phase_near_tie, "--examples": phase_examples}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -4877,6 +5193,13 @@ def main() -> int:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    with timed("near-tie"):
+        paths["near-tie"] = phase_near_tie(dev)
+    with timed("examples"):
+        paths["examples-quickstart"], paths["examples-cognitive"], paths["examples-train"] = \
+            phase_examples(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     with timed("families"):
         paths["families"] = phase_families(dev)
     with timed("train"):
@@ -4901,6 +5224,11 @@ def main() -> int:
     for name in FEDERATION_PATH:
         expect(paths["federation"][name] > 0,
                f"{name} was not launched on the federation path")
+    for name in NEAR_TIE_PATH:
+        expect(paths["near-tie"][name] > 0, f"{name} was not launched on the near-tie path")
+    for path, names in EXAMPLES_PATH.items():
+        for name in names:
+            expect(paths[path][name] > 0, f"{name} was not launched on the {path} path")
     for name in FAMILIES_PATH:
         expect(paths["families"][name] > 0, f"{name} was not launched on the families path")
     for name in TRAIN_FAMILIES_PATH:
@@ -4916,6 +5244,8 @@ def main() -> int:
               "async_serve_launches": paths["async-serve"][name],
               "cosim_launches": paths["cosim"][name],
               "federation_launches": paths["federation"][name],
+              "near_tie_launches": paths["near-tie"][name],
+              "examples_launches": sum(paths[p][name] for p in EXAMPLES_PATH),
               "families_launches": paths["families"].get(name, 0),
               "train_launches": paths["train"][name],
               "train_families_launches": paths["train-families"].get(name, 0),

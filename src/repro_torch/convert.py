@@ -143,6 +143,17 @@ def model_from_jax(cfg, params_np: Mapping, device: DeviceLike = None, *,
     return model
 
 
+def load_params(model: torch.nn.Module, params: Mapping[str, torch.Tensor]) -> None:
+    """Copy ``params`` (the port's parameter names, every one of them) into
+    ``model``, for instance another model's ``named_parameters()``."""
+    own = dict(model.named_parameters())
+    if set(own) != set(params):
+        raise KeyError(f"parameters differ: {sorted(set(own) ^ set(params))[:5]}")
+    with torch.no_grad():
+        for name, p in own.items():
+            p.copy_(params[name])
+
+
 def _is_qleaf(x) -> bool:
     return isinstance(x, Mapping) and set(x) == {"q", "scale"}
 

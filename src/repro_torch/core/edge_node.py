@@ -13,8 +13,9 @@ current queue backlog, matching "ENs maintain statistics about the execution
 of the services over time".
 
 An ``EdgeNode``'s reuse stores live on its ``device`` (None: the CUDA card,
-where a store scores with the ``gather_top1`` kernel; ``device="cpu"`` for
-the plain versions).  The compute seam (``ComputeBackend``) has two
+where a store scores work of ``use_kernel_threshold`` rows or more with the
+``gather_top1`` kernel and smaller work on the host, as the reference does;
+``device="cpu"`` for the plain versions).  The compute seam (``ComputeBackend``) has two
 implementations: ``InlineBackend`` here, and
 ``serving.async_engine.EngineBackend``.
 """

@@ -23,9 +23,9 @@ The simulator is host-side Python on the virtual clock, as in the
 reference: routing, forwarding and every time stay floats and the
 reference's draws.  What runs on ``device`` (None: the CUDA card) is the
 reuse decision: the clients' LSH hash (``lsh_hash_mix``), and every EN
-reuse store (``gather_top1`` for the scalar query, window flushes and the
-forwarding-error peeks; the fused pipeline for windows of
-``fused_min_batch`` tasks or more).  Virtual times come from
+reuse store (``gather_top1`` for window flushes of ``use_kernel_threshold``
+gather rows or more, the host's cosine below that, as in the reference; the
+fused pipeline for windows of ``fused_min_batch`` tasks or more).  Virtual times come from
 ``PaperDelayModel``, so they do not depend on the device.
 
 Federation (``offload_policy``, store migration on re-partition and EN

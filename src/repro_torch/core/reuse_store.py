@@ -78,6 +78,19 @@ def _host(t: Any) -> np.ndarray:
     return t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t)
 
 
+def scores_on_device(similarity_name: str, work: int, use_kernel_threshold: int) -> bool:
+    """The reference's scoring route for a staged query (scalar ``query``:
+    work = its candidates; ``_score_batch``: queries x candidate width).
+
+    Cosine work of at least ``use_kernel_threshold`` rows scores on the
+    device (``similarity_scores``, or K3 for a batch); anything smaller, and
+    every other similarity, scores on the host with the configured function,
+    which divides by the norms where a kernel takes a plain dot.  The store's
+    device plays no part: a CUDA store takes the same route as a CPU one.
+    """
+    return similarity_name == "cosine" and work >= use_kernel_threshold
+
+
 @dataclasses.dataclass
 class StoreExport:
     """A migratable slice of a ``ReuseStore`` (DESIGN.md §Store migration).
@@ -636,22 +649,15 @@ class ReuseStore:
             return None, -1.0, None
         emb = normalize(np.asarray(embedding, np.float32).reshape(-1))
         cand_arr = np.asarray(cand, np.int64)
-        if len(cand) >= self.use_kernel_threshold and self.similarity_name == "cosine":
+        store = self._rows(cand_arr)
+        if scores_on_device(self.similarity_name, len(cand), self.use_kernel_threshold):
             sims = _host(_kops.similarity_scores(
                 torch.from_numpy(emb[None]).to(self.device),
-                torch.from_numpy(self._rows(cand_arr)).to(self.device)))[0]
-            best = int(np.argmax(sims))
-            idx, sim = int(cand_arr[best]), float(sims[best])
-        elif self.similarity_name == "cosine" and self.device.type == "cuda":
-            # the device mirror is resident: score there (gather_top1)
-            val, best_id = self._score_batch(
-                emb[None], cand_arr[None].astype(np.int32),
-                np.array([len(cand)]))
-            idx, sim = int(best_id[0]), float(val[0])
+                torch.from_numpy(store).to(self.device)))[0]
         else:
-            sims = self.similarity(emb, self._rows(cand_arr))
-            best = int(np.argmax(sims))
-            idx, sim = int(cand_arr[best]), float(sims[best])
+            sims = self.similarity(emb, store)
+        best = int(np.argmax(sims))
+        idx, sim = int(cand_arr[best]), float(sims[best])
         if sim < threshold:
             return None, sim, None
         self._lru.move_to_end(idx)  # reuse refreshes LRU position
@@ -792,18 +798,16 @@ class ReuseStore:
         """Score the (B, C) candidate matrix -> ((B,) best sim, (B,) best id).
 
         Rows of ``cand`` are ascending unique ids, front-packed, -1 padded.
-        Cosine stores use the gather/score kernel: candidates gather straight
-        out of the paged device mirror after an O(dirty pages) sync.  On a
-        CUDA store that is every batch (the mirror is resident, so there is
-        no dispatch cost to amortise); on a CPU store only gathers of at
-        least ``use_kernel_threshold`` rows, and smaller ones — notably
-        single-row oracle peeks — score in numpy like the scalar path.
-        Other similarity measures always score per query with the configured
-        function.
+        Cosine stores use the gather/score kernel (K3) when the gather is
+        big enough to pay for the launch (``scores_on_device``: at least
+        ``use_kernel_threshold`` rows): candidates gather straight out of
+        the paged device mirror after an O(dirty pages) sync.  Smaller
+        workloads — notably single-row oracle peeks — score in numpy like
+        the scalar path, on a CUDA store as on a CPU one.  Other similarity
+        measures always score per query with the configured function.
         """
         work = embs.shape[0] * cand.shape[1]
-        if self.similarity_name == "cosine" and (
-                self.device.type == "cuda" or work >= self.use_kernel_threshold):
+        if scores_on_device(self.similarity_name, work, self.use_kernel_threshold):
             self.sync_device(ensure=True)
             val, idx = _kops.gathered_top1(
                 torch.from_numpy(embs).to(self.device), self._emb_dev,

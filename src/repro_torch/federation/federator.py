@@ -30,7 +30,8 @@ bucket *ownership* shifts away from a hot EN, not just individual tasks.
 Everything here is host-side logic on the virtual clock, as in the
 reference.  What touches the device goes through the EN stores, which live
 on the network's ``device``: ``peek_hit`` is a ``peek=True`` staged
-``query_batch`` of one task (``gather_top1`` on a CUDA store),
+``query_batch`` of one task (scored as the store's route says: the host's
+cosine below ``use_kernel_threshold`` gather rows, ``gather_top1`` above),
 ``handle_remote`` a scalar ``query``, and ``handle_migration`` an
 ``insert_batch`` with the shipped buckets (no hash) and its page sync.  A
 migration batch travels as the host copy ``ReuseStore.export`` made.

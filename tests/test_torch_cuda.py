@@ -119,9 +119,11 @@ def test_probe_zero_is_kernel_hash(dev, precision, D, K):
 
 @pytest.mark.cuda
 def test_small_staged_batches_score_on_the_card(dev):
-    """On a CUDA store, staged batches and scalar queries below
-    use_kernel_threshold still launch gather_top1, and agree with a CPU
-    store fed the same inserts."""
+    """On a CUDA store, staged batches and scalar queries take the
+    reference's route: below use_kernel_threshold they score on the host
+    (no gather_top1 launch) and equal a CPU store fed the same inserts bit
+    for bit; a batch whose gather work reaches the threshold launches
+    gather_top1 once and agrees with the CPU store within TOL."""
     from repro_torch.core.reuse_store import ReuseStore
 
     p = LSHParams(dim=32, num_tables=3, num_probes=4, seed=5)
@@ -132,9 +134,14 @@ def test_small_staged_batches_score_on_the_card(dev):
         s.insert_batch(x, list(range(300)))
     n0 = sim_topk.LAUNCHES["gather_top1"]
     gpu, cpu = (s.query_batch(q, 0.5, peek=True) for s in stores)
-    one = stores[0].query(q[0], 0.5)
-    assert sim_topk.LAUNCHES["gather_top1"] == n0 + 2
-    assert [r[2] for r in gpu] == [r[2] for r in cpu] and one[2] == gpu[0][2]
+    one, one_cpu = (s.query(q[0], 0.5) for s in stores)
+    assert sim_topk.LAUNCHES["gather_top1"] == n0
+    assert gpu == cpu and one == one_cpu and one[2] == gpu[0][2]
+    for s in stores:
+        s.use_kernel_threshold = 1
+    gpu, cpu = (s.query_batch(q, 0.5, peek=True) for s in stores)
+    assert sim_topk.LAUNCHES["gather_top1"] == n0 + 1
+    assert [r[2] for r in gpu] == [r[2] for r in cpu]
     assert max(abs(a[1] - b[1]) for a, b in zip(gpu, cpu)) <= TOL
 
 

@@ -1,8 +1,10 @@
 """The port stands alone: no JAX, nothing of ``repro``, CUDA by default.
 
 * A subprocess that cannot import ``jax`` or any ``repro`` module imports
-  every ``repro_torch`` module and ``chip_smoke.py``.
-* An AST scan of the port and of ``chip_smoke.py`` finds no such import.
+  every ``repro_torch`` module, ``chip_smoke.py`` and the port's examples
+  (``examples/torch_*.py``).
+* An AST scan of the port, of ``chip_smoke.py`` and of those examples finds
+  no such import.
 * Without a CUDA card, the entry points refuse to run unless the caller
   passes ``device="cpu"``.
 """
@@ -16,7 +18,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 MODULES = sorted(
     ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts).removesuffix(
         ".__init__")
@@ -33,7 +36,7 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
-sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1]]
+sys.path[:0] = [sys.argv[1] + "/src", sys.argv[1], sys.argv[1] + "/examples"]
 for mod in sys.argv[2:]:
     importlib.import_module(mod)
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
@@ -43,7 +46,9 @@ print("ok", len(sys.argv) - 2)
 
 
 def test_imports_without_jax_or_reference():
-    mods = MODULES + ["chip_smoke"]
+    assert [p.stem for p in EXAMPLES] == [
+        "torch_cognitive_assistance", "torch_quickstart", "torch_train_lm"]
+    mods = MODULES + ["chip_smoke"] + [p.stem for p in EXAMPLES]
     out = subprocess.run([sys.executable, "-c", _CHILD, str(ROOT), *mods],
                          capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr

@@ -6,8 +6,10 @@ capacity-driven eviction) run on the port's store on the CPU, side by side
 with that file's ``RefStore`` model, whose probes come from the JAX
 package's LSH.  After every op the state checks of that file hold: hit/miss,
 similarity (``SIM_TOL``), winning id outside ties, LRU order, candidate
-statistics, bucket tables, and tombstoned page rows.  Both the staged
-(gather_top1) and the fused (reuse_top1) query paths are driven.
+statistics, bucket tables, and tombstoned page rows.  The staged
+(gather_top1) path runs here, the fused (reuse_top1) path in
+tests/test_torch_store_properties_fused.py, each over the reference's 200
+seeds (``1000 + s`` staged, ``2000 + s`` fused).
 """
 from typing import List
 
@@ -90,10 +92,6 @@ def run_interleaving(seed: int, fused: bool) -> None:
 
 
 class TestPortStoreProperties:
-    @pytest.mark.parametrize("seed", range(40))
+    @pytest.mark.parametrize("seed", range(200))
     def test_interleaving_parity_staged(self, seed):
         run_interleaving(1000 + seed, fused=False)
-
-    @pytest.mark.parametrize("seed", range(40))
-    def test_interleaving_parity_fused(self, seed):
-        run_interleaving(2000 + seed, fused=True)
