@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
                           [--layout] [--dryrun] [--hash] [--near-tie] [--examples]
-                          [--src DIR]
+                          [--bwd-rows] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -82,8 +82,11 @@ just before it and read just after:
 * families: the other model families at full width, one model at a time,
   each with its own seeded random weights (bf16): qwen2-moe-a2.7b (24
   layers), zamba2-7b (81), xlstm-125m (12), seamless-m4t-large-v2 (24 + 24,
-  1024 frames), phi-3-vision-4.2b (32, 576 patch embeddings) and
-  llama4-maverick-400b-a17b at depth 1 (1024 patch embeddings); each
+  1024 frames), phi-3-vision-4.2b (32, 576 patch embeddings),
+  llama4-maverick-400b-a17b at depth 1 (1024 patch embeddings), gemma-2b
+  (18, MQA, head width 256), gemma2-9b (42: local layers with a
+  4096-slot ring buffer, softcaps; one prompt of 4608 tokens, so that the
+  ring wraps in the prefill and again in decode) and qwen2.5-14b (48); each
   prefills 2 prompts of 1535 text tokens and decodes 8 greedy tokens, with
   the exact K6 and K7 launch counts, its first and last K6 call of the
   prefill and K7 call of decode step 1 held against the plain attention,
@@ -95,10 +98,11 @@ just before it and read just after:
   against a run of the same model with the attention ops swapped for their
   plain versions (an MoE model routed as the kernels' run was);
 * train: (a) K6's backward (``csrc/flash_attention_bwd.cu``: delta, dK/dV,
-  dQ; bf16 up to D=128 on the tensor cores) and the forward's log-sum-exp
-  against their plain versions in f32 and bf16 (head widths 32 to 256, G
-  from 1 to 8, causal, window, softcap, S != T, ragged S, rows that see no
-  key), then at qwen3-1.7b's training shape (B=4, S=2048, bf16, causal),
+  dQ; bf16 on the tensor cores, D=256 in two column halves) and the
+  forward's log-sum-exp against their plain versions in f32 and bf16 (head
+  widths 32 to 256, G from 1 to 8, causal, window, softcap, S != T, ragged
+  S, rows that see no key; at D=256 gemma2-9b's masks and gemma-2b's MQA),
+  then at qwen3-1.7b's training shape (B=4, S=2048, bf16, causal),
   each entry point timed with its bound and the three beside SDPA's
   backward; (b) the reduced qwen3 in float32 on the
   card against the same seeded run on the CPU: every parameter's gradient
@@ -112,21 +116,24 @@ just before it and read just after:
   of each backward kernel), ms a step and peak memory, then 3 steps on
   one repeated batch (the loss must fall) and the idle share of a step;
   (e) every other family's reduced config (zamba2, xlstm, seamless,
-  qwen2-moe, phi-3-vision, llama4) in float32 on the card against the same
+  qwen2-moe, phi-3-vision, llama4, gemma-2b, gemma2-9b, qwen2.5-14b) in
+  float32 on the card against the same
   seeded model on the CPU: exact K6 launches (derived from depth and
   remat: ``train_launches``), every gradient non-zero and within 1e-4 (an
   MoE model's CPU run routed as the card's), and a restart of the reduced
   zamba2 bit for bit; (f) full-width steps of each family that fits one
   card (B=4 x 2048 synthetic tokens, fp32 masters, bf16 activations, f32
   moments, each config's remat): xlstm-125m and seamless at full depth
-  through ``launch/train.py``'s ``main``, as is phi-3-vision (it fits at
-  full depth too), zamba2 and qwen2-moe cut in depth only
-  (``TRAIN_FAM_DEPTH``) through ``make_train_step``; exact K6 counts,
-  finite losses, ms a step, peak memory, a profiled step's idle share and
-  device ops, and K6's backward at each family's attention shape (D=112,
+  through ``launch/train.py``'s ``main``, as are phi-3-vision and
+  gemma-2b (they fit at full depth too), zamba2, qwen2-moe and gemma2-9b
+  cut in depth only (``TRAIN_FAM_DEPTH``) through ``make_train_step``;
+  exact K6 counts, finite losses, ms a step, peak memory, a profiled
+  step's idle share and device ops, and K6's backward at each family's
+  attention shape (D=256 at gemma-2b's MQA and gemma2-9b's softcap, 112,
   96, 128, and 64 with and without the causal mask) against its plain
-  version, its bound and SDPA's backward.  llama4 takes no full-width step
-  (one layer's experts are about 16 B parameters);
+  version, its bound and SDPA's backward (its backend named).  llama4
+  takes no full-width step (one layer's experts are about 16 B
+  parameters), nor qwen2.5-14b (236 GB of training state);
 * layout: (a) K6 with ``q_offset`` at qwen3-1.7b's attention shape (B=4,
   H=16, KV=8, D=128, causal) in bf16 and f32: 512-row chunks at q_offset
   0, 512 and 1536 (T = q_offset + 512), each against its plain version,
@@ -244,7 +251,9 @@ K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
 ``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
 ``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
 K6 and K7 are also timed at the head widths 112 and 96 (zamba2's and
-phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``).  The
+phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``) and 256
+(``d256``: gemma-2b's prefill and decode, gemma2-9b's windowed, soft-capped
+prefill, its decode and its full ring).  The
 backward's rows (``flash_attention_bwd_*``) are launches on the train path
 (d), each entry point's ms a launch (CUDA events) and ``device_ms``, its
 route (``kernel_route``) and the TFLOP/s of the products its outputs need
@@ -280,13 +289,16 @@ Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
 ``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
-``--layout``, ``--dryrun``, ``--hash``, ``--near-tie`` and ``--examples``
+``--layout``, ``--dryrun``, ``--hash``, ``--near-tie``, ``--examples`` and
+``--bwd-rows``
 run only the env and build phases and the named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
 comma-separated list of names after the flag; phase train; phase layout;
 phase dryrun; ``phase_hash_repeat``: K4a, K4b and their plain versions
-each held to the float64 vertex ids over many calls and seeds)
+each held to the float64 vertex ids over many calls and seeds;
+``--bwd-rows``: the backward's ptxas report, phase train (a)'s D=256 cases
+and K6's backward at gemma-2b's and gemma2-9b's training shapes)
 and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
@@ -473,10 +485,15 @@ MODEL_ARCH = "qwen3-1.7b"
 # prefill FAM_B x FAM_S text tokens (both S and S + 1 pass the Mamba2 chunk
 # rule at scan_chunk 256: 5 x 307 and 6 x 256), FAM_STEPS greedy decode
 # steps; seamless encodes FAM_FRAMES frames; llama4 at depth 1 (its 48
-# layers, about 800 GB in bf16, do not fit one card)
+# layers, about 800 GB in bf16, do not fit one card).  The dense
+# architectures come last, so that the seeds of the others stay; gemma2-9b
+# prefills one prompt of 4608 tokens (FAM_SHAPE), so that its local
+# layers' 4096-slot ring buffers wrap in the prefill and again in decode
 FAMILIES = ("qwen2-moe-a2.7b", "zamba2-7b", "xlstm-125m", "seamless-m4t-large-v2",
-            "phi-3-vision-4.2b", "llama4-maverick-400b-a17b")
+            "phi-3-vision-4.2b", "llama4-maverick-400b-a17b", "gemma-2b", "gemma2-9b",
+            "qwen2.5-14b")
 FAM_B, FAM_S, FAM_STEPS, FAM_FRAMES, FAM_WARM = 2, 1535, 8, 1024, 2
+FAM_SHAPE = {"gemma2-9b": (1, 4608)}      # (prompts, text tokens) where not FAM_B x FAM_S
 FAM_DEPTH = {"llama4-maverick-400b-a17b": 1}
 # decode step 1 against a longer prefill is held in float32 for zamba2: in
 # bf16 its 81 Mamba2 layers and 13 attention blocks grow the rounding of
@@ -487,7 +504,8 @@ FAM_F32_STEP_CHECK = ("zamba2-7b",)
 # (K6 launches a prefill, K7 launches a decode step)
 FAM_LAUNCHES = {"qwen2-moe-a2.7b": (24, 24), "zamba2-7b": (13, 13), "xlstm-125m": (0, 0),
                 "seamless-m4t-large-v2": (72, 48), "phi-3-vision-4.2b": (32, 32),
-                "llama4-maverick-400b-a17b": (1, 1)}
+                "llama4-maverick-400b-a17b": (1, 1), "gemma-2b": (18, 18),
+                "gemma2-9b": (42, 42), "qwen2.5-14b": (48, 48)}
 # phase kernels at the padded head widths (zamba2's 112, phi-3-vision's 96),
 # at each model's heads: model -> tokens of its prefill (1535 text tokens;
 # phi-3-vision's 576 patches besides)
@@ -513,9 +531,16 @@ FULL_STEPS, REPEAT_STEPS = 4, 3
 # Mamba2 layers and the 3 tail layers (33 of 81: 76.9 GB; a group more adds
 # 7.5 GB of state alone), qwen2-moe to 6 of 24 layers (74.5 GB; a layer
 # more adds 9.1 GB).  llama4 takes no step: one layer's 128 experts are
-# about 16 B parameters.
-TRAIN_FAM_FULL = ("xlstm-125m", "seamless-m4t-large-v2", "phi-3-vision-4.2b")
-TRAIN_FAM_DEPTH = {"zamba2-7b": 33, "qwen2-moe-a2.7b": 6}
+# about 16 B parameters.  gemma-2b (K6's backward at D = 256, MQA) runs at
+# full depth through main (peak 54.8 GB); gemma2-9b (D = 256, softcap 50,
+# windowed local layers) is cut in depth only, to whole (local, global)
+# pairs: 12 of 42 layers (78.5 GB; its tied 256000 x 3584 table is 14.7
+# GB of state, a layer 3.2 GB more, activations the other ~26 GB at 12,
+# so a pair more does not fit).  qwen2.5-14b takes no full-width
+# step (its D = 128 backward is qwen3's route; 48 layers of 14.7 B
+# parameters are 236 GB of state).
+TRAIN_FAM_FULL = ("xlstm-125m", "seamless-m4t-large-v2", "phi-3-vision-4.2b", "gemma-2b")
+TRAIN_FAM_DEPTH = {"zamba2-7b": 33, "qwen2-moe-a2.7b": 6, "gemma2-9b": 12}
 TRAIN_FAM_STEPS = 3
 # phase cosim: the launcher's --engine cosim defaults (EN window 8 ms), and
 # the store size at which an EN search is timed (PaperDelayModel's 100k point)
@@ -553,6 +578,23 @@ def median_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def loop_ms(fn, reps: int) -> float:
+    """ms a call over ``reps`` back-to-back calls between two CUDA events,
+    after a warm-up call: the device's time a call wherever the host
+    enqueues a call faster than the device runs it (no profiler and no
+    graph, which does not capture autograd's backward)."""
+    fn()
+    sync()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def graph_ms(fn, reps: int, rounds: int = 5) -> float:
@@ -1386,6 +1428,9 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
                          ("decode_attention",
                           decode_row(gen, dev, S + FAM_STEPS, [S + 1, S // 2 + 3], *heads))):
             out[row].update({f"d{heads[2]}_{k}": v for k, v in got.items()})
+    # --- head width 256: gemma-2b's and gemma2-9b's prefill and decode (d256)
+    for row, got in d256_rows(gen, dev).items():
+        out[row]["d256"] = got
 
     # --- K5 over the store phase's scale, an n_valid tail and planted ties
     rng = np.random.default_rng(seed)
@@ -1421,65 +1466,110 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     return out
 
 
-def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int) -> dict:
-    """K6 (bf16 route) causal at (B, S, H, D) x (B, S, KV, D): against its
-    plain version, timed beside SDPA, with its bound."""
+def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int, **kw) -> dict:
+    """K6 (bf16 route) causal at (B, S, H, D) x (B, S, KV, D), with the
+    masks of ``kw`` (window, softcap, scale): against its plain version,
+    timed beside SDPA (a window as a boolean mask; SDPA has no softcap, so
+    with one it times the uncapped function), with its bound."""
     q = _randn(gen, B, S, H, D, dev=dev)
     k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
-    scale = 1.0 / np.sqrt(D)
-    shape = f"B={B} S={S} H={H} KV={KV} D={D}"
-    fn = lambda: flash_k.flash_attention(q, k, v, scale=scale)  # noqa: E731
-    plain = lambda: ref.flash_attention_ref(q, k, v, scale=scale)  # noqa: E731
+    kw = {"scale": 1.0 / np.sqrt(D), **kw}
+    window, capped = kw.get("window"), kw.get("softcap") is not None
+    shape = f"B={B} S={S} H={H} KV={KV} D={D}" + "".join(
+        f" {n}={kw[n]}" for n in ("window", "softcap") if kw.get(n) is not None)
+    fn = lambda: flash_k.flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: ref.flash_attention_ref(q, k, v, **kw)  # noqa: E731
     err = attn_err(f"flash_attention {shape}", fn(), plain())
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=H != KV, scale=scale)
-    err_lib = attn_err(f"sdpa {shape} vs plain", lib().transpose(1, 2), plain(), ATTN_BF16_TOL)
+    if window is None:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=H != KV, scale=kw["scale"])
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=kw["scale"])
+    err_lib = None
+    if not capped:
+        err_lib = attn_err(f"sdpa {shape} vs plain", lib().transpose(1, 2), plain(),
+                           ATTN_BF16_TOL)
     t = attention_times(fn, plain, lib)
-    flop = 4.0 * B * H * D * (S * (S + 1) // 2)
+    flop = 4.0 * B * H * D * flash_k.visible_pairs(S, S, True, window)
     # q, out (B, S, H, D) and k, v (B, S, KV, D), bf16, each moved once
     bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop, BF16_FLOP_PER_S)
     log(f"  flash_attention {shape} bf16 causal (tiles "
         f"{flash_k.launch_plan(q.dtype, B, S, S, H, KV, D)['tile_width']} wide): "
         + _rates(t, flop / 1e9, "TFLOP/s") + f"; bound {bms:.5f} ms by {by}; device time "
-        f"{t['device_ms'] / t['library_device_ms']:.3f}x sdpa's; max err {err:.3g} "
-        f"(sdpa {err_lib:.3g})")
+        f"{t['device_ms'] / t['library_device_ms']:.3f}x sdpa's"
+        + (" (sdpa without the softcap: not the same function)" if capped else "")
+        + f"; max err {err:.3g}" + (f" (sdpa {err_lib:.3g})" if err_lib is not None else ""))
     return {"shape": [B, S, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, **({"library_without_softcap": True} if capped else {})}
 
 
-def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int) -> dict:
+def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int, **kw) -> dict:
     """K7 at (B, H, D) x (B, T, KV, D), B = len(lens), row b's kv_len
-    lens[b]: against its plain version (also at kv_len 1 and T in every
-    row), timed beside SDPA with a mask, with its bound."""
+    lens[b], with ``kw`` (softcap, scale): against its plain version (also
+    at kv_len 1 and T in every row), timed beside SDPA with a mask (without
+    the softcap: SDPA has none), with its bound."""
     B = len(lens)
     q = _randn(gen, B, H, D, dev=dev)
     k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    scale = 1.0 / np.sqrt(D)
-    shape = f"B={B} T={T} kv_len={lens} H={H} KV={KV} D={D}"
-    fn = lambda: decode_k.decode_attention(q, k, v, kv_len, scale=scale)  # noqa: E731
-    plain = lambda: ref.decode_attention_ref(q, k, v, kv_len, scale=scale)  # noqa: E731
+    kw = {"scale": 1.0 / np.sqrt(D), **kw}
+    capped = kw.get("softcap") is not None
+    shape = f"B={B} T={T} kv_len={lens} H={H} KV={KV} D={D}" + (
+        f" softcap={kw['softcap']}" if capped else "")
+    fn = lambda: decode_k.decode_attention(q, k, v, kv_len, **kw)  # noqa: E731
+    plain = lambda: ref.decode_attention_ref(q, k, v, kv_len, **kw)  # noqa: E731
     err = attn_err(f"decode_attention {shape}", fn(), plain())
     for d_len in (1, T):
         dl = torch.full((B,), d_len, dtype=torch.int32, device=dev)
         attn_err(f"decode_attention {shape} at kv_len={d_len}",
-                 decode_k.decode_attention(q, k, v, dl, scale=scale),
-                 ref.decode_attention_ref(q, k, v, dl, scale=scale))
+                 decode_k.decode_attention(q, k, v, dl, **kw),
+                 ref.decode_attention_ref(q, k, v, dl, **kw))
     mask = (torch.arange(T, device=dev)[None, :] < kv_len[:, None])[:, None, None, :]
     qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=scale)
-    err_lib = attn_err(f"sdpa decode {shape} vs plain", lib()[:, :, 0], plain(), ATTN_BF16_TOL)
+        qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=kw["scale"])
+    err_lib = None
+    if not capped:
+        err_lib = attn_err(f"sdpa decode {shape} vs plain", lib()[:, :, 0], plain(),
+                           ATTN_BF16_TOL)
     t = attention_times(fn, plain, lib)
     n_slots = sum(lens)
     n_bytes = 2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B
     bms, by = bound(n_bytes, 4.0 * H * D * n_slots, BF16_FLOP_PER_S)
     log(f"  decode_attention {shape} bf16: " + _rates(t, n_bytes / 1e6, "GB/s")
         + f"; bound {bms:.5f} ms by {by} (the device time re-reads a cache that fits in "
-        f"L2); max err {err:.3g} (sdpa {err_lib:.3g})")
+        f"L2); max err {err:.3g}" + (f" (sdpa {err_lib:.3g})" if err_lib is not None else
+                                     " (sdpa without the softcap: not the same function)"))
     return {"shape": [B, T, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, **({"library_without_softcap": True} if capped else {})}
+
+
+def d256_rows(gen, dev) -> dict:
+    """K6 and K7 at head width 256, at gemma-2b's and gemma2-9b's serving
+    shapes in phase families -> {"flash_attention": {model: row},
+    "decode_attention": {model: row}}."""
+    out = {"flash_attention": {}, "decode_attention": {}}
+    for name in ("gemma-2b", "gemma2-9b"):
+        cfg = get_arch(name)
+        B, S = FAM_SHAPE.get(name, (FAM_B, FAM_S))
+        heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+        kw = {"scale": cfg.query_pre_attn_scalar ** -0.5} if cfg.query_pre_attn_scalar else {}
+        if cfg.attn_logit_softcap:
+            kw["softcap"] = cfg.attn_logit_softcap
+        win = cfg.sliding_window
+        # the prefill's K6 (a local layer's window), then K7: a global layer's
+        # cache at step 1, and a local layer's ring, every slot filled
+        out["flash_attention"][name] = flash_row(gen, dev, B, S, *heads, window=win, **kw)
+        lens = [S + 1] if B == 1 else [S + 1, S // 2 + 3]
+        out["decode_attention"][name] = decode_row(gen, dev, S + FAM_STEPS, lens, *heads, **kw)
+        if win and win < S:
+            out["decode_attention"][f"{name} ring"] = decode_row(
+                gen, dev, win, [win] * B, *heads, **kw)
+    return out
 
 
 # ------------------------------------------------------------------ phase 5b
@@ -1688,17 +1778,17 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def _family_inputs(cfg, dev, gen, n_text: int) -> dict:
-    """A batch of FAM_B prompts of ``n_text`` tokens, with 576/1024 patch
+def _family_inputs(cfg, dev, gen, B: int, n_text: int) -> dict:
+    """A batch of B prompts of ``n_text`` tokens, with 576/1024 patch
     embeddings (vision) or FAM_FRAMES frames (encoder-decoder), from ``gen``."""
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (FAM_B, n_text), generator=gen,
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, n_text), generator=gen,
                                      device=dev)}
     if cfg.frontend == "vision":
-        batch["patch_embeds"] = _randn(gen, FAM_B, cfg.n_frontend_tokens, cfg.d_model,
+        batch["patch_embeds"] = _randn(gen, B, cfg.n_frontend_tokens, cfg.d_model,
                                        dtype=dt, dev=dev) * 0.02
     if cfg.is_encdec:
-        batch["frames"] = _randn(gen, FAM_B, FAM_FRAMES, cfg.d_model, dtype=dt, dev=dev) * 0.02
+        batch["frames"] = _randn(gen, B, FAM_FRAMES, cfg.d_model, dtype=dt, dev=dev) * 0.02
     return batch
 
 
@@ -1720,9 +1810,10 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
     log(f"  {name} ({type(model).__name__}): {n_params} parameters, {n_bytes} bytes "
         f"({cfg.dtype}), built in {time.perf_counter() - t0:.3f} s")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    batch = _family_inputs(cfg, dev, gen, FAM_S)
+    B, n_text = FAM_SHAPE.get(name, (FAM_B, FAM_S))
+    batch = _family_inputs(cfg, dev, gen, B, n_text)
     n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
-    pos0 = FAM_S + n_front                  # the first decode position
+    pos0 = n_text + n_front                 # the first decode position
     max_len = pos0 + FAM_STEPS
 
     ops.reset_launch_counts()
@@ -1734,7 +1825,7 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
     drops = _drops(routes_p)
     k6 = ops.launch_counts()["flash_attention"]
     expect(k6 == k6_want, f"{name}: prefill launched flash_attention {k6} times, not {k6_want}")
-    expect(bool(torch.isfinite(logits).all()) and logits.shape == (FAM_B, 1, cfg.vocab_size),
+    expect(bool(torch.isfinite(logits).all()) and logits.shape == (B, 1, cfg.vocab_size),
            f"{name}: prefill logits {tuple(logits.shape)} not finite or of the wrong shape")
     # (a) the first and last K6 call of the prefill, and below the first and
     # last K7 call of decode step 1, against their plain versions
@@ -1779,7 +1870,7 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
     if name in FAM_F32_STEP_CHECK:
         checked, why = False, " (in bf16 not held: held in float32 below)"
     log(f"  {name}: decode step 1 vs prefill of prompt + token: max |diff| / max |logit| "
-        f"{rel:.4g}, argmax equal in {same}/{FAM_B} rows" + why)
+        f"{rel:.4g}, argmax equal in {same}/{B} rows" + why)
     if checked:
         expect(rel <= DECODE_LOGIT_REL_TOL, f"{name}: decode logits differ from prefill by "
                f"{rel:.3g}")
@@ -1814,10 +1905,14 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
         sync()
         warm.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
-    log(f"  {name} prefill B={FAM_B} S={FAM_S}+{n_front or 0} text+patches"
+    # a dense model's caches (groups, B, slots, KV, D): windows shorter than the prompt
+    ring = (sorted({c.shape[2] for c in cache.values()} - {max_len})
+            if isinstance(model, DecoderLM) else [])
+    log(f"  {name} prefill B={B} S={n_text}+{n_front or 0} text+patches"
         + (f" with {FAM_FRAMES} frames" if cfg.is_encdec else "")
+        + (f" (ring buffers of {ring} slots, wrapped)" if ring else "")
         + f": {first_ms:.3f} ms (first call), warm " + ", ".join(f"{t:.3f}" for t in warm)
-        + f" ms; decode per token (B={FAM_B}): median {np.median(step_ms):.3f} ms, steps "
+        + f" ms; decode per token (B={B}): median {np.median(step_ms):.3f} ms, steps "
         + ", ".join(f"{t:.3f}" for t in step_ms) + f" ms; peak memory {peak} bytes; "
         f"launches K6 {counts['flash_attention']}, K7 {counts['decode_attention']}")
     profile_call(f"{name} prefill", lambda: model.prefill(batch, max_len), host=False)
@@ -1827,18 +1922,20 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     if name in FAM_F32_STEP_CHECK:
-        f32_step_check(name, cfg, dev, seed, pos0)
+        f32_step_check(name, cfg, dev, seed, B, n_text)
     return {"flash_attention": counts["flash_attention"],
             "decode_attention": counts["decode_attention"]}
 
 
-def f32_step_check(name: str, cfg, dev: torch.device, seed: int, pos0: int) -> None:
+def f32_step_check(name: str, cfg, dev: torch.device, seed: int, B: int, n_text: int) -> None:
     """Decode step 1 against a prefill of prompt + token with the model,
     its inputs and its cache in float32 (K6's f32 route, K7 over an f32
     cache), held within DECODE_LOGIT_F32_REL_TOL."""
     cfg = dataclasses.replace(cfg, dtype="float32")
     model = build_model(cfg, dev, seed=seed)
-    batch = _family_inputs(cfg, dev, torch.Generator(device=dev).manual_seed(seed), FAM_S)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = _family_inputs(cfg, dev, gen, B, n_text)
+    pos0 = n_text + (cfg.n_frontend_tokens if cfg.frontend == "vision" else 0)
     logits, cache = model.prefill(batch, pos0 + 1, cache_dtype=torch.float32)
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     step, _ = model.decode_step(tok, cache, pos0)
@@ -3375,7 +3472,8 @@ def bwd_rows(gen, dev) -> dict:
         f"{t['library_backward_device_ms']:.4f} ms device (profiler) "
         f"({t['ms'] / t['library_backward_ms']:.2f}x a call, "
         f"{t['device_ms'] / t['library_backward_device_ms']:.2f}x on device, its grads "
-        f"{t['library_rel']:.3g} of the max off plain); bound {t['bound_ms']:.5f} ms by "
+        f"{t['library_rel']:.3g} of the max off plain, backend {t['library_backend']}); bound "
+        f"{t['bound_ms']:.5f} ms by "
         f"{t['bound_by']}; lse max err {lse_e:.3g}; grads max err "
         + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
     rows["flash_attention_bwd_dkdv"].update(
@@ -3390,16 +3488,45 @@ def bwd_rows(gen, dev) -> dict:
     return rows
 
 
+def sdpa_backend(fn) -> tuple:
+    """(backend, its kernel with the most device time) of the SDPA calls in
+    ``fn``, named from the kernels a profile of one call shows: cuDNN's,
+    FlashAttention's (``flash``), the memory-efficient one's (``fmha``) or
+    else the math route's; ("not seen", None) where the profiler saw no
+    kernel (it has missed a whole call late in a run)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    kernels = sorted(((e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                      if str(e.device_type()).endswith("CUDA")), reverse=True)
+    if not kernels:
+        return "not seen", None
+    names = " ".join(k for _, k in kernels).lower()
+    backend = next((b for tag, b in (("cudnn", "cudnn"), ("flash", "flash"),
+                                     ("fmha", "efficient"), ("mem_eff", "efficient"))
+                    if tag in names), "math")
+    return backend, kernels[0][1]
+
+
 def whole_backward_times(q, k, v, out, lse, dout, masks, want) -> dict:
     """K6's whole backward (one wrapper call: delta, dK/dV, dQ) and SDPA's
-    backward on the same bf16 inputs: ms a call (CUDA events) and device ms
+    backward on the same bf16 inputs: ms a call (CUDA events), device ms
     (a CUDA graph; SDPA's from torch.profiler's kernel times, as a graph
-    does not capture autograd's backward), K6's TFLOP/s of the 5 products
+    does not capture autograd's backward) and ms a call over a loop of
+    calls (``loop_ms``, both, where the profiler may miss SDPA's kernels),
+    K6's TFLOP/s of the 5 products
     and its bound (q, k, v, out, dout, lse read once, dq, dk, dv written; 5
-    products at bf16).  SDPA's backward rounds P and dS to bf16, so its
-    gradients are held to ``want`` (the plain backward's) only as the same
-    function (ATTN_BF16_TOL of each's max)."""
-    causal, _, _, scale = masks
+    products at bf16 over the visible pairs), and the SDPA backend that
+    ran.  SDPA's backward rounds P and dS to bf16, so its gradients are
+    held to ``want`` (the plain backward's) only as the same function
+    (ATTN_BF16_TOL of each's max); SDPA has no softcap and here no window,
+    so with either mask it times the unmasked causal function and is not
+    held to ``want`` (``library_same_function`` False)."""
+    causal, window, softcap, scale = masks
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     whole = lambda: flash_k.backward(q, k, v, out, lse, dout, *masks)  # noqa: E731
@@ -3409,18 +3536,24 @@ def whole_backward_times(q, k, v, out, lse, dout, masks, want) -> dict:
     dout_t = dout.transpose(1, 2).contiguous()
     lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dout_t,  # noqa: E731
                                       retain_graph=True)
-    lib_rel = max(float((g.transpose(1, 2).float() - w.float()).abs().max() / w.float().abs().max())
-                  for g, w in zip(lib(), want))
-    expect(lib_rel <= ATTN_BF16_TOL, f"sdpa backward vs plain: {lib_rel:.3g} of the max off")
-    pairs = S * (S + 1) // 2 if causal else S * T      # (query, key) pairs a head (S <= T)
-    flop = 10.0 * B * H * D * pairs
+    same = softcap is None and (window is None or window >= T)
+    lib_rel = None
+    if same:
+        lib_rel = max(float((g.transpose(1, 2).float() - w.float()).abs().max()
+                            / w.float().abs().max()) for g, w in zip(lib(), want))
+        expect(lib_rel <= ATTN_BF16_TOL, f"sdpa backward vs plain: {lib_rel:.3g} of the max off")
+    flop = 10.0 * B * H * D * flash_k.visible_pairs(S, T, causal, window)
     n_q, n_kv = 2 * q.numel(), 2 * k.numel()
     bms, by = bound(4 * n_q + 4 * n_kv + 4 * B * H * S, flop, BF16_FLOP_PER_S)
     dev_ms = graph_ms(whole, REPS)
+    backend, top = sdpa_backend(lib)
     return {"ms": median_ms(whole, REPS), "device_ms": dev_ms, "tflops": flop / dev_ms / 1e9,
-            "bound_ms": bms, "bound_by": by, "library_backward_ms": median_ms(lib, REPS),
+            "loop_ms": loop_ms(whole, REPS), "bound_ms": bms, "bound_by": by,
+            "library_backward_ms": median_ms(lib, REPS),
+            "library_backward_loop_ms": loop_ms(lib, REPS),
             "library_backward_device_ms": profiled_device_ms(lib, REPS),
-            "library_rel": lib_rel}
+            "library_rel": lib_rel, "library_same_function": same,
+            "library_backend": backend, "library_top_kernel": top}
 
 
 def _train_pair(cfg, dev, seed: int):
@@ -3694,36 +3827,51 @@ def family_train_step(name: str, dev, seed: int) -> dict:
             "bwd_calls": bwd}
 
 
-def family_bwd_rows(gen, dev, steps: dict) -> dict:
+# K6's backward at the families' training shapes (B = ATTN_B, S = ATTN_S,
+# bf16): each model's attention (the D = 256 ones first: BWD_D256), then
+# seamless's encoder and decoder
+BWD_D256 = ("gemma-2b", "gemma2-9b")
+BWD_FAMILY_SHAPES = BWD_D256 + ("zamba2-7b", "phi-3-vision-4.2b", "qwen2-moe-a2.7b",
+                                "seamless-m4t-large-v2")
+
+
+def family_bwd_rows(gen, dev, steps: dict, names=BWD_FAMILY_SHAPES) -> dict:
     """K6's backward (one wrapper call: delta, dK/dV, dQ on the route
-    ``bwd_launch_plan`` picks) at each attention shape of the families' full-
-    width steps (B = ATTN_B, bf16): against its plain version, timed (a
-    call, and device time over a CUDA graph) beside its bound (5 products
-    at bf16) and SDPA's backward (device time from the profiler); with its
-    launches a step in (f) and its device time a call inside the profiled
-    step."""
+    ``bwd_launch_plan`` picks) at the attention shapes of ``names``' full-
+    width steps (B = ATTN_B, bf16, each model's masks and scale): against
+    its plain version, timed (a call, and device time over a CUDA graph)
+    beside its bound (5 products at bf16) and SDPA's backward (device time
+    from the profiler, its backend named); with its launches a step where
+    (f) took one (``steps``) and its device time a call inside the
+    profiled step."""
     B = ATTN_B
     shapes = []
-    for name in ("zamba2-7b", "phi-3-vision-4.2b", "qwen2-moe-a2.7b"):
+    for name in names:
         cfg = get_arch(name)
-        hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-        shapes.append((name, ATTN_S, cfg.n_heads, cfg.n_kv_heads, hd, True,
-                       steps[name]["bwd_calls"]))
-    cfg = get_arch("seamless-m4t-large-v2")
-    half = ATTN_S // 2
-    shapes += [("seamless-m4t-large-v2 encoder self and cross", half, cfg.n_heads,
-                cfg.n_kv_heads, cfg.head_dim, False, cfg.enc_layers + cfg.dec_layers),
-               ("seamless-m4t-large-v2 decoder self", half, cfg.n_heads, cfg.n_kv_heads,
-                cfg.head_dim, True, cfg.dec_layers)]
+        if cfg.is_encdec:
+            half = ATTN_S // 2
+            shapes += [(f"{name} encoder self and cross", half, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, (False, None, None, cfg.head_dim ** -0.5),
+                        cfg.enc_layers + cfg.dec_layers),
+                       (f"{name} decoder self", half, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, (True, None, None, cfg.head_dim ** -0.5),
+                        cfg.dec_layers)]
+            continue
+        D = cfg.resolved_head_dim
+        scale = (cfg.query_pre_attn_scalar or D) ** -0.5
+        masks = (True, cfg.sliding_window, cfg.attn_logit_softcap, scale)
+        shapes.append((name, ATTN_S, cfg.n_heads, cfg.n_kv_heads, D, masks,
+                       steps[name]["bwd_calls"] if name in steps else None))
     out = {}
-    for name, S, H, KV, D, causal, calls in shapes:
+    for name, S, H, KV, D, masks, calls in shapes:
+        causal, window, softcap, scale = masks
         q = _randn(gen, B, S, H, D, dev=dev)
         k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
         dout = _randn(gen, B, S, H, D, dev=dev)
-        scale = 1.0 / math.sqrt(D)
-        masks = (causal, None, None, scale)
         out_, lse = flash_k.forward(q, k, v, *masks, with_lse=True)
-        want = ref.flash_attention_bwd_ref(q, k, v, out_, lse, dout, causal=causal, scale=scale)
+        plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, out_, lse, dout, causal=causal, window=window, softcap=softcap, scale=scale)
+        want = plain()
         got = flash_k.backward(q, k, v, out_, lse, dout, *masks)
         errs = {n: grad_err(f"{n} at {name}'s training shape", g, w)
                 for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -3731,20 +3879,26 @@ def family_bwd_rows(gen, dev, steps: dict) -> dict:
         plan = flash_k.bwd_launch_plan(q.dtype, B, S, S, H, KV, D)
         t = whole_backward_times(q, k, v, out_, lse, dout, masks, want)
         del want
-        plain_ms = median_ms(lambda: ref.flash_attention_bwd_ref(
-            q, k, v, out_, lse, dout, causal=causal, scale=scale), PLAIN_REPS)
+        plain_ms = median_ms(plain, PLAIN_REPS)
         in_step = steps.get(name.split()[0], {}).get("k6_bwd_step_ms")
+        mask_s = ("causal" if causal else "not causal") + "".join(
+            f" {n} {x}" for n, x in (("window", window), ("softcap", softcap)) if x)
         out[name] = {"B": B, "S": S, "T": S, "H": H, "KV": KV, "D": D, "causal": causal,
+                     "window": window, "softcap": softcap, "scale": scale,
                      "kernel_route": plan["route"], "max_abs_err": max(errs.values()),
                      "plain_ms": plain_ms, "launches_a_step": calls,
                      "in_step_device_ms": in_step, **t}
         log(f"  flash_attention backward at {name}'s training shape B={B} S=T={S} H={H} KV={KV} "
-            f"D={D} bf16 {'causal' if causal else 'not causal'} ({plan['route']}): {t['ms']:.4f} "
-            f"ms a call, {t['device_ms']:.4f} ms device, {t['tflops']:.2f} TFLOP/s of the 5 "
-            f"products; bound {t['bound_ms']:.5f} ms by {t['bound_by']}; sdpa backward "
-            f"{t['library_backward_ms']:.4f} ms a call, {t['library_backward_device_ms']:.4f} ms "
-            f"device ({t['device_ms'] / t['library_backward_device_ms']:.2f}x on device); plain "
-            f"{plain_ms:.4f} ms; {calls} calls a step"
+            f"D={D} bf16 {mask_s} ({plan['route']}): {t['ms']:.4f} ms a call, "
+            f"{t['device_ms']:.4f} ms device, {t['tflops']:.2f} TFLOP/s of the 5 products; "
+            f"bound {t['bound_ms']:.5f} ms by {t['bound_by']}; sdpa backward "
+            f"({t['library_backend']}: {t['library_top_kernel']}"
+            + ("" if t["library_same_function"] else "; without the softcap or window: not the "
+               "same function") + f") {t['library_backward_ms']:.4f} ms a call, "
+            f"{t['library_backward_device_ms']:.4f} ms device "
+            f"({t['device_ms'] / t['library_backward_device_ms']:.2f}x on device); a loop of "
+            f"{REPS} calls: {t['loop_ms']:.4f} ms a call, sdpa {t['library_backward_loop_ms']:.4f} "
+            f"({t['loop_ms'] / t['library_backward_loop_ms']:.2f}x); plain {plain_ms:.4f} ms" + (f"; {calls} calls a step" if calls is not None else "")
             + (f" ({in_step:.4f} ms device a call inside the profiled step, the family's "
                "shapes together)" if in_step else "")
             + "; max err " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
@@ -3754,6 +3908,56 @@ def family_bwd_rows(gen, dev, steps: dict) -> dict:
     return out
 
 
+# phase train (a): K6's backward against its plain version, each case in f32
+# and bf16: (B, S, T, H, KV, D, masks).  D in {32, 64, 96, 112, 128, 256}, G
+# in {1, 2, 3, 8}, window, softcap, S != T, ragged S, rows without a key;
+# at D = 256 gemma2-9b's masks (softcap 50, a window, G = 2, its scale
+# 256^-0.5) and gemma-2b's MQA (KV = 1, G = 8), at ragged S
+BWD_CASES = (
+    (2, 200, 200, 8, 4, 128, {}),
+    (1, 130, 130, 4, 2, 256, {"softcap": 30.0}),
+    (2, 96, 96, 8, 4, 32, {"window": 17}),
+    (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
+    (1, 48, 16, 4, 4, 32, {"window": 8}),       # rows that see no key
+    (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40, "softcap": 2.0}),
+    (2, 80, 80, 8, 8, 96, {}),                  # G = 1 at the padded widths
+    (1, 90, 90, 8, 1, 112, {}),                 # G = 8
+    (1, 203, 203, 6, 2, 64, {}),                # G = 3: 21-position tiles, ragged S
+    (1, 77, 77, 4, 4, 128, {"softcap": 30.0}),
+    (1, 333, 333, 4, 2, 256, {"softcap": 50.0, "window": 100, "scale": 256 ** -0.5}),
+    (2, 203, 203, 8, 1, 256, {}),               # MQA: 8-position tiles, ragged S
+    (1, 70, 150, 8, 1, 256, {"causal": False, "window": 60}))
+
+
+def bwd_ptxas(route_check: bool = True) -> None:
+    """ptxas's registers and spills of every backward kernel; the bf16
+    (tensor-core) instances, D = 256's among them, must not spill."""
+    report = build.ptxas_report("flash_attention_bwd")
+    for r in report:
+        log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
+            f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
+    spilled = [r["entry"] for r in report
+               if "_tc_kernel" in r["entry"] and (r["spill_stores"] or r["spill_loads"])]
+    expect(not spilled, f"K6's bf16 backward kernels spill registers: {spilled}")
+    if route_check:
+        d256 = [r["entry"] for r in report if "_tc_kernel" in r["entry"] and "Li256E" in r["entry"]]
+        expect(len(d256) == 2, f"K6's bf16 backward at D = 256: tensor-core instances {d256}")
+
+
+def phase_bwd_rows(dev: torch.device, seed: int = 12) -> dict:
+    """``--bwd-rows``: the backward's ptxas report, phase train (a)'s D = 256
+    cases and K6's backward at gemma-2b's and gemma2-9b's training shapes:
+    the D = 256 route alone, whose times ``--src`` compares between two
+    trees (an older tree's bf16 D = 256 route may be the CUDA cores')."""
+    bwd_ptxas(route_check=False)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for B, S, T, H, KV, D, kw in BWD_CASES:
+        if D == 256:
+            for dt in (torch.float32, torch.bfloat16):
+                bwd_check(gen, dev, B, S, T, H, KV, D, dt, dict(kw))
+    return family_bwd_rows(gen, dev, {}, BWD_D256)
+
+
 def phase_train(dev: torch.device, seed: int = 12):
     """(a) K6's backward against its plain version; (b) the reduced qwen3 at
     f32 on the card against the CPU; (c) checkpoint and restart; (d)
@@ -3761,24 +3965,10 @@ def phase_train(dev: torch.device, seed: int = 12):
     config on the card against the CPU, and a restart of the reduced zamba2;
     (f) a full-width step of each family that fits one card, and K6's
     backward at their shapes; -> (kernel rows, launches of (d), of (f))."""
-    for r in build.ptxas_report("flash_attention_bwd"):
-        log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
-            f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
+    bwd_ptxas()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    # --- (a) the backward kernels: both dtypes (bf16 up to D=128 on the
-    # tensor cores), D in {32, 64, 96, 112, 128, 256}, G in {1, 2, 3, 8},
-    # window, softcap, S != T, rows without a key
-    for B, S, T, H, KV, D, kw in (
-            (2, 200, 200, 8, 4, 128, {}),
-            (1, 130, 130, 4, 2, 256, {"softcap": 30.0}),
-            (2, 96, 96, 8, 4, 32, {"window": 17}),
-            (1, 70, 150, 4, 2, 128, {"causal": False, "softcap": 5.0}),
-            (1, 48, 16, 4, 4, 32, {"window": 8}),       # rows that see no key
-            (1, 100, 100, 8, 1, 64, {"scale": 0.3, "window": 40, "softcap": 2.0}),
-            (2, 80, 80, 8, 8, 96, {}),                  # G = 1 at the padded widths
-            (1, 90, 90, 8, 1, 112, {}),                 # G = 8
-            (1, 203, 203, 6, 2, 64, {}),                # G = 3: 21-position tiles, ragged S
-            (1, 77, 77, 4, 4, 128, {"softcap": 30.0})):
+    # --- (a) the backward kernels: both dtypes (bf16 on the tensor cores)
+    for B, S, T, H, KV, D, kw in BWD_CASES:
         for dt in (torch.float32, torch.bfloat16):
             bwd_check(gen, dev, B, S, T, H, KV, D, dt, dict(kw))
     rows = bwd_rows(gen, dev)
@@ -5127,7 +5317,8 @@ def main() -> int:
         phase_env()
     log(f"port: {SRC}")
     only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
-                        "--dryrun", "--hash", "--near-tie", "--examples") if m in sys.argv[1:]]
+                        "--dryrun", "--hash", "--near-tie", "--examples", "--bwd-rows")
+            if m in sys.argv[1:]]
     if only:
         with timed("build"):
             build.build_all()
@@ -5137,7 +5328,8 @@ def main() -> int:
                  "--families": lambda d: phase_families(d, family_names()),
                  "--train": phase_train, "--layout": phase_layout,
                  "--dryrun": phase_dryrun, "--hash": phase_hash_repeat,
-                 "--near-tie": phase_near_tie, "--examples": phase_examples}[mode](dev)
+                 "--near-tie": phase_near_tie, "--examples": phase_examples,
+                 "--bwd-rows": phase_bwd_rows}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -5151,7 +5343,7 @@ def main() -> int:
                         f"spill loads {r['spill_loads']} bytes")
             for line in build.ptxas_warnings(name):
                 log(f"  ptxas {name}: {line}")
-        # K6's bf16 backward (D <= 128) must run on the tensor cores, unspilled
+        # K6's bf16 backward must run on the tensor cores, unspilled
         for kern in ("dkdv_tc_kernel", "dq_tc_kernel"):
             n_mma = build.sass_count("flash_attention_bwd", "HGMMA", kern)
             n_tma = build.sass_count("flash_attention_bwd", "UTMALDG", kern)

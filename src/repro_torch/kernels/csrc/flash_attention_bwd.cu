@@ -33,7 +33,7 @@
 // Two routes, chosen by the wrapper (kernels/flash_attention.py::
 // bwd_launch_plan) and dispatched explicitly here:
 //
-//   * bf16 at D in {16, 32, 64, 96, 112, 128} -> dkdv_tc_kernel and
+//   * bf16 at every width -> dkdv_tc_kernel and
 //     dq_tc_kernel, on the tensor cores (wgmma + TMA; the PTX wrappers are
 //     hopper.cuh's, shared with the forward).  A block has two consumer
 //     warpgroups and a producer warpgroup whose one warp keeps TMA loads in
@@ -83,15 +83,35 @@
 //     SDPA's backward on the device (0.441 ms), where the CUDA-core route
 //     took 10.8-11.0 ms a call; the passes run at 527 (dK/dV) and 504 (dQ)
 //     TFLOP/s of the bf16 peak's 989.
-//   * f32 at every width, and bf16 at D = 256 -> dkdv_kernel and dq_kernel,
-//     on the CUDA cores: every product an fp32 FMA over fp32 tiles in shared
-//     memory (bf16 inputs are widened as they are loaded, so both dtypes
-//     share one code path; S and dP are computed in both kernels: 7 products
-//     where 5 are needed).  A tensor-core product at f32 would be TF32 and
-//     break the 2e-5 limit.  At D = 256 one 64 x 256 accumulator is
-//     already 128 registers a thread, and with S^T, dP^T and the split
-//     words it passes the 168 ptxas allows: a wgmma design for it (32-row
-//     tiles, or a warpgroup per column half) is open work (ROADMAP).
+//     D = 256 (gemma's heads): a warpgroup's accumulator covers one column
+//     half (Cfg::kN = 128 columns), so every register budget is D = 128's.
+//     A whole 64 x 256 fp32 accumulator is 128 of the 168 registers a
+//     thread; with the S^T / dP^T fragments (64) and the hi/lo words (32)
+//     it cannot fit, and one warpgroup a block (255 registers) would still
+//     hold 224 live values beside its addresses, or need dV and dK in
+//     separate blocks anyway.  So the dK/dV grid gains a column-half axis
+//     (block x: key tile x / 2, half x % 2): each block makes dV and dK of
+//     its 64 keys for 128 of the 256 columns, reading K, V, Q and dO whole
+//     (S^T and dP^T contract over all of D, so they are computed once per
+//     half), and the dV / dK products read the half's two 64-column chunks
+//     of the ring tiles.  The dQ block keeps one 64-row Q / dO tile, which
+//     both warpgroups share: each computes S and dP for it and makes one
+//     column half of dQ (two resident tiles per warpgroup and a two-stage
+//     K / V ring would be 256 KB of shared memory; this way it is 192 KB,
+//     as dK/dV's).  Product passes in bf16-peak units of the five needed:
+//     dK/dV 10 (S^T 2 + dV 1 in the dV warpgroup, S^T, dP^T and dK 3 in
+//     the dK one, per half), dQ 6: 16 where D <= 128 issues 11.  At
+//     gemma-2b's training shape (B=4, S=2048, H=8, KV=1: MQA, G = 8) the
+//     halves also double the dK/dV grid from 128 blocks, fewer than the
+//     132 SMs, to 256, each block walking its keys' rows of all 8 heads,
+//     the longest causal range first within each batch.  Measured there
+//     (chip_smoke.py --bwd-rows, NVIDIA H100 80GB HBM3, 700 W): 1.07-1.10
+//     ms of device time a call, 157-160 TFLOP/s of the 5 products, against
+//     SDPA's backward (cuDNN) 0.61 ms and the CUDA-core route's 16.3 ms.
+//   * f32 at every width -> dkdv_kernel and dq_kernel, on the CUDA cores:
+//     every product an fp32 FMA over fp32 tiles in shared memory (S and dP
+//     are computed in both kernels: 7 products where 5 are needed).  A
+//     tensor-core product at f32 would be TF32 and break the 2e-5 limit.
 //
 // CUDA-core layout: thread (ty, tx) of 16 x 16 owns A/16 entries of the
 // tile's own axis (keys in dK/dV, query rows in dQ) and 4 of the 64 entries
@@ -152,10 +172,10 @@ __device__ __forceinline__ long long at(int b, int L, int pos, int heads, int he
   return ((static_cast<long long>(b) * L + pos) * heads + head) * D;
 }
 
-// One D-wide row at src (16-byte aligned; nullptr: zeros) into dst[d * step].
-template <typename T, int D>
-__device__ __forceinline__ void load_piece(const T* src, int piece, float* dst, int step) {
-  constexpr int V = kVec<T>;
+// Piece `piece` (kVec<float> values) of a row at src (16-byte aligned;
+// nullptr: zeros) into dst[d * step].
+__device__ __forceinline__ void load_piece(const float* src, int piece, float* dst, int step) {
+  constexpr int V = kVec<float>;
   float x[V] = {};
   if (src != nullptr) load16(src + piece * V, x);
 #pragma unroll
@@ -188,12 +208,13 @@ constexpr size_t dkdv_smem() {
   return sizeof(float) * (2 * BK * (D + 4) + 2 * D * kTs + 2 * BK * kPs + 2 * kOther);
 }
 
-template <typename T, int D, int BK>
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads, 1)
-dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ dout, const float* __restrict__ lse,
-            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, Masks mk) {
-  constexpr int KPT = BK / 16, E = D / 16, kKs = D + 4, DV = D / kVec<T>;
+dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            float* __restrict__ dk, float* __restrict__ dv, Masks mk) {
+  constexpr int KPT = BK / 16, E = D / 16, kKs = D + 4, DV = D / kVec<float>;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                   // [BK][kKs]
   float* Vs = Ks + BK * kKs;          // [BK][kKs]
@@ -211,8 +232,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   for (int i = tid; i < BK * DV; i += kThreads) {
     const int c = i / DV, t = t0 + c;
     const long long off = at(b, mk.T, t, mk.KV, kvh, D);
-    load_piece<T, D>(t < mk.T ? k + off : nullptr, i - c * DV, Ks + c * kKs, 1);
-    load_piece<T, D>(t < mk.T ? v + off : nullptr, i - c * DV, Vs + c * kKs, 1);
+    load_piece(t < mk.T ? k + off : nullptr, i - c * DV, Ks + c * kKs, 1);
+    load_piece(t < mk.T ? v + off : nullptr, i - c * DV, Vs + c * kKs, 1);
   }
 
   // the rows that may see a key of this tile (key t is seen from position
@@ -233,8 +254,8 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     for (int i = tid; i < kOther * DV; i += kThreads) {
       const int rr = i / DV, r = r0 + rr, pos = r / G;
       const long long off = at(b, S, pos, mk.H, kvh * G + r - pos * G, D);
-      load_piece<T, D>(r < r_end ? q + off : nullptr, i - rr * DV, Qt + rr, kTs);
-      load_piece<T, D>(r < r_end ? dout + off : nullptr, i - rr * DV, dOt + rr, kTs);
+      load_piece(r < r_end ? q + off : nullptr, i - rr * DV, Qt + rr, kTs);
+      load_piece(r < r_end ? dout + off : nullptr, i - rr * DV, dOt + rr, kTs);
     }
     if (tid < kOther) {
       const int r = r0 + tid, pos = r / G;
@@ -332,12 +353,13 @@ constexpr size_t dq_smem() {
   return sizeof(float) * (2 * BR * (D + 4) + 2 * D * kTs + BR * kPs);
 }
 
-template <typename T, int D, int BR>
+template <int D, int BR>
 __global__ void __launch_bounds__(kThreads, 1)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, Masks mk) {
-  constexpr int RPT = BR / 16, E = D / 16, kQs = D + 4, DV = D / kVec<T>;
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ dout,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          float* __restrict__ dq, Masks mk) {
+  constexpr int RPT = BR / 16, E = D / 16, kQs = D + 4, DV = D / kVec<float>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                   // [BR][kQs]
   float* dOs = Qs + BR * kQs;         // [BR][kQs]
@@ -352,8 +374,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = tid; i < BR * DV; i += kThreads) {
     const int rr = i / DV, r = r0 + rr, pos = r / G;
     const long long off = at(b, S, pos, mk.H, kvh * G + r - pos * G, D);
-    load_piece<T, D>(r < n_rows ? q + off : nullptr, i - rr * DV, Qs + rr * kQs, 1);
-    load_piece<T, D>(r < n_rows ? dout + off : nullptr, i - rr * DV, dOs + rr * kQs, 1);
+    load_piece(r < n_rows ? q + off : nullptr, i - rr * DV, Qs + rr * kQs, 1);
+    load_piece(r < n_rows ? dout + off : nullptr, i - rr * DV, dOs + rr * kQs, 1);
   }
   int pos_r[RPT];
   float lse_r[RPT], delta_r[RPT];
@@ -383,8 +405,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int i = tid; i < kOther * DV; i += kThreads) {
       const int c = i / DV, t = t0 + c;
       const long long off = at(b, mk.T, t, mk.KV, kvh, D);
-      load_piece<T, D>(t < mk.T ? k + off : nullptr, i - c * DV, Kt + c, kTs);
-      load_piece<T, D>(t < mk.T ? v + off : nullptr, i - c * DV, Vt + c, kTs);
+      load_piece(t < mk.T ? k + off : nullptr, i - c * DV, Kt + c, kTs);
+      load_piece(t < mk.T ? v + off : nullptr, i - c * DV, Vt + c, kTs);
     }
     __syncthreads();
 
@@ -452,7 +474,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < RPT; ++i) {
     if (pos_r[i] < 0) continue;
     const int r = r0 + ty * RPT + i;
-    T* row = dq + at(b, S, pos_r[i], mk.H, kvh * G + r - pos_r[i] * G, D);
+    float* row = dq + at(b, S, pos_r[i], mk.H, kvh * G + r - pos_r[i] * G, D);
 #pragma unroll
     for (int e = 0; e < E; ++e) store(row + tx + 16 * e, acc[i][e] * mk.scale);
   }
@@ -492,6 +514,15 @@ struct Cfg {
   static constexpr int kDp = kNChunk * kChunk;        // smem tile width
   static constexpr int kRowBytes = kChunk * 2;        // = the swizzle width
   static constexpr int kTileBytes = kTile * kDp * 2;
+  // a warpgroup's accumulator: kN columns, one of kHalves column halves
+  // (D = 256: 128 of 256), of which it stores kOut (D = 96, 112: the first D)
+  static constexpr int kN = kDp > 128 ? 128 : kDp;
+  static constexpr int kHalves = kDp / kN;
+  static constexpr int kOut = kHalves > 1 ? kN : D;
+  static constexpr int kHalfOffset = kN / kChunk * kTile * kRowBytes;   // bytes in a tile
+  // dQ: resident row tiles, one a warpgroup, or (kHalves = 2) one that both
+  // warpgroups share, each making one column half of its dQ
+  static constexpr int kQTiles = kHalves > 1 ? 1 : kWG;
   // consumer warpgroups, then one producer warpgroup; setmaxnreg moves the
   // producer's registers to the consumers
   static constexpr int kThreads = (kWG + 1) * 128;
@@ -502,9 +533,10 @@ struct Cfg {
   static constexpr size_t kDkdvTiles = static_cast<size_t>(2 + 2 * kStages) * kTileBytes;
   static constexpr size_t kDkdvSmem =
       1024 + kDkdvTiles + (2 * kStages + 1) * kTile * 4 + 8 * (1 + 2 * kStages);
-  // dQ: each warpgroup's Q and dO and the ring, 1 + 2 * kStages mbarriers
-  static constexpr size_t kDqTiles = static_cast<size_t>(2 * kWG + 2 * kStages) * kTileBytes;
+  // dQ: the resident Q and dO tiles and the ring, 1 + 2 * kStages mbarriers
+  static constexpr size_t kDqTiles = static_cast<size_t>(2 * kQTiles + 2 * kStages) * kTileBytes;
   static constexpr size_t kDqSmem = 1024 + kDqTiles + 8 * (1 + 2 * kStages);
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448, "an H100 block's shared memory");
 };
 
 // p of one score (see the top) into x, and with kDs dS into dp; x = q.k
@@ -585,20 +617,21 @@ __device__ __forceinline__ void fence_u32(uint32_t (*a)[4]) {
 
 // acc += A B for the kT-deep register-A operand A = hi + lo (two wgmmas
 // each k16 step) and B an MN-major tile of kT rows (its 64-column chunks
-// kT * kRB bytes apart, 8-row groups 8 * kRB apart, a k16 step 16 rows).
-template <int kT, int kDp, int kRB>
+// kT * kRB bytes apart, 8-row groups 8 * kRB apart, a k16 step 16 rows),
+// kN of its columns from `tile` on.
+template <int kT, int kN, int kRB>
 __device__ __forceinline__ void issue_split(float* acc, uint32_t (*hi)[4], uint32_t (*lo)[4],
                                             uint32_t tile) {
   const uint64_t bd = smem_desc(tile, kT * kRB, 8 * kRB, kRB);
 #pragma unroll
   for (int kk = 0; kk < kT / 16; ++kk) {
-    wgmma_rs<kDp>(acc, hi[kk], bd + ((kk * 16 * kRB) >> 4));
-    wgmma_rs<kDp>(acc, lo[kk], bd + ((kk * 16 * kRB) >> 4));
+    wgmma_rs<kN>(acc, hi[kk], bd + ((kk * 16 * kRB) >> 4));
+    wgmma_rs<kN>(acc, lo[kk], bd + ((kk * 16 * kRB) >> 4));
   }
 }
 
 // bf16 pairs of a thread's accumulator row i (columns j*8 + col, + 1; the
-// first D of kDp) times `mul` to row.
+// first D of its kN) times `mul` to row.
 template <int D>
 __device__ __forceinline__ void store_row(__nv_bfloat16* row, const float* acc, int i,
                                           float mul) {
@@ -612,11 +645,13 @@ __device__ __forceinline__ void store_row(__nv_bfloat16* row, const float* acc, 
 // b), walking the query rows (row = position * G + head) that may see its
 // keys, P = box positions (P * G of a tile's kTile rows) at a time.  The
 // first consumer warpgroup makes dV (S^T, P^T, dV += P^T dO), the second
-// dK (S^T and dP^T, dS^T, dK += dS^T Q): each holds one kTile x kDp
+// dK (S^T and dP^T, dS^T, dK += dS^T Q): each holds one kTile x kN
 // accumulator, so both fit the 168 registers a thread ptxas allows a
 // 384-thread block (one warpgroup holding both spills; setmaxnreg moves
 // registers at run time, not in ptxas's allocation).  S^T is computed by
 // both: 7 product passes for the pair, where one warpgroup would issue 6.
+// With two column halves (D = 256) block x makes columns [128 h, 128 h +
+// 128) of key tile x / 2's dV and dK, h = x % 2.
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -627,7 +662,7 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                __nv_bfloat16* __restrict__ dv, Masks mk, int P) {
   using C = Cfg<D>;
   static_assert(C::kWG == 2, "one warpgroup for dV, one for dK");
-  constexpr int kNS = C::kStages, kRB = C::kRowBytes, kDp = C::kDp, kT = C::kTile;
+  constexpr int kNS = C::kStages, kRB = C::kRowBytes, kT = C::kTile;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms
@@ -646,7 +681,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
   const int G = mk.G, S = mk.S, rows = G * P;
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const int t0 = blockIdx.x * kT;   // causal: block 0 has the longest range
+  const int half = blockIdx.x % C::kHalves;                  // the column half
+  const int t0 = blockIdx.x / C::kHalves * kT;   // causal: tile 0 has the longest range
   const int t_last = min(t0 + kT, mk.T) - 1;
   // positions that may see a key of the block (key t is seen from position
   // t - qo on, and up to t + window - 1 - qo)
@@ -732,9 +768,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   // wgmma sits in a branch the compiler must treat as divergent
   auto consume = [&](auto dk_tag) {
     constexpr bool kDk = decltype(dk_tag)::value;
-    float acc[kDp / 2];
+    constexpr int kN = C::kN;
+    float acc[kN / 2];
 #pragma unroll
-    for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
     for (int n = 0; n < n_tiles; ++n) {
       const int s = n % kNS;
       const uint32_t ph = (n / kNS) & 1;
@@ -770,15 +807,16 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
           else GRAD_TILE(false, true);
         }
 #undef GRAD_TILE
-        // dV += P^T dO, dK += dS^T Q: dO and Q read MN-major from the ring tiles
+        // dV += P^T dO, dK += dS^T Q: the half's columns of dO and Q read
+        // MN-major from the ring tiles
         if constexpr (kDk) split_p<kT>(dp, hi, lo);
         else split_p<kT>(sc, hi, lo);
-        fence_regs<kDp / 2>(acc);
+        fence_regs<kN / 2>(acc);
         wgmma_fence();
-        issue_split<kT, kDp, kRB>(acc, hi, lo, kDk ? sQs : sdOs);
+        issue_split<kT, kN, kRB>(acc, hi, lo, (kDk ? sQs : sdOs) + half * C::kHalfOffset);
         wgmma_commit();
         wgmma_wait<0>();
-        fence_regs<kDp / 2>(acc);
+        fence_regs<kN / 2>(acc);
         fence_u32<kT / 16>(hi);
         fence_u32<kT / 16>(lo);
       }
@@ -788,18 +826,20 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (key_r[i] >= mk.T) continue;
-      const long long off = at(b, mk.T, key_r[i], mk.KV, kvh, D) + col;
-      if constexpr (kDk) store_row<D>(dk + off, acc, i, mk.scale);
-      else store_row<D>(dv + off, acc, i, 1.f);
+      const long long off = at(b, mk.T, key_r[i], mk.KV, kvh, D) + half * kN + col;
+      if constexpr (kDk) store_row<C::kOut>(dk + off, acc, i, mk.scale);
+      else store_row<C::kOut>(dv + off, acc, i, 1.f);
     }
   };
   if (warp >= 4) consume(std::true_type{});
   else consume(std::false_type{});
 }
 
-// dQ of kWG * P positions (kTile rows a warpgroup) of one kv head's G
-// heads: a block per (row tile, kv head, b), walking the key tiles its rows
-// may see.
+// dQ of kQTiles * P positions (kTile rows a resident tile) of one kv head's
+// G heads: a block per (row tile, kv head, b), walking the key tiles its
+// rows may see.  kQTiles = kWG: warpgroup w owns tile w; with two column
+// halves (D = 256) both own the one tile and warpgroup w makes its dQ's
+// columns [128 w, 128 w + 128).
 template <int D>
 __global__ void __launch_bounds__(Cfg<D>::kThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -807,12 +847,12 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
              const float* __restrict__ lse, const float* __restrict__ delta,
              __nv_bfloat16* __restrict__ dq, Masks mk, int P) {
   using C = Cfg<D>;
-  constexpr int kNS = C::kStages, kRB = C::kRowBytes, kDp = C::kDp, kT = C::kTile;
+  constexpr int kNS = C::kStages, kRB = C::kRowBytes, kT = C::kTile;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sQ = base;                          // [kWG] resident
-  const uint32_t sdO = sQ + C::kWG * C::kTileBytes;
-  const uint32_t sK = sdO + C::kWG * C::kTileBytes;  // [kNS] ring
+  const uint32_t sQ = base;                              // [kQTiles] resident
+  const uint32_t sdO = sQ + C::kQTiles * C::kTileBytes;
+  const uint32_t sK = sdO + C::kQTiles * C::kTileBytes;  // [kNS] ring
   const uint32_t sV = sK + kNS * C::kTileBytes;
   const uint32_t bars = base + static_cast<uint32_t>(C::kDqTiles);
   const uint32_t q_full = bars;
@@ -822,8 +862,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
   const int G = mk.G, S = mk.S, rows = G * P;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int tile = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
-  const int pos0 = tile * C::kWG * P;
-  const int pos_end = min(S, pos0 + C::kWG * P);
+  const int pos0 = tile * C::kQTiles * P;
+  const int pos_end = min(S, pos0 + C::kQTiles * P);
   const int t_lo = mk.window > 0 ? max(0, pos0 + mk.qo - mk.window + 1) : 0;
   const int t_hi = mk.causal ? min(mk.T, pos_end + mk.qo) : mk.T;
   const int n_tiles = t_hi > t_lo ? (t_hi - t_lo + kT - 1) / kT : 0;
@@ -843,8 +883,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     // ---- producer: Q and dO once, then K and V tiles through the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
     if (warp == C::kWG * 4 && lane == 0) {
-      mbar_expect_tx(q_full, 2 * C::kWG * C::kNChunk * rows * kRB);
-      for (int w = 0; w < C::kWG; ++w)
+      mbar_expect_tx(q_full, 2 * C::kQTiles * C::kNChunk * rows * kRB);
+      for (int w = 0; w < C::kQTiles; ++w)
         for (int c = 0; c < C::kNChunk; ++c) {
           const uint32_t off = w * C::kTileBytes + c * kT * kRB;
           tma_load_4d(sQ + off, &qmap, q_full, c * C::kChunk, kvh * G, pos0 + w * P, b);
@@ -865,11 +905,14 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     return;
   }
 
-  // ---- consumers: warpgroup wg owns rows [0, rows) of its Q and dO tiles
+  // ---- consumers: warpgroup wg takes rows [0, rows) of Q and dO tile qt,
+  // columns [half * kN, half * kN + kN) of their dQ
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  constexpr int kN = C::kN;
   const int wg = warp >> 2, w4 = warp & 3;
-  const uint32_t sQw = sQ + wg * C::kTileBytes, sdOw = sdO + wg * C::kTileBytes;
-  const int wpos0 = pos0 + wg * P;
+  const int qt = C::kHalves > 1 ? 0 : wg, half = C::kHalves > 1 ? wg : 0;
+  const uint32_t sQw = sQ + qt * C::kTileBytes, sdOw = sdO + qt * C::kTileBytes;
+  const int wpos0 = pos0 + qt * P;
   const int wpos_hi = min(S, wpos0 + P) - 1;        // < wpos0: no valid row
   const int col = (lane & 3) * 2;
   const float scale_log2 = mk.scale * kLog2e;
@@ -886,9 +929,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
     dlt[i] = ok ? delta[row] : 0.f;
   }
 
-  float acc[kDp / 2];
+  float acc[kN / 2];
 #pragma unroll
-  for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int n = 0; n < n_tiles; ++n) {
@@ -924,13 +967,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #undef GRAD_TILE
       uint32_t d_hi[kT / 16][4], d_lo[kT / 16][4];
       split_p<kT>(dp, d_hi, d_lo);
-      // dQ += dS K: K read MN-major from the ring tile
-      fence_regs<kDp / 2>(acc);
+      // dQ += dS K: the half's columns of K read MN-major from the ring tile
+      fence_regs<kN / 2>(acc);
       wgmma_fence();
-      issue_split<kT, kDp, kRB>(acc, d_hi, d_lo, sKs);
+      issue_split<kT, kN, kRB>(acc, d_hi, d_lo, sKs + half * C::kHalfOffset);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<kDp / 2>(acc);
+      fence_regs<kN / 2>(acc);
       fence_u32<kT / 16>(d_hi);
       fence_u32<kT / 16>(d_lo);
     }
@@ -941,8 +984,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ C
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (r_i[i] >= rows || pos_r[i] >= S) continue;
-    store_row<D>(dq + at(b, S, pos_r[i], mk.H, kvh * G + r_i[i] % G, D) + col, acc, i,
-                 mk.scale);
+    store_row<C::kOut>(dq + at(b, S, pos_r[i], mk.H, kvh * G + r_i[i] % G, D) + half * kN + col,
+                       acc, i, mk.scale);
   }
 }
 
@@ -957,13 +1000,13 @@ int launch(bool dkdv, const Args& a, const Plan& p) {
   const Masks& mk = a.mk;
   // the plan must be the one this instance was compiled for, its row box
   // one kv head's G heads over at most kTile rows, and its blocks must
-  // reach T (dK/dV) or S (dQ)
-  const long long reach =
-      static_cast<long long>(p.n_blocks) * (dkdv ? C::kTile : C::kWG * p.box_pos);
+  // reach T (dK/dV, kHalves blocks a key tile) or S (dQ)
+  const long long reach = dkdv ? static_cast<long long>(p.n_blocks / C::kHalves) * C::kTile
+                               : static_cast<long long>(p.n_blocks) * C::kQTiles * p.box_pos;
   if (p.warpgroups != C::kWG || p.threads != C::kThreads || p.stages != C::kStages ||
       p.tile != C::kTile || p.chunk != C::kChunk || p.swizzle_bytes != C::kRowBytes ||
       p.box_heads != mk.G || p.box_pos < 1 || p.box_pos * mk.G > C::kTile ||
-      reach < (dkdv ? mk.T : mk.S))
+      (dkdv && p.n_blocks % C::kHalves) || reach < (dkdv ? mk.T : mk.S))
     return static_cast<int>(cudaErrorInvalidValue);
   // q, dout (B, S, H, D) and k, v (B, T, KV, D) contiguous
   const long long qh = D, qs = static_cast<long long>(mk.H) * D, qb = qs * mk.S;
@@ -1006,56 +1049,57 @@ int launch_width(bool dkdv, int D, const Args& a, const Plan& p) {
     case 96: return launch<96>(dkdv, a, p);
     case 112: return launch<112>(dkdv, a, p);
     case 128: return launch<128>(dkdv, a, p);
+    case 256: return launch<256>(dkdv, a, p);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace tc
 
-// D = 256 takes tiles of 32 on the own axis (shared memory and registers).
-template <typename T, int D>
+// f32 on the CUDA cores; D = 256 takes tiles of 32 on the own axis (shared
+// memory and registers).
+template <int D>
 int launch_width(bool dkdv, const Args& a) {
   constexpr int A = D == 256 ? 32 : 64;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   if (dkdv) {
     constexpr size_t bytes = dkdv_smem<D, A>();
     cudaError_t err = cudaFuncSetAttribute(
-        dkdv_kernel<T, D, A>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        dkdv_kernel<D, A>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((a.mk.T + A - 1) / A, a.mk.KV, a.B);
-    dkdv_kernel<T, D, A><<<grid, kThreads, bytes, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.mk);
+    dkdv_kernel<D, A><<<grid, kThreads, bytes, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.mk);
   } else {
     constexpr size_t bytes = dq_smem<D, A>();
     cudaError_t err = cudaFuncSetAttribute(
-        dq_kernel<T, D, A>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        dq_kernel<D, A>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid((a.mk.S * a.mk.G + A - 1) / A, a.mk.KV, a.B);
-    dq_kernel<T, D, A><<<grid, kThreads, bytes, a.stream>>>(
-        q, k, v, dout, a.lse, a.delta, static_cast<T*>(a.dq), a.mk);
+    dq_kernel<D, A><<<grid, kThreads, bytes, a.stream>>>(
+        q, k, v, dout, a.lse, a.delta, static_cast<float*>(a.dq), a.mk);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_f32(bool dkdv, int D, const Args& a) {
   switch (D) {
-    case 16: return launch_width<float, 16>(dkdv, a);
-    case 32: return launch_width<float, 32>(dkdv, a);
-    case 64: return launch_width<float, 64>(dkdv, a);
-    case 96: return launch_width<float, 96>(dkdv, a);
-    case 112: return launch_width<float, 112>(dkdv, a);
-    case 128: return launch_width<float, 128>(dkdv, a);
-    case 256: return launch_width<float, 256>(dkdv, a);
+    case 16: return launch_width<16>(dkdv, a);
+    case 32: return launch_width<32>(dkdv, a);
+    case 64: return launch_width<64>(dkdv, a);
+    case 96: return launch_width<96>(dkdv, a);
+    case 112: return launch_width<112>(dkdv, a);
+    case 128: return launch_width<128>(dkdv, a);
+    case 256: return launch_width<256>(dkdv, a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// route: 1 -> the tensor cores (bf16 up to D = 128; the plan as
-// bwd_launch_plan gives it), 0 -> the CUDA cores (f32 at every width, bf16
-// at D = 256; the plan is not used).
+// route: 1 -> the tensor cores (bf16; the plan as bwd_launch_plan gives
+// it), 0 -> the CUDA cores (f32; the plan is not used).
 int launch(bool dkdv, const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, void* dq, void* dk, void* dv, int B, int S,
            int T_len, int H, int KV, int D, int causal, int window, int q_offset, float softcap,
@@ -1066,9 +1110,7 @@ int launch(bool dkdv, const void* q, const void* k, const void* v, const void* d
                dq, dk, dv, B, Masks{S, T_len, H, KV, H / KV, causal, window, q_offset, softcap, scale},
                static_cast<cudaStream_t>(stream)};
   if (!is_bf16) return route ? static_cast<int>(cudaErrorInvalidValue) : launch_f32(dkdv, D, a);
-  if (route) return tc::launch_width(dkdv, D, a, plan);
-  return D == 256 ? launch_width<__nv_bfloat16, 256>(dkdv, a)
-                  : static_cast<int>(cudaErrorInvalidValue);
+  return route ? tc::launch_width(dkdv, D, a, plan) : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

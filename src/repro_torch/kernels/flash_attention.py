@@ -17,8 +17,8 @@ Gradients: when any of q, k, v requires grad, the wrapper goes through
 ``FlashAttention`` (a ``torch.autograd.Function``).  Its forward launches
 the same kernel with a per-row log-sum-exp output; its backward launches
 the three entry points of ``csrc/flash_attention_bwd.cu`` (delta, dK/dV,
-dQ; bf16 up to D=128 on the tensor cores, f32 and bf16 D=256 on the CUDA
-cores, as ``bwd_launch_plan`` picks) for CUDA tensors and runs
+dQ; bf16 on the tensor cores, f32 on the CUDA cores, as
+``bwd_launch_plan`` picks) for CUDA tensors and runs
 ``ref.flash_attention_bwd_ref`` for CPU tensors.  The reference has no
 Pallas backward: it differentiates the same attention math with
 ``jax.grad``.  Without grad the call is the plain kernel launch above.
@@ -96,50 +96,58 @@ def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
             "kv_box": (chunk, 1, bn, 1), "grid": (_cdiv(S, wg * pos), KV, B)}
 
 
-# K6's backward (``csrc/flash_attention_bwd.cu``): bf16 at these widths runs
-# on the tensor cores, two consumer warpgroups a block and tiles of 64 rows
-# (keys, or (position, head) rows) with a two-stage ring; f32 at every
-# width and bf16 at D=256 run on the CUDA cores (one 64 x 256 accumulator
-# is already 128 of the 168 registers ptxas gives a thread of a 384-thread
-# block).  The kernels are compiled for these (``tc::Cfg``) and refuse a
-# plan that differs.
-BWD_TC_DIMS = (16, 32, 64, 96, 112, 128)
-BWD_WARPGROUPS, BWD_TILE, BWD_STAGES = 2, 64, 2
+# K6's backward (``csrc/flash_attention_bwd.cu``): bf16 runs on the tensor
+# cores, two consumer warpgroups a block and tiles of 64 rows (keys, or
+# (position, head) rows) with a two-stage ring; f32 runs on the CUDA cores.
+# A warpgroup's accumulator is at most BWD_ACC_COLS columns (ptxas gives a
+# thread of a 384-thread block 168 registers; a 64 x 256 fp32 accumulator
+# alone is 128): at D=256 each dK/dV block makes one column half of its
+# keys' dV and dK (the grid doubles), and the two warpgroups of a dQ block
+# share one row tile and make one column half each.  The kernels are
+# compiled for these (``tc::Cfg``) and refuse a plan that differs.
+BWD_WARPGROUPS, BWD_TILE, BWD_STAGES, BWD_ACC_COLS = 2, 64, 2, 128
 
 
 def bwd_launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
                     D: int) -> dict:
     """The backward kernels' route and, on the wgmma route, their launch.
 
-    ``route`` is "wgmma" (bf16 at ``BWD_TC_DIMS``) or "fma" (f32, and bf16
-    at D=256).  On the wgmma route a block of ``threads`` runs
-    ``warpgroups`` consumer warpgroups and a producer; every tile is
-    ``tile`` rows of ``tile_width`` columns, loaded as boxes of ``chunk``
-    columns swizzled over ``swizzle_bytes``.  The dK/dV kernel gives each
-    block ``tile`` keys (``kv_box``, loaded once; one warpgroup makes their
-    dV, the other their dK) and walks the query rows that may see them a
+    ``route`` is "wgmma" (bf16) or "fma" (f32).  On the wgmma route a block
+    of ``threads`` runs ``warpgroups`` consumer warpgroups and a producer;
+    every tile is ``tile`` rows of ``tile_width`` columns, loaded as boxes of
+    ``chunk`` columns swizzled over ``swizzle_bytes``; a warpgroup's
+    accumulator covers ``acc_cols`` of them, one of ``col_halves``.  The
+    dK/dV kernel gives each block ``tile`` keys (``kv_box``, loaded once;
+    one warpgroup makes their dV, the other their dK, of column half x %
+    ``col_halves`` for block x) and walks the query rows that may see them a
     ``q_box`` at a time (``q_box[2]`` whole positions of the kv head's G
     heads, row = position * G + head) through a ring of ``stages`` Q/dO
-    tiles: grid ``dkdv_grid`` (key tiles, KV, B).  The dQ kernel gives
-    each warpgroup one ``q_box`` of rows (loaded once) and walks its keys a
+    tiles: grid ``dkdv_grid`` (key tiles x halves, KV, B).  The dQ kernel
+    holds ``q_tiles`` ``q_box`` of rows (loaded once: one a warpgroup, or one
+    that both share, each making a column half) and walks their keys a
     ``kv_box`` at a time: grid ``dq_grid`` (position blocks, KV, B)."""
     if dtype not in DTYPES:
         raise TypeError(f"no kernel route for {dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head width {D} not compiled; the kernel takes {HEAD_DIMS}")
-    if dtype == torch.float32 or D not in BWD_TC_DIMS:
+    if dtype == torch.float32:
         return {"route": "fma"}
     G = H // KV
     if G > BWD_TILE:
         raise ValueError(f"{G} query heads per kv head: the bf16 kernels take at most "
                          f"{BWD_TILE}")
     wg, chunk, pos = BWD_WARPGROUPS, min(D, 64), BWD_TILE // G
+    width = _cdiv(D, chunk) * chunk
+    acc = min(width, BWD_ACC_COLS)
+    halves = width // acc
+    q_tiles = 1 if halves > 1 else wg
     return {"route": "wgmma", "warpgroups": wg, "threads": 128 * (wg + 1),
             "stages": BWD_STAGES, "tile": BWD_TILE, "chunk": chunk,
-            "tile_width": _cdiv(D, chunk) * chunk, "swizzle_bytes": 2 * chunk,
+            "tile_width": width, "acc_cols": acc, "col_halves": halves,
+            "q_tiles": q_tiles, "swizzle_bytes": 2 * chunk,
             "q_box": (chunk, G, pos, 1), "kv_box": (chunk, 1, BWD_TILE, 1),
-            "dkdv_grid": (_cdiv(T, BWD_TILE), KV, B),
-            "dq_grid": (_cdiv(S, wg * pos), KV, B)}
+            "dkdv_grid": (_cdiv(T, BWD_TILE) * halves, KV, B),
+            "dq_grid": (_cdiv(S, q_tiles * pos), KV, B)}
 
 
 def bwd_launch_args(plan: dict, kernel: str) -> Tuple[int, ...]:

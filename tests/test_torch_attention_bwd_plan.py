@@ -2,8 +2,8 @@
 
 The backward kernels (``csrc/flash_attention_bwd.cu``) run only on a card;
 what surrounds them is Python: ``bwd_launch_plan`` picks the route from the
-dtype and head width (bf16 up to D=128 on the tensor cores, f32 and bf16
-D=256 on the CUDA cores) and computes the tensor-core route's launch shape,
+dtype (bf16 on the tensor cores at every width, D=256 in two column halves;
+f32 on the CUDA cores) and computes the tensor-core route's launch shape,
 TMA boxes and swizzle, which the kernels check against what they were
 compiled for.  These tests hold the plan to what the kernels assume, and
 record why the bf16 route splits P and dS into a bf16 hi + lo pair: a
@@ -31,13 +31,13 @@ REGS_384 = 168
 @pytest.mark.parametrize("D", fa.HEAD_DIMS)
 def test_route_follows_dtype_and_width(D):
     tc = fa.bwd_launch_plan(torch.bfloat16, 2, 100, 100, 16, 8, D)
-    assert tc["route"] == ("wgmma" if D <= 128 else "fma")
+    assert tc["route"] == "wgmma"
     f32 = fa.bwd_launch_plan(torch.float32, 2, 100, 100, 16, 8, D)
     assert f32["route"] == "fma"
     assert fa.bwd_launch_args(f32, "dkdv") == fa.bwd_launch_args(f32, "dq") == (0,) * 10
     for kernel in ("dkdv", "dq"):
         args = fa.bwd_launch_args(tc, kernel)
-        assert len(args) == 10 and args[0] == (1 if D <= 128 else 0)
+        assert len(args) == 10 and args[0] == 1
 
 
 def test_route_refuses_what_no_kernel_takes():
@@ -48,19 +48,22 @@ def test_route_refuses_what_no_kernel_takes():
     with pytest.raises(ValueError):
         fa.bwd_launch_plan(torch.bfloat16, 1, 8, 8, 128, 1, 64)    # G = 128 > 64 rows
     assert fa.bwd_launch_plan(torch.float32, 1, 8, 8, 128, 1, 64)["route"] == "fma"
-    assert fa.bwd_launch_plan(torch.bfloat16, 1, 8, 8, 128, 1, 256)["route"] == "fma"
+    assert fa.bwd_launch_plan(torch.bfloat16, 1, 8, 8, 8, 1, 256)["route"] == "wgmma"
+    with pytest.raises(ValueError):
+        fa.bwd_launch_plan(torch.bfloat16, 1, 8, 8, 128, 1, 256)   # G = 128 at D = 256 too
 
 
 # ------------------------------------------------------------------ shapes
-@pytest.mark.parametrize("D", fa.BWD_TC_DIMS)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
 @pytest.mark.parametrize("G", [1, 2, 3, 5, 8, 64])
 def test_boxes_rows_and_budgets(D, G):
     """A chunk of D whose row bytes are the swizzle width; tiles of whole
     chunks holding D (96 and 112: 128 columns); a q box over the G heads of
     one kv head and whole positions of at most one tile's rows; boxes within
     TMA's 256 a side; each kernel's shared memory within the H100's; a
-    consumer thread's one accumulator and one tile of S, dP and the split
-    words within ptxas's registers."""
+    consumer thread's one accumulator (at most 128 columns: D=256 in two
+    column halves) and one tile of S, dP and the split words within
+    ptxas's registers."""
     p = fa.bwd_launch_plan(torch.bfloat16, 1, 50, 50, 2 * G, 2, D)
     chunk, width, tile = p["chunk"], p["tile_width"], p["tile"]
     (qc, qh, qp, qb), (kc, kh, kt, kb) = p["q_box"], p["kv_box"]
@@ -74,9 +77,12 @@ def test_boxes_rows_and_budgets(D, G):
     tile_bytes = tile * width * 2
     bars = 8 * (1 + 2 * p["stages"])
     dkdv = 1024 + (2 + 2 * p["stages"]) * tile_bytes + (2 * p["stages"] + 1) * tile * 4 + bars
-    dq = 1024 + (2 * p["warpgroups"] + 2 * p["stages"]) * tile_bytes + bars
+    dq = 1024 + (2 * p["q_tiles"] + 2 * p["stages"]) * tile_bytes + bars
     assert max(dkdv, dq) <= build.SMEM_LIMIT
-    assert width // 2 + 3 * tile // 2 <= REGS_384
+    acc, halves = p["acc_cols"], p["col_halves"]
+    assert acc * halves == width and acc <= 128 and acc % chunk == 0
+    assert (halves, p["q_tiles"]) == ((2, 1) if D == 256 else (1, p["warpgroups"]))
+    assert acc // 2 + 3 * tile // 2 <= REGS_384
 
 
 @pytest.mark.parametrize("S,T,G", [(1, 1, 1), (63, 63, 2), (64, 64, 2), (65, 65, 2),
@@ -96,6 +102,40 @@ def test_grid_covers_every_key_and_row_tile_once(S, T, G):
             assert x * step < n
             seen[x * step:(x + 1) * step] += 1
         assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("S,T,G", [(1, 1, 1), (63, 63, 2), (65, 65, 2), (333, 333, 8),
+                                   (1000, 700, 5), (2048, 2048, 1), (70, 150, 64)])
+def test_grid_covers_every_key_half_and_row_tile_once_at_d256(S, T, G):
+    """At D=256 dK/dV block x takes keys [x // 2 * tile, (x // 2 + 1) * tile)
+    and column half x % 2; a dQ block takes positions [x * step, (x + 1) *
+    step), step = one q box (both warpgroups share its rows): each (key,
+    half) and each position once, no block empty."""
+    p = fa.bwd_launch_plan(torch.bfloat16, 2, S, T, 2 * G, 2, 256)
+    assert p["col_halves"] == 2 and p["q_tiles"] == 1 and p["acc_cols"] == 128
+    seen = np.zeros((T, 2), int)
+    for x in range(p["dkdv_grid"][0]):
+        t0 = x // 2 * p["tile"]
+        assert t0 < T
+        seen[t0:t0 + p["tile"], x % 2] += 1
+    assert (seen == 1).all()
+    step, seen = p["q_box"][2], np.zeros(S, int)
+    for x in range(p["dq_grid"][0]):
+        assert x * step < S
+        seen[x * step:(x + 1) * step] += 1
+    assert (seen == 1).all()
+
+
+def test_grid_at_gemma_training():
+    """gemma-2b (H=8, KV=1: MQA) and gemma2-9b (H=16, KV=8) at B=4, S=2048:
+    the column halves double the dK/dV grid (gemma-2b: 256 blocks for the
+    H100's 132 SMs, 128 without them)."""
+    p = fa.bwd_launch_plan(torch.bfloat16, 4, 2048, 2048, 8, 1, 256)
+    assert p["dkdv_grid"] == (64, 1, 4) and p["dq_grid"] == (256, 1, 4)
+    assert fa.bwd_launch_args(p, "dkdv") == (1, 2, 384, 2, 64, 64, 128, 8, 8, 64)
+    assert fa.bwd_launch_args(p, "dq") == (1, 2, 384, 2, 64, 64, 128, 8, 8, 256)
+    p = fa.bwd_launch_plan(torch.bfloat16, 4, 2048, 2048, 16, 8, 256)
+    assert p["dkdv_grid"] == (64, 8, 4) and p["dq_grid"] == (64, 8, 4)
 
 
 def test_grid_fills_the_card_at_qwen3_training():
@@ -153,6 +193,48 @@ def test_split_rounding_meets_the_limit_and_one_bf16_does_not():
     with torch.no_grad():
         out, lse = ref.flash_attention_ref(q, k, v, scale=scale, return_lse=True)
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, scale=scale)
+        split = _emulated_bwd(q, k, v, out, lse, dout, scale, "split")
+        single = _emulated_bwd(q, k, v, out, lse, dout, scale, "bf16")
+    assert [_values_over_the_limit(g, w) for g, w in zip(split, want)] == [0, 0, 0]
+    assert all(_values_over_the_limit(g, w) > 0 for g, w in zip(single, want))
+
+
+def _fp64_bwd(q, k, v, out, dout, scale):
+    """(dq, dk, dv) of causal GQA attention in float64 from the inputs the
+    kernels take (``out``: the forward's bf16 output, which delta reads),
+    as ``ref.flash_attention_bwd_ref`` writes it out, with P from float64
+    logits and their float64 log-sum-exp."""
+    B, S, H, D = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qg, do, og = (x.reshape(B, S, KV, H // KV, D).double() for x in (q, dout, out))
+    k64, v64 = k.double(), v.double()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k64) * scale
+    mask = torch.ones(S, T, dtype=torch.bool).tril()
+    s = s.masked_fill(~mask, -torch.inf)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    delta = (do * og).sum(-1).permute(0, 2, 3, 1)
+    ds = p * (torch.einsum("bskgd,btkd->bkgst", do, v64) - delta[..., None])
+    dv = torch.einsum("bkgst,bskgd->btkd", p, do)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, k64) * scale
+    return dq.reshape(B, S, H, D), dk, dv
+
+
+def test_split_rounding_meets_the_limit_at_head_width_256():
+    """The same at gemma-2b's head width and MQA (B=1, S=256, H=8, KV=1,
+    D=256, causal, bf16 inputs) against the gradient in float64 from the
+    same inputs (``_fp64_bwd``; the bf16 rounding of the forward's out is
+    every bf16 backward's, not the split's): the hi/lo split keeps every
+    value of dq, dk and dv within the limit; one bf16 rounding of P and dS
+    does not."""
+    rng = np.random.default_rng(31)
+    B, S, H, KV, D = 1, 256, 8, 1, 256
+    q, k, v, dout = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+                     for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    scale = D ** -0.5
+    with torch.no_grad():
+        out, lse = ref.flash_attention_ref(q, k, v, scale=scale, return_lse=True)
+        want = _fp64_bwd(q, k, v, out, dout, scale)
         split = _emulated_bwd(q, k, v, out, lse, dout, scale, "split")
         single = _emulated_bwd(q, k, v, out, lse, dout, scale, "bf16")
     assert [_values_over_the_limit(g, w) for g, w in zip(split, want)] == [0, 0, 0]

@@ -1,11 +1,16 @@
 """Training of every other model family: the port against the JAX package, on the CPU.
 
-Six families, each at its reduced config in float32 (``torch_families.pair``:
-the reference's ``init(PRNGKey(0))`` weights carried into the port's
-training construction by ``convert.model_from_jax(..., trainable=True)``):
-zamba2 (Mamba2 hybrid), xlstm, seamless (encoder-decoder), qwen2-moe and
-llama4 (MoE, llama4 with patch embeddings) and phi-3-vision (patch positions
-labelled -1).  Batches come from numpy seeds.  Tolerances are relative to
+Nine architectures, each at its reduced config in float32
+(``torch_families.pair``: the reference's ``init(PRNGKey(0))`` weights
+carried into the port's training construction by
+``convert.model_from_jax(..., trainable=True)``): zamba2 (Mamba2 hybrid),
+xlstm, seamless (encoder-decoder), qwen2-moe and llama4 (MoE, llama4 with
+patch embeddings), phi-3-vision (patch positions labelled -1), and the dense
+gemma-2b (MQA, GeGLU, scaled and tied embeddings), gemma2-9b (local and
+global layers, a sliding window, attention and final softcaps, post-norms,
+``query_pre_attn_scalar``) and qwen2.5-14b (QKV bias); gemma-2b once more
+at its published head width 256, so that the backward at D=256 is held too.
+Batches come from numpy seeds.  Tolerances are relative to
 the largest magnitude, as in tests/test_torch_training.py:
 
 * ``loss`` and its metrics within 1e-5.  The hybrid and the encoder-decoder
@@ -53,7 +58,8 @@ from repro_torch.training import checkpoint as ck
 TOL = 1e-5
 GRAD_TOL = 1e-4
 FAMILIES = ("zamba2-7b", "xlstm-125m", "seamless-m4t-large-v2", "qwen2-moe-a2.7b",
-            "llama4-maverick-400b-a17b", "phi-3-vision-4.2b")
+            "llama4-maverick-400b-a17b", "phi-3-vision-4.2b", "gemma-2b", "gemma2-9b",
+            "qwen2.5-14b")
 REMAINDER_DROPPED = ("zamba2-7b", "seamless-m4t-large-v2")   # hybrid, encoder-decoder
 # the reference's TestTrainStep optimizer (warmup 100: lr 1e-5, 2e-5, 3e-5)
 OPT = {"lr": 1e-3, "total_steps": 10}
@@ -65,10 +71,10 @@ def _rel(got, want) -> float:
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-def _ref(arch: str, loss_chunk: int = 0):
-    """(jax cfg, jax model, jax params, port cfg), ``loss_chunk`` changed if
-    given."""
-    change = (("loss_chunk", loss_chunk),) if loss_chunk else ()
+def _ref(arch: str, loss_chunk: int = 0, change: tuple = ()):
+    """(jax cfg, jax model, jax params, port cfg), ``loss_chunk`` and the
+    fields of ``change`` ((field, value) pairs) changed if given."""
+    change = change + ((("loss_chunk", loss_chunk),) if loss_chunk else ())
     jcfg, jm, params, _ = fam.pair(arch, change)
     tcfg = dataclasses.replace(get_arch(arch).reduced(), **dict(change))
     return jcfg, jm, params, tcfg
@@ -122,9 +128,8 @@ def test_loss_matches_reference(arch, chunk, S, pad):
     assert float(tmet["tokens"]) == counted
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_gradients_match_jax_grad(arch):
-    jcfg, jm, params, tcfg = _ref(arch)
+def _gradients_match(arch: str, change: tuple = ()) -> None:
+    jcfg, jm, params, tcfg = _ref(arch, change=change)
     model = _trainable(tcfg, params)
     jb, tb = _batch(tcfg, 3, 32, seed=5, pad=7)
     want = jax.grad(lambda p: jm.loss(p, jb)[0])(params)
@@ -135,6 +140,17 @@ def test_gradients_match_jax_grad(arch):
     for name, w in want.items():
         assert own[name].grad is not None and bool(own[name].grad.any()), name
         assert _rel(own[name].grad, w) <= GRAD_TOL, name
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_gradients_match_jax_grad(arch):
+    _gradients_match(arch)
+
+
+def test_gradients_match_jax_grad_at_head_width_256():
+    """gemma-2b's reduced config at its published head width (4 heads of
+    256, MQA): attention's gradient through the plain D=256 backward."""
+    _gradients_match("gemma-2b", (("head_dim", 256),))
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
