@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
                           [--layout] [--dryrun] [--hash] [--near-tie] [--examples]
-                          [--bwd-rows] [--src DIR]
+                          [--bwd-rows] [--d256-rows] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -246,14 +246,21 @@ which leaves out the host's time to enqueue a call (longer than the kernel
 itself at these shapes) and re-reads inputs that may sit in L2.  The build
 line gives the attention kernels' wgmma and TMA instruction counts and their
 registers and spills, and the sim_topk kernels' (which must not spill); it
-fails if K6's bf16 backward kernels have no wgmma or TMA load, or spill.
+fails if K6's bf16 forward or backward kernels spill, if the backward's
+have no wgmma or TMA load, or if K6's D=256 forward is not its one
+two-warpgroup, 64-key instance (``fwd_ptxas``).
 K3 is timed at the staged path's batches B in {1, 8, 32} (``b1_*``,
 ``b8_*`` beside the B=32 row) and by candidates a block; K5 adds
 ``device_ms`` over a CUDA graph, its TFLOP/s and its share of the bound.
 K6 and K7 are also timed at the head widths 112 and 96 (zamba2's and
 phi-3-vision's prefill and decode shapes: ``d112_*``, ``d96_*``) and 256
 (``d256``: gemma-2b's prefill and decode, gemma2-9b's windowed, soft-capped
-prefill, its decode and its full ring).  The
+prefill, its decode and its full ring), after the D=256 variants against
+their plain versions (``d256_variants``: K6 at G in {1, 2, 8}, window and
+softcap, ragged S and T, q_offset, the forward with lse, rows without a
+key, 4096 positions; K7 at kv_len 0, 1, 15, 16, 17, 31, 32, 33, 63, 64,
+65 and T, at its plan and a forced split, bit-equal again, and a full
+ring).  The
 backward's rows (``flash_attention_bwd_*``) are launches on the train path
 (d), each entry point's ms a launch (CUDA events) and ``device_ms``, its
 route (``kernel_route``) and the TFLOP/s of the products its outputs need
@@ -289,8 +296,8 @@ Without a CUDA card it exits non-zero at once.  Imports nothing of JAX or of
 the JAX package.
 
 ``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
-``--layout``, ``--dryrun``, ``--hash``, ``--near-tie``, ``--examples`` and
-``--bwd-rows``
+``--layout``, ``--dryrun``, ``--hash``, ``--near-tie``, ``--examples``,
+``--bwd-rows`` and ``--d256-rows``
 run only the env and build phases and the named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
@@ -298,7 +305,11 @@ comma-separated list of names after the flag; phase train; phase layout;
 phase dryrun; ``phase_hash_repeat``: K4a, K4b and their plain versions
 each held to the float64 vertex ids over many calls and seeds;
 ``--bwd-rows``: the backward's ptxas report, phase train (a)'s D=256 cases
-and K6's backward at gemma-2b's and gemma2-9b's training shapes)
+and K6's backward at gemma-2b's and gemma2-9b's training shapes;
+``--d256-rows``: K6's forward ptxas report, the D=256 variants, the d256
+rows with ``flex_attention`` compiled as the softcapped rows' library,
+and the D <= 128 rows whose plans stay the parent's: qwen3's K6 and K7
+and zamba2's D=112 decode)
 and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
@@ -637,12 +648,13 @@ def attention_times(fn, plain, lib) -> dict:
             "library_device_ms": graph_ms(lib, REPS)}
 
 
-def _rates(t: dict, work: float, unit: str) -> str:
+def _rates(t: dict, work: float, unit: str, lib: str = "sdpa") -> str:
     """``attention_times`` as a log fragment; ``work`` per call in units of
-    ``unit`` * 1e3 (GFLOP for TFLOP/s, MB for GB/s)."""
-    return (f"{t['ms']:.4f} ms a call with its launch (sdpa {t['library_ms']:.4f}), "
+    ``unit`` * 1e3 (GFLOP for TFLOP/s, MB for GB/s); ``lib`` names the
+    library call."""
+    return (f"{t['ms']:.4f} ms a call with its launch ({lib} {t['library_ms']:.4f}), "
             f"{t['device_ms']:.4f} ms device per call, {work / t['device_ms']:.1f} {unit} "
-            f"(sdpa {t['library_device_ms']:.4f} ms, {work / t['library_device_ms']:.1f} "
+            f"({lib} {t['library_device_ms']:.4f} ms, {work / t['library_device_ms']:.1f} "
             f"{unit}); plain {t['plain_ms']:.4f} ms")
 
 
@@ -1428,9 +1440,13 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
                          ("decode_attention",
                           decode_row(gen, dev, S + FAM_STEPS, [S + 1, S // 2 + 3], *heads))):
             out[row].update({f"d{heads[2]}_{k}": v for k, v in got.items()})
-    # --- head width 256: gemma-2b's and gemma2-9b's prefill and decode (d256)
+    # --- head width 256: the variants against plain, then gemma-2b's and
+    # gemma2-9b's prefill and decode (d256)
+    errs = d256_variants(gen, dev)
     for row, got in d256_rows(gen, dev).items():
         out[row]["d256"] = got
+    out["flash_attention"]["d256_variants"] = {k: errs[k] for k in ("flash_out", "flash_lse")}
+    out["decode_attention"]["d256_variants"] = {k: errs[k] for k in ("decode_out", "decode_lse")}
 
     # --- K5 over the store phase's scale, an n_valid tail and planted ties
     rng = np.random.default_rng(seed)
@@ -1466,11 +1482,14 @@ def phase_attention_kernels(dev: torch.device, seed: int = 5) -> dict:
     return out
 
 
-def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int, **kw) -> dict:
+def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int, flex: bool = False,
+              **kw) -> dict:
     """K6 (bf16 route) causal at (B, S, H, D) x (B, S, KV, D), with the
     masks of ``kw`` (window, softcap, scale): against its plain version,
     timed beside SDPA (a window as a boolean mask; SDPA has no softcap, so
-    with one it times the uncapped function), with its bound."""
+    with one it times the uncapped function) or, with a softcap and
+    ``flex``, beside ``flex_attention`` compiled (the same function:
+    ``flex_library``), with its bound."""
     q = _randn(gen, B, S, H, D, dev=dev)
     k, v = (_randn(gen, B, S, KV, D, dev=dev) for _ in range(2))
     kw = {"scale": 1.0 / np.sqrt(D), **kw}
@@ -1489,8 +1508,16 @@ def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int, **kw) -> dict:
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
             qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=kw["scale"])
-    err_lib = None
-    if not capped:
+    err_lib, flex_note = None, None
+    if capped and flex:
+        flex_lib, flex_note = flex_library(
+            qt, kt, vt, kw["scale"], kw["softcap"],
+            lambda b, h, qi, ki: (qi >= ki) & (qi - ki < (window or S + 1)), S, S, B)
+        if flex_lib is not None:
+            lib, capped = flex_lib, False
+    if flex_note == "flex":   # reported, not held: the library is the yardstick
+        err_lib = float((lib().transpose(1, 2).float() - plain().float()).abs().max())
+    elif not capped:
         err_lib = attn_err(f"sdpa {shape} vs plain", lib().transpose(1, 2), plain(),
                            ATTN_BF16_TOL)
     t = attention_times(fn, plain, lib)
@@ -1499,19 +1526,25 @@ def flash_row(gen, dev, B: int, S: int, H: int, KV: int, D: int, **kw) -> dict:
     bms, by = bound(2 * (2 * q.numel() + k.numel() + v.numel()), flop, BF16_FLOP_PER_S)
     log(f"  flash_attention {shape} bf16 causal (tiles "
         f"{flash_k.launch_plan(q.dtype, B, S, S, H, KV, D)['tile_width']} wide): "
-        + _rates(t, flop / 1e9, "TFLOP/s") + f"; bound {bms:.5f} ms by {by}; device time "
-        f"{t['device_ms'] / t['library_device_ms']:.3f}x sdpa's"
+        + _rates(t, flop / 1e9, "TFLOP/s", "flex" if flex_note == "flex" else "sdpa")
+        + f"; bound {bms:.5f} ms by {by}; device time "
+        f"{t['device_ms'] / t['library_device_ms']:.3f}x "
+        + ("flex_attention's (compiled, the same function)" if flex_note == "flex" else "sdpa's")
         + (" (sdpa without the softcap: not the same function)" if capped else "")
-        + f"; max err {err:.3g}" + (f" (sdpa {err_lib:.3g})" if err_lib is not None else ""))
+        + (f" (flex_attention: {flex_note})" if flex_note not in (None, "flex") else "")
+        + f"; max err {err:.3g}" + (f" (library {err_lib:.3g})" if err_lib is not None else ""))
     return {"shape": [B, S, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
-            "bound_by": by, **({"library_without_softcap": True} if capped else {})}
+            "bound_by": by, **({"library_without_softcap": True} if capped else {}),
+            **({"library": flex_note} if flex_note is not None else {})}
 
 
-def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int, **kw) -> dict:
+def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int, flex: bool = False,
+               **kw) -> dict:
     """K7 at (B, H, D) x (B, T, KV, D), B = len(lens), row b's kv_len
     lens[b], with ``kw`` (softcap, scale): against its plain version (also
     at kv_len 1 and T in every row), timed beside SDPA with a mask (without
-    the softcap: SDPA has none), with its bound."""
+    the softcap: SDPA has none) or, with a softcap and ``flex``, beside
+    ``flex_attention`` compiled with a kv_len mask, with its bound."""
     B = len(lens)
     q = _randn(gen, B, H, D, dev=dev)
     k, v = (_randn(gen, B, T, KV, D, dev=dev) for _ in range(2))
@@ -1532,26 +1565,40 @@ def decode_row(gen, dev, T: int, lens: list, H: int, KV: int, D: int, **kw) -> d
     qt, kt, vt = q[:, :, None, :], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=H != KV, scale=kw["scale"])
-    err_lib = None
-    if not capped:
+    err_lib, flex_note = None, None
+    if capped and flex:
+        flex_lib, flex_note = flex_library(
+            qt, kt, vt, kw["scale"], kw["softcap"],
+            lambda b, h, qi, ki: ki < kv_len[b], 1, T, B)
+        if flex_lib is not None:
+            lib, capped = flex_lib, False
+    if flex_note == "flex":   # reported, not held: the library is the yardstick
+        err_lib = float((lib()[:, :, 0].float() - plain().float()).abs().max())
+    elif not capped:
         err_lib = attn_err(f"sdpa decode {shape} vs plain", lib()[:, :, 0], plain(),
                            ATTN_BF16_TOL)
     t = attention_times(fn, plain, lib)
     n_slots = sum(lens)
     n_bytes = 2 * (2 * q.numel() + 2 * n_slots * KV * D) + 4 * B
     bms, by = bound(n_bytes, 4.0 * H * D * n_slots, BF16_FLOP_PER_S)
-    log(f"  decode_attention {shape} bf16: " + _rates(t, n_bytes / 1e6, "GB/s")
+    log(f"  decode_attention {shape} bf16: "
+        + _rates(t, n_bytes / 1e6, "GB/s", "flex" if flex_note == "flex" else "sdpa")
         + f"; bound {bms:.5f} ms by {by} (the device time re-reads a cache that fits in "
-        f"L2); max err {err:.3g}" + (f" (sdpa {err_lib:.3g})" if err_lib is not None else
-                                     " (sdpa without the softcap: not the same function)"))
+        f"L2); max err {err:.3g}"
+        + (f" (library {err_lib:.3g}"
+           + (", flex_attention compiled: the same function)" if flex_note == "flex" else ")")
+           if err_lib is not None else " (sdpa without the softcap: not the same function)")
+        + (f" (flex_attention: {flex_note})" if flex_note not in (None, "flex") else ""))
     return {"shape": [B, T, H, KV, D], "max_abs_err": err, **t, "bound_ms": bms,
-            "bound_by": by, **({"library_without_softcap": True} if capped else {})}
+            "bound_by": by, **({"library_without_softcap": True} if capped else {}),
+            **({"library": flex_note} if flex_note is not None else {})}
 
 
-def d256_rows(gen, dev) -> dict:
+def d256_rows(gen, dev, flex: bool = False) -> dict:
     """K6 and K7 at head width 256, at gemma-2b's and gemma2-9b's serving
     shapes in phase families -> {"flash_attention": {model: row},
-    "decode_attention": {model: row}}."""
+    "decode_attention": {model: row}}; with ``flex`` the softcapped rows'
+    library is ``flex_attention`` compiled (``flex_library``)."""
     out = {"flash_attention": {}, "decode_attention": {}}
     for name in ("gemma-2b", "gemma2-9b"):
         cfg = get_arch(name)
@@ -1563,12 +1610,211 @@ def d256_rows(gen, dev) -> dict:
         win = cfg.sliding_window
         # the prefill's K6 (a local layer's window), then K7: a global layer's
         # cache at step 1, and a local layer's ring, every slot filled
-        out["flash_attention"][name] = flash_row(gen, dev, B, S, *heads, window=win, **kw)
+        out["flash_attention"][name] = flash_row(gen, dev, B, S, *heads, flex, window=win,
+                                                 **kw)
         lens = [S + 1] if B == 1 else [S + 1, S // 2 + 3]
-        out["decode_attention"][name] = decode_row(gen, dev, S + FAM_STEPS, lens, *heads, **kw)
+        out["decode_attention"][name] = decode_row(gen, dev, S + FAM_STEPS, lens, *heads, flex,
+                                                   **kw)
         if win and win < S:
             out["decode_attention"][f"{name} ring"] = decode_row(
-                gen, dev, win, [win] * B, *heads, **kw)
+                gen, dev, win, [win] * B, *heads, flex, **kw)
+    return out
+
+
+def flex_library(qt, kt, vt, scale: float, softcap: float, mask_mod, L: int, T: int,
+                 B: int):
+    """``flex_attention`` under ``torch.compile`` with a softcap
+    ``score_mod`` and ``mask_mod`` as a block mask, on (B, H, L, D) x (B, KV,
+    T, D) -> (a call, "flex"), or (None, the error's first line) where it does
+    not compile or run.  Timed beside K6 / K7 as the one PyTorch call that
+    computes the same function; the port never calls it.  It compiles in
+    this process (no compile workers)."""
+    try:
+        import torch._inductor.config as inductor_config
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        inductor_config.compile_threads = 1
+        cap = float(softcap)
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        block_mask = create_block_mask(mask_mod, B, None, L, T, device=qt.device)
+        compiled = torch.compile(flex_attention, dynamic=False)
+        call = lambda: compiled(qt, kt, vt, score_mod=score_mod,  # noqa: E731
+                                block_mask=block_mask, scale=scale,
+                                enable_gqa=qt.shape[1] != kt.shape[1])
+        call()
+        graph_ms(call, 2, 1)     # the rows time it in a CUDA graph too
+        return call, "flex"
+    except Exception as e:   # noqa: BLE001 - the row reports why there is no library time
+        line = (str(e).strip().splitlines() or [type(e).__name__])[0]
+        log(f"  flex_attention did not compile or run: {type(e).__name__}: {line}")
+        return None, f"did not compile: {type(e).__name__}: {line[:160]}"
+
+
+def fwd_ptxas(route_check: bool = True) -> None:
+    """ptxas's registers and spills of every K6 forward kernel; the bf16
+    (tensor-core) instances must not spill; with ``route_check``, D = 256
+    has its one instance of the redesign (two consumer warpgroups, 64-key
+    tiles: flash_tc_kernel<256, 64>) and no other."""
+    report = build.ptxas_report("flash_attention")
+    for r in report:
+        log(f"  ptxas {r['entry']}: {r['registers']} registers, {r['smem']} bytes static "
+            f"smem, spill stores {r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
+    spilled = [r["entry"] for r in report
+               if "_tc_kernel" in r["entry"] and (r["spill_stores"] or r["spill_loads"])]
+    expect(not spilled, f"K6's bf16 forward kernels spill registers: {spilled}")
+    if route_check:
+        d256 = [r["entry"] for r in report if "flash_tc_kernel" in r["entry"]
+                and "ILi256E" in r["entry"]]
+        expect(len(d256) == 1 and "ILi256ELi64E" in d256[0],
+               f"K6's bf16 forward at D = 256: tensor-core instances {d256}")
+
+
+# K6 at D = 256 in bf16 against its plain version: (B, S, T, H, KV, kw,
+# with lse); G in {1, 2, 8}, gemma2-9b's masks, ragged S and T, S != T,
+# q_offset, rows that see no key, a long prompt.  Cases with S or T of at
+# least D256_LONG are held at the main path's ATTN_BF16_MAIN_TOL (there a
+# tile read too many shows above 1e-3), the short ones at ATTN_BF16_TOL.
+D256_FLASH_CASES = (
+    (2, 150, 150, 4, 4, {}, False),                        # G = 1
+    (2, 150, 150, 8, 4, {}, True),                         # G = 2
+    (2, 203, 203, 8, 1, {}, True),                         # G = 8 (MQA), ragged S
+    (1, 333, 333, 16, 8, {"window": 100, "softcap": 50.0, "scale": 256 ** -0.5}, True),
+    (1, 70, 150, 8, 1, {"causal": False, "window": 60}, False),
+    (1, 150, 70, 4, 2, {"causal": False}, True),
+    (1, 100, 612, 8, 1, {"q_offset": 512}, True),           # a chunk at position 512
+    (1, 300, 812, 16, 8, {"q_offset": 512, "window": 200, "softcap": 50.0}, True),
+    (1, 48, 16, 4, 4, {"window": 8}, True),                # rows 24.. see no key
+    (1, 4096, 4096, 16, 8, {}, False))                     # 64 laps of the key ring
+D256_LONG = 512
+# K7 at D = 256: kv_len at the split boundaries (CHUNK_ALIGN 16, a bf16
+# plan's min_chunk 32 = 16 KB / 512 B, and 64) and the ends, at gemma-2b's
+# heads and gemma2-9b's with its softcap
+D256_DECODE_LENS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65)
+
+
+def d256_variants(gen, dev) -> dict:
+    """K6 and K7 at D = 256 against their plain versions: the forward's
+    cases (``D256_FLASH_CASES``, bf16, out within ATTN_BF16_TOL, or
+    ATTN_BF16_MAIN_TOL from D256_LONG positions on, lse where asked), K7
+    at ``D256_DECODE_LENS`` and T (out, lse: -inf at kv_len 0) at its plan
+    and at a forced ``n_split``, each call again bit-equal, and a full
+    4096-slot ring -> max errors."""
+    errs = {"flash_out": 0.0, "flash_lse": 0.0, "decode_out": 0.0, "decode_lse": 0.0}
+    for B, S, T, H, KV, kw, with_lse in D256_FLASH_CASES:
+        kw = dict(kw)
+        q = _randn(gen, B, S, H, 256, dev=dev)
+        k, v = (_randn(gen, B, T, KV, 256, dev=dev) for _ in range(2))
+        name = f"flash_attention D=256 B={B} S={S} T={T} H={H} KV={KV} {kw}"
+        if with_lse:
+            masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"),
+                     kw.get("scale", 256 ** -0.5))
+            got, lse = flash_k.forward(q, k, v, *masks, with_lse=True,
+                                       q_offset=kw.get("q_offset", 0))
+            want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+            errs["flash_lse"] = max(errs["flash_lse"], lse_err(f"lse {name}", lse, want_lse))
+        else:
+            got = flash_k.flash_attention(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw)
+        err = attn_err(name, got, want,
+                       ATTN_BF16_MAIN_TOL if max(S, T) >= D256_LONG else ATTN_BF16_TOL)
+        if kw.get("window") == 8:
+            expect(bool((got[:, 24:] == 0).all()), f"{name}: rows without a key are not 0")
+        errs["flash_out"] = max(errs["flash_out"], err)
+        log(f"  {name}{' with lse' if with_lse else ''}: max err {err:.3g}")
+    for name, T, H, KV, kw in (("gemma-2b", 1543, 8, 1, {}),
+                               ("gemma2-9b", 4616, 16, 8, {"softcap": 50.0,
+                                                           "scale": 256 ** -0.5}),
+                               ("gemma2-9b ring", 4096, 16, 8, {"softcap": 50.0})):
+        lens = [min(x, T) for x in D256_DECODE_LENS] + [T]
+        B = len(lens)
+        q = _randn(gen, B, H, 256, dev=dev)
+        k, v = (_randn(gen, B, T, KV, 256, dev=dev) for _ in range(2))
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        plan = decode_k.split_plan(B, KV, T, H // KV, 256, 2)
+        want, want_lse = ref.decode_attention_ref(q, k, v, kv_len, return_lse=True, **kw)
+        for n_split in (None, 3):
+            got, lse = decode_k.decode_attention(q, k, v, kv_len, return_lse=True,
+                                                 n_split=n_split, **kw)
+            tag = f"decode_attention D=256 {name} T={T} kv_len={lens} n_split={n_split}"
+            err = attn_err(tag, got, want)
+            expect(bool((got[0] == 0).all()) and bool(torch.isneginf(lse[0]).all()),
+                   f"{tag}: kv_len 0 gives out {got[0].abs().max().item():.3g}, lse {lse[0]}")
+            fin = ~torch.isneginf(want_lse)
+            lse_e = float((lse[fin] - want_lse[fin]).abs().max())
+            expect(lse_e <= SPLIT_REL_TOL * max(1.0, float(want_lse[fin].abs().max())),
+                   f"{tag}: lse off by {lse_e:.3g}")
+            again = decode_k.decode_attention(q, k, v, kv_len, return_lse=True,
+                                              n_split=n_split, **kw)
+            expect(bool(torch.equal(again[0], got)) and bool(torch.equal(again[1], lse)),
+                   f"{tag}: a second call is not bit-equal")
+            errs["decode_out"] = max(errs["decode_out"], err)
+            errs["decode_lse"] = max(errs["decode_lse"], lse_e)
+            log(f"  {tag} (plan: {plan['n_split']} splits of at least "
+                f"{plan.get('min_chunk', decode_k.CHUNK_ALIGN)} slots, combine "
+                f"{plan.get('combine', 'kernel')}): max err {err:.3g}, lse {lse_e:.3g}, "
+                "bit-equal again")
+    return errs
+
+
+def sass_digests(name: str) -> dict:
+    """{kernel: digest of its SASS instructions} for a built library's
+    kernels (cuobjdump from nvcc's directory), without their addresses and
+    the source's namespace hash: two trees' equal digests are the same
+    machine code."""
+    import hashlib
+    import re
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    parts = re.split(r"Function : (\S+)", sass)   # [head, name, body, name, body, ...]
+    out = {}
+    for fn, body in zip(parts[1::2], parts[2::2]):
+        code = "\n".join(re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)", body))
+        labels = {}   # branch labels are numbered across the file: renumber them
+        code = re.sub(r"\.L_x_\d+", lambda m: labels.setdefault(m.group(), f"L{len(labels)}"),
+                      code)
+        out[re.sub(r"_GLOBAL__N__\w+?_cu_\w{8}", "", fn)] = \
+            hashlib.sha1(code.encode()).hexdigest()[:16]
+    return out
+
+
+def phase_d256_rows(dev: torch.device, seed: int = 16) -> dict:
+    """``--d256-rows``: K6's forward ptxas report, the D = 256 variants
+    against the plain versions, K6 and K7 at gemma-2b's and gemma2-9b's
+    rows with ``flex_attention`` as the softcapped rows' library, then
+    phase kernels' D <= 128 rows whose plans must stay the parent's
+    (qwen3's K6 and K7, zamba2's D=112 decode), after a digest of each K6
+    and K7 kernel's SASS (``sass_digests``): the D = 256 routes and those
+    rows alone, whose times and machine code ``--src`` compares between
+    two trees.  Inductor's
+    and Triton's caches go under build/."""
+    import os
+
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
+    fwd_ptxas(route_check=False)
+    for r in build.ptxas_report("decode_attention"):
+        log(f"  ptxas {r['entry']}: {r['registers']} registers, spills {r['spill_stores']}/"
+            f"{r['spill_loads']} bytes")
+    for name in ("flash_attention", "decode_attention"):
+        for fn, digest in sorted(sass_digests(name).items()):
+            log(f"  sass {digest} {fn}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"variants": d256_variants(gen, dev), **d256_rows(gen, dev, flex=True)}
+    heads = (ATTN_H, ATTN_KV, ATTN_D)
+    out["flash_attention"]["qwen3"] = flash_row(gen, dev, ATTN_B, ATTN_S, *heads)
+    out["decode_attention"]["qwen3"] = decode_row(gen, dev, DECODE_T,
+                                                  [DECODE_T, ATTN_S + 1, 1500, 7], *heads)
+    cfg = get_arch("zamba2-7b")
+    S = PADDED_WIDTHS["zamba2-7b"]
+    out["decode_attention"]["zamba2 d112"] = decode_row(
+        gen, dev, S + FAM_STEPS, [S + 1, S // 2 + 3], cfg.n_heads, cfg.n_kv_heads,
+        cfg.resolved_head_dim)
+    log("d256 rows: " + json.dumps(out, default=str))
     return out
 
 
@@ -5317,7 +5563,8 @@ def main() -> int:
         phase_env()
     log(f"port: {SRC}")
     only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
-                        "--dryrun", "--hash", "--near-tie", "--examples", "--bwd-rows")
+                        "--dryrun", "--hash", "--near-tie", "--examples", "--bwd-rows",
+                        "--d256-rows")
             if m in sys.argv[1:]]
     if only:
         with timed("build"):
@@ -5329,7 +5576,7 @@ def main() -> int:
                  "--train": phase_train, "--layout": phase_layout,
                  "--dryrun": phase_dryrun, "--hash": phase_hash_repeat,
                  "--near-tie": phase_near_tie, "--examples": phase_examples,
-                 "--bwd-rows": phase_bwd_rows}[mode](dev)
+                 "--bwd-rows": phase_bwd_rows, "--d256-rows": phase_d256_rows}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -5343,7 +5590,9 @@ def main() -> int:
                         f"spill loads {r['spill_loads']} bytes")
             for line in build.ptxas_warnings(name):
                 log(f"  ptxas {name}: {line}")
-        # K6's bf16 backward must run on the tensor cores, unspilled
+        # K6's bf16 forward unspilled, D = 256 on its two-warpgroup design;
+        # the bf16 backward on the tensor cores, unspilled
+        fwd_ptxas()
         for kern in ("dkdv_tc_kernel", "dq_tc_kernel"):
             n_mma = build.sass_count("flash_attention_bwd", "HGMMA", kern)
             n_tma = build.sass_count("flash_attention_bwd", "UTMALDG", kern)

@@ -64,7 +64,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "flash_attention_bwd_dq_launch": [*[_P] * 7, *[_I] * 9, _F, _F, *[_I] * 11, _P],
     },
     "decode_attention": {
-        "decode_attention_launch": [*[_P] * 9, *[_I] * 5, *[_L] * 8, *[_I] * 4, _F, _F,
+        "decode_attention_launch": [*[_P] * 10, *[_I] * 5, *[_L] * 8, *[_I] * 5, _F, _F,
                                     _I, _I, _P],
     },
 }

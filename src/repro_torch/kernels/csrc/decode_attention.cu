@@ -38,6 +38,23 @@
 //   * The cache is read in place through its (b, t, kv) strides: D must be a
 //     multiple of 16 bytes and every cache row 16-byte aligned (the wrapper
 //     checks).
+//   * Wide heads (D > 128, gemma's 256; split_plan's "combine" is
+//     "last_block", pieces_per_lane 2) come with few (row, kv head) groups,
+//     and a lane's serial work per slot grows with the heads of its block
+//     (at D=256 a row takes all 32 lanes and five shuffles a dot).  There
+//     decode_wide_kernel serves one head a block and a lane two 16-byte
+//     pieces of a row (16 lanes a row at D=256 bf16: four shuffles a dot,
+//     two rows a warp load; 8 heads a block and 32 lanes a row ran 3x
+//     slower at gemma-2b's decode on the H100), a split is at least
+//     min_chunk slots (its loads outweigh its merge and partial write), and
+//     the combine is folded in: each block that wrote its partial takes a
+//     ticket (an atomic on its (row, kv head, head)); the last of the row's
+//     used splits merges them, each split's weight exp(m_s - M) computed
+//     once into shared memory, in a fixed order, so the result does not
+//     depend on which block came last (deterministic), and no second
+//     launch runs.  kv_len = 0 is written by split 0.  Both kernels run one
+//     body (decode_split); the narrow kernel takes none of the wide one's
+//     arguments, so they cost its code nothing.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -49,30 +66,35 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kUnroll = 4;        // rows of K (and of V) a lane loads before using them
+constexpr int kUnrollPieces = 4;  // 16-byte pieces of K (and of V) a lane loads at once
 constexpr int kChunkAlign = 16;   // a row's chunk is a multiple of this many slots
 constexpr int kMaxD = 256;           // 32 KB of shared memory at 8 heads
 constexpr float kNegInf = -1e30f;
 
 // Slots of one split for a row with `len` valid slots (the wrapper's
-// row_chunk mirrors it): ceil(len / n_split) rounded up to kChunkAlign.
-__device__ __forceinline__ int row_chunk(int len, int n_split) {
+// row_chunk mirrors it): ceil(len / n_split) rounded up to kChunkAlign, at
+// least min_chunk (a multiple of kChunkAlign).
+__device__ __forceinline__ int row_chunk(int len, int n_split, int min_chunk) {
   const int c = (len + n_split - 1) / n_split;
-  return max(kChunkAlign, (c + kChunkAlign - 1) / kChunkAlign * kChunkAlign);
+  return max(min_chunk, (c + kChunkAlign - 1) / kChunkAlign * kChunkAlign);
 }
 
-// GB: heads per block (a compile-time bound, ng <= GB used); PPL: 16-byte
-// pieces of a row per lane.
+// One split block.  GB: heads per block (a compile-time bound, ng <= GB
+// used); PPL: 16-byte pieces of a row per lane, 1 on the narrow plan, 2 on
+// the wide one, where the last block of a (row, kv head, head) merges its
+// splits (out, lse) in place of the combine kernel.
 template <typename TQ, typename TK, int GB, int PPL>
-__global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
-                    const TK* __restrict__ v, const int* __restrict__ kv_len,
-                    float* __restrict__ m_out, float* __restrict__ l_out,
-                    float* __restrict__ acc_out, int T_len, int H, int KV, int D,
-                    long long qsb, long long qsh, long long ksb, long long kst, long long ksh,
-                    long long vsb, long long vst, long long vsh, int n_split, int n_hg,
-                    int lanes_log2, float softcap, float scale) {
+__device__ __forceinline__ void
+decode_split(const TQ* __restrict__ q, const TK* __restrict__ k,
+             const TK* __restrict__ v, const int* __restrict__ kv_len,
+             float* __restrict__ m_out, float* __restrict__ l_out,
+             float* __restrict__ acc_out, int* __restrict__ tickets,
+             TQ* __restrict__ o, float* __restrict__ lse, int T_len, int H, int KV,
+             int D, long long qsb, long long qsh, long long ksb, long long kst,
+             long long ksh, long long vsb, long long vst, long long vsh, int n_split,
+             int min_chunk, int n_hg, int lanes_log2, float softcap, float scale) {
   constexpr int V = kVec<TK>;                   // cache elements per 16-byte piece
+  constexpr bool kLast = PPL == 2;              // the wide plan
   __shared__ float sm_m[kWarps][GB], sm_l[kWarps][GB];
   __shared__ float sm_acc[kWarps][GB][kMaxD];
 
@@ -80,9 +102,16 @@ decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const int b = blockIdx.z;
   const int G = H / KV, g0 = hg * GB, ng = min(GB, G - g0);
   const int len = min(max(kv_len[b], 0), T_len);
-  const int chunk = row_chunk(len, n_split);
+  const int chunk = row_chunk(len, n_split, min_chunk);
   const int t_begin = split * chunk, t_end = min(t_begin + chunk, len);
-  if (t_begin >= t_end) return;                 // past this row's valid slots
+  if (t_begin >= t_end) {                       // past this row's valid slots
+    if (kLast && len == 0 && split == 0) {      // no valid slot: out 0, lse -inf
+      const long long h0 = static_cast<long long>(b) * H + kvh * G + g0;
+      for (int i = threadIdx.x; i < ng * D; i += kThreads) store(o + h0 * D + i, 0.f);
+      if (lse != nullptr && threadIdx.x < ng) lse[h0 + threadIdx.x] = __int_as_float(0xff800000);
+    }
+    return;
+  }
 
   const int L = 1 << lanes_log2, RPW = 32 / L;  // lanes per row, rows per warp load
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -109,6 +138,9 @@ decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
   const TK* kb = k + b * ksb + kvh * ksh;
   const TK* vb = v + b * vsb + kvh * vsh;
 
+  // rows of K (and of V) a lane loads before using them: 4 pieces of 16
+  // bytes each, so half the rows where a wide row takes two pieces a lane
+  constexpr int kUnroll = kUnrollPieces / PPL;
   for (int base = t_begin; base < t_end; base += kUnroll * n_streams) {
     uint4 kr[kUnroll][PPL], vr[kUnroll][PPL];
     bool ok[kUnroll];
@@ -236,6 +268,129 @@ decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
       l_out[part * G + g0 + g] = ll;
     }
   }
+  if constexpr (kLast) {
+    // the partials are visible to the device before the ticket is taken
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    const int n_used = (len + chunk - 1) / chunk;
+    if (threadIdx.x == 0)
+      last = atomicAdd(tickets + (static_cast<long long>(b) * KV + kvh) * n_hg + hg, 1) ==
+             n_used - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // merge the row's used splits: a warp a head
+    // takes M and the weights w_s = exp(m_s - M) once (into sm_acc, free
+    // now: n_used * GB <= kWarps * GB * kMaxD), L and lse (lanes over the
+    // splits, reduced by shuffles: a fixed order); then out = sum_s acc_s w_s
+    // / L, a thread holding kJ 4-column pieces and loading kU splits of them
+    // at once, so that their L2 reads overlap
+    const long long base = (static_cast<long long>(b) * KV + kvh) * n_split;
+    float* w = &sm_acc[0][0][0];
+    float* sm_inv = &sm_l[0][0];
+    for (int g = warp; g < ng; g += kWarps) {
+      const float* mg = m_out + base * G + g0 + g;
+      float M = kNegInf;
+      for (int s = lane; s < n_used; s += 32) M = fmaxf(M, __ldcg(mg + s * G));
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+      float L = 0.f;
+      for (int s = lane; s < n_used; s += 32) {
+        const float ws = expf(__ldcg(mg + s * G) - M);
+        w[s * GB + g] = ws;
+        L += __ldcg(l_out + base * G + g0 + g + s * G) * ws;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) L += __shfl_xor_sync(0xffffffffu, L, off);
+      if (lane == 0) {
+        sm_inv[g] = 1.f / fmaxf(L, 1e-30f);
+        if (lse != nullptr)   // -inf for a row with no valid slot
+          lse[static_cast<long long>(b) * H + kvh * G + g0 + g] =
+              L > 0.f ? M + logf(L) : __int_as_float(0xff800000);
+      }
+    }
+    __syncthreads();
+    constexpr int kJ = (GB * kMaxD / 4 + kThreads - 1) / kThreads;   // pieces a thread
+    constexpr int kU = 16 / kJ;                                        // splits at once
+    const int n4 = ng * D / 4;
+    int off[kJ], gj[kJ];
+    float4 a[kJ];
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      gj[j] = i < n4 ? 4 * i / D : -1;
+      off[j] = i < n4 ? g0 * D + 4 * i : 0;
+      a[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const float* part0 = acc_out + base * G * D;
+    for (int s0 = 0; s0 < n_used; s0 += kU) {
+      float4 x[kU][kJ];
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+          x[u][j] = s0 + u < n_used && gj[j] >= 0
+                        ? __ldcg(reinterpret_cast<const float4*>(
+                              part0 + static_cast<long long>(s0 + u) * G * D + off[j]))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int j = 0; j < kJ; ++j)
+          if (s0 + u < n_used && gj[j] >= 0) {
+            const float ws = w[(s0 + u) * GB + gj[j]];
+            a[j].x += x[u][j].x * ws;
+            a[j].y += x[u][j].y * ws;
+            a[j].z += x[u][j].z * ws;
+            a[j].w += x[u][j].w * ws;
+          }
+    }
+    TQ* ob = o + (static_cast<long long>(b) * H + kvh * G) * D;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j)
+      if (gj[j] >= 0) {
+        const float inv = sm_inv[gj[j]];
+        store(ob + off[j], a[j].x * inv);
+        store(ob + off[j] + 1, a[j].y * inv);
+        store(ob + off[j] + 2, a[j].z * inv);
+        store(ob + off[j] + 3, a[j].w * inv);
+      }
+  }
+}
+
+// The narrow plan's split kernel: each block's partial (m, l, acc) for the
+// combine kernel.
+template <typename TQ, typename TK, int GB, int PPL>
+__global__ void __launch_bounds__(kThreads)
+decode_split_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                    const TK* __restrict__ v, const int* __restrict__ kv_len,
+                    float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ acc_out, int T_len, int H, int KV, int D,
+                    long long qsb, long long qsh, long long ksb, long long kst, long long ksh,
+                    long long vsb, long long vst, long long vsh, int n_split, int n_hg,
+                    int lanes_log2, float softcap, float scale) {
+  static_assert(PPL == 1, "the narrow plan reads one piece a lane");
+  decode_split<TQ, TK, GB, PPL>(q, k, v, kv_len, m_out, l_out, acc_out, nullptr, nullptr,
+                                nullptr, T_len, H, KV, D, qsb, qsh, ksb, kst, ksh, vsb, vst,
+                                vsh, n_split, kChunkAlign, n_hg, lanes_log2, softcap, scale);
+}
+
+// The wide plan's: one head a block, two pieces a lane; the last block of a
+// head's splits merges them into o (and lse).
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(kThreads)
+decode_wide_kernel(const TQ* __restrict__ q, const TK* __restrict__ k,
+                   const TK* __restrict__ v, const int* __restrict__ kv_len,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   float* __restrict__ acc_out, int* __restrict__ tickets,
+                   TQ* __restrict__ o, float* __restrict__ lse, int T_len, int H, int KV,
+                   int D, long long qsb, long long qsh, long long ksb, long long kst,
+                   long long ksh, long long vsb, long long vst, long long vsh, int n_split,
+                   int min_chunk, int lanes_log2, float softcap, float scale) {
+  decode_split<TQ, TK, 1, 2>(q, k, v, kv_len, m_out, l_out, acc_out, tickets, o, lse, T_len,
+                             H, KV, D, qsb, qsh, ksb, kst, ksh, vsb, vst, vsh, n_split,
+                             min_chunk, H / KV, lanes_log2, softcap, scale);
 }
 
 // One block per (b, h): merge the row's used splits; lse (when not null)
@@ -250,7 +405,7 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_in,
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int G = H / KV, kvh = h / G, g = h - kvh * G;
   const int len = min(max(kv_len[b], 0), T_len);
-  const int chunk = row_chunk(len, n_split);
+  const int chunk = row_chunk(len, n_split, kChunkAlign);
   const int n_used = (len + chunk - 1) / chunk;
   const long long base = (static_cast<long long>(b) * KV + kvh) * n_split;
   float M = kNegInf;
@@ -269,14 +424,16 @@ __global__ void decode_combine_kernel(const float* __restrict__ m_in,
   }
 }
 
-template <typename TQ, typename TK, int GB, int PPL>
+// The narrow plan (one piece a lane): the split kernel at GB heads a block,
+// then the combine kernel.
+template <typename TQ, typename TK, int GB>
 int launch_g(const void* q, const void* k, const void* v, const int* kv_len, void* o,
-             float* m_scr, float* l_scr, float* acc_scr, float* lse, int B, int T_len,
-             int H, int KV, int D, const long long* st, int n_split, int lanes_log2,
-             float softcap, float scale, cudaStream_t stream) {
+             float* m_scr, float* l_scr, float* acc_scr, float* lse, int B, int T_len, int H,
+             int KV, int D, const long long* st, int n_split, int lanes_log2, float softcap,
+             float scale, cudaStream_t stream) {
   const int G = H / KV, n_hg = (G + GB - 1) / GB;
   dim3 grid(n_split, KV * n_hg, B);
-  decode_split_kernel<TQ, TK, GB, PPL><<<grid, kThreads, 0, stream>>>(
+  decode_split_kernel<TQ, TK, GB, 1><<<grid, kThreads, 0, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(k), static_cast<const TK*>(v), kv_len,
       m_scr, l_scr, acc_scr, T_len, H, KV, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], n_split, n_hg, lanes_log2, softcap, scale);
@@ -288,37 +445,53 @@ int launch_g(const void* q, const void* k, const void* v, const int* kv_len, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TK, int PPL>
-int launch_p(int heads_per_block, const void* q, const void* k, const void* v,
-             const int* kv_len, void* o, float* m_scr, float* l_scr, float* acc_scr,
-             float* lse, int B, int T_len, int H, int KV, int D, const long long* st,
-             int n_split, int lanes_log2, float softcap, float scale, cudaStream_t stream) {
-#define ARGS q, k, v, kv_len, o, m_scr, l_scr, acc_scr, lse, B, T_len, H, KV, D, st, n_split, \
-             lanes_log2, softcap, scale, stream
-  switch (heads_per_block) {
-    case 1: return launch_g<TQ, TK, 1, PPL>(ARGS);
-    case 2: return launch_g<TQ, TK, 2, PPL>(ARGS);
-    case 4: return launch_g<TQ, TK, 4, PPL>(ARGS);
-    case 8: return launch_g<TQ, TK, 8, PPL>(ARGS);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef ARGS
+// The wide plan (two pieces a lane): one head a block, the last block of a
+// head's splits merges them (the tickets start at 0; the weights of its
+// splits fill sm_acc).
+template <typename TQ, typename TK>
+int launch_wide(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+                float* m_scr, float* l_scr, float* acc_scr, int* tickets, float* lse, int B,
+                int T_len, int H, int KV, int D, const long long* st, int n_split,
+                int min_chunk, int lanes_log2, float softcap, float scale,
+                cudaStream_t stream) {
+  if (n_split > kWarps * kMaxD || tickets == nullptr ||
+      reinterpret_cast<uintptr_t>(acc_scr) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int G = H / KV;
+  cudaError_t err = cudaMemsetAsync(tickets, 0, sizeof(int) * B * KV * G, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n_split, KV * G, B);
+  decode_wide_kernel<TQ, TK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const TQ*>(q), static_cast<const TK*>(k), static_cast<const TK*>(v), kv_len,
+      m_scr, l_scr, acc_scr, tickets, static_cast<TQ*>(o), lse, T_len, H, KV, D, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], n_split, min_chunk, lanes_log2, softcap,
+      scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename TQ, typename TK>
 int launch_t(int heads_per_block, int pieces_per_lane, const void* q, const void* k,
              const void* v, const int* kv_len, void* o, float* m_scr, float* l_scr,
-             float* acc_scr, float* lse, int B, int T_len, int H, int KV, int D,
-             const long long* st, int n_split, int lanes_log2, float softcap, float scale,
-             cudaStream_t stream) {
+             float* acc_scr, int* tickets, float* lse, int B, int T_len, int H, int KV, int D,
+             const long long* st, int n_split, int min_chunk, int lanes_log2, float softcap,
+             float scale, cudaStream_t stream) {
   if (D > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
-#define ARGS heads_per_block, q, k, v, kv_len, o, m_scr, l_scr, acc_scr, lse, B, T_len, H, KV, \
-             D, st, n_split, lanes_log2, softcap, scale, stream
-  switch (pieces_per_lane) {
-    case 1: return launch_p<TQ, TK, 1>(ARGS);
-    case 2:   // two pieces a lane only for an f32 cache row of more than 512 bytes
-      if constexpr (sizeof(TK) == 4) return launch_p<TQ, TK, 2>(ARGS);
+  if (pieces_per_lane == 2) {
+    if (heads_per_block != 1 || min_chunk < kChunkAlign || min_chunk % kChunkAlign)
       return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide<TQ, TK>(q, k, v, kv_len, o, m_scr, l_scr, acc_scr, tickets, lse, B,
+                               T_len, H, KV, D, st, n_split, min_chunk, lanes_log2, softcap,
+                               scale, stream);
+  }
+  if (pieces_per_lane != 1 || min_chunk != kChunkAlign)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define ARGS q, k, v, kv_len, o, m_scr, l_scr, acc_scr, lse, B, T_len, H, KV, D, st, n_split, \
+             lanes_log2, softcap, scale, stream
+  switch (heads_per_block) {
+    case 1: return launch_g<TQ, TK, 1>(ARGS);
+    case 2: return launch_g<TQ, TK, 2>(ARGS);
+    case 4: return launch_g<TQ, TK, 4>(ARGS);
+    case 8: return launch_g<TQ, TK, 8>(ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ARGS
@@ -327,26 +500,33 @@ int launch_t(int heads_per_block, int pieces_per_lane, const void* q, const void
 }  // namespace
 
 // softcap <= 0: none.  Strides in elements: q (b, h); k, v (b, t, kv); out is
-// (B, H, D) contiguous.  Scratch: m, l (B*KV*n_split*G), acc (... * D) fp32.
-// lse: null, or (B, H) f32 contiguous for each row's log-sum-exp.
-// The plan (decode_attention.py::split_plan): n_split blocks per row and kv
-// head, heads_per_block (1, 2, 4 or 8), L = 2**lanes_log2 lanes per cache row
-// and pieces_per_lane 16-byte pieces of it per lane (L * pieces_per_lane *
-// 16 bytes >= a row).
+// (B, H, D) contiguous.  Scratch: m, l (B*KV*n_split*G), acc (... * D) fp32;
+// tickets: (B*H) int32 on the wide plan (zeroed here), else unused.  lse:
+// null, or (B, H) f32 contiguous for each row's log-sum-exp.  The plan
+// (decode_attention.py::split_plan): n_split blocks per row and kv head,
+// heads_per_block (1, 2, 4 or 8), L = 2**lanes_log2 lanes per cache row and
+// pieces_per_lane 16-byte pieces of it per lane (L * pieces_per_lane * 16
+// bytes >= a row), splits of at least min_chunk slots.  pieces_per_lane
+// picks the route: 1, the narrow plan (min_chunk 16, a combine kernel
+// merges the splits); 2, the wide plan (heads_per_block 1, at most 1024
+// splits, the last block merges them; acc 16-byte aligned: that block reads
+// it 16 bytes at a time).
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const int* kv_len, void* o, float* m_scr,
-                                       float* l_scr, float* acc_scr, float* lse, int B,
-                                       int T_len, int H, int KV, int D, long long qsb, long long qsh,
-                                       long long ksb, long long kst, long long ksh,
+                                       float* l_scr, float* acc_scr, void* tickets, float* lse,
+                                       int B, int T_len, int H, int KV, int D, long long qsb,
+                                       long long qsh, long long ksb, long long kst, long long ksh,
                                        long long vsb, long long vst, long long vsh,
-                                       int n_split, int heads_per_block, int lanes_log2,
-                                       int pieces_per_lane, float softcap, float scale,
-                                       int q_bf16, int kv_bf16, void* stream) {
+                                       int n_split, int min_chunk, int heads_per_block,
+                                       int lanes_log2, int pieces_per_lane, float softcap,
+                                       float scale, int q_bf16, int kv_bf16, void* stream) {
   if (B == 0 || H == 0) return 0;
   const long long st[8] = {qsb, qsh, ksb, kst, ksh, vsb, vst, vsh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tk = static_cast<int*>(tickets);
 #define DECODE_ARGS heads_per_block, pieces_per_lane, q, k, v, kv_len, o, m_scr, l_scr, \
-                    acc_scr, lse, B, T_len, H, KV, D, st, n_split, lanes_log2, softcap, scale, s
+                    acc_scr, tk, lse, B, T_len, H, KV, D, st, n_split, min_chunk, lanes_log2, \
+                    softcap, scale, s
   if (q_bf16)
     return kv_bf16 ? launch_t<__nv_bfloat16, __nv_bfloat16>(DECODE_ARGS)
                    : launch_t<__nv_bfloat16, float>(DECODE_ARGS);

@@ -45,9 +45,26 @@
 //     their tiles are 128 columns wide, the last chunk's box runs past D and
 //     TMA fills it with zeros, S takes only the D/16 real k16 steps, P V runs
 //     at n128 (12.5-25 % of it on zero columns) and the store keeps D.
-//     D=256 takes one consumer warpgroup and 32-key tiles (its accumulator
-//     alone is 128 registers a thread).  The producer is a whole warpgroup
-//     that gives its registers to the consumers (setmaxnreg 40 / 232).
+//     At D <= 128 the producer is a whole warpgroup that gives its
+//     registers to the consumers (setmaxnreg 40 / 232).  D=256 (gemma's
+//     heads) keeps two consumer warpgroups of 64 rows at full width and
+//     64-key tiles, with no producer: a 64 x 256 fp32 accumulator alone is
+//     128 registers a thread, and ptxas gives a block with a producer warp
+//     or warpgroup beside two consumer warpgroups 168 (as if it were 384
+//     threads, whatever setmaxnreg asks: 1.8 KB of spills), a block of 256
+//     up to 255.  Thread 0 loads Q and the first ring stages; each later
+//     K or V tile is loaded by the warpgroup that releases its stage last
+//     (a count in shared memory: the first to release goes on, the second
+//     issues the refill), so neither warpgroup waits for the other.  The
+//     count is taken after the warpgroup's named barrier (all 128 threads
+//     past wgmma_wait, so its reads of the stage are done) by an acq_rel
+//     atomic, so those reads happen before the other warpgroup's refill,
+//     as an mbarrier arrive / wait would order them.  S and
+//     the softmax (softcap included) stay once a (row, key) pair and
+//     nothing passes through shared memory but the TMA tiles: Q 2 x 32 KB
+//     and a two-stage K / V ring of 4 x 32 KB, 193 KB.  Its grid is one
+//     axis, longest causal range first over every (tile, kv head, batch)
+//     (gemma-2b's MQA prefill: 192 blocks of unequal length on 132 SMs).
 //     A consumer warpgroup runs S, the softmax (base 2, ex2.approx: 2 ulp)
 //     and P V of one tile in turn; the two warpgroups of a block overlap
 //     one's softmax with the other's products.  (Issuing S(n+1) beside
@@ -312,7 +329,8 @@ using namespace hopper;
 // last chunk's TMA box runs past D and reads zeros there.
 template <int D, int BN>
 struct Cfg {
-  static constexpr int kWG = D == 256 ? 1 : 2;        // consumer warpgroups
+  static constexpr bool kWide = D == 256;             // full-width accumulators
+  static constexpr int kWG = 2;                       // consumer warpgroups
   static constexpr int kBN = BN;                      // keys per tile
   static constexpr int kStages = 2;                   // K/V ring depth
   static constexpr int kRows = 64;                    // rows per warpgroup
@@ -322,11 +340,12 @@ struct Cfg {
   static constexpr int kRowBytes = kChunk * 2;        // = the swizzle width
   static constexpr int kQBytes = kRows * kDp * 2;     // one warpgroup's Q
   static constexpr int kKVBytes = kBN * kDp * 2;      // one K or V tile
-  // consumer warpgroups, then one producer warpgroup (one thread issues the
-  // loads); setmaxnreg moves the producer's registers to the consumers
-  static constexpr int kThreads = (kWG + 1) * 128;
+  // consumer warpgroups, then a producer warpgroup (one thread issues the
+  // loads) whose registers setmaxnreg moves to the consumers; at D=256 no
+  // producer: the consumers issue the loads and get up to 255 registers
+  static constexpr int kThreads = kWG * 128 + (kWide ? 0 : 128);
   static constexpr int kProducerRegs = 40;
-  static constexpr int kConsumerRegs = kWG == 2 ? 232 : 240;
+  static constexpr int kConsumerRegs = 232;
   static constexpr int kBars = 1 + 4 * kStages;
   static constexpr size_t kSmem =
       1024 + static_cast<size_t>(kWG) * kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
@@ -438,12 +457,24 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8u * (1 + s); };
   auto v_full = [&](int s) { return bars + 8u * (1 + kNS + s); };
+  // at D=256 the two "empty" slots of a stage hold release counts, not mbarriers
   auto k_empty = [&](int s) { return bars + 8u * (1 + 2 * kNS + s); };
   auto v_empty = [&](int s) { return bars + 8u * (1 + 3 * kNS + s); };
 
   const int G = H / KV;
-  const int kvh = blockIdx.y, b = blockIdx.z;
-  const int tile = gridDim.x - 1 - blockIdx.x;   // the longest causal rows first
+  int tile, kvh, b;   // the longest causal rows first
+  if constexpr (C::kWide) {   // grid x: (tile, kv head, batch)
+    const int n_pos_tiles = (S + C::kWG * P - 1) / (C::kWG * P);
+    const int per_tile = gridDim.x / n_pos_tiles;   // KV * B blocks a tile
+    const int r = blockIdx.x % per_tile;
+    tile = n_pos_tiles - 1 - blockIdx.x / per_tile;
+    kvh = r % KV;
+    b = r / KV;
+  } else {
+    tile = gridDim.x - 1 - blockIdx.x;
+    kvh = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int pos0 = tile * C::kWG * P;
   const int pos_end = min(S, pos0 + C::kWG * P);
   int t_lo, t_hi;
@@ -456,14 +487,40 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int s = 0; s < kNS; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), C::kWG * 128);
-      mbar_init(v_empty(s), C::kWG * 128);
+      if constexpr (C::kWide) {
+        smem_store_u64(k_empty(s), 0);
+        smem_store_u64(v_empty(s), 0);
+      } else {
+        mbar_init(k_empty(s), C::kWG * 128);
+        mbar_init(v_empty(s), C::kWG * 128);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp >= C::kWG * 4) {
+  // D=256: K or V tile n into its ring stage, signalled on its full barrier
+  auto load_kv = [&](const CUtensorMap* map, uint32_t ring, uint32_t full, int n) {
+    const int s = n % kNS;
+    mbar_expect_tx(full, C::kKVBytes);
+    for (int c = 0; c < C::kNChunk; ++c)
+      tma_load_4d(ring + s * C::kKVBytes + c * kBN * kRB, map, full, c * C::kChunk, kvh,
+                  t_lo + n * kBN, b);
+  };
+  if constexpr (C::kWide) {
+    // no producer: thread 0 loads Q and the first stages of the ring
+    if (tid == 0) {
+      mbar_expect_tx(q_full, C::kWG * C::kNChunk * G * P * kRB);
+      for (int w = 0; w < C::kWG; ++w)
+        for (int c = 0; c < C::kNChunk; ++c)
+          tma_load_4d(sQ + w * C::kQBytes + c * C::kRows * kRB, &qmap, q_full, c * C::kChunk,
+                      kvh * G, pos0 + w * P, b);
+      for (int n = 0; n < min(kNS, n_tiles); ++n) {
+        load_kv(&kmap, sK, k_full(n), n);
+        load_kv(&vmap, sV, v_full(n), n);
+      }
+    }
+  } else if (warp >= C::kWG * 4) {
     // ---- producer: Q once, then K and V tiles through the ring
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(C::kProducerRegs));
     if (warp == C::kWG * 4 && lane == 0) {
@@ -492,8 +549,22 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 
   // ---- consumers: warpgroup wg owns rows [0, G*P) of its Q tile
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
+  if constexpr (!C::kWide)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(C::kConsumerRegs));
   const int wg = warp >> 2, w4 = warp & 3;
+  // release stage n % kNS of a ring: every thread of the warpgroup is past
+  // its product; at D=256 the warpgroup counts itself once, and the second
+  // of the two to do so loads tile n + kNS into the stage
+  auto release = [&](uint32_t empty, const CUtensorMap* map, uint32_t ring, uint32_t full,
+                     int n) {
+    if constexpr (C::kWide) {
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+      if (w4 == 0 && lane == 0 && (smem_atomic_add(empty, 1) & 1) && n + kNS < n_tiles)
+        load_kv(map, ring, full, n + kNS);
+    } else {
+      mbar_arrive(empty);
+    }
+  };
   const uint32_t sQw = sQ + wg * C::kQBytes;
   const int wpos0 = pos0 + wg * P;
   const int wpos_hi = min(S, wpos0 + P) - 1;       // last valid position
@@ -525,7 +596,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<kBN / 2>(sc);
-    mbar_arrive(k_empty(s));
+    release(k_empty(s), &kmap, sK, k_full(s), n);
     softmax_any<kBN>(sc, t_lo + n * kBN, mask, m_r, l_r, alpha);
 #pragma unroll
     for (int j = 0; j < kDp / 8; ++j)
@@ -550,7 +621,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<kDp / 2>(acc);
-    mbar_arrive(v_empty(s));
+    release(v_empty(s), &vmap, sV, v_full(s), n);
   }
 
   // out (B, S, H, D) contiguous: acc[j*4 + i*2 + e] is (row i, column j*8 + col + e);
@@ -573,7 +644,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// The bf16 route's launch shape as launch_plan gives it.
+// The bf16 route's launch shape as launch_plan gives it (n_pos_tiles: the
+// grid's x, which on a flat grid (D=256) counts (tile, kv head, batch)).
 struct Plan {
   int warpgroups, threads, stages, key_tile, chunk, swizzle_bytes, box_heads, box_pos,
       n_pos_tiles;
@@ -589,8 +661,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   // kv head's G heads over at most 64 rows, and its blocks must reach S
   if (p.warpgroups != C::kWG || p.threads != C::kThreads || p.stages != C::kStages ||
       p.key_tile != C::kBN || p.chunk != C::kChunk || p.swizzle_bytes != C::kRowBytes ||
-      p.box_heads != G || p.box_pos < 1 || p.box_pos * G > C::kRows ||
-      static_cast<long long>(p.n_pos_tiles) * C::kWG * p.box_pos < S)
+      p.box_heads != G || p.box_pos < 1 || p.box_pos * G > C::kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // blocks along the grid's x: position tiles reaching S, or on a flat grid
+  // exactly every (tile, kv head, batch)
+  const long long n_tiles = (S + C::kWG * p.box_pos - 1) / (C::kWG * p.box_pos);
+  if (C::kWide ? p.n_pos_tiles != n_tiles * KV * B
+                   : static_cast<long long>(p.n_pos_tiles) * C::kWG * p.box_pos < S)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap qmap, kmap, vmap;
   if (!make_map(&qmap, q, D, H, S, B, st[2], st[1], st[0], p.chunk, p.box_heads, p.box_pos,
@@ -604,7 +681,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(p.n_pos_tiles, KV, B);
+  const dim3 grid = C::kWide ? dim3(p.n_pos_tiles, 1, 1) : dim3(p.n_pos_tiles, KV, B);
   flash_tc_kernel<D, BN><<<grid, p.threads, C::kSmem, stream>>>(
       qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), lse, S, T_len, H, KV, p.box_pos, causal,
       window, q_offset, softcap, scale);
@@ -655,7 +732,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     case 96064: return tc::launch<96, 64>(TC_ARGS);
     case 112064: return tc::launch<112, 64>(TC_ARGS);
     case 128064: return tc::launch<128, 64>(TC_ARGS);
-    case 256032: return tc::launch<256, 32>(TC_ARGS);
+    case 256064: return tc::launch<256, 64>(TC_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TC_ARGS

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels
 // (flash_attention.cu's bf16 forward and flash_attention_bwd.cu's bf16
-// backward): shared-memory addresses, mbarriers, TMA loads of 4-D bf16
+// backward): shared-memory addresses, a store and an atomic add there,
+// mbarriers, TMA loads of 4-D bf16
 // tensor maps, wgmma issue / fence / commit / wait, shared-memory matrix
 // descriptors, the bf16 hi/lo split that keeps an fp32 operand of a
 // register-A wgmma at about 16 bits, and the tensor-map encoder reached
@@ -52,6 +53,21 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (start < 0) start = now;
     else if (now - start > (1LL << 34)) __trap();
   }
+}
+// A 64-bit store and a 32-bit atomic add at a shared-memory address.  The
+// add is acq_rel at the CTA's scope: what a thread did before it (a buffer's
+// last reads) happens before what the thread that sees its count does after
+// (a TMA load that overwrites the buffer).
+__device__ __forceinline__ void smem_store_u64(uint32_t addr, uint64_t x) {
+  asm volatile("st.shared.u64 [%0], %1;\n" ::"r"(addr), "l"(x) : "memory");
+}
+__device__ __forceinline__ uint32_t smem_atomic_add(uint32_t addr, uint32_t x) {
+  uint32_t old;
+  asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(addr), "r"(x)
+               : "memory");
+  return old;
 }
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {

@@ -3,7 +3,8 @@
 Port of the Pallas kernel ``repro/kernels/decode_attention.py::
 decode_attention``.  For a CUDA tensor the wrapper checks its inputs,
 allocates the output and the split scratch, launches the hand-written kernel
-(a split pass and a combine pass) on the current stream and counts one
+(a split pass and a combine pass, or at wide heads a split pass whose last
+block of each row combines) on the current stream and counts one
 launch (the split plan is computed here, ``split_plan``, where the CPU
 tests reach it); for a CPU tensor it runs the plain version
 ``ref.decode_attention_ref``.  There is no fallback: a CUDA input either
@@ -30,6 +31,18 @@ TARGET_BLOCKS = 528     # four 4-warp blocks for each of the H100's 132 SMs
 CHUNK_ALIGN = 16        # a row's split is a multiple of this many slots (kChunkAlign)
 MAX_HEADS_PER_BLOCK = 8
 MAX_D = 256             # 32 lanes x 2 pieces of 16 bytes a row in f32 (kMaxD)
+# Wide heads (D > WIDE_D: gemma's 256) come with few (row, kv head) groups.
+# There a block serves one query head and a lane two 16-byte pieces of a
+# row (its dots, butterflies and softmax are a lane's serial work: 8 heads
+# a block and 32 lanes a row ran 3x slower at gemma-2b's decode on the
+# H100), a split reads at least WIDE_SPLIT_BYTES of K, so that its loads
+# outweigh its merge and its partial's write, and the last block of a
+# row's splits merges them (no combine launch), which holds at most
+# MAX_MERGE_SPLITS (the kernel's shared weights: kWarps * kMaxD).  Up to
+# WIDE_D the plan is the one K7 was designed with.
+WIDE_D = 128
+WIDE_SPLIT_BYTES = 16384
+MAX_MERGE_SPLITS = 1024
 
 
 def heads_per_block(G: int) -> int:
@@ -42,29 +55,39 @@ def split_plan(batch: int, n_kv: int, slots: int, G: int = 1, D: int = 128,
                cache_bytes: int = 2) -> dict:
     """The split kernel's launch shape.  ``n_split`` blocks per (row, kv
     head, head group): enough that the grid holds TARGET_BLOCKS, but no more
-    than CHUNK_ALIGN-slot pieces of the cache.  Each row then cuts its own
-    valid slots, min(kv_len, T), into ``row_chunk`` pieces on the card.  A
-    cache row of D elements is read 16 bytes a lane by ``lanes`` lanes,
-    ``pieces_per_lane`` pieces each."""
-    hpb = heads_per_block(G)
+    than ``min_chunk``-slot pieces of the cache.  Each row then cuts its own
+    valid slots, min(kv_len, T), into ``row_chunk`` pieces of at least
+    ``min_chunk`` on the card.  A cache row of D elements is read 16 bytes a
+    lane by ``lanes`` lanes, ``pieces_per_lane`` pieces each.  ``combine``:
+    "kernel" (a second launch merges each row's splits) or, for wide heads,
+    "last_block" (the last split block of a (row, kv head, head group)
+    merges them; the kernel takes this route where ``pieces_per_lane`` is
+    2, which only wide heads get)."""
+    wide = D > WIDE_D
+    hpb = 1 if wide else heads_per_block(G)
     groups = batch * n_kv * -(-G // hpb)
-    n_split = max(1, min(-(-TARGET_BLOCKS // max(groups, 1)),
-                         -(-max(slots, 1) // CHUNK_ALIGN)))
+    min_chunk = CHUNK_ALIGN
+    if wide:
+        min_chunk = max(CHUNK_ALIGN, -(-WIDE_SPLIT_BYTES // (D * cache_bytes * CHUNK_ALIGN))
+                        * CHUNK_ALIGN)
+    n_split = max(1, min(-(-TARGET_BLOCKS // max(groups, 1)), -(-max(slots, 1) // min_chunk)))
     pieces = D * cache_bytes // 16
-    lanes = min(32, 1 << max(0, (pieces - 1).bit_length()))
+    per_lane = 2 if wide else 1        # a wide row: two pieces a lane, fewer shuffles a dot
+    lanes = min(32, 1 << max(0, (-(-pieces // per_lane) - 1).bit_length()))
     return {"n_split": n_split, "heads_per_block": hpb, "head_groups": -(-G // hpb),
             "lanes": lanes, "lanes_log2": lanes.bit_length() - 1,
             "pieces_per_lane": -(-pieces // lanes),
-            "grid": (n_split, n_kv * -(-G // hpb), batch)}
+            "grid": (n_split, n_kv * -(-G // hpb), batch),
+            "min_chunk": min_chunk, "combine": "last_block" if wide else "kernel"}
 
 
-def row_chunk(length: int, n_split: int) -> int:
+def row_chunk(length: int, n_split: int, min_chunk: int = CHUNK_ALIGN) -> int:
     """Slots per split of a row with ``length`` valid slots, as the kernel
-    plans it: ceil(length / n_split) rounded up to CHUNK_ALIGN.  Split s
-    covers [s * chunk, min((s + 1) * chunk, length)); the splits past the
-    row's end read nothing."""
+    plans it: ceil(length / n_split) rounded up to CHUNK_ALIGN, at least
+    ``min_chunk`` (the plan's).  Split s covers [s * chunk, min((s + 1) *
+    chunk, length)); the splits past the row's end read nothing."""
     c = -(-length // n_split)
-    return max(CHUNK_ALIGN, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
+    return max(min_chunk, -(-c // CHUNK_ALIGN) * CHUNK_ALIGN)
 
 
 def work(B: int, H: int, KV: int, D: int, slots: int, q_elem: int, cache_elem: int,
@@ -135,23 +158,31 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_split = plan["n_split"] if n_split is None else int(n_split)
     if n_split < 1:
         raise ValueError(f"n_split must be positive, not {n_split}")
+    last_block = plan["combine"] == "last_block"
+    if last_block and n_split > MAX_MERGE_SPLITS:
+        raise ValueError(f"n_split {n_split}: the last block merges at most "
+                         f"{MAX_MERGE_SPLITS} splits")
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
-    n_part = B * KV * n_split * G          # one scratch buffer: m, l, then acc
-    scr = torch.empty(n_part * (2 + D), dtype=torch.float32, device=q.device)
+    n_part = B * KV * n_split * G          # one scratch buffer: acc, m, l, then tickets
+    n_tickets = B * KV * plan["head_groups"] if last_block else 0
+    scr = torch.empty(n_part * (2 + D) + n_tickets, dtype=torch.float32, device=q.device)
     if fake:   # what the kernel allocates (out, lse and the scratch) is all it does
         build.record_work("decode_attention", work(
             B, H, KV, D, B * T, q.element_size(), k.element_size(), return_lse))
         return (out, lse) if return_lse else out
-    m_scr, l_scr, acc_scr = scr[:n_part], scr[n_part:2 * n_part], scr[2 * n_part:]
+    m0, end = n_part * D, n_part * (2 + D)   # acc first: its rows are 16-byte aligned
+    acc_scr, m_scr, l_scr = scr[:m0], scr[m0:m0 + n_part], scr[m0 + n_part:end]
+    tickets = scr[end:].view(torch.int32) if last_block else None
     build.launch(
         "decode_attention", "decode_attention_launch", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         m_scr.data_ptr(), l_scr.data_ptr(), acc_scr.data_ptr(),
+        None if tickets is None else tickets.data_ptr(),
         None if lse is None else lse.data_ptr(), B, T, H, KV, D,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2), n_split, plan["heads_per_block"],
-        plan["lanes_log2"], plan["pieces_per_lane"],
+        v.stride(0), v.stride(1), v.stride(2), n_split, plan["min_chunk"],
+        plan["heads_per_block"], plan["lanes_log2"], plan["pieces_per_lane"],
         -1.0 if softcap is None else float(softcap), scale,
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16))
     LAUNCHES["decode_attention"] += 1

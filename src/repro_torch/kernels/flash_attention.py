@@ -46,17 +46,19 @@ LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_delta": 0,
 HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)   # the kernel's compiled head widths
 DTYPES = (torch.float32, torch.bfloat16)
 
-# bf16 route: 64 rows per consumer warpgroup; D=256 takes one warpgroup and
-# 32-key tiles (register budget).  The kernel is compiled for these
-# (``csrc/flash_attention.cu::tc::Cfg``) and refuses a plan that differs.
-# D=96 and 112 are not whole 64-column chunks: their smem tiles are 128
-# columns wide (the plan's ``tile_width``), TMA fills the columns past D with
-# zeros, the S product skips the zero k16 steps, P V runs at width 128 and
-# the store writes only the first D columns.
-TC_ROWS = 64
-TC_WARPGROUPS = {16: 2, 32: 2, 64: 2, 96: 2, 112: 2, 128: 2, 256: 1}
-TC_KEY_TILE = {16: 64, 32: 64, 64: 64, 96: 64, 112: 64, 128: 64, 256: 32}
-TC_STAGES = 2
+# bf16 route: two consumer warpgroups of 64 rows and 64-key tiles at every
+# width.  The kernel is compiled for these (``csrc/flash_attention.cu::
+# tc::Cfg``) and refuses a plan that differs.  D=96 and 112 are not whole
+# 64-column chunks: their smem tiles are 128 columns wide (the plan's
+# ``tile_width``), TMA fills the columns past D with zeros, the S product
+# skips the zero k16 steps, P V runs at width 128 and the store writes only
+# the first D columns.  D=256 (TC_WIDE: a warpgroup's accumulator is 128
+# registers a thread) has no producer warpgroup (the consumers issue the
+# loads), so that the block's 256 threads get up to 255 registers each, and
+# a flat grid that starts the longest causal tiles of every (kv head,
+# batch) first.
+TC_ROWS, TC_WARPGROUPS, TC_KEY_TILE, TC_STAGES = 64, 2, 64, 2
+TC_WIDE = (256,)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -76,7 +78,10 @@ def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
     accumulator rows) and a ring of ``stages`` K/V tiles of ``key_tile``
     keys; ``q_box`` and ``kv_box`` are the TMA boxes over (D, heads,
     positions, batch), one ``chunk`` of D columns at a time, swizzled over
-    ``swizzle_bytes``; ``grid`` is (blocks along S, KV, B)."""
+    ``swizzle_bytes``; ``grid`` is (blocks along S, KV, B), or at the wide
+    widths (TC_WIDE) one axis of (blocks along S) * KV * B blocks whose block
+    x takes tile ``tiles - 1 - x // (KV * B)``, kv head ``x % (KV * B) %
+    KV`` and batch ``x % (KV * B) // KV``."""
     if dtype not in DTYPES:
         raise TypeError(f"no kernel route for {dtype}")
     if D not in HEAD_DIMS:
@@ -87,13 +92,16 @@ def launch_plan(dtype: torch.dtype, B: int, S: int, T: int, H: int, KV: int,
     if G > TC_ROWS:
         raise ValueError(f"{G} query heads per kv head: the bf16 kernel takes at most "
                          f"{TC_ROWS}")
-    wg, bn, chunk = TC_WARPGROUPS[D], TC_KEY_TILE[D], min(D, 64)
+    wg, bn, chunk = TC_WARPGROUPS, TC_KEY_TILE, min(D, 64)
     pos = TC_ROWS // G
-    return {"route": "wgmma", "warpgroups": wg, "threads": 128 * (wg + 1),
+    tiles = _cdiv(S, wg * pos)
+    wide = D in TC_WIDE
+    return {"route": "wgmma", "warpgroups": wg, "threads": 128 * wg + (0 if wide else 128),
             "stages": TC_STAGES, "key_tile": bn, "chunk": chunk,
             "tile_width": _cdiv(D, chunk) * chunk,
             "swizzle_bytes": 2 * chunk, "q_box": (chunk, G, pos, 1),
-            "kv_box": (chunk, 1, bn, 1), "grid": (_cdiv(S, wg * pos), KV, B)}
+            "kv_box": (chunk, 1, bn, 1),
+            "grid": (tiles * KV * B, 1, 1) if wide else (tiles, KV, B)}
 
 
 # K6's backward (``csrc/flash_attention_bwd.cu``): bf16 runs on the tensor

@@ -106,6 +106,28 @@ class TestFlashAttentionPlain:
         np.testing.assert_allclose(_np(got), _np(jref.flash_attention_ref(jq, jk, jv, **kwargs)),
                                    atol=tol)
 
+    @pytest.mark.parametrize("H,KV,kwargs", [
+        (8, 1, {}),                                                 # gemma-2b: MQA, G = 8
+        (4, 2, {"window": 32, "softcap": 50.0, "scale": 256 ** -0.5}),   # gemma2-9b: G = 2
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_head_width_256_matches_pallas(self, H, KV, kwargs, dtype):
+        """K6's plain version at gemma's head width 256 (the width whose
+        bf16 kernel takes two full-width warpgroups), at a multiple of the
+        Pallas blocks, where the reference kernel is sound."""
+        S, D = 64, 256
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(2, S, H, D, dtype=dtype),
+                                        _pair(2, S, KV, D, dtype=dtype),
+                                        _pair(2, S, KV, D, dtype=dtype))
+        got = ops.flash_attention(tq, tk, tv, **kwargs)
+        assert got.dtype == tq.dtype and got.shape == (2, S, H, D)
+        tol = _tol(dtype)
+        np.testing.assert_allclose(
+            _np(got), _np(jops.flash_attention(jq, jk, jv, block_q=16, block_k=16, **kwargs)),
+            atol=tol)
+        np.testing.assert_allclose(_np(got), _np(jref.flash_attention_ref(jq, jk, jv, **kwargs)),
+                                   atol=tol)
+
     def test_cross_attention_other_length(self):
         (jq, tq), (jk, tk), (jv, tv) = _pair(2, 32, 4, 32), _pair(2, 48, 2, 32), _pair(2, 48, 2, 32)
         np.testing.assert_allclose(
@@ -195,6 +217,31 @@ class TestDecodeAttentionPlain:
             _np(got), _np(jops.decode_attention(jq, jk, jv, jl, block_k=32)), atol=tol)
         np.testing.assert_allclose(_np(got), _np(jref.decode_attention_ref(jq, jk, jv, jl)),
                                    atol=tol)
+
+    @pytest.mark.parametrize("T,H,KV,kwargs", [
+        (128, 8, 1, {}),                                          # gemma-2b: MQA, G = 8
+        (96, 4, 2, {"softcap": 50.0, "scale": 256 ** -0.5}),      # gemma2-9b: G = 2
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_head_width_256_matches_pallas(self, T, H, KV, kwargs, dtype):
+        """K7's plain version at head width 256 (the width whose kernel takes
+        byte-sized splits and merges them in the last block), kv_len at 1,
+        a bf16 split's least 32 slots, 64, a ragged value and T."""
+        D = 256
+        lens = np.array([1, 32, 64, T - 29, T], np.int32)
+        B = lens.size
+        (jq, tq), (jk, tk), (jv, tv) = (_pair(B, H, D, dtype=dtype),
+                                        _pair(B, T, KV, D, dtype=dtype),
+                                        _pair(B, T, KV, D, dtype=dtype))
+        got = ops.decode_attention(tq, tk, tv, torch.from_numpy(lens), **kwargs)
+        assert got.dtype == tq.dtype and got.shape == (B, H, D)
+        tol = _tol(dtype)
+        jl = jnp.asarray(lens)
+        np.testing.assert_allclose(
+            _np(got), _np(jops.decode_attention(jq, jk, jv, jl, block_k=32, **kwargs)),
+            atol=tol)
+        np.testing.assert_allclose(
+            _np(got), _np(jref.decode_attention_ref(jq, jk, jv, jl, **kwargs)), atol=tol)
 
     def test_softcap_and_scale(self):
         (jq, tq), (jk, tk), (jv, tv) = _pair(2, 8, 32), _pair(2, 80, 2, 32), _pair(2, 80, 2, 32)

@@ -14,10 +14,28 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 
 SMS = 132   # H100 SXM
+
+
+def tc_smem_bytes(plan: dict) -> int:
+    """Dynamic shared memory of K6's bf16 route (``tc::Cfg::kSmem``): 1 KB of
+    alignment, each warpgroup's Q tile, the K and V rings, the mbarriers."""
+    width, stages = plan["tile_width"], plan["stages"]
+    return (1024 + plan["warpgroups"] * fa.TC_ROWS * width * 2
+            + 2 * stages * plan["key_tile"] * width * 2 + 8 * (1 + 4 * stages))
+
+
+def tc_block(plan: dict, S: int, KV: int, x: int):
+    """(position tile, kv head, batch) of block x of a wide (D=256) grid,
+    as ``flash_tc_kernel`` reads it: tiles in reverse (the longest causal
+    range first), every (kv head, batch) of a tile before the next tile."""
+    tiles = -(-S // (plan["warpgroups"] * plan["q_box"][2]))
+    per = plan["grid"][0] // tiles          # KV * B
+    return tiles - 1 - x // per, x % per % KV, x % per // KV
 
 
 # ------------------------------------------------------------------ K6 route
@@ -56,11 +74,14 @@ def test_tc_boxes_and_rows(D, G):
     assert qc == kc == chunk and qb == kb == kh == 1 and kt == p["key_tile"]
     assert qh == G and qp * G <= fa.TC_ROWS < (qp + 1) * G     # at most G - 1 rows idle
     assert all(1 <= b <= 256 for b in p["q_box"] + p["kv_box"])
-    assert p["key_tile"] % 16 == 0 and p["threads"] == 128 * (p["warpgroups"] + 1)
+    # consumer warpgroups and a producer warpgroup; at the wide widths the
+    # consumers load (256 threads of up to 255 registers)
+    producer = 0 if D in fa.TC_WIDE else 128
+    assert p["key_tile"] % 16 == 0 and p["threads"] == 128 * p["warpgroups"] + producer
     assert p["stages"] >= 2
     # a consumer thread holds width/2 fp32 of acc, key_tile/2 of S and
     # key_tile/2 words of P (hi and lo): with addresses and masks, within its
-    # 232 registers
+    # 232 registers (255 at the wide widths)
     assert width // 2 + p["key_tile"] <= 200
     assert fa.tc_launch_args(p) == (p["warpgroups"], p["threads"], p["stages"], p["key_tile"],
                                     chunk, p["swizzle_bytes"], qh, qp, p["grid"][0])
@@ -78,6 +99,99 @@ def test_tc_blocks_cover_every_position_once(S, G):
         assert x * step < S                            # no block without a row
         seen[x * step:(x + 1) * step] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_tc_plan_fits_shared_memory(D):
+    """Q tiles, the K/V ring and the barriers within the 227 KB a block may
+    take (``tc::Cfg::kSmem``); D=256's two full-width Q tiles and 64-key
+    ring take 193 KB."""
+    p = fa.launch_plan(torch.bfloat16, 1, 100, 100, 8, 1, D)
+    assert tc_smem_bytes(p) <= build.SMEM_LIMIT
+    if D == 256:
+        assert tc_smem_bytes(p) == 1024 + 2 * 32768 + 4 * 32768 + 8 * 9
+
+
+@pytest.mark.parametrize("B,S,H,KV", [(2, 1535, 8, 1), (1, 4608, 16, 8), (1, 1, 8, 1),
+                                      (3, 333, 8, 1), (2, 130, 4, 2), (1, 1000, 5, 1),
+                                      (2, 77, 16, 16), (1, 4096, 16, 8)])
+def test_tc_wide_grid_covers_every_position_once(B, S, H, KV):
+    """At D=256 the grid is one axis: block x takes tile tiles - 1 - x // (KV
+    * B) of kv head and batch x % (KV * B): every (position, kv head, batch)
+    exactly once, no block without a row."""
+    p = fa.launch_plan(torch.bfloat16, B, S, S, H, KV, 256)
+    step = p["warpgroups"] * p["q_box"][2]
+    tiles = -(-S // step)
+    assert p["grid"] == (tiles * KV * B, 1, 1) and p["threads"] == 256
+    seen = np.zeros((B, KV, S), int)
+    for x in range(p["grid"][0]):
+        tile, kvh, b = tc_block(p, S, KV, x)
+        assert 0 <= tile * step < S and 0 <= kvh < KV and 0 <= b < B
+        seen[b, kvh, tile * step:(tile + 1) * step] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,S,H,KV,window", [(2, 1535, 8, 1, None), (1, 4608, 16, 8, 4096),
+                                             (4, 700, 8, 2, None)])
+def test_tc_wide_grid_starts_the_longest_tiles(B, S, H, KV, window):
+    """Blocks in launch order see non-increasing key ranges (causal, with
+    the window): every (kv head, batch) of a tile before the next, shorter
+    tile, so the last wave on the 132 SMs holds the shortest blocks."""
+    p = fa.launch_plan(torch.bfloat16, B, S, S, H, KV, 256)
+    step = p["warpgroups"] * p["q_box"][2]
+    lengths = []
+    for x in range(p["grid"][0]):
+        tile, _, _ = tc_block(p, S, KV, x)
+        lo, end = tile * step, min(S, (tile + 1) * step)
+        lengths.append(end - (max(0, lo - window + 1) if window else 0))
+    assert all(a >= b for a, b in zip(lengths, lengths[1:]))
+
+
+def test_tc_wide_grid_at_gemma_prefill():
+    """gemma-2b (MQA, G=8: 8 positions a warpgroup) and gemma2-9b (G=2)."""
+    p = fa.launch_plan(torch.bfloat16, 2, 1535, 1535, 8, 1, 256)
+    assert p["q_box"] == (64, 8, 8, 1) and p["grid"] == (192, 1, 1)
+    assert p["key_tile"] == 64 and p["warpgroups"] == 2
+    p = fa.launch_plan(torch.bfloat16, 1, 4608, 4608, 16, 8, 256)
+    assert p["q_box"] == (64, 2, 32, 1) and p["grid"] == (576, 1, 1)
+
+
+# the parent's plans (before the D=256 redesign) at the narrow shapes that the
+# tests and chip_smoke.py use: (B, S, T, H, KV, D) -> (warpgroups, threads,
+# key_tile, chunk, tile_width, q_box, grid)
+NARROW_FLASH_PLANS = [
+    ((4, 2048, 2048, 16, 8, 128), (2, 384, 64, 64, 128, (64, 2, 32, 1), (32, 8, 4))),
+    ((2, 1535, 1535, 32, 32, 112), (2, 384, 64, 64, 128, (64, 1, 64, 1), (12, 32, 2))),
+    ((2, 2111, 2111, 32, 32, 96), (2, 384, 64, 64, 128, (64, 1, 64, 1), (17, 32, 2))),
+    ((2, 333, 333, 16, 8, 128), (2, 384, 64, 64, 128, (64, 2, 32, 1), (6, 8, 2))),
+    ((2, 300, 300, 8, 8, 128), (2, 384, 64, 64, 128, (64, 1, 64, 1), (3, 8, 2))),
+    ((2, 256, 256, 16, 2, 128), (2, 384, 64, 64, 128, (64, 8, 8, 1), (16, 2, 2))),
+    ((2, 200, 200, 16, 8, 64), (2, 384, 64, 64, 64, (64, 2, 32, 1), (4, 8, 2))),
+    ((2, 100, 180, 16, 8, 128), (2, 384, 64, 64, 128, (64, 2, 32, 1), (2, 8, 2))),
+    ((1, 96, 96, 8, 8, 32), (2, 384, 64, 32, 32, (32, 1, 64, 1), (1, 8, 1))),
+    ((1, 48, 16, 4, 4, 32), (2, 384, 64, 32, 32, (32, 1, 64, 1), (1, 4, 1))),
+    ((8, 32, 32, 16, 8, 128), (2, 384, 64, 64, 128, (64, 2, 32, 1), (1, 8, 8))),
+    ((2, 333, 333, 8, 8, 112), (2, 384, 64, 64, 128, (64, 1, 64, 1), (3, 8, 2))),
+    ((2, 100, 180, 16, 8, 96), (2, 384, 64, 64, 128, (64, 2, 32, 1), (2, 8, 2))),
+    ((1, 257, 257, 8, 4, 112), (2, 384, 64, 64, 128, (64, 2, 32, 1), (5, 4, 1))),
+    ((1, 300, 300, 40, 8, 128), (2, 384, 64, 64, 128, (64, 5, 12, 1), (13, 8, 1))),
+    ((1, 2048, 2048, 40, 8, 128), (2, 384, 64, 64, 128, (64, 5, 12, 1), (86, 8, 1))),
+    ((2, 1535, 1535, 40, 8, 128), (2, 384, 64, 64, 128, (64, 5, 12, 1), (64, 8, 2))),
+    ((2, 512, 512, 16, 16, 64), (2, 384, 64, 64, 64, (64, 1, 64, 1), (4, 16, 2))),
+    ((2, 150, 150, 16, 2, 16), (2, 384, 64, 16, 16, (16, 8, 8, 1), (10, 2, 2))),
+    ((1, 1000, 1000, 5, 1, 64), (2, 384, 64, 64, 64, (64, 5, 12, 1), (42, 1, 1))),
+    ((1, 4096, 4096, 16, 8, 128), (2, 384, 64, 64, 128, (64, 2, 32, 1), (64, 8, 1))),
+]
+
+
+@pytest.mark.parametrize("shape,want", NARROW_FLASH_PLANS)
+def test_launch_plan_is_the_parents_up_to_width_128(shape, want):
+    wg, threads, key_tile, chunk, width, q_box, grid = want
+    assert fa.launch_plan(torch.bfloat16, *shape) == {
+        "route": "wgmma", "warpgroups": wg, "threads": threads, "stages": 2,
+        "key_tile": key_tile, "chunk": chunk, "tile_width": width,
+        "swizzle_bytes": 2 * chunk, "q_box": q_box, "kv_box": (chunk, 1, key_tile, 1),
+        "grid": grid}
 
 
 def test_tc_grid_fills_the_card_at_qwen3_prefill():
@@ -170,3 +284,86 @@ def test_heads_per_block(G):
     assert hpb in (1, 2, 4, 8) and (hpb >= G or hpb == 8)
     p = da.split_plan(1, 2, 64, G, 64, 2)
     assert p["head_groups"] * hpb >= G > (p["head_groups"] - 1) * hpb
+
+
+# the parent's split plans (before the byte-sized wide plan) at the narrow
+# shapes that the tests and chip_smoke.py use: (B, KV, T, G, D, cache bytes)
+# -> (n_split, heads_per_block, head_groups, lanes, pieces_per_lane, grid)
+NARROW_SPLIT_PLANS = [
+    ((4, 8, 2064, 2, 128, 2), (17, 2, 1, 16, 1, (17, 8, 4))),
+    ((2, 32, 1543, 1, 112, 2), (9, 1, 1, 16, 1, (9, 32, 2))),
+    ((2, 32, 2119, 1, 96, 2), (9, 1, 1, 16, 1, (9, 32, 2))),
+    ((8, 8, 2048, 2, 128, 2), (9, 2, 1, 16, 1, (9, 8, 8))),
+    ((1, 2, 32768, 1, 112, 2), (264, 1, 1, 16, 1, (264, 2, 1))),
+    ((1, 32, 32768, 1, 112, 2), (17, 1, 1, 16, 1, (17, 32, 1))),
+    ((2, 8, 1543, 5, 128, 2), (33, 8, 1, 16, 1, (33, 8, 2))),
+    ((2, 16, 1543, 1, 128, 2), (17, 1, 1, 16, 1, (17, 16, 2))),
+    ((2, 16, 1025, 1, 64, 2), (17, 1, 1, 8, 1, (17, 16, 2))),
+    ((2, 2, 96, 4, 64, 2), (6, 4, 1, 8, 1, (6, 2, 2))),
+    ((8, 32, 300, 1, 96, 2), (3, 1, 1, 16, 1, (3, 32, 8))),
+    ((2, 8, 5000, 5, 128, 2), (33, 8, 1, 16, 1, (33, 8, 2))),
+    ((1, 4, 7, 2, 32, 2), (1, 2, 1, 4, 1, (1, 4, 1))),
+    ((6, 2, 2064, 8, 128, 2), (44, 8, 1, 16, 1, (44, 2, 6))),
+    ((6, 2, 500, 5, 64, 2), (32, 8, 1, 8, 1, (32, 2, 6))),
+    ((6, 2, 700, 2, 128, 4), (44, 2, 1, 32, 1, (44, 2, 6))),
+    ((1, 8, 32768, 2, 128, 2), (66, 2, 1, 16, 1, (66, 8, 1))),
+    ((2, 2, 100, 2, 16, 4), (7, 2, 1, 4, 1, (7, 2, 2))),
+]
+
+
+@pytest.mark.parametrize("shape,want", NARROW_SPLIT_PLANS)
+def test_split_plan_is_the_parents_up_to_width_128(shape, want):
+    """The parent's values, and the added keys at what the parent's kernel
+    did: 16-slot chunks and the combine kernel."""
+    n_split, hpb, groups, lanes, ppl, grid = want
+    assert da.split_plan(*shape) == {
+        "n_split": n_split, "heads_per_block": hpb, "head_groups": groups, "lanes": lanes,
+        "lanes_log2": lanes.bit_length() - 1, "pieces_per_lane": ppl, "grid": grid,
+        "min_chunk": da.CHUNK_ALIGN, "combine": "kernel"}
+
+
+# gemma-2b's decode (B=2, MQA), gemma2-9b's global layer and its local ring,
+# an f32 cache, one row of a long cache: (B, KV, T, G, D, cache bytes)
+WIDE_SPLITS = [(2, 1, 1543, 8, 256, 2), (1, 8, 4616, 2, 256, 2), (1, 8, 4096, 2, 256, 2),
+               (2, 2, 300, 4, 256, 4), (1, 1, 32768, 8, 256, 2), (6, 2, 300, 8, 256, 2)]
+
+
+@pytest.mark.parametrize("B,KV,T,G,D,cb", WIDE_SPLITS)
+def test_wide_split_plan_covers_every_valid_slot_once_in_its_minimum(B, KV, T, G, D, cb):
+    """At D=256 every split of a row but its last holds at least
+    ``min_chunk`` slots (16 KB of K), one head a block, the splits of a row cover its valid
+    slots once, no block is spent past kv_len, and the last block merges at
+    most MAX_MERGE_SPLITS partials."""
+    p = da.split_plan(B, KV, T, G, D, cb)
+    n, mc = p["n_split"], p["min_chunk"]
+    assert p["combine"] == "last_block" and mc % da.CHUNK_ALIGN == 0
+    assert p["heads_per_block"] == 1 and p["head_groups"] == G and p["pieces_per_lane"] == 2
+    assert mc * D * cb >= da.WIDE_SPLIT_BYTES > (mc - da.CHUNK_ALIGN) * D * cb
+    groups = B * KV * p["head_groups"]
+    assert 1 <= n <= min(da.MAX_MERGE_SPLITS, -(-T // mc), -(-da.TARGET_BLOCKS // groups))
+    for length in sorted({0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, T // 2 + 3, T - 1, T}):
+        length = min(max(length, 0), T)
+        c = da.row_chunk(length, n, mc)
+        assert c >= mc and c % da.CHUNK_ALIGN == 0
+        seen = np.zeros(T + c * n, int)
+        for s in range(n):
+            lo, hi = s * c, min((s + 1) * c, length)
+            if lo < hi:
+                seen[lo:hi] += 1
+                assert hi - lo >= min(mc, length - lo)      # only a row's last split is short
+        assert (seen[:length] == 1).all() and not seen[length:].any()
+        assert -(-length // c) <= n
+
+
+def test_wide_split_plan_at_gemma_decode():
+    """One head a block and 16 lanes a row: gemma-2b 16 (row, head) groups
+    of 33 splits of at least 32 slots (the parent's 2 groups of 97 splits
+    of 16); gemma2-9b 16 (kv head, head) groups of 33 splits of 144 slots;
+    both merged by the last block."""
+    p = da.split_plan(2, 1, 1543, 8, 256, 2)
+    assert p["grid"] == (33, 8, 2) and p["min_chunk"] == 32 and p["heads_per_block"] == 1
+    assert (p["lanes"], p["pieces_per_lane"]) == (16, 2)
+    assert -(-1536 // da.row_chunk(1536, 33, 32)) == 32
+    assert -(-770 // da.row_chunk(770, 33, 32)) == 25
+    p = da.split_plan(1, 8, 4616, 2, 256, 2)
+    assert p["grid"] == (33, 16, 1) and da.row_chunk(4609, 33, 32) == 144

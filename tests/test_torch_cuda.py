@@ -424,6 +424,140 @@ def test_decode_attention_f32_query_bf16_cache_softcap(dev, G):
     _close(got, ref.decode_attention_ref(q, k, v, kv_len, softcap=30.0), 2e-5)
 
 
+# --------------------- head width 256: K6's two full-width warpgroups, K7's wide plan
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,kw", [
+    (2, 1535, 8, 1, {}),                                                  # gemma-2b
+    (1, 4608, 16, 8, {"window": 4096, "softcap": 50.0, "scale": 256 ** -0.5}),   # gemma2-9b
+    (3, 203, 8, 1, {"window": 50}),
+    (1, 130, 2, 2, {"softcap": 30.0})])
+def test_flash_attention_d256_gemma_prefill(dev, B, S, H, KV, kw):
+    """The D=256 design at gemma's prefill shapes (a flat grid of 192 and
+    576 blocks) and ragged ones, against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    p = fa.launch_plan(torch.bfloat16, B, S, S, H, KV, 256)
+    assert p["threads"] == 256 and p["grid"][1:] == (1, 1) and p["key_tile"] == 64
+    _flash_bf16(dev, B, S, S, H, KV, 256, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,H,KV,kw", [(100, 612, 8, 1, {"q_offset": 512}),
+                                         (300, 812, 16, 8, {"q_offset": 512, "window": 200,
+                                                            "softcap": 50.0}),
+                                         (150, 70, 4, 2, {"causal": False}),
+                                         (48, 16, 4, 4, {"window": 8})])
+def test_flash_attention_d256_lse_and_q_offset(dev, S, T, H, KV, kw):
+    """D=256's forward with lse (what training saves), at q_offset, S != T
+    and rows that see no key (out 0, lse +inf)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(1, S, T, H, KV, 256, torch.bfloat16))
+    masks = (kw.get("causal", True), kw.get("window"), kw.get("softcap"), 256 ** -0.5)
+    got, lse = fa.forward(q, k, v, *masks, with_lse=True, q_offset=kw.get("q_offset", 0))
+    want, want_lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    _bf16_close(got, want, 2e-2)
+    inf = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), inf) and (lse[inf] > 0).all()
+    assert (lse[~inf] - want_lse[~inf]).abs().max().item() <= 1e-5 * max(
+        1.0, want_lse[~inf].abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_attention_d256_refuses_the_old_plan(dev):
+    """The kernel checks the plan it is handed: D=256's former launch (one
+    consumer warpgroup and a producer, 32-key tiles) is refused, not run."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v = (x.to(dev) for x in _qkv(1, 64, 64, 8, 1, 256, torch.bfloat16))
+    out = torch.empty_like(q)
+    p = fa.launch_plan(q.dtype, 1, 64, 64, 8, 1, 256)
+    old = {**p, "warpgroups": 1, "threads": 256, "key_tile": 32, "kv_box": (64, 1, 32, 1),
+           "grid": (8, 1, 1)}
+    st = [s for x in (q, k, v) for s in fa.tma_strides(x)]
+    for plan in (old, {**p, "grid": (p["grid"][0] + 1, 1, 1)}):
+        with pytest.raises(RuntimeError):
+            build.launch("flash_attention", "flash_attention_launch", dev, q.data_ptr(),
+                         k.data_ptr(), v.data_ptr(), out.data_ptr(), None, 1, 64, 64, 8, 1,
+                         256, *st, 1, -1, 0, -1.0, 0.0625, 1, *fa.tc_launch_args(plan))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,H,KV,kw", [(1543, 8, 1, {}),
+                                       (4616, 16, 8, {"softcap": 50.0, "scale": 256 ** -0.5}),
+                                       (4096, 16, 8, {"softcap": 50.0})])
+@pytest.mark.parametrize("n_split", [None, 1, 3])
+def test_decode_attention_d256_split_boundaries(dev, T, H, KV, kw, n_split):
+    """K7's wide plan (splits of at least 32 slots at bf16, the last block
+    merging) at kv_len 0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65 and T (a
+    full ring at 4096): out
+    and lse against the plain version, kv_len 0 gives 0 and -inf, a second
+    call is bit-equal."""
+    from repro_torch.kernels import decode_attention as da
+
+    lens = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, T]
+    q, k, v = (x.to(dev) for x in _qkv(len(lens), 1, T, H, KV, 256, torch.bfloat16))
+    q = q[:, 0]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    assert da.split_plan(len(lens), KV, T, H // KV, 256, 2)["combine"] == "last_block"
+    got, lse = da.decode_attention(q, k, v, kv_len, return_lse=True, n_split=n_split, **kw)
+    want, want_lse = ref.decode_attention_ref(q, k, v, kv_len, return_lse=True, **kw)
+    _bf16_close(got, want)
+    assert (got[0] == 0).all() and torch.isneginf(lse[0]).all()
+    fin = ~torch.isneginf(want_lse)
+    assert torch.equal(fin, ~torch.isneginf(lse))
+    assert (lse[fin] - want_lse[fin]).abs().max().item() <= 1e-5 * max(
+        1.0, want_lse[fin].abs().max().item())
+    again, lse2 = da.decode_attention(q, k, v, kv_len, return_lse=True, n_split=n_split, **kw)
+    assert torch.equal(again, got) and torch.equal(lse2, lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [(torch.float32, torch.float32),
+                                              (torch.float32, torch.bfloat16),
+                                              (torch.bfloat16, torch.float32)])
+def test_decode_attention_d256_other_dtypes(dev, q_dtype, kv_dtype):
+    """The wide plan with an f32 query or cache (an f32 row: 32 lanes of two
+    pieces; a bf16 row: 16 lanes), a softcap and ragged kv_len, against the
+    plain version within the f32 limit."""
+    from repro_torch.kernels import decode_attention as da
+
+    T, lens = 300, [0, 1, 33, 64, 65, 299, 300]
+    q, k, v = _qkv(len(lens), 1, T, 8, 2, 256, torch.float32)
+    q, k, v = q[:, 0].to(q_dtype).to(dev), k.to(kv_dtype).to(dev), v.to(kv_dtype).to(dev)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    assert da.split_plan(len(lens), 2, T, 4, 256, k.element_size())["combine"] == "last_block"
+    got = da.decode_attention(q, k, v, kv_len, softcap=30.0)
+    want = ref.decode_attention_ref(q, k, v, kv_len, softcap=30.0)
+    if q_dtype == torch.bfloat16:
+        _bf16_close(got, want)
+    else:
+        _close(got, want, 2e-5)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+def test_decode_attention_d256_head_slice_is_bit_equal(dev):
+    """A rank's slice of gemma2-9b's heads (whole kv groups, strided views)
+    equals the call on all heads at the slice's split, bit for bit, with
+    the last block merging."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    H, KV, T = 16, 8, 4616
+    q, k, v = (x.to(dev) for x in _qkv(1, 1, T, H, KV, 256, torch.bfloat16))
+    q = q[:, 0]
+    kv_len = torch.tensor([4609], dtype=torch.int32, device=dev)
+    n = da.split_plan(1, 2, T, 2, 256, 2)["n_split"]
+    whole, whole_lse = da.decode_attention(q, k, v, kv_len, return_lse=True, n_split=n)
+    for h0 in range(0, H, 4):
+        part, part_lse = ops.decode_head_slice(q[:, h0:h0 + 4], k, v, kv_len, h0, H,
+                                               return_lse=True)
+        assert torch.equal(part, whole[:, h0:h0 + 4])
+        assert torch.equal(part_lse, whole_lse[:, h0:h0 + 4])
+
+
 # ------------------------------------- K1 bucket-major route, K4 register tiles
 def _probed_inputs(B, T, P, NB, cap, N, D, seed):
     """Slot tables with duplicates, -1 slots, equal rows and a query whose
