@@ -28,7 +28,9 @@ sync copies exactly the dirty pages into the device tensor in place (the
 reference's donated ``dynamic_update_slice``; the port updates in place), so
 sync cost is O(dirty pages).  Growth appends host pages and doubles the
 device allocation with a device-side copy.  ``sync_pages_total`` /
-``sync_bytes_total`` / ``last_sync_pages`` account every upload.
+``sync_bytes_total`` / ``last_sync_pages`` account every upload; each sync
+is a ``store.sync`` span of the wall recorder (``obs.trace``) whose args
+are the pages, slabs and bytes it uploaded.
 
 One-call query path: ``_slots`` is mirrored on the device as a flat
 ``(T * num_buckets, bucket_cap)`` int32 tensor, dirtied in fixed-size row
@@ -56,6 +58,7 @@ import torch
 from ..analysis import sanitizer as _sanitize
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops as _kops
+from ..obs import trace as _trace
 from .lsh import LSH, LSHParams, get_lsh, normalize
 from .similarity import get_similarity
 
@@ -269,11 +272,29 @@ class ReuseStore:
         table mirror, so a post-insert eager sync covers both mirrors and
         steady-state fused queries are sync-free.
         """
-        if self._emb_dev is None and not ensure:
-            self._sync_tables()
-            return 0
-        n = self._sync_device()
-        self._sync_tables()
+        return self._sync(ensure)
+
+    def _sync(self, ensure: bool, ensure_tables: bool = False) -> int:
+        """``sync_device``, then with ``ensure_tables`` the table mirror's
+        first upload (the fused query), as one ``store.sync`` span whose
+        args are the pages, slabs and bytes uploaded (a slab counted whole)."""
+        with _trace.span("store.sync") as sp:
+            if sp:
+                p0, s0, b0 = (self.sync_pages_total, self.table_sync_pages_total,
+                              self.sync_bytes_total)
+            if self._emb_dev is None and not ensure:
+                self._sync_tables()
+                n = 0
+            else:
+                n = self._sync_device()
+                self._sync_tables()
+            if ensure_tables:
+                self._sync_tables(ensure=True)
+            if sp:
+                slabs = self.table_sync_pages_total - s0
+                sp.note(pages=self.sync_pages_total - p0, slabs=slabs,
+                        bytes=self.sync_bytes_total - b0
+                        + slabs * self._table_slab_rows * self.bucket_cap * 4)
         return n
 
     def _sync_tables(self, ensure: bool = False) -> int:
@@ -567,25 +588,29 @@ class ReuseStore:
         ``buckets``: precomputed (N, T) LSH buckets for these embeddings
         (e.g. from naming at admission) — skips the second hash dispatch.
         """
-        embs = normalize(np.atleast_2d(np.asarray(embeddings, np.float32)))
-        if buckets is None:
-            buckets = _host(self.lsh.hash_batch(embs))  # (N, T)
-        else:
-            buckets = np.asarray(buckets)
-        n = embs.shape[0]
-        if self.capacity > 0 and len(self._lru) + n > self.capacity:
-            return [self._insert_hashed(emb, res, bks)
-                    for emb, res, bks in zip(embs, results, buckets)]
-        ids = np.asarray([self._alloc() for _ in range(n)], np.int32)
-        self._write_rows(ids, embs)
-        for i, (idx, res) in enumerate(zip(ids, results)):
-            idx = int(idx)
-            self._results[idx] = res
-            self._buckets_of[idx] = buckets[i]
-            self._lru[idx] = None
-        self.inserts += n
-        self._table_add_batch(ids, buckets)
-        return [int(i) for i in ids]
+        with _trace.span("store.insert"):
+            embs = normalize(np.atleast_2d(np.asarray(embeddings, np.float32)))
+            if buckets is None:
+                buckets = _host(self.lsh.hash_batch(embs))  # (N, T)
+            else:
+                buckets = np.asarray(buckets)
+            n = embs.shape[0]
+            if self.capacity > 0 and len(self._lru) + n > self.capacity:
+                with _trace.span("store.evict") as sp:
+                    if sp:
+                        sp.note(tasks=n)
+                    return [self._insert_hashed(emb, res, bks)
+                            for emb, res, bks in zip(embs, results, buckets)]
+            ids = np.asarray([self._alloc() for _ in range(n)], np.int32)
+            self._write_rows(ids, embs)
+            for i, (idx, res) in enumerate(zip(ids, results)):
+                idx = int(idx)
+                self._results[idx] = res
+                self._buckets_of[idx] = buckets[i]
+                self._lru[idx] = None
+            self.inserts += n
+            self._table_add_batch(ids, buckets)
+            return [int(i) for i in ids]
 
     def _table_add_batch(self, ids: np.ndarray, buckets: np.ndarray) -> None:
         """Grouped (table, bucket) scatter of ``ids`` into the slot arrays.
@@ -686,7 +711,24 @@ class ReuseStore:
         queries of the same batch).  ``peek=True`` is a pure read: no LRU
         refresh and no query/candidate statistics (the forwarding-error
         oracle and cross-replica probes must not perturb cache state).
+
+        The call is a ``store.query`` span of the wall recorder (args: the
+        queries, the path, the distinct (query, candidate) pairs).
         """
+        with _trace.span("store.query") as sp:
+            out = self._query_batch(embeddings, thresholds, peek)
+            if sp:
+                n, counts = len(out), self.candidate_counts
+                sp.note(queries=n, fused=self.last_query_fused,
+                        pairs=int(sum(counts[len(counts) - n:])) if not peek else None)
+        return out
+
+    def _query_batch(
+        self,
+        embeddings: np.ndarray,
+        thresholds: Union[float, Sequence[float], np.ndarray],
+        peek: bool,
+    ) -> List[Tuple[Optional[Any], float, Optional[int]]]:
         embs = normalize(np.atleast_2d(np.asarray(embeddings, np.float32)))
         n = embs.shape[0]
         if not peek:
@@ -715,23 +757,24 @@ class ReuseStore:
                 self.staged_queries += n
         self.last_query_sync_pages = (
             self.sync_pages_total + self.table_sync_pages_total - p0)
-        if not peek:
-            self.candidate_counts.extend(int(c) for c in counts)
         out: List[Tuple[Optional[Any], float, Optional[int]]] = []
-        for i in range(n):
-            # idx < 0 iff the query had zero live candidates (tables hold
-            # only live ids, so every gathered candidate is scoreable)
-            if idx[i] < 0:
-                out.append((None, -1.0, None))
-                continue
-            sim = float(val[i])
-            if sim < thr[i]:
-                out.append((None, sim, None))
-                continue
-            j = int(idx[i])
+        with _trace.span("store.results"):
             if not peek:
-                self._lru.move_to_end(j)
-            out.append((self._results[j], sim, j))
+                self.candidate_counts.extend(int(c) for c in counts)
+            for i in range(n):
+                # idx < 0 iff the query had zero live candidates (tables hold
+                # only live ids, so every gathered candidate is scoreable)
+                if idx[i] < 0:
+                    out.append((None, -1.0, None))
+                    continue
+                sim = float(val[i])
+                if sim < thr[i]:
+                    out.append((None, sim, None))
+                    continue
+                j = int(idx[i])
+                if not peek:
+                    self._lru.move_to_end(j)
+                out.append((self._results[j], sim, j))
         return out
 
     def _use_fused(self, n: int) -> bool:
@@ -753,44 +796,50 @@ class ReuseStore:
     def _query_fused(
         self, embs: np.ndarray, need_counts: bool = True
     ) -> Tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]:
-        """Fused query over the device mirrors (see _use_fused)."""
-        self.sync_device(ensure=True)   # embeddings: O(dirty pages)
-        self._sync_tables(ensure=True)  # slot tables: O(dirty slabs)
-        val, idx, counts = _kops.reuse_query_top1(
-            torch.from_numpy(embs).to(self.device), self.lsh, self._slots_dev,
-            self._emb_dev, need_counts=need_counts)
-        return (_host(val), _host(idx),
-                None if counts is None else _host(counts).astype(np.int64))
+        """Fused query over the device mirrors (see _use_fused): the
+        ``store.sync``, ``store.dispatch`` (the enqueue of the probe math,
+        K1 and the count epilogue) and ``store.read`` (the host reads of
+        val, idx and counts) spans."""
+        # embeddings O(dirty pages), slot tables O(dirty slabs)
+        self._sync(ensure=True, ensure_tables=True)
+        with _trace.span("store.dispatch"):
+            val, idx, counts = _kops.reuse_query_top1(
+                torch.from_numpy(embs).to(self.device), self.lsh, self._slots_dev,
+                self._emb_dev, need_counts=need_counts)
+        with _trace.span("store.read"):
+            return (_host(val), _host(idx),
+                    None if counts is None else _host(counts).astype(np.int64))
 
     def _query_staged(
         self, embs: np.ndarray
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Host-staged query: probe dispatch + host candidate matrix +
         gather/score call.  Oracle for the fused path; default for small
-        batches and non-cosine similarities."""
-        n = embs.shape[0]
-        probes = _host(self.lsh.probe_batch(embs))  # (B, T, P)
-        cand, counts = self._candidate_matrix(probes)
-        # Dedup per-table duplicates: sort each row, keep first occurrences,
-        # re-compact.  This matches the scalar path both in candidate_counts
-        # stats and in argmax tie-breaking (candidates() returns ascending
-        # unique ids), and shrinks the kernel's candidate dimension.
-        srt = np.sort(cand, axis=1)
-        uniq = np.ones(srt.shape, bool)
-        uniq[:, 1:] = srt[:, 1:] != srt[:, :-1]
-        uniq &= srt >= 0
-        counts = uniq.sum(axis=1).astype(np.int64)
-        if counts.max() == 0:
-            return (np.full(n, -np.inf, np.float32),
-                    np.full(n, -1, np.int64), counts)
-        width = max(int(counts.max()), 1)
-        dedup = np.full((n, width), -1, np.int32)
-        rows, cols = np.nonzero(uniq)
-        starts = np.zeros(n + 1, np.int64)
-        np.cumsum(counts, out=starts[1:])
-        dedup[rows, np.arange(rows.size) - starts[rows]] = srt[rows, cols]
-        val, idx = self._score_batch(embs, dedup, counts)
-        return val, idx, counts
+        batches and non-cosine similarities.  One ``store.staged`` span."""
+        with _trace.span("store.staged"):
+            n = embs.shape[0]
+            probes = _host(self.lsh.probe_batch(embs))  # (B, T, P)
+            cand, counts = self._candidate_matrix(probes)
+            # Dedup per-table duplicates: sort each row, keep first occurrences,
+            # re-compact.  This matches the scalar path both in candidate_counts
+            # stats and in argmax tie-breaking (candidates() returns ascending
+            # unique ids), and shrinks the kernel's candidate dimension.
+            srt = np.sort(cand, axis=1)
+            uniq = np.ones(srt.shape, bool)
+            uniq[:, 1:] = srt[:, 1:] != srt[:, :-1]
+            uniq &= srt >= 0
+            counts = uniq.sum(axis=1).astype(np.int64)
+            if counts.max() == 0:
+                return (np.full(n, -np.inf, np.float32),
+                        np.full(n, -1, np.int64), counts)
+            width = max(int(counts.max()), 1)
+            dedup = np.full((n, width), -1, np.int32)
+            rows, cols = np.nonzero(uniq)
+            starts = np.zeros(n + 1, np.int64)
+            np.cumsum(counts, out=starts[1:])
+            dedup[rows, np.arange(rows.size) - starts[rows]] = srt[rows, cols]
+            val, idx = self._score_batch(embs, dedup, counts)
+            return val, idx, counts
 
     def _score_batch(
         self, embs: np.ndarray, cand: np.ndarray, counts: np.ndarray

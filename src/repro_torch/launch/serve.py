@@ -41,6 +41,7 @@ from ..core.topology import testbed_topology
 from ..data import DATASETS, make_stream
 from ..device import DeviceLike, resolve_device
 from ..models import build_model
+from ..obs import trace as _trace
 from ..serving import (
     AsyncServingEngine,
     EngineBackend,
@@ -82,19 +83,29 @@ def make_executor(model, seq_len: int) -> Callable[[List[ServeRequest]], List[in
     (dense, vision, hybrid, xLSTM) they run as one (n, seq_len) prefill,
     since each row's logits are the same function of its own tokens.  An
     MoE model (``rows_coupled``) prefills each request alone, as the
-    reference does."""
+    reference does.
+
+    A prefill is three spans of the wall recorder (``obs.trace``):
+    ``executor.stage`` (the prompts to the device), ``executor.prefill``
+    (the enqueue of ``model.prefill``) and ``executor.read`` (the argmax
+    and its host read, which waits for the device)."""
     max_len = seq_len + 8
 
-    def prefill(tokens: torch.Tensor) -> List[int]:
-        logits, _ = model.prefill({"tokens": tokens.to(model.device)}, max_len)
-        return logits[:, -1].argmax(dim=-1).tolist()
+    def prefill(tokens: List[torch.Tensor]) -> List[int]:
+        with _trace.span("executor.stage"):
+            x = tokens[0] if len(tokens) == 1 else torch.cat(tokens)
+            batch = {"tokens": x.to(model.device)}
+        with _trace.span("executor.prefill"):
+            logits, _ = model.prefill(batch, max_len)
+        with _trace.span("executor.read"):
+            return logits[:, -1].argmax(dim=-1).tolist()
 
     def execute(reqs: List[ServeRequest]) -> List[int]:
         if not reqs:
             return []
         if rows_coupled(model.cfg):
-            return [tok for r in reqs for tok in prefill(r.payload["tokens"])]
-        return prefill(torch.cat([r.payload["tokens"] for r in reqs]))
+            return [tok for r in reqs for tok in prefill([r.payload["tokens"]])]
+        return prefill([r.payload["tokens"] for r in reqs])
 
     return execute
 

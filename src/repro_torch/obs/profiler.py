@@ -6,9 +6,9 @@ brackets every callback with ``begin``/``end`` here; per callback *site*
 seconds, and the fused-query dispatches made inside
 (``repro_torch.kernels.ops.FUSED_DISPATCH_COUNT``, read only if that module
 is already loaded), so the ranked report shows both where the host time
-goes and which sites pay for device work.  The port has no jit, so its
-retrace count is always 0 (the column stays for the reference's report
-format).  Registered counter sources add end-of-run totals.
+goes and which sites pay for device work.  The port has no jit, so the
+reference's retrace column has no counterpart here.  Registered counter
+sources add end-of-run totals.
 
 Arming follows the sanitizer pattern: ``RESERVOIR_PROFILE=1`` or
 ``EventLoop(profile=True)``; disarmed, the loop keeps its zero-cost
@@ -33,22 +33,20 @@ def env_enabled() -> bool:
     return os.environ.get(_ENV, "").strip().lower() in ("1", "true", "yes", "on")
 
 
-def _kernel_counters() -> Tuple[int, int]:
-    """(fused dispatches, retraces): the dispatch count is read only if the
-    kernel module is already loaded; the port has no jit retrace, so the
-    second is always 0."""
+def _dispatches() -> int:
+    """Fused dispatches so far, read only if the kernel module is already
+    loaded."""
     ops = sys.modules.get(_OPS)
-    return (getattr(ops, "FUSED_DISPATCH_COUNT", 0) if ops else 0, 0)
+    return getattr(ops, "FUSED_DISPATCH_COUNT", 0) if ops else 0
 
 
 class _Site:
-    __slots__ = ("count", "wall_s", "dispatches", "retraces")
+    __slots__ = ("count", "wall_s", "dispatches")
 
     def __init__(self) -> None:
         self.count = 0
         self.wall_s = 0.0
         self.dispatches = 0
-        self.retraces = 0
 
 
 class Profiler:
@@ -64,20 +62,18 @@ class Profiler:
         self._sources[name] = fn
 
     # ------------------------------------------------------------- hot path
-    def begin(self) -> Tuple[float, int, int]:
-        d, r = _kernel_counters()
-        return (time.perf_counter(), d, r)
+    def begin(self) -> Tuple[float, int]:
+        return (time.perf_counter(), _dispatches())
 
-    def end(self, site: str, mark: Tuple[float, int, int]) -> None:
+    def end(self, site: str, mark: Tuple[float, int]) -> None:
         wall = time.perf_counter() - mark[0]
-        d, r = _kernel_counters()
+        d = _dispatches()
         s = self.sites.get(site)
         if s is None:
             s = self.sites[site] = _Site()
         s.count += 1
         s.wall_s += wall
         s.dispatches += d - mark[1]
-        s.retraces += r - mark[2]
 
     # -------------------------------------------------------------- reports
     def rows(self) -> List[Dict[str, Any]]:
@@ -88,7 +84,7 @@ class Profiler:
                 "site": site, "count": s.count,
                 "wall_s": s.wall_s,
                 "mean_us": (s.wall_s / s.count * 1e6) if s.count else 0.0,
-                "dispatches": s.dispatches, "retraces": s.retraces,
+                "dispatches": s.dispatches,
             })
         out.sort(key=lambda r: r["wall_s"], reverse=True)
         return out
@@ -97,8 +93,7 @@ class Profiler:
         rows = self.rows()
         t = {"events": sum(r["count"] for r in rows),
              "wall_s": sum(r["wall_s"] for r in rows),
-             "dispatches": sum(r["dispatches"] for r in rows),
-             "retraces": sum(r["retraces"] for r in rows)}
+             "dispatches": sum(r["dispatches"] for r in rows)}
         for name, fn in self._sources.items():
             try:
                 t[name] = fn()
@@ -114,18 +109,17 @@ class Profiler:
         lines = [
             f"EventLoop profile: {totals['events']} events, "
             f"{totals['wall_s']:.3f}s wall, "
-            f"{totals['dispatches']} kernel dispatches, "
-            f"{totals['retraces']} retraces",
+            f"{totals['dispatches']} kernel dispatches",
             f"{'cum_s':>8} {'%':>5} {'count':>8} {'mean_us':>9} "
-            f"{'disp':>6} {'retr':>5}  site",
+            f"{'disp':>6}  site",
         ]
         for r in rows[:top]:
             lines.append(
                 f"{r['wall_s']:8.3f} {100 * r['wall_s'] / total_wall:5.1f} "
                 f"{r['count']:8d} {r['mean_us']:9.1f} "
-                f"{r['dispatches']:6d} {r['retraces']:5d}  {r['site']}")
+                f"{r['dispatches']:6d}  {r['site']}")
         extra = {k: v for k, v in totals.items()
-                 if k not in ("events", "wall_s", "dispatches", "retraces")}
+                 if k not in ("events", "wall_s", "dispatches")}
         if extra:
             lines.append("sources: " + ", ".join(
                 f"{k}={v}" for k, v in extra.items()))

@@ -32,6 +32,7 @@ from ..core.namespace import make_task_name
 from ..core.packets import Data
 from ..core.reuse_store import ReuseStore
 from ..device import DeviceLike, resolve_device
+from ..obs import trace as _trace
 from ..obs.registry import CounterGroup
 from ..training.elastic import BackupPolicy
 
@@ -99,11 +100,12 @@ class ReplicaEngine:
 
         The (B, T) buckets ride along so a later ``commit_execution`` can
         insert without re-hashing the same embeddings."""
-        embs = normalize(np.stack(
-            [np.asarray(r.embedding, np.float32).reshape(-1) for r in reqs]))
-        buckets = self.lsh.hash_batch(embs).cpu().numpy()  # (B, T)
-        names = [make_task_name(r.service, b, self.params.index_size_bytes)
-                 for r, b in zip(reqs, buckets)]
+        with _trace.span("replica.name"):
+            embs = normalize(np.stack(
+                [np.asarray(r.embedding, np.float32).reshape(-1) for r in reqs]))
+            buckets = self.lsh.hash_batch(embs).cpu().numpy()  # (B, T)
+            names = [make_task_name(r.service, b, self.params.index_size_bytes)
+                     for r, b in zip(reqs, buckets)]
         return embs, names, buckets
 
     def name_of(self, service: str, buckets: np.ndarray) -> str:
@@ -132,7 +134,10 @@ class ReplicaEngine:
         """Stage 4a: run the model on a miss group -> (results, wall seconds)."""
         # lint: disable=D002(real model execution wall time, by design)
         t_exec = time.perf_counter()
-        outs = self.execute_fn(reqs)
+        with _trace.span("replica.exec") as sp:
+            if sp:
+                sp.note(tasks=len(reqs))
+            outs = self.execute_fn(reqs)
         # lint: disable=D002(real model execution wall time, by design)
         return outs, time.perf_counter() - t_exec
 
@@ -147,19 +152,22 @@ class ReplicaEngine:
         to the (virtual) completion event — and skip it entirely when a
         backup already resolved the task (no double insert).  ``buckets``
         reuses the admission-time hash for the store insert."""
-        store = self._store(service)
-        store.insert_batch(embs, outs, buckets=buckets)
-        # Page the fresh embeddings onto the device now, off the query
-        # critical path: the next query_batch starts without an upload stall.
-        # No-op until the store's kernel path has gone device-resident.
-        store.sync_device()
-        # amortized per-request time, matching the scalar path's batch-of-1
-        # observations (maybe_backup compares a *single* request's elapsed
-        # time against this EWMA)
-        self.ttc.observe(service, exec_time_s / max(len(outs), 1))
-        for name, result in zip(names, outs):
-            self.cs.insert(Data(name, content=result), now)
-            self.stats.inc("executed")
+        with _trace.span("replica.commit"):
+            store = self._store(service)
+            store.insert_batch(embs, outs, buckets=buckets)
+            # Page the fresh embeddings onto the device now, off the query
+            # critical path: the next query_batch starts without an upload
+            # stall.  No-op until the store's kernel path has gone
+            # device-resident.
+            store.sync_device()
+            # amortized per-request time, matching the scalar path's
+            # batch-of-1 observations (maybe_backup compares a *single*
+            # request's elapsed time against this EWMA)
+            self.ttc.observe(service, exec_time_s / max(len(outs), 1))
+            with _trace.span("replica.cs"):
+                for name, result in zip(names, outs):
+                    self.cs.insert(Data(name, content=result), now)
+                    self.stats.inc("executed")
 
     # ------------------------------------------------------------ sync paths
     def handle(self, req: ServeRequest, now: Optional[float] = None) -> Optional[ServeResult]:
@@ -215,13 +223,21 @@ class ReplicaEngine:
         synchronously: followers of an identical in-flight name receive the
         leader's executed result.  Misses are executed in one ``execute_fn``
         call per service and bulk-inserted.  ``now`` sets the Content-Store
-        clock (see ``handle``); latency is always wall-measured.
+        clock (see ``handle``); latency is always wall-measured.  The call
+        is a ``replica.handle`` span of the wall recorder (``obs.trace``).
         """
+        if not reqs:
+            return []
+        with _trace.span("replica.handle") as sp:
+            if sp:
+                sp.note(replica=self.replica_id, tasks=len(reqs))
+            return self._handle_batch(reqs, now)
+
+    def _handle_batch(self, reqs: List[ServeRequest],
+                      now: Optional[float]) -> List[ServeResult]:
         # lint: disable=D002(serve latency is wall-measured by design)
         t0 = time.perf_counter()
         t_cs = t0 if now is None else now
-        if not reqs:
-            return []
         embs, names, buckets = self.embed_batch(reqs)
         results: List[Optional[ServeResult]] = [None] * len(reqs)
 
@@ -234,17 +250,18 @@ class ReplicaEngine:
         leaders: Dict[str, int] = {}
         followers: Dict[int, int] = {}  # follower index -> leader index
         pending: List[int] = []
-        for i, name in enumerate(names):
-            content = self.cs_lookup(name, t_cs)
-            if content is not None:
-                _done(i, content, "cs", 1.0)
-                continue
-            if name in leaders:
-                self.stats.inc("aggregated")
-                followers[i] = leaders[name]
-                continue
-            leaders[name] = i
-            pending.append(i)
+        with _trace.span("replica.cs"):
+            for i, name in enumerate(names):
+                content = self.cs_lookup(name, t_cs)
+                if content is not None:
+                    _done(i, content, "cs", 1.0)
+                    continue
+                if name in leaders:
+                    self.stats.inc("aggregated")
+                    followers[i] = leaders[name]
+                    continue
+                leaders[name] = i
+                pending.append(i)
 
         # --- one batched semantic-reuse query per service
         by_service: Dict[str, List[int]] = {}
@@ -255,12 +272,13 @@ class ReplicaEngine:
             out = self.query_reuse(
                 service, embs[idxs],
                 np.asarray([reqs[i].threshold for i in idxs], np.float32))
-            for i, (result, sim, idx) in zip(idxs, out):
-                if idx is not None:
-                    self.admit_en_hit(names[i], result, t_cs)
-                    _done(i, result, "en", sim)
-                else:
-                    missed.setdefault(service, []).append(i)
+            with _trace.span("replica.cs"):
+                for i, (result, sim, idx) in zip(idxs, out):
+                    if idx is not None:
+                        self.admit_en_hit(names[i], result, t_cs)
+                        _done(i, result, "en", sim)
+                    else:
+                        missed.setdefault(service, []).append(i)
 
         # --- execute misses (one model batch per service) + bulk insert
         for service, idxs in missed.items():
@@ -339,14 +357,15 @@ class ReuseRouter:
         majority vote is a one-hot count with ties broken toward the smallest
         replica id (same as the scalar path).
         """
-        embs = normalize(np.atleast_2d(np.asarray(embeddings, np.float32)))
-        buckets = self.lsh.hash_batch(embs).cpu().numpy()          # (B, T)
-        bounds = np.asarray(self._bounds[1:-1])
-        owners = np.searchsorted(bounds, buckets, side="right")    # (B, T)
-        owners = np.minimum(owners, self.n_replicas - 1)
-        votes = (owners[:, :, None] == np.arange(self.n_replicas)[None, None, :]
-                 ).sum(axis=1)                                     # (B, R)
-        return votes.argmax(axis=1), buckets
+        with _trace.span("router.route"):
+            embs = normalize(np.atleast_2d(np.asarray(embeddings, np.float32)))
+            buckets = self.lsh.hash_batch(embs).cpu().numpy()          # (B, T)
+            bounds = np.asarray(self._bounds[1:-1])
+            owners = np.searchsorted(bounds, buckets, side="right")    # (B, T)
+            owners = np.minimum(owners, self.n_replicas - 1)
+            votes = (owners[:, :, None] == np.arange(self.n_replicas)[None, None, :]
+                     ).sum(axis=1)                                     # (B, R)
+            return votes.argmax(axis=1), buckets
 
 
 class ServingFleet:
@@ -393,19 +412,26 @@ class ServingFleet:
         Passes the engine's virtual time as the Content-Store clock so the
         replicas' CS state stays on ONE clock even when both facade paths
         are mixed on the same fleet (wall timestamps would instantly expire
-        entries inserted at virtual time, and vice versa)."""
+        entries inserted at virtual time, and vice versa).
+
+        The call is the ``fleet.submit`` span of the wall recorder, which
+        it arms while ``torch.profiler`` records (``obs.trace``)."""
         if not reqs:
             return []
-        owners, _ = self.router.route_batch(
-            np.stack([np.asarray(r.embedding, np.float32).reshape(-1)
-                      for r in reqs]))
-        results: List[Optional[ServeResult]] = [None] * len(reqs)
-        for rid in sorted(set(int(o) for o in owners)):
-            idxs = [i for i, o in enumerate(owners) if int(o) == rid]
-            for i, res in zip(idxs, self.replicas[rid].handle_batch(
-                    [reqs[i] for i in idxs], now=self.engine.loop.now)):
-                results[i] = res
-        return results
+        _trace.follow_profiler()
+        with _trace.span("fleet.submit") as sp:
+            if sp:
+                sp.note(tasks=len(reqs))
+            owners, _ = self.router.route_batch(
+                np.stack([np.asarray(r.embedding, np.float32).reshape(-1)
+                          for r in reqs]))
+            results: List[Optional[ServeResult]] = [None] * len(reqs)
+            for rid in sorted(set(int(o) for o in owners)):
+                idxs = [i for i, o in enumerate(owners) if int(o) == rid]
+                for i, res in zip(idxs, self.replicas[rid].handle_batch(
+                        [reqs[i] for i in idxs], now=self.engine.loop.now)):
+                    results[i] = res
+            return results
 
     def maybe_backup(self, elapsed_s: float, service: str, primary: int,
                      backups_sent: int = 0) -> Optional[int]:
