@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py [--model] [--top1] [--nearest] [--families [NAMES]] [--train]
                           [--layout] [--dryrun] [--hash] [--near-tie] [--examples]
-                          [--bwd-rows] [--d256-rows] [--src DIR]
+                          [--bwd-rows] [--d256-rows] [--norm-rope] [--src DIR]
 
 Builds the hand-written kernels from ``src/repro_torch/kernels/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
@@ -19,7 +19,9 @@ just before it and read just after:
 * model: qwen3-1.7b at full width and depth (28 layers, bf16, random
   weights from a seed) prefills 4 prompts of 2048 tokens and decodes 16
   greedy tokens (K6 on every layer of the prefill, K7 on every layer of
-  each step), held against the plain attention and a longer prefill;
+  each step, the fused norm twice a layer and once more at the end, the
+  fused bias, qk-norm and rotation once a layer), held against the plain
+  attention and a longer prefill;
 * model-serve: two replicas whose misses run that model's prefill
   (``launch/serve.py``'s executor), with mixed near-duplicate and fresh
   traffic;
@@ -297,7 +299,7 @@ the JAX package.
 
 ``--model``, ``--top1``, ``--nearest``, ``--families``, ``--train``,
 ``--layout``, ``--dryrun``, ``--hash``, ``--near-tie``, ``--examples``,
-``--bwd-rows`` and ``--d256-rows``
+``--bwd-rows``, ``--d256-rows`` and ``--norm-rope``
 run only the env and build phases and the named ones (the
 model's prefill and decode; K3 at B in {1, 8, 32} and K1's id route on the
 wrappers; ``nearest_neighbor`` first and warm; the families, or those of a
@@ -309,7 +311,10 @@ and K6's backward at gemma-2b's and gemma2-9b's training shapes;
 ``--d256-rows``: K6's forward ptxas report, the D=256 variants, the d256
 rows with ``flex_attention`` compiled as the softcapped rows' library,
 and the D <= 128 rows whose plans stay the parent's: qwen3's K6 and K7
-and zamba2's D=112 decode)
+and zamba2's D=112 decode; ``--norm-rope``: the fused norm and rotary
+kernels' ptxas report, their ulps from the plain chain and their times at
+the qwen3-1.7b and qwen2.5-14b cells' prefill shapes, beside their bound,
+the plain chain and ``F.rms_norm``)
 and print no kernels or ok line; ``--src DIR`` takes the port from DIR (the ``src``
 of another checkout or ``git archive`` of this repository) instead of this
 checkout.  Running it for the parent and the change in turns (parent,
@@ -444,6 +449,9 @@ SOURCES = {
     **{f"flash_attention_bwd_{e}": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                                     "src/repro/kernels/flash_attention.py:101")
        for e in ("delta", "dkdv", "dq")},
+    # no pallas_call: the reference leaves these sites to XLA's fusion
+    **{name: ("src/repro_torch/kernels/csrc/norm_rope.cu", "none (XLA fuses them on the TPU)")
+       for name in ("rms_norm", "qk_rope")},
 }
 # kernel -> the path that must launch it (the id-matrix route of K1 is on
 # none: the serve path's count of it, 0, is reported); the async-serve path
@@ -456,7 +464,8 @@ SOURCES = {
 MAIN_PATH = {"reuse_top1_probed": "serve", "gather_top1": "serve", "lsh_hash_mix": "serve",
              "lsh_hash": "hash-ids", "sim_top1": "nearest", "flash_attention": "model",
              "decode_attention": "model", "flash_attention_bwd_delta": "train",
-             "flash_attention_bwd_dkdv": "train", "flash_attention_bwd_dq": "train"}
+             "flash_attention_bwd_dkdv": "train", "flash_attention_bwd_dq": "train",
+             "rms_norm": "model", "qk_rope": "model"}
 ASYNC_PATH = ("lsh_hash_mix", "flash_attention")
 COSIM_PATH = ("lsh_hash_mix", "flash_attention")
 FEDERATION_PATH = ("lsh_hash_mix", "flash_attention")
@@ -1818,6 +1827,136 @@ def phase_d256_rows(dev: torch.device, seed: int = 16) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9b
+# the fused norm and rotary kernels (csrc/norm_rope.cu) at the serving
+# shapes: a replica's prefill in the qwen3-1.7b.fresh cell (256 prompts of
+# 256 tokens; d 2048, 16 + 8 heads of 128 with qk-norm) and in
+# qwen2.5-14b.fresh (96 prompts; d 5120, 40 + 8 heads with the QKV bias)
+NORM_ROPE_SHAPES = {"qwen3-1.7b": (65536, 2048, 16, 8, 128, False, True),
+                    "qwen2.5-14b": (24576, 5120, 40, 8, 128, True, False)}
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two bf16 tensors in units in the last place."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def norm_rope_ptxas() -> None:
+    rows = build.ptxas_report("norm_rope")
+    for r in rows:
+        log(f"  ptxas norm_rope {r['entry']}: {r['registers']} registers, spill stores "
+            f"{r['spill_stores']} bytes, spill loads {r['spill_loads']} bytes")
+    spilled = [r["entry"] for r in rows if r["spill_stores"] or r["spill_loads"]]
+    expect(not spilled, f"norm_rope kernels spill registers: {spilled}")
+
+
+def library_norm(x: torch.Tensor, res, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """``F.rms_norm`` of x's rows, or of ``res + x`` (the bf16 add first)."""
+    return F.rms_norm(x if res is None else res + x, (x.shape[-1],), w, eps)
+
+
+def phase_norm_rope(dev: torch.device, seed: int = 17) -> dict:
+    """``rms_norm`` (plain rows, and with the residual) and ``qk_rope`` at
+    NORM_ROPE_SHAPES: the norm within 1 ulp of bf16 of the plain chain, the
+    rotary kernel's normed values within 1 and its rotation of them within
+    1 (a rotation that cancels may leave an output many of its own ulps
+    from the plain chain's: ``tests/test_torch_cuda.py::rope_errors``); ms
+    a call with its launch, device ms over a CUDA graph, the bound (bytes
+    at 3.35 TB/s, each element read once and written once), the plain
+    chain's ms and, for the norm, ``F.rms_norm`` (with the bf16 add before
+    it for the residual form) as the library's yardstick."""
+    norm_rope_ptxas()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows_out = {"rms_norm": {}, "qk_rope": {}}
+    for name, (T, d, H, KV, D, bias, qkn) in NORM_ROPE_SHAPES.items():
+        x = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+        res = (torch.randn((T, d), generator=gen, device=dev) * 4).to(torch.bfloat16)
+        scale = torch.randn((d,), generator=gen, device=dev) * 0.1
+        w = (1.0 + scale).to(torch.bfloat16)
+        for form in ("plain", "residual"):
+            r = res if form == "residual" else None
+            got = ops.rms_norm(x, scale, 1e-6, residual=r)
+            want = ref.rms_norm_ref(x, scale, 1e-6, residual=r)
+            if r is not None:
+                expect(torch.equal(got[1], want[1]), f"rms_norm {name}: the residual sum differs")
+                got, want = got[0], want[0]
+            ulps = bf16_ulps(got, want)
+            expect(ulps <= 1, f"rms_norm {name} {form}: {ulps} ulps from the plain chain")
+            fn = functools.partial(ops.rms_norm, x, scale, 1e-6, residual=r)
+            plain = functools.partial(ref.rms_norm_ref, x, scale, 1e-6, residual=r)
+            lib = functools.partial(library_norm, x, r, w, 1e-6)
+            n_bytes = T * d * 2 * (4 if r is not None else 2) + d * 4
+            t = {"ms": median_ms(fn, REPS), "device_ms": graph_ms(fn, REPS),
+                 "plain_ms": median_ms(plain, PLAIN_REPS), "library_ms": median_ms(lib, REPS),
+                 "library_device_ms": graph_ms(lib, REPS), "bound_ms": bound(n_bytes, 0)[0],
+                 "ulps": ulps, "shape": [T, d]}
+            t["bound_share"] = t["bound_ms"] / t["device_ms"]
+            rows_out["rms_norm"][f"{name}_{form}"] = t
+            log(f"  rms_norm {name} {form} ({T} x {d}): {t['ms']:.4f} ms a call, "
+                f"{t['device_ms']:.4f} ms device ({100 * t['bound_share']:.1f} % of the "
+                f"bound {t['bound_ms']:.4f} ms by bytes, {n_bytes / t['device_ms'] / 1e6:.1f} "
+                f"GB/s); F.rms_norm {t['library_ms']:.4f} ms, {t['library_device_ms']:.4f} ms "
+                f"device; plain {t['plain_ms']:.4f} ms; {ulps} ulps")
+        del x, res
+        B, S = T // 256, 256
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+        extra = {}
+        if bias:
+            extra["bq"] = (torch.randn((H * D,), generator=gen, device=dev) * 0.5).to(
+                torch.bfloat16)
+            extra["bk"] = (torch.randn((KV * D,), generator=gen, device=dev) * 0.5).to(
+                torch.bfloat16)
+        if qkn:
+            extra["q_norm"] = torch.randn((D,), generator=gen, device=dev) * 0.1
+            extra["k_norm"] = torch.randn((D,), generator=gen, device=dev) * 0.1
+        pos = torch.arange(S, device=dev)[None, :]
+        theta = get_arch(name).rope_theta
+        # the kernel's own biased and normed values (position 0: the rotation
+        # is the identity) within 1 ulp of the plain chain's (a row's sum in
+        # another order); its rotation of them within 1 ulp of the plain one
+        zero = torch.zeros_like(pos)
+        normed = ops.qk_rope(q.clone(), k.clone(), zero, theta, eps=1e-6, **extra)
+        plain_n = ref.qk_rope_ref(q.clone(), k.clone(), zero, theta, eps=1e-6, **extra)
+        got = ops.qk_rope(q.clone(), k.clone(), pos, theta, eps=1e-6, **extra)
+        ulps = max(bf16_ulps(a, b) for a, b in zip(normed, plain_n))
+        rot = max(bf16_ulps(g, ref.apply_rope(n, pos, theta)) for g, n in zip(got, normed))
+        expect(ulps <= 1 and rot <= 1, f"qk_rope {name}: normed values {ulps} ulps, rotation "
+                                       f"{rot} ulps from the plain chain")
+        fn = functools.partial(ops.qk_rope, q, k, pos, theta, eps=1e-6, **extra)
+        plain = functools.partial(ref.qk_rope_ref, q, k, pos, theta, eps=1e-6, **extra)
+        n_bytes = (q.numel() + k.numel()) * 2 * 2 + pos.numel() * 8 + D * 2 + sum(
+            t.numel() * t.element_size() for t in extra.values())
+        t = {"ms": median_ms(fn, REPS), "device_ms": graph_ms(fn, REPS),
+             "plain_ms": median_ms(plain, PLAIN_REPS), "bound_ms": bound(n_bytes, 0)[0],
+             "norm_ulps": ulps, "rotation_ulps": rot, "shape": [B, S, H, KV, D]}
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        rows_out["qk_rope"][name] = t
+        log(f"  qk_rope {name} (B={B} S={S} H={H} KV={KV} D={D}, bias {bias}, qk-norm {qkn}): "
+            f"{t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms device "
+            f"({100 * t['bound_share']:.1f} % of the bound {t['bound_ms']:.4f} ms by bytes, "
+            f"{n_bytes / t['device_ms'] / 1e6:.1f} GB/s); plain {t['plain_ms']:.4f} ms; normed "
+            f"values {ulps} ulps, rotation {rot} ulps from the plain chain")
+        del q, k, normed, plain_n, got
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """The model's norm and rotary sites on their plain float32 chain, as a
+    DTensor runs them: the fused kernels' dispatch sees no card."""
+    on_card = ops._on_card
+    ops._on_card = lambda x: False
+    try:
+        yield
+    finally:
+        ops._on_card = on_card
+
+
 # ------------------------------------------------------------------ phase 5b
 def phase_nearest(dev: torch.device, seed: int = 6) -> dict:
     """``ops.nearest_neighbor`` (K5) over a 250k-row store: near-duplicate
@@ -1913,6 +2052,12 @@ def phase_model(dev: torch.device, seed: int = 7):
     after_prefill = ops.launch_counts()
     expect(after_prefill["flash_attention"] == cfg.n_layers,
            f"prefill launched flash_attention {after_prefill['flash_attention']} times")
+    # the fused norms: two a layer (the second with the residual) and the
+    # final one; the fused bias, qk-norm and rotation once a layer
+    norms_a_pass = 2 * cfg.n_layers + 1
+    expect(after_prefill["rms_norm"] == norms_a_pass and after_prefill["qk_rope"] == cfg.n_layers,
+           f"prefill launched rms_norm {after_prefill['rms_norm']} and qk_rope "
+           f"{after_prefill['qk_rope']} times")
     expect(bool(torch.isfinite(logits).all()), "prefill logits are not finite")
     tok = logits[:, -1].argmax(dim=-1, keepdim=True)
     first_tok, step_ms = tok, []
@@ -1928,7 +2073,9 @@ def phase_model(dev: torch.device, seed: int = 7):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     expect(counts["flash_attention"] == cfg.n_layers
-           and counts["decode_attention"] == cfg.n_layers * DECODE_STEPS,
+           and counts["decode_attention"] == cfg.n_layers * DECODE_STEPS
+           and counts["rms_norm"] == norms_a_pass * (1 + DECODE_STEPS)
+           and counts["qk_rope"] == cfg.n_layers * (1 + DECODE_STEPS),
            f"model path launches {counts}")
 
     check_recorded(cfg.name, "flash_attention", captured, cfg.n_layers)
@@ -2169,8 +2316,7 @@ def run_family(name: str, dev: torch.device, seed: int) -> dict:
     torch.cuda.empty_cache()
     if name in FAM_F32_STEP_CHECK:
         f32_step_check(name, cfg, dev, seed, B, n_text)
-    return {"flash_attention": counts["flash_attention"],
-            "decode_attention": counts["decode_attention"]}
+    return {k: counts[k] for k in ("flash_attention", "decode_attention", "rms_norm", "qk_rope")}
 
 
 def f32_step_check(name: str, cfg, dev: torch.device, seed: int, B: int, n_text: int) -> None:
@@ -2201,7 +2347,7 @@ def f32_step_check(name: str, cfg, dev: torch.device, seed: int, B: int, n_text:
 def phase_families(dev: torch.device, names=FAMILIES, seed: int = 11) -> dict:
     """Each family at full width, one model at a time; -> launches summed
     over the models (and by model)."""
-    total = {"flash_attention": 0, "decode_attention": 0}
+    total = {"flash_attention": 0, "decode_attention": 0, "rms_norm": 0, "qk_rope": 0}
     for name in names:
         t0 = time.perf_counter()
         counts = run_family(name, dev, seed + FAMILIES.index(name))   # as in the whole run
@@ -5019,7 +5165,9 @@ def batch1_step_check(dev: torch.device, mesh, seed: int) -> tuple:
     runs, prof, counts = {}, {}, {}
     for way in ("plain", "dtensor"):
         cache = {k: t.clone() for k, t in cache0.items()}
-        with use_mesh(mesh), implicit_replication(), torch.no_grad():
+        # both ways on the plain norm and rotary chain, which DTensors run
+        # (plain bf16 tensors would take the fused kernels: other roundings)
+        with use_mesh(mesh), implicit_replication(), torch.no_grad(), plain_norms():
             if way == "dtensor":
                 named = {f"model.{n}": t for n, t in as_dtensors(params, shd, mesh).items()}
                 cache = as_dtensors(cache, cache_shardings(cache, mesh, cfg.family), mesh)
@@ -5564,7 +5712,7 @@ def main() -> int:
     log(f"port: {SRC}")
     only = [m for m in ("--model", "--top1", "--nearest", "--families", "--train", "--layout",
                         "--dryrun", "--hash", "--near-tie", "--examples", "--bwd-rows",
-                        "--d256-rows")
+                        "--d256-rows", "--norm-rope")
             if m in sys.argv[1:]]
     if only:
         with timed("build"):
@@ -5576,7 +5724,8 @@ def main() -> int:
                  "--train": phase_train, "--layout": phase_layout,
                  "--dryrun": phase_dryrun, "--hash": phase_hash_repeat,
                  "--near-tie": phase_near_tie, "--examples": phase_examples,
-                 "--bwd-rows": phase_bwd_rows, "--d256-rows": phase_d256_rows}[mode](dev)
+                 "--bwd-rows": phase_bwd_rows, "--d256-rows": phase_d256_rows,
+                 "--norm-rope": phase_norm_rope}[mode](dev)
         return 0
     with timed("build"):
         build.build_all()
@@ -5615,6 +5764,7 @@ def main() -> int:
         kern.update(phase_top1(dev))
         kern["reuse_top1_probed"] = phase_probed(dev)
         kern.update(phase_attention_kernels(dev))
+        kern.update(phase_norm_rope(dev))
     with timed("serve"):
         paths["serve"] = phase_serve(dev)
     with timed("store"):

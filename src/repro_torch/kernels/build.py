@@ -67,6 +67,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "decode_attention_launch": [*[_P] * 10, *[_I] * 5, *[_L] * 8, *[_I] * 5, _F, _F,
                                     _I, _I, _P],
     },
+    "norm_rope": {
+        "rms_norm_launch": [*[_P] * 5, _L, *[_I] * 4, _F, _P],
+        "qk_rope_launch": [*[_P] * 3, _L, _L, *[_P] * 5, _L, *[_I] * 6, _F, _P],
+    },
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -17,6 +17,7 @@ from ..device import fp32_matmul
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import lsh_hash as _lsh
+from . import norm_rope as _norm
 from . import sim_topk as _topk
 from .fused_query import fused_query as _fused_query
 
@@ -24,7 +25,8 @@ from .fused_query import fused_query as _fused_query
 FUSED_DISPATCH_COUNT = 0
 
 
-_COUNTERS = (_topk.LAUNCHES, _lsh.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES)
+_COUNTERS = (_topk.LAUNCHES, _lsh.LAUNCHES, _flash.LAUNCHES, _decode.LAUNCHES,
+             _norm.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -374,3 +376,60 @@ def _seq_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
             if isinstance(x, funcol.AsyncCollectiveTensor):
                 x = x.wait()
     return x
+
+
+# ---------------------------------------------------------- norms and rotary
+_PLAIN = (torch.Tensor, torch.nn.Parameter)   # a DTensor's or a fake tensor's type is neither
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _plain_bf16(x: torch.Tensor, *others: Optional[torch.Tensor]) -> bool:
+    """x in bf16; x and each other tensor given plain (no DTensor, no fake
+    tensor), on x's device, and not requiring grad."""
+    return x.dtype == torch.bfloat16 and all(
+        type(t) in _PLAIN and not t.requires_grad and t.device == x.device
+        for t in (x, *others) if t is not None)
+
+
+def norm_engages(x: torch.Tensor, scale: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None) -> bool:
+    """Whether a norm site runs the fused kernel (``rms_norm``): bf16 rows
+    on the card, plain tensors, none requiring grad (a served model's
+    frozen parameters; training's float32 masters do), rows the kernel
+    takes.  Every other case keeps the plain float32 chain."""
+    return _on_card(x) and _plain_bf16(x, scale, residual) and _norm.norm_takes(x, scale,
+                                                                                 residual)
+
+
+def rope_engages(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
+                 *params: Optional[torch.Tensor]) -> bool:
+    """Whether self-attention's q and k run the fused bias, qk-norm and
+    rotation (``qk_rope``), decided on the projections' input ``x`` (B, S,
+    d) and ``params`` (the q and k weights, biases and norm scales):
+    ``norm_engages``' rule, a head width the kernel takes, int64 positions
+    on x's device."""
+    return (_on_card(x) and _plain_bf16(x, positions, *params) and x.dim() == 3
+            and positions.dtype == torch.int64 and positions.dim() <= 2
+            and head_dim % 16 == 0 and 0 < head_dim <= _norm.ROPE_MAX_D)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             residual: Optional[torch.Tensor] = None):
+    """RMSNorm of x's rows, (1 + scale), in x's dtype; with ``residual``
+    (normed ``residual + x``, the sum).  One launch on the card (bf16 rows
+    whose width is a multiple of 8), the plain chain on the CPU."""
+    return _norm.rms_norm(x, scale, eps, residual)
+
+
+def qk_rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float, *,
+            q_norm: Optional[torch.Tensor] = None, k_norm: Optional[torch.Tensor] = None,
+            bq: Optional[torch.Tensor] = None, bk: Optional[torch.Tensor] = None,
+            eps: float = 1e-6):
+    """q (B, S, H, D), k (B, S, KV, D) -> (q, k) biased, normed per head and
+    rotated, one launch for both on the card, in place into q and k (see
+    ``norm_rope.qk_rope``); the plain chain on the CPU."""
+    return _norm.qk_rope(q, k, positions, theta, q_norm=q_norm, k_norm=k_norm, bq=bq, bk=bk,
+                         eps=eps)

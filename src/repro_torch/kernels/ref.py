@@ -2,10 +2,12 @@
 
 Each function computes what its CUDA kernel computes, on any device, with
 ordinary tensor operations.  The wrappers (``sim_topk.py``, ``lsh_hash.py``,
-``flash_attention.py``, ``decode_attention.py``) run these for CPU tensors,
-the CPU tests hold them against the JAX package, and ``chip_smoke.py`` holds
-each kernel against its plain version on the card.  Nothing on the main path
-on the card calls them.
+``flash_attention.py``, ``decode_attention.py``, ``norm_rope.py``) run these
+for CPU tensors, the CPU tests hold them against the JAX package, and
+``chip_smoke.py`` holds each kernel against its plain version on the card.
+Nothing on the main path on the card calls them, but for the norm and the
+rotation, which the model's layers run as this plain math wherever the
+fused kernels do not engage (training, DTensors, float32 activations).
 
 Like the kernels, the gathered top-1 functions score a plain dot product:
 inputs are unit rows (the reuse store normalises on insert).  ``sim_top1_ref``
@@ -287,3 +289,53 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lse = torch.logsumexp(logits.masked_fill(~mask[:, None, None, :], -torch.inf), dim=-1)
     return out, lse.reshape(B, H)
+
+
+# ------------------------------------------------------- norms and rotary
+def rms_norm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+                 residual: Optional[torch.Tensor] = None):
+    """RMSNorm in fp32, returned in x's dtype, with gemma's zero-centred
+    (1 + scale) parameterisation.  With ``residual``: (the norm of
+    ``residual + x``, that sum in x's dtype)."""
+    if residual is not None:
+        total = residual + x
+        return rms_norm_ref(total, scale, eps), total
+    dt = x.dtype
+    x = x.float()
+    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * (1.0 + scale.float())).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S).  Split halves
+    (not interleaved), angles in fp32."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
+    angles = positions[..., None].float() * freqs               # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def qk_rope_ref(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float, *,
+                q_norm: Optional[torch.Tensor] = None, k_norm: Optional[torch.Tensor] = None,
+                bq: Optional[torch.Tensor] = None, bk: Optional[torch.Tensor] = None,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, H, D), k (B, S, KV, D): each plus its flat (heads * D,)
+    bias in the activation dtype, RMSNorm'd per head, then rotated
+    (``apply_rope``): the attention projection's plain chain."""
+    def one(x, bias, norm):
+        if bias is not None:
+            x = x + bias.to(x.dtype).reshape(x.shape[-2:])
+        if norm is not None:
+            x = rms_norm_ref(x, norm, eps)
+        return apply_rope(x, positions, theta)
+
+    return one(q, bq, q_norm), one(k, bk, k_norm)

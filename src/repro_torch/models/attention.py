@@ -24,8 +24,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels import ops
+from ..kernels.ref import apply_rope
 from .blocked_attention import blocked_attention
-from .layers import apply_rope, dense_init, rms_norm, softcap, zeros_init
+from .layers import dense_init, rms_norm, softcap, zeros_init
 from .partitioning import at_use, merge_heads, shard, split_heads, write_slots
 
 
@@ -95,6 +96,31 @@ def project_kv(params, x: torch.Tensor, cfg,
     return k, v
 
 
+def project_qkv(params, x: torch.Tensor, cfg, positions: torch.Tensor,
+                uneven: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Self-attention's q, k and v, as ``project_q`` and ``project_kv``
+    give them.  Where ``ops.rope_engages`` (a served bf16 model on the
+    card), q's and k's bias, per-head norm and rotation are one launch
+    (``ops.qk_rope``) on the projections' outputs, in place; v's bias stays
+    a bf16 add."""
+    d = attn_dims(cfg)
+    extra = {n: params[n] for n in ("bq", "bk", "q_norm", "k_norm") if n in params}
+    if not ops.rope_engages(x, positions, d.head_dim, params["wq"], params["wk"],
+                            *extra.values()):
+        return (project_q(params, x, cfg, positions, uneven=uneven),
+                *project_kv(params, x, cfg, positions))
+    B, S, _ = x.shape
+    q = (x @ at_use(params["wq"], x.dtype)).view(B, S, d.n_heads, d.head_dim)
+    k = (x @ at_use(params["wk"], x.dtype)).view(B, S, d.n_kv, d.head_dim)
+    v = x @ at_use(params["wv"], x.dtype)
+    if "bv" in params:
+        v = v + params["bv"].to(x.dtype)
+    bias = {n: extra[n].to(x.dtype) for n in ("bq", "bk") if n in extra}
+    q, k = ops.qk_rope(q, k, positions, cfg.rope_theta, q_norm=extra.get("q_norm"),
+                       k_norm=extra.get("k_norm"), **bias, eps=getattr(cfg, "norm_eps", 1e-6))
+    return q, k, v.view(B, S, d.n_kv, d.head_dim)
+
+
 def _scale(cfg, head_dim: int) -> float:
     qs = getattr(cfg, "query_pre_attn_scalar", None)
     return 1.0 / math.sqrt(qs if qs is not None else head_dim)
@@ -148,10 +174,10 @@ def attention_apply(params, x: torch.Tensor, cfg, *,
     rows (``split_heads``, ``merge_heads``)."""
     B, S, _ = x.shape
     pos = positions if positions is not None else torch.arange(S, device=x.device)[None, :]
-    q = project_q(params, x, cfg, pos, uneven=True)
     if memory is None:
-        k, v = project_kv(params, x, cfg, pos)
+        q, k, v = project_qkv(params, x, cfg, pos, uneven=True)
     else:
+        q = project_q(params, x, cfg, pos, uneven=True)
         k, v = project_kv(params, memory, cfg, None)
         causal = False
     # q is placed by split_heads (the reference's "heads" constraint)
@@ -196,8 +222,7 @@ def attention_decode(params, x: torch.Tensor, cfg, k_cache: torch.Tensor,
     # only add an all-to-all a layer and token (gemma-2b's and qwen2.5-14b's
     # decode_32k dry runs on 16 x 16: the same FLOPs, and 18 and 48 more
     # all-to-alls a step, one in each layer)
-    q = project_q(params, x, cfg, pos_b)
-    k_new, v_new = project_kv(params, x, cfg, pos_b)
+    q, k_new, v_new = project_qkv(params, x, cfg, pos_b)
     write_slots(k_cache, k_new, pos % W)
     write_slots(v_cache, v_new, pos % W)
     kv_len = torch.full((B,), min(pos + 1, W), dtype=torch.int32, device=x.device)

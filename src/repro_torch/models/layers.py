@@ -1,9 +1,11 @@
-"""Shared model layers: norms, rotary embeddings, MLPs, embeddings.
+"""Shared model layers: norms, MLPs, embeddings.
 
-Port of ``repro/models/layers.py``.  Layers are plain functions over
-tensors; parameters live in ``nn.ParameterDict``s (see ``transformer.py``)
-with the reference's names and (in, out) matrix layout, so ``x @ w`` reads
-the same in both packages and a JAX parameter tree converts leaf by leaf.
+Port of ``repro/models/layers.py``; its rotary embedding is
+``kernels/ref.py::apply_rope``, the plain chain beside the fused kernel.
+Layers are plain functions over tensors; parameters live in
+``nn.ParameterDict``s (see ``transformer.py``) with the reference's names
+and (in, out) matrix layout, so ``x @ w`` reads the same in both packages
+and a JAX parameter tree converts leaf by leaf.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import ops
+from ..kernels.ref import rms_norm_ref
 from .partitioning import (
     EmbedSplit,
     at_use,
@@ -87,30 +91,23 @@ def param_dict(tensors: dict) -> nn.ParameterDict:
 # ---------------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm in fp32, returned in x's dtype, with gemma's zero-centred
-    (1 + scale) parameterisation."""
-    dt = x.dtype
-    x = x.float()
-    y = x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps)
-    return (y * (1.0 + scale.float())).to(dt)
+    (1 + scale) parameterisation.  Where ``ops.norm_engages`` (bf16 on the
+    card, nothing requiring grad, no DTensor), one launch of the fused
+    kernel; elsewhere the plain float32 chain (``ref.rms_norm_ref``)."""
+    if ops.norm_engages(x, scale):
+        return ops.rms_norm(x, scale, eps)
+    return rms_norm_ref(x, scale, eps)
 
 
-# ----------------------------------------------------------------------- rope
-def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, D); positions broadcastable to (..., S).  Split halves
-    (not interleaved), angles in fp32."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)            # (D/2,)
-    angles = positions[..., None].float() * freqs               # (..., S, D/2)
-    cos = torch.cos(angles)[..., None, :]                       # (..., S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+def add_rms_norm(x: torch.Tensor, residual: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(``rms_norm(residual + x)``, ``residual + x``), the sum in x's dtype:
+    a block's residual add and the norm that reads it, one launch where
+    ``ops.norm_engages``."""
+    if ops.norm_engages(x, scale, residual):
+        return ops.rms_norm(x, scale, eps, residual=residual)
+    total = residual + x
+    return rms_norm(total, scale, eps), total
 
 
 # ------------------------------------------------------------------ soft caps

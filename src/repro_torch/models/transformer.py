@@ -40,6 +40,7 @@ from ..device import DeviceLike, generator, resolve_device
 from .attention import attention_apply, attention_decode, attention_init, attn_dims
 from .layers import (
     activation_dtype,
+    add_rms_norm,
     ce_sum,
     embed_apply,
     embed_init,
@@ -110,8 +111,8 @@ def block_apply(blk: Block, x: torch.Tensor, cfg, variant, positions: torch.Tens
                                    window=variant["window"])
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, blk.pn1, eps)
-    x = x + attn_out
-    mlp_out, aux = _ffn(blk, rms_norm(x, blk.ln2, eps), cfg, variant)
+    h, x = add_rms_norm(attn_out, x, blk.ln2, eps)     # x + attn_out and its norm
+    mlp_out, aux = _ffn(blk, h, cfg, variant)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, blk.pn2, eps)
     return shard(x + mlp_out, "batch", "seq", "embed"), kv, aux
@@ -136,8 +137,8 @@ def block_decode(blk: Block, x: torch.Tensor, cfg, variant, k_cache: torch.Tenso
         blk.attn, rms_norm(x, blk.ln1, eps), cfg, k_cache, v_cache, pos)
     if cfg.use_post_norms:
         attn_out = rms_norm(attn_out, blk.pn1, eps)
-    x = x + attn_out
-    mlp_out, _ = _ffn(blk, rms_norm(x, blk.ln2, eps), cfg, variant)
+    h, x = add_rms_norm(attn_out, x, blk.ln2, eps)
+    mlp_out, _ = _ffn(blk, h, cfg, variant)
     if cfg.use_post_norms:
         mlp_out = rms_norm(mlp_out, blk.pn2, eps)
     return x + mlp_out, k_cache, v_cache

@@ -1140,3 +1140,154 @@ def test_decoder_loss_gives_every_parameter_a_gradient(dev, arch):
         assert p.grad is not None and bool(p.grad.any()), name
         err = (p.grad.cpu() - c.grad).abs().max() / c.grad.abs().max()
         assert err.item() <= 1e-4, name
+
+
+# ------------------------------------------------- fused norm and rotary
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance of two bf16 tensors, in units in the last place
+    (sign-magnitude bit patterns made monotonic: -0 and +0 are 0 apart)."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+# rows x width: the prefills of qwen3-1.7b (256 prompts of 256 tokens, d
+# 2048) and qwen2.5-14b (96 prompts, d 5120), a decode step, gemma2-9b's
+# width (3584, its post-norms too), head rows of 128 and 256
+_NORM_SHAPES = {"qwen3_prefill": (65536, 2048), "qwen25_prefill": (24576, 5120),
+                "decode": (64, 2048), "gemma2_9b": (4608, 3584), "head128": (8192, 128),
+                "head256": (8192, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", sorted(_NORM_SHAPES))
+def test_rms_norm_kernel(dev, shape, residual):
+    """The fused norm against its plain chain on the card, bf16: at most 1
+    ulp of bf16 on any element, the one place they part being the order of
+    a row's float32 sum of squares (the factor then rounds the other way);
+    the residual's sum is bit-equal (one bf16 add either way)."""
+    from repro_torch.kernels import norm_rope
+
+    rows, d = _NORM_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(rows + d)
+    x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+    scale = torch.randn((d,), generator=gen, device=dev) * 0.1
+    res = (torch.randn((rows, d), generator=gen, device=dev) * 4).to(torch.bfloat16)
+    n0 = norm_rope.LAUNCHES["rms_norm"]
+    if residual:
+        y, total = norm_rope.rms_norm(x, scale, 1e-6, residual=res)
+        want, want_total = ref.rms_norm_ref(x, scale, 1e-6, residual=res)
+        assert torch.equal(total, want_total)
+    else:
+        y, want = norm_rope.rms_norm(x, scale, 1e-6), ref.rms_norm_ref(x, scale, 1e-6)
+    assert norm_rope.LAUNCHES["rms_norm"] == n0 + 1
+    assert _bf16_ulps(y, want) <= 1
+
+
+# (B, S, H, KV, D, bias, qk-norm, positions): the serving prefills of
+# qwen3-1.7b and qwen2.5-14b, their decode steps (B x 1), gemma-2b's and
+# gemma2-9b's D = 256 heads
+_ROPE_SHAPES = {"qwen3_prefill": (256, 256, 16, 8, 128, False, True, "prefill"),
+                "qwen25_prefill": (96, 256, 40, 8, 128, True, False, "prefill"),
+                "qwen3_decode": (64, 1, 16, 8, 128, False, True, "decode"),
+                "qwen25_decode": (64, 1, 40, 8, 128, True, False, "decode"),
+                "gemma_2b": (4, 512, 8, 1, 256, False, False, "prefill"),
+                "gemma2_9b_decode": (8, 1, 16, 8, 256, False, False, "decode")}
+
+
+def _ulp_bf16(m: torch.Tensor) -> torch.Tensor:
+    """One ulp of bf16 at magnitude ``m`` (float32): 2^(e - 8) for m in
+    [2^(e-1), 2^e)."""
+    _, e = torch.frexp(m.float().clamp_min(1e-30))
+    return torch.ldexp(torch.ones_like(m, dtype=torch.float32), e - 8)
+
+
+def rope_errors(q, k, pos, theta, extra, got) -> dict:
+    """``qk_rope``'s kernel results ``got`` (from q, k) against the plain
+    chain, in three steps.  ``norm``: the kernel's biased and normed values
+    (the kernel at position 0, where the rotation is the identity) against
+    the plain chain's, in ulps of bf16.  ``rotation``: the kernel's output
+    against the plain rotation of the kernel's own normed values, in ulps.
+    ``operand``: the output against the plain chain's, in ulps of bf16 at
+    the scale of each rotated pair (the larger of its two normed values):
+    a normed value one ulp off moves both outputs of its pair by at most
+    sqrt(2) of that ulp, and the outputs' rounding adds the rest of 2; an
+    output near 0 (a rotation that cancels) may be many of its own ulps
+    off."""
+    from repro_torch.kernels import norm_rope
+
+    zero = torch.zeros_like(pos)
+    normed = norm_rope.qk_rope(q.clone(), k.clone(), zero, theta, eps=1e-6, **extra)
+    plain_n = ref.qk_rope_ref(q.clone(), k.clone(), zero, theta, eps=1e-6, **extra)
+    want = ref.qk_rope_ref(q.clone(), k.clone(), pos, theta, eps=1e-6, **extra)
+    out = {"norm": 0, "rotation": 0, "operand": 0.0}
+    for g, n, pn, w in zip(got, normed, plain_n, want):
+        out["norm"] = max(out["norm"], _bf16_ulps(n, pn))
+        out["rotation"] = max(out["rotation"], _bf16_ulps(g, ref.apply_rope(n, pos, theta)))
+        a, b = pn.float().chunk(2, dim=-1)
+        scale = _ulp_bf16(torch.maximum(a.abs(), b.abs())).repeat(*([1] * (a.dim() - 1)), 2)
+        err = ((g.float() - w.float()).abs() / scale).max().item()
+        out["operand"] = max(out["operand"], err)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", sorted(_ROPE_SHAPES))
+def test_qk_rope_kernel(dev, shape):
+    """The fused bias, qk-norm and rotation against the plain chain on the
+    card, bf16 (``rope_errors``): the biased and normed values within 1 ulp
+    (a row's sum of squares in another order), the rotation of those
+    values within 1 ulp of the plain rotation (the same float32 products
+    and sums; sincosf against torch.cos and torch.sin), and the whole
+    within 2 ulps at the scale of each rotated pair: the norm's ulp carried
+    through the rotation, and the output's rounding."""
+    from repro_torch.kernels import norm_rope
+
+    B, S, H, KV, D, bias, norm, kind = _ROPE_SHAPES[shape]
+    gen = torch.Generator(device=dev).manual_seed(B * S + H)
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    extra = {}
+    if bias:
+        extra["bq"] = (torch.randn((H * D,), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+        extra["bk"] = (torch.randn((KV * D,), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    if norm:
+        extra["q_norm"] = torch.randn((D,), generator=gen, device=dev) * 0.1
+        extra["k_norm"] = torch.randn((D,), generator=gen, device=dev) * 0.1
+    pos = (torch.arange(S, device=dev)[None, :] if kind == "prefill"
+           else torch.randint(0, 4096, (B, 1), generator=gen, device=dev))
+    q0, k0 = q.clone(), k.clone()
+    n0 = norm_rope.LAUNCHES["qk_rope"]
+    got = norm_rope.qk_rope(q, k, pos, 1e6, eps=1e-6, **extra)
+    assert norm_rope.LAUNCHES["qk_rope"] == n0 + 1
+    assert got[0].data_ptr() == q.data_ptr() and got[1].data_ptr() == k.data_ptr()   # in place
+    err = rope_errors(q0, k0, pos, 1e6, extra, got)
+    assert err["norm"] <= 1 and err["rotation"] <= 1 and err["operand"] <= 2, err
+
+
+@pytest.mark.cuda
+def test_prefill_logits_through_the_fused_kernels(dev, monkeypatch):
+    """A two-layer bf16 model (the reduced qwen3: qk-norm, head width 16)
+    prefills through the fused kernels (5 norm launches: two a layer, the
+    second with the residual, and the final norm; one ``qk_rope`` a layer)
+    and through the plain chain: logits within ``test_torch_models.py``'s
+    1e-4."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import DecoderLM
+
+    cfg = dataclasses.replace(get_arch("qwen3-1.7b").reduced(), dtype="bfloat16")
+    model = DecoderLM(cfg, dev, seed=2)
+    tokens = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (4, 40)).astype(np.int32)).to(dev)
+    ops.reset_launch_counts()
+    fused, _ = model.prefill({"tokens": tokens}, 48)
+    counts = ops.launch_counts()
+    assert counts["rms_norm"] == 2 * cfg.n_layers + 1 and counts["qk_rope"] == cfg.n_layers
+    monkeypatch.setattr(ops, "_on_card", lambda x: False)
+    plain, _ = model.prefill({"tokens": tokens}, 48)
+    assert ops.launch_counts()["rms_norm"] == counts["rms_norm"]
+    np.testing.assert_allclose(fused.cpu().numpy(), plain.cpu().numpy(), atol=1e-4, rtol=1e-4)
